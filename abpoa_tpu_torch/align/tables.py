@@ -1,0 +1,166 @@
+"""Host tables for the banded DP kernel.
+
+The snapshot `abpoa_tpu/align/pallas_backend.py` builds for its Pallas
+kernel (Python-graph branch, :82-183), vectorised with numpy: per-row base,
+predecessor and successor tables, remain and the seeded mpl/mpr (`RowTables`,
+independent of the band width), then the query profile, row 0 and the
+scalars for one band width W (`query_tables`).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from itertools import chain
+
+import numpy as np
+
+from ..graph import POAGraph
+from ..params import Params
+from .oracle import _build_index_map, dp_inf_min
+
+
+def bucket(n: int, step: int) -> int:
+    """Smallest rung of the `step`-chain (x1.3, rounded up to `step`) that is
+    >= n; the row padding of the JAX package (compile/buckets.py)."""
+    b = step
+    while b < n:
+        b = ((int(b * 1.3) + step - 1) // step) * step
+    return b
+
+
+def bucket_pow2(n: int) -> int:
+    """Smallest power of two >= n."""
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def initial_band_width(abpt: Params, qlen: int) -> int:
+    """Lanes of the first launch: the adaptive band spans ~2w+1 plus drift
+    slack, rounded to 128 (pallas_backend.py:146)."""
+    w = abpt.wb + int(abpt.wf * qlen)
+    return max(256, ((4 * w + 2 + 127) // 128) * 128)
+
+
+@dataclass
+class RowTables:
+    gn: int
+    R: int
+    beg_index: int
+    remain_end: int
+    nids: np.ndarray      # (gn,) node id of each dp row
+    base: np.ndarray      # (R,) int32
+    pre_idx: np.ndarray   # (R, P) int32, dp-row index of each predecessor
+    pre_cnt: np.ndarray   # (R,) int32
+    out_idx: np.ndarray   # (R, O) int32
+    out_cnt: np.ndarray   # (R,) int32
+    remain: np.ndarray    # (R,) int32
+    mpl0: np.ndarray      # (R,) int32
+    mpr0: np.ndarray      # (R,) int32
+
+    def pre_index(self) -> list:
+        """Per-row predecessor lists (in-edge order) for the backtrack."""
+        rows, cnt = self.pre_idx[: self.gn].tolist(), self.pre_cnt.tolist()
+        return [r[:c] for r, c in zip(rows, cnt)]
+
+
+def _row_of(counts: np.ndarray) -> np.ndarray:
+    return np.repeat(np.arange(len(counts)), counts)
+
+
+def _pack(rows: np.ndarray, vals: np.ndarray, n_rows: int, R: int):
+    """(R, width) table + (R,) counts from row-sorted (row, value) pairs."""
+    cnt = np.bincount(rows, minlength=n_rows).astype(np.int32)
+    width = bucket_pow2(max(1, int(cnt.max(initial=0))))
+    table = np.zeros((R, width), dtype=np.int32)
+    start = np.cumsum(cnt) - cnt
+    table[rows, np.arange(len(rows)) - start[rows]] = vals
+    counts = np.zeros(R, dtype=np.int32)
+    counts[:n_rows] = cnt
+    return table, counts
+
+
+def build_row_tables(g: POAGraph, beg_node_id: int, end_node_id: int) -> RowTables:
+    """Row tables of the subgraph [beg_node_id, end_node_id]; also seeds the
+    graph's mpl/mpr of the first row and its successors, as abPOA does."""
+    n2i = g.node_id_to_index
+    beg_index = int(n2i[beg_node_id])
+    end_index = int(n2i[end_node_id])
+    gn = end_index - beg_index + 1
+    R = bucket(gn, 64)
+    nids = np.asarray(g.index_to_node_id[beg_index: end_index + 1], dtype=np.int64)
+    nodes = [g.nodes[n] for n in nids.tolist()]
+    in_cnt = np.fromiter((len(nd.in_ids) for nd in nodes), dtype=np.int64, count=gn)
+    out_cnt = np.fromiter((len(nd.out_ids) for nd in nodes), dtype=np.int64, count=gn)
+    in_idx = n2i[np.fromiter(chain.from_iterable(nd.in_ids for nd in nodes),
+                             dtype=np.int64, count=int(in_cnt.sum()))].astype(np.int64)
+    out_idx = n2i[np.fromiter(chain.from_iterable(nd.out_ids for nd in nodes),
+                              dtype=np.int64, count=int(out_cnt.sum()))].astype(np.int64)
+
+    if beg_index == 0 and bool((in_cnt[1:] > 0).all()):
+        # from the source every node with an in-edge is reachable (each
+        # in-edge comes from an earlier row): the BFS mask is all ones
+        index_map = np.ones(g.node_n, dtype=np.uint8)
+    else:
+        index_map = _build_index_map(g, beg_index, end_index)
+    row_reach = index_map[beg_index: end_index + 1].astype(bool)
+    row_reach[0] = False  # the source row carries no tables
+
+    in_row = _row_of(in_cnt)
+    keep = row_reach[in_row] & index_map[in_idx].astype(bool)
+    pre_idx, pre_cnt = _pack(in_row[keep], in_idx[keep] - beg_index, gn, R)
+    out_row = _row_of(out_cnt)
+    keep = row_reach[out_row] & (out_row < gn - 1)
+    out_tab, out_n = _pack(out_row[keep], out_idx[keep] - beg_index, gn, R)
+
+    # band seed (abpoa_align_simd.c first-row init)
+    mpl_g, mpr_g = g.node_id_to_max_pos_left, g.node_id_to_max_pos_right
+    mpl_g[beg_node_id] = mpr_g[beg_node_id] = 0
+    src_outs = np.asarray(g.nodes[beg_node_id].out_ids, dtype=np.int64)
+    src_outs = src_outs[index_map[n2i[src_outs]].astype(bool)]
+    mpl_g[src_outs] = mpr_g[src_outs] = 1
+
+    def rows(a):
+        out = np.zeros(R, dtype=np.int32)
+        out[:gn] = a
+        return out
+
+    remain = g.node_id_to_max_remain
+    return RowTables(
+        gn=gn, R=R, beg_index=beg_index, remain_end=int(remain[end_node_id]),
+        nids=nids, base=rows([nd.base for nd in nodes]),
+        pre_idx=pre_idx, pre_cnt=pre_cnt, out_idx=out_tab, out_cnt=out_n,
+        remain=rows(remain[nids]), mpl0=rows(mpl_g[nids]), mpr0=rows(mpr_g[nids]))
+
+
+def query_tables(abpt: Params, t: RowTables, query: np.ndarray, W: int) -> dict:
+    """scalars (16,), qp_pad (m, Qp + W) and row0 (5, W) for one band width
+    (pallas_backend.py:156-183)."""
+    qlen = len(query)
+    w = abpt.wb + int(abpt.wf * qlen)
+    inf_min = dp_inf_min(abpt)
+    o1, e1, oe1 = abpt.gap_open1, abpt.gap_ext1, abpt.gap_oe1
+    o2, e2, oe2 = abpt.gap_open2, abpt.gap_ext2, abpt.gap_oe2
+    r0 = qlen - (int(t.remain[0]) - t.remain_end - 1)
+    dp_end0 = min(qlen, max(int(t.mpr0[0]), r0) + w)
+
+    cols = np.arange(W, dtype=np.int64)
+    live = (cols >= 1) & (cols <= dp_end0)
+    f1 = np.where(live, -o1 - e1 * cols, inf_min)
+    f2 = np.where(live, -o2 - e2 * cols, inf_min)
+    row0 = np.full((5, W), inf_min, dtype=np.int64)
+    row0[0] = np.maximum(f1, f2)
+    row0[0, 0] = 0
+    row0[1, 0], row0[2, 0] = -oe1, -oe2
+    row0[3, 1:], row0[4, 1:] = f1[1:], f2[1:]
+
+    Qp = bucket(qlen + 1, 128)
+    qp_pad = np.zeros((abpt.m, Qp + W), dtype=np.int32)
+    if qlen:
+        qp_pad[:, 1: qlen + 1] = abpt.mat[:, query]
+
+    scalars = np.zeros(16, dtype=np.int32)
+    scalars[:12] = [qlen, w, t.remain_end, inf_min, o1, e1, oe1, o2, e2, oe2,
+                    t.gn, dp_end0]
+    return {"scalars": scalars, "qp_pad": qp_pad,
+            "row0": row0.astype(np.int32)}

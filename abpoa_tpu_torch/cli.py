@@ -1,0 +1,152 @@
+"""abpoa-compatible command line, the subset this package supports:
+progressive POA consensus (`-r 0`/`-r 5`) with convex gaps in global mode.
+
+    python -m abpoa_tpu_torch reads.fa [--device cuda|cpu] [-o out.fa]
+
+Flags of abPOA outside that subset are accepted and rejected by
+`Params.finalize()` with a NotImplementedError naming the ROADMAP item that
+will bring them. With no card and no `--device cpu`, the run raises
+RuntimeError.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from . import __version__
+from . import constants as C
+from .params import Params
+from .pipeline import Abpoa, msa_from_file
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m abpoa_tpu_torch",
+        description="adaptive banded partial-order alignment consensus, "
+                    "banded DP in CUDA (PyTorch port of abpoa-tpu)",
+        add_help=False)
+    p.add_argument("input", nargs="?", help="input FASTA/FASTQ")
+    p.add_argument("-m", "--aln-mode", type=int, default=C.GLOBAL_MODE)
+    p.add_argument("-M", "--match", type=int, default=C.DEFAULT_MATCH)
+    p.add_argument("-X", "--mismatch", type=int, default=C.DEFAULT_MISMATCH)
+    p.add_argument("-t", "--matrix", type=str, default=None)
+    p.add_argument("-O", "--gap-open", type=str, default=None)
+    p.add_argument("-E", "--gap-ext", type=str, default=None)
+    p.add_argument("-b", "--extra-b", type=int, default=C.EXTRA_B)
+    p.add_argument("-f", "--extra-f", type=float, default=C.EXTRA_F)
+    p.add_argument("-G", "--inc-path-score", action="store_true")
+    p.add_argument("-L", "--sort-by-len", action="store_true")
+    p.add_argument("-R", "--gap-on-right", action="store_true")
+    p.add_argument("-J", "--gap-at-end", action="store_true")
+    p.add_argument("-Q", "--use-qual-weight", action="store_true")
+    p.add_argument("-S", "--seeding", action="store_true")
+    p.add_argument("-p", "--progressive", action="store_true")
+    p.add_argument("-c", "--amino-acid", action="store_true")
+    p.add_argument("-l", "--in-list", action="store_true")
+    p.add_argument("-i", "--increment", type=str, default=None)
+    p.add_argument("-s", "--amb-strand", action="store_true")
+    p.add_argument("-o", "--output", type=str, default=None)
+    p.add_argument("-r", "--result", type=int, default=C.OUT_CONS)
+    p.add_argument("-g", "--out-pog", type=str, default=None)
+    p.add_argument("-a", "--cons-algrm", type=int, default=C.CONS_HB)
+    p.add_argument("-d", "--maxnum-cons", type=int, default=1)
+    p.add_argument("-h", "--help", action="help")
+    p.add_argument("-v", "--version", action="version", version=__version__)
+    p.add_argument("-V", "--verbose", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the DP: cuda (the CUDA kernel, "
+                        "needs an sm_90 card) or cpu (the kernel's plain "
+                        "PyTorch version) [%(default)s]")
+    return p
+
+
+def _apply_gap_args(abpt: Params, gap_open, gap_ext) -> None:
+    """Parse the -O/-E "o1[,o2]"/"e1[,e2]" forms."""
+    if gap_open is not None:
+        parts = gap_open.split(",")
+        abpt.gap_open1 = int(parts[0])
+        abpt.gap_open2 = int(parts[1]) if len(parts) > 1 else 0
+    if gap_ext is not None:
+        parts = gap_ext.split(",")
+        abpt.gap_ext1 = int(parts[0])
+        abpt.gap_ext2 = int(parts[1]) if len(parts) > 1 else 0
+
+
+def _apply_result_mode(abpt: Params, r: int) -> None:
+    if r == C.OUT_CONS:
+        abpt.out_cons, abpt.out_msa = True, False
+    elif r == C.OUT_MSA:
+        abpt.out_cons, abpt.out_msa = False, True
+    elif r == C.OUT_CONS_MSA:
+        abpt.out_cons = abpt.out_msa = True
+    elif r == C.OUT_GFA:
+        abpt.out_cons, abpt.out_gfa = False, True
+    elif r == C.OUT_CONS_GFA:
+        abpt.out_cons = abpt.out_gfa = True
+    elif r == C.OUT_CONS_FQ:
+        abpt.out_cons = abpt.out_fq = True
+    else:
+        raise ValueError(f"unknown output result mode: {r}")
+
+
+def args_to_params(args: argparse.Namespace) -> Params:
+    if args.in_list:
+        raise NotImplementedError(
+            "file lists (-l) are not ported to abpoa_tpu_torch yet "
+            "(ROADMAP.md queue A, item 6)")
+    if not 1 <= args.maxnum_cons <= 10:
+        raise ValueError("max number of consensus sequences should be 1~10")
+    abpt = Params()
+    abpt.align_mode = args.aln_mode
+    abpt.match = args.match
+    abpt.mismatch = args.mismatch
+    if args.matrix:
+        abpt.use_score_matrix = True
+        abpt.mat_fn = args.matrix
+    _apply_gap_args(abpt, args.gap_open, args.gap_ext)
+    abpt.wb = args.extra_b
+    abpt.wf = args.extra_f
+    abpt.inc_path_score = args.inc_path_score
+    abpt.sort_input_seq = args.sort_by_len
+    abpt.put_gap_on_right = args.gap_on_right
+    abpt.put_gap_at_end = args.gap_at_end
+    abpt.use_qv = args.use_qual_weight
+    abpt.disable_seeding = not args.seeding
+    abpt.progressive_poa = args.progressive
+    if args.amino_acid:
+        abpt.m = 27
+    abpt.incr_fn = args.increment
+    abpt.amb_strand = args.amb_strand
+    _apply_result_mode(abpt, args.result)
+    abpt.out_pog = args.out_pog
+    abpt.cons_algrm = args.cons_algrm
+    abpt.max_n_cons = args.maxnum_cons
+    abpt.verbose = args.verbose
+    abpt.device = args.device
+    return abpt
+
+
+def main(argv=None) -> int:
+    """Run the CLI. Configuration errors print one line and return 1; a
+    missing CUDA device raises RuntimeError."""
+    args = build_parser().parse_args(argv)
+    if args.input is None:
+        build_parser().print_help(sys.stderr)
+        return 1
+    try:
+        abpt = args_to_params(args).finalize()
+    except (ValueError, NotImplementedError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    out_fp = open(args.output, "w") if args.output and args.output != "-" else sys.stdout
+    try:
+        msa_from_file(Abpoa(), abpt, args.input, out_fp)
+    finally:
+        if out_fp is not sys.stdout:
+            out_fp.close()
+    if abpt.verbose >= C.VERBOSE_INFO:
+        print(f"[abpoa_tpu_torch::main] device {abpt.torch_device}, "
+              f"{time.time() - t0:.3f} s", file=sys.stderr)
+    return 0

@@ -1,0 +1,100 @@
+"""Graph state carried across as plain numpy arrays.
+
+abPOA has no weights; its state is the graph. `graph_to_numpy` exports a
+graph (this package's `POAGraph`, or any object with the same node and
+array attributes, such as `abpoa_tpu`'s) to a dict of arrays, and
+`graph_from_numpy` builds this package's `POAGraph` from it, so a run can be
+continued here from a graph built elsewhere.
+
+Arrays (N nodes; edge lists in CSR form, in each node's edge order):
+  base, n_read, n_span_read (N,) int64
+  in_ptr (N+1,), in_ids, in_w (E_in,) int64
+  out_ptr (N+1,), out_ids, out_w (E_out,) int64
+  out_read_ids (E_out, words) uint64: read-id bitset of each out edge,
+      64 read ids per word, least significant first
+  aligned_ptr (N+1,), aligned_ids int64
+  index_to_node_id, node_id_to_index, remain, mpl, mpr (N,) int32
+  is_topological_sorted () bool
+"""
+from __future__ import annotations
+
+from itertools import chain
+
+import numpy as np
+
+from .graph import Node, POAGraph
+
+_MASK64 = (1 << 64) - 1
+
+
+def _csr(lists):
+    counts = np.fromiter((len(x) for x in lists), dtype=np.int64, count=len(lists))
+    ptr = np.zeros(len(lists) + 1, dtype=np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    flat = np.fromiter(chain.from_iterable(lists), dtype=np.int64, count=int(ptr[-1]))
+    return ptr, flat
+
+
+def graph_to_numpy(g) -> dict:
+    nodes = g.nodes
+    n = len(nodes)
+    in_ptr, in_ids = _csr([nd.in_ids for nd in nodes])
+    _, in_w = _csr([nd.in_w for nd in nodes])
+    out_ptr, out_ids = _csr([nd.out_ids for nd in nodes])
+    _, out_w = _csr([nd.out_w for nd in nodes])
+    aligned_ptr, aligned_ids = _csr([nd.aligned_ids for nd in nodes])
+    bitsets = [b for nd in nodes for b in nd.read_ids]
+    words = max(1, max((b.bit_length() for b in bitsets), default=0) + 63 >> 6)
+    out_read_ids = np.zeros((len(bitsets), words), dtype=np.uint64)
+    for e, b in enumerate(bitsets):
+        for k in range(words):
+            out_read_ids[e, k] = (b >> (64 * k)) & _MASK64
+    arr = lambda a: np.asarray(a[:n], dtype=np.int32).copy()  # noqa: E731
+    return {
+        "base": np.fromiter((nd.base for nd in nodes), dtype=np.int64, count=n),
+        "n_read": np.fromiter((nd.n_read for nd in nodes), dtype=np.int64, count=n),
+        "n_span_read": np.fromiter((nd.n_span_read for nd in nodes), dtype=np.int64, count=n),
+        "in_ptr": in_ptr, "in_ids": in_ids, "in_w": in_w,
+        "out_ptr": out_ptr, "out_ids": out_ids, "out_w": out_w,
+        "out_read_ids": out_read_ids,
+        "aligned_ptr": aligned_ptr, "aligned_ids": aligned_ids,
+        "index_to_node_id": arr(g.index_to_node_id),
+        "node_id_to_index": arr(g.node_id_to_index),
+        "remain": arr(g.node_id_to_max_remain),
+        "mpl": arr(g.node_id_to_max_pos_left),
+        "mpr": arr(g.node_id_to_max_pos_right),
+        "is_topological_sorted": np.asarray(bool(g.is_topological_sorted)),
+    }
+
+
+def graph_from_numpy(a: dict) -> POAGraph:
+    n = len(a["base"])
+    g = POAGraph()
+    g.nodes = [Node(i, int(b)) for i, b in enumerate(a["base"].tolist())]
+
+    def rows(ptr, flat):
+        flat = flat.tolist()
+        ptr = ptr.tolist()
+        return [flat[ptr[i]: ptr[i + 1]] for i in range(n)]
+
+    in_ids, in_w = rows(a["in_ptr"], a["in_ids"]), rows(a["in_ptr"], a["in_w"])
+    out_ids, out_w = rows(a["out_ptr"], a["out_ids"]), rows(a["out_ptr"], a["out_w"])
+    aligned = rows(a["aligned_ptr"], a["aligned_ids"])
+    words = a["out_read_ids"].tolist()
+    bitsets = [sum(int(v) << (64 * k) for k, v in enumerate(row)) for row in words]
+    out_ptr = a["out_ptr"].tolist()
+    n_read, n_span = a["n_read"].tolist(), a["n_span_read"].tolist()
+    for i, nd in enumerate(g.nodes):
+        nd.in_ids, nd.in_w = in_ids[i], in_w[i]
+        nd.out_ids, nd.out_w = out_ids[i], out_w[i]
+        nd.read_ids = bitsets[out_ptr[i]: out_ptr[i + 1]]
+        nd.aligned_ids = aligned[i]
+        nd.n_read, nd.n_span_read = n_read[i], n_span[i]
+    i32 = lambda k: np.asarray(a[k], dtype=np.int32).copy()  # noqa: E731
+    g.index_to_node_id = i32("index_to_node_id")
+    g.node_id_to_index = i32("node_id_to_index")
+    g.node_id_to_max_remain = i32("remain")
+    g.node_id_to_max_pos_left = i32("mpl")
+    g.node_id_to_max_pos_right = i32("mpr")
+    g.is_topological_sorted = bool(a["is_topological_sorted"])
+    return g

@@ -1,0 +1,107 @@
+"""Build the CUDA kernels once, at first use, and bind them with ctypes.
+
+Every `abpoa_tpu_torch/csrc/*.cu` is compiled by `nvcc` for sm_90a into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds). The library lands in `build/abpoa_tpu_torch/` beside the
+package, named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused. A failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Optional
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "abpoa_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib: Optional[ctypes.CDLL] = None
+# seconds the last build in this process took (0.0 when the library was
+# already built on disk)
+last_build_seconds = 0.0
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as fp:
+            h.update(os.path.basename(src).encode() + fp.read())
+    return os.path.join(BUILD_DIR, f"libabpoa_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the sources into the library if it is not built yet; returns
+    its path. `verbose` adds `-Xptxas -v` and prints nvcc's output."""
+    global last_build_seconds
+    path = library_path()
+    if os.path.isfile(path):
+        last_build_seconds = 0.0
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if verbose:
+            print(proc.stdout + proc.stderr, flush=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    last_build_seconds = time.perf_counter() - t0
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built at first use, with every entry point's
+    argument types declared."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(build())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.abpoa_banded_dp.argtypes = [vp] * 19 + [ci] * 5 + [vp]
+    lib.abpoa_banded_dp.restype = ci
+    lib.abpoa_cuda_error_string.argtypes = [ci]
+    lib.abpoa_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = load().abpoa_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,200 @@
+"""Alignment/consensus parameter object.
+
+Mirrors abPOA's parameter lifecycle (`abpoa_init_para` defaults, user
+mutation, `abpoa_post_set_para` derivation in src/abpoa_align.c): construct
+`Params()`, mutate fields, call `finalize()`.
+
+`finalize()` raises NotImplementedError for every configuration outside the
+port's first slice (convex gaps, global mode, adaptive band, one consensus),
+naming the ROADMAP item that will bring it. Nothing is rerouted.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import constants as C
+from .device import resolve_device
+
+
+def gen_simple_mat(m: int, match: int, mismatch: int) -> np.ndarray:
+    """Match/mismatch scoring matrix (src/abpoa_align.c:13-26).
+
+    Row/col m-1 is the ambiguous base ('N'): score 0 against everything.
+    """
+    match = abs(match)
+    mismatch = -abs(mismatch)
+    mat = np.full((m, m), mismatch, dtype=np.int32)
+    np.fill_diagonal(mat, match)
+    mat[:, m - 1] = 0
+    mat[m - 1, :] = 0
+    return mat
+
+
+def parse_mat_file(path: str, m: int) -> np.ndarray:
+    """Parse a scoring-matrix file (BLOSUM62-style; src/abpoa_align.c:35-86)."""
+    mat = np.zeros((m, m), dtype=np.int32)
+    order: list[int] = []
+    first = True
+    with open(path) as fp:
+        for line in fp:
+            if line.startswith("#"):
+                continue
+            if first:
+                first = False
+                for ch in line.split():
+                    order.append(int(C.AA26_TABLE[ord(ch[0])]))
+            else:
+                toks = line.split()
+                if not toks:
+                    continue
+                row = int(C.AA26_TABLE[ord(toks[0][0])])
+                if row >= m:
+                    raise ValueError(f"Unknown base in matrix file: {toks[0]}")
+                for n, tok in enumerate(toks[1:]):
+                    mat[row, order[n]] = int(tok)
+    return mat
+
+
+def _not_in_slice(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to abpoa_tpu_torch yet (ROADMAP.md queue A, "
+        f"item {item}); use the JAX package abpoa_tpu for it")
+
+
+@dataclass
+class Params:
+    align_mode: int = C.GLOBAL_MODE
+    gap_mode: int = C.CONVEX_GAP  # derived in finalize()
+
+    inc_path_score: bool = False
+    sort_input_seq: bool = False
+    put_gap_on_right: bool = False
+    put_gap_at_end: bool = False
+
+    # adaptive band
+    wb: int = C.EXTRA_B
+    wf: float = C.EXTRA_F
+
+    amb_strand: bool = False
+    out_cons: bool = True
+    out_fq: bool = False
+    out_gfa: bool = False
+    out_msa: bool = False
+    cons_algrm: int = C.CONS_HB
+    max_n_cons: int = 1
+    incr_fn: Optional[str] = None
+    out_pog: Optional[str] = None
+
+    # alphabet size: 5 = nucleotide, 27 = amino acid
+    m: int = 5
+
+    # scoring
+    use_score_matrix: bool = False
+    mat_fn: Optional[str] = None
+    match: int = C.DEFAULT_MATCH
+    mismatch: int = C.DEFAULT_MISMATCH
+    gap_open1: int = C.DEFAULT_GAP_OPEN1
+    gap_open2: int = C.DEFAULT_GAP_OPEN2
+    gap_ext1: int = C.DEFAULT_GAP_EXT1
+    gap_ext2: int = C.DEFAULT_GAP_EXT2
+
+    use_qv: bool = False
+    disable_seeding: bool = True
+    progressive_poa: bool = False
+
+    verbose: int = C.VERBOSE_NONE
+
+    # torch device the DP kernel runs on: "cuda" (the kernel) or "cpu"
+    # (its plain PyTorch version); resolved by finalize()
+    device: str = "cuda"
+
+    # derived (set by finalize)
+    mat: np.ndarray = field(default=None, repr=False)  # type: ignore[assignment]
+    max_mat: int = 0
+    min_mis: int = 0
+    torch_device: Optional[torch.device] = field(default=None, repr=False)
+    _finalized: bool = field(default=False, repr=False)
+
+    def finalize(self) -> "Params":
+        """Derive gap mode / scoring matrix, check the configuration is in
+        the ported slice, and resolve the torch device."""
+        if min(self.match, self.mismatch, self.gap_open1, self.gap_open2,
+               self.gap_ext1, self.gap_ext2) < 0:
+            raise ValueError("negative scoring parameters")
+        if self.gap_ext1 == 0 and self.gap_ext2 == 0:
+            raise ValueError("at least one gap extension must be positive")
+        if max(self.gap_ext1, self.gap_ext2) >= C.MAX_GAP_EXT:
+            raise ValueError(
+                f"gap extension penalty {max(self.gap_ext1, self.gap_ext2)} "
+                f"is outside the supported range (must be < {C.MAX_GAP_EXT})")
+        if self.gap_open1 == 0:
+            self.gap_mode = C.LINEAR_GAP
+        elif self.gap_open2 == 0:
+            self.gap_mode = C.AFFINE_GAP
+        else:
+            self.gap_mode = C.CONVEX_GAP
+        if self.align_mode == C.LOCAL_MODE:
+            self.wb = -1
+        self._check_slice()
+
+        if not self.use_score_matrix:
+            self.mat = gen_simple_mat(self.m, self.match, self.mismatch)
+            self.max_mat = abs(self.match)
+            self.min_mis = abs(self.mismatch)
+        else:
+            if self.mat_fn is None:
+                raise ValueError("use_score_matrix needs mat_fn")
+            self.mat = parse_mat_file(self.mat_fn, self.m)
+            self.max_mat = int(self.mat.max())
+            self.min_mis = int((-self.mat).max())
+        self.torch_device = resolve_device(self.device)
+        self._finalized = True
+        return self
+
+    def _check_slice(self) -> None:
+        if self.gap_mode != C.CONVEX_GAP:
+            raise _not_in_slice("linear and affine gaps (-O/-E with a zero "
+                                "open penalty)", "13")
+        if self.align_mode == C.LOCAL_MODE:
+            raise _not_in_slice("local alignment (-m 1)", "8")
+        if self.align_mode != C.GLOBAL_MODE:
+            raise _not_in_slice("extension alignment (-m 2)", "13")
+        if self.wb < 0:
+            raise _not_in_slice("unbanded alignment (-b < 0)", "8")
+        if self.inc_path_score:
+            raise _not_in_slice("path-score mode (-G)", "8")
+        if not self.disable_seeding or self.progressive_poa:
+            raise _not_in_slice("seeding and guide-tree order (-S/-p)", "8")
+        if self.max_n_cons > 1:
+            raise _not_in_slice("more than one consensus (-d > 1)", "3")
+        if self.out_msa or self.out_gfa or self.cons_algrm == C.CONS_MF:
+            raise _not_in_slice("MSA, GFA and read-id outputs (-r 1..4, "
+                                "-a 1)", "3")
+        if self.incr_fn:
+            raise _not_in_slice("incremental alignment (-i)", "3")
+        if self.out_pog:
+            raise _not_in_slice("graph plots (-g)", "3")
+
+    @property
+    def is_aa(self) -> bool:
+        return self.m > 5
+
+    @property
+    def char_to_code(self) -> np.ndarray:
+        return C.AA26_TABLE if self.is_aa else C.NT4_TABLE
+
+    @property
+    def code_to_char(self) -> np.ndarray:
+        return C.AA256_TABLE if self.is_aa else C.NT256_TABLE
+
+    @property
+    def gap_oe1(self) -> int:
+        return self.gap_open1 + self.gap_ext1
+
+    @property
+    def gap_oe2(self) -> int:
+        return self.gap_open2 + self.gap_ext2

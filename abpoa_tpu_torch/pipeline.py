@@ -1,0 +1,135 @@
+"""Progressive POA in input order and consensus output.
+
+Counterpart of `abpoa_tpu/pipeline.py` (abPOA src/abpoa_align.c: abpoa_poa
+:313-353, abpoa_msa1 :474-540, abpoa_output :355-371), consensus only: each
+read is aligned to the graph by the banded DP on the Params' device and fused
+into the graph on the host; the heaviest-bundle consensus is read out at the
+end.
+"""
+from __future__ import annotations
+
+import sys
+from dataclasses import dataclass, field
+from typing import IO, List, Optional
+
+import numpy as np
+
+from .align.dispatch import align_sequence_to_graph
+from .align.result import AlignResult
+from .cons.consensus import ConsensusResult, generate_consensus
+from .graph import POAGraph
+from .io.fastx import read_fastx
+from .io.output import output_fx_consensus
+from .params import Params
+
+
+@dataclass
+class Abpoa:
+    """Top-level container (abPOA abpoa_t): graph + sequence metadata."""
+    graph: POAGraph = field(default_factory=POAGraph)
+    names: List[str] = field(default_factory=list)
+    comments: List[str] = field(default_factory=list)
+    quals: List[Optional[str]] = field(default_factory=list)
+    seqs: List[str] = field(default_factory=list)
+    is_rc: List[bool] = field(default_factory=list)
+    cons: Optional[ConsensusResult] = None
+
+    @property
+    def n_seq(self) -> int:
+        return len(self.seqs)
+
+    def reset(self) -> None:
+        self.graph.reset()
+        self.names, self.comments, self.quals = [], [], []
+        self.seqs, self.is_rc = [], []
+        self.cons = None
+
+    def append_read(self, name: str = "", comment: str = "",
+                    qual: Optional[str] = None, seq: str = "") -> None:
+        self.names.append(name)
+        self.comments.append(comment)
+        self.quals.append(qual)
+        self.seqs.append(seq)
+        self.is_rc.append(False)
+
+
+def _rc_encode(seq: np.ndarray) -> np.ndarray:
+    rc = seq[::-1].copy()
+    lt4 = rc < 4
+    rc[lt4] = 3 - rc[lt4]
+    rc[~lt4] = 4
+    return rc
+
+
+def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarray],
+        exist_n_seq: int) -> None:
+    """Plain progressive POA, input order (src/abpoa_align.c:313-353), with
+    the `-s` reverse-complement retry for weakly aligned reads."""
+    g = ab.graph
+    for i, (qseq, weight) in enumerate(zip(seqs, weights)):
+        qlen = len(qseq)
+        read_id = exist_n_seq + i
+        res = AlignResult()
+        if g.node_n > 2:
+            res = align_sequence_to_graph(g, abpt, qseq)
+            if (abpt.amb_strand and res.best_score
+                    < min(qlen, g.node_n - 2) * abpt.max_mat * 0.3333):
+                rc_qseq = _rc_encode(qseq)
+                rc_res = align_sequence_to_graph(g, abpt, rc_qseq)
+                if rc_res.best_score > res.best_score:
+                    res = rc_res
+                    qseq, weight = rc_qseq, weight[::-1].copy()
+                    ab.is_rc[read_id] = True
+        g.add_alignment(abpt, qseq, weight, res.cigar, True)
+
+
+def _ingest_records(ab: Abpoa, abpt: Params, records):
+    """Append records to `ab` (sorting per `-L`), encode sequences, derive
+    qv weights (abpoa_msa1's read/encode block, src/abpoa_align.c:493-506).
+    Returns (seqs, weights) for the new reads."""
+    exist_n_seq = ab.n_seq
+    for rec in records:
+        ab.append_read(rec.name, rec.comment, rec.qual, rec.seq)
+    n_seq = len(records)
+    if abpt.sort_input_seq:
+        order = sorted(range(n_seq), key=lambda i: -len(records[i].seq))
+        for attr in ("names", "comments", "quals", "seqs"):
+            lst = getattr(ab, attr)
+            lst[exist_n_seq:] = [lst[exist_n_seq + i] for i in order]
+
+    encode = abpt.char_to_code
+    seqs: List[np.ndarray] = []
+    weights: List[np.ndarray] = []
+    for i in range(n_seq):
+        s = ab.seqs[exist_n_seq + i]
+        seqs.append(encode[np.frombuffer(s.encode(), dtype=np.uint8)].astype(np.uint8))
+        qual = ab.quals[exist_n_seq + i]
+        if abpt.use_qv and qual:
+            weights.append(np.frombuffer(qual.encode(), dtype=np.uint8).astype(np.int64) - 32)
+        else:
+            weights.append(np.ones(len(s), dtype=np.int64))
+    return seqs, weights
+
+
+def output(ab: Abpoa, abpt: Params, out_fp: IO[str]) -> None:
+    """Consensus output (src/abpoa_align.c:355-371)."""
+    if not abpt.out_cons:
+        return
+    ab.cons = generate_consensus(ab.graph, abpt, ab.n_seq)
+    if not ab.graph.is_called_cons:
+        print("Warning: no consensus sequence generated.", file=sys.stderr)
+    output_fx_consensus(ab.cons, abpt, out_fp)
+
+
+def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
+    """One read set (abpoa_msa1): progressive POA, then consensus."""
+    if not abpt._finalized:
+        raise ValueError("call Params.finalize() first")
+    ab.reset()
+    seqs, weights = _ingest_records(ab, abpt, records)
+    poa(ab, abpt, seqs, weights, 0)
+    output(ab, abpt, out_fp)
+
+
+def msa_from_file(ab: Abpoa, abpt: Params, path: str, out_fp: IO[str]) -> None:
+    msa(ab, abpt, read_fastx(path), out_fp)

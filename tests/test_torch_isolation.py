@@ -1,0 +1,133 @@
+"""The PyTorch port stands alone and never falls back silently.
+
+(d) importing every `abpoa_tpu_torch` module pulls in neither `jax` nor any
+    `abpoa_tpu` module (checked in a fresh interpreter).
+(e) with no CUDA device, the default `Params()` and the CLI raise instead of
+    running on the CPU, and `device="cpu"` runs.
+Configurations outside the ported slice raise NotImplementedError.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from conftest import DATA_DIR
+
+from abpoa_tpu_torch import cli
+from abpoa_tpu_torch.device import resolve_device
+from abpoa_tpu_torch.params import Params
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import abpoa_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(abpoa_tpu_torch.__path__,
+                                                "abpoa_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "abpoa_tpu" or m.startswith("abpoa_tpu."))
+print(len(names), ",".join(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_abpoa_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    n, _, bad = proc.stdout.strip().partition(" ")
+    assert int(n) >= 20
+    assert bad == ""
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card contract is moot")
+
+
+def test_default_params_raise_without_card():
+    _no_card()
+    assert Params().device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Params().finalize()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve_device("cuda")
+
+
+def test_cli_raises_without_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([os.path.join(DATA_DIR, "seq.fa")])
+
+
+def test_module_entry_point_fails_without_card():
+    _no_card()
+    proc = subprocess.run(
+        [sys.executable, "-m", "abpoa_tpu_torch", os.path.join(DATA_DIR, "seq.fa")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
+
+
+def test_cpu_device_runs(capsys):
+    abpt = Params(device="cpu").finalize()
+    assert abpt.torch_device == torch.device("cpu")
+    assert cli.main([os.path.join(DATA_DIR, "seq4.fa"), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith(">Consensus_sequence\n")
+
+
+@pytest.mark.parametrize("name", ["tpu", "mps:0x"])
+def test_unknown_device_rejected(name):
+    with pytest.raises(ValueError):
+        Params(device=name).finalize()
+
+
+@pytest.mark.parametrize("fields,item", [
+    ({"gap_open1": 0}, "13"),                    # linear gaps
+    ({"gap_open2": 0}, "13"),                    # affine gaps
+    ({"align_mode": 1}, "8"),                    # local
+    ({"align_mode": 2}, "13"),                   # extend
+    ({"wb": -1}, "8"),                           # unbanded
+    ({"inc_path_score": True}, "8"),             # -G
+    ({"disable_seeding": False}, "8"),           # -S
+    ({"progressive_poa": True}, "8"),            # -p
+    ({"max_n_cons": 2}, "3"),                    # -d 2
+    ({"out_msa": True}, "3"),                    # -r 1
+    ({"out_gfa": True}, "3"),                    # -r 3
+    ({"cons_algrm": 1}, "3"),                    # -a 1
+    ({"incr_fn": "g.gfa"}, "3"),                 # -i
+    ({"out_pog": "g.png"}, "3"),                 # -g
+])
+def test_configs_outside_the_slice_raise(fields, item):
+    abpt = Params(device="cpu")
+    for k, v in fields.items():
+        setattr(abpt, k, v)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        abpt.finalize()
+
+
+@pytest.mark.parametrize("flags", [["-l"], ["-r", "1"], ["-S"], ["-m", "1"]])
+def test_cli_rejects_flags_outside_the_slice(flags, capsys):
+    assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
+                     *flags]) == 1
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_kernel_sources_ship_as_package_data():
+    import fnmatch
+    import tomllib
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fp:
+        cfg = tomllib.load(fp)["tool"]["setuptools"]
+    assert any(fnmatch.fnmatch("abpoa_tpu_torch", pat)
+               for pat in cfg["packages"]["find"]["include"])
+    patterns = cfg["package-data"]["abpoa_tpu_torch"]
+    csrc = os.path.join(ROOT, "abpoa_tpu_torch", "csrc")
+    sources = [f"csrc/{f}" for f in os.listdir(csrc) if f.endswith(".cu")]
+    assert sources and all(any(fnmatch.fnmatch(s, p) for p in patterns)
+                           for s in sources)
