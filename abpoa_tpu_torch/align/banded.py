@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import constants as C
 from ..graph import POAGraph
 from ..params import Params
 from .banded_kernel import banded_dp
@@ -77,6 +78,10 @@ def align_sequence_to_subgraph(g: POAGraph, abpt: Params, beg_node_id: int,
     """Align `query` to the subgraph; `band_width` overrides the first
     launch's W (the relaunch path is taken when it is too narrow)."""
     global retries
+    if abpt.gap_mode != C.CONVEX_GAP or abpt.align_mode != C.GLOBAL_MODE:
+        raise NotImplementedError(
+            "the per-read route covers convex gaps in global mode; other "
+            "configurations run on the fused route (align/fused_loop.py)")
     qlen = len(query)
     inf_min = dp_inf_min(abpt)
     t = build_row_tables(g, beg_node_id, end_node_id)

@@ -22,6 +22,8 @@ from ..graph import POAGraph
 from ..params import Params
 from .result import AlignResult
 
+INT16_MIN = -32768
+INT16_MAX = 32767
 INT32_MIN = -2147483648
 
 
@@ -32,6 +34,21 @@ def dp_inf_min(abpt: Params, dtype_min: int = INT32_MIN) -> int:
     return (max(dtype_min + abpt.min_mis, dtype_min + abpt.gap_oe1,
                 dtype_min + abpt.gap_oe2)
             + 512 * max(abpt.gap_ext1, abpt.gap_ext2))
+
+
+def int16_score_limit(abpt: Params) -> int:
+    """Largest worst-case score that still fits 16-bit planes
+    (abpoa_align_simd.c:1284-1302)."""
+    return INT16_MAX - abpt.min_mis - abpt.gap_oe1 - abpt.gap_oe2
+
+
+def max_score_bound(abpt: Params, qlen: int, gn: int) -> int:
+    """Worst-case alignment score of a qlen read against a gn-node graph,
+    which selects the plane width (abpoa_align_simd.c:1293-1302). The fused
+    loop checks it before every read and promotes int16 planes to int32
+    once it passes `int16_score_limit`."""
+    ln = max(qlen, gn)
+    return max(qlen * abpt.max_mat, ln * abpt.gap_ext1 + abpt.gap_open1)
 
 
 def _build_index_map(g: POAGraph, beg_index: int, end_index: int) -> np.ndarray:

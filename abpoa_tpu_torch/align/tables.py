@@ -15,24 +15,8 @@ import numpy as np
 
 from ..graph import POAGraph
 from ..params import Params
+from .buckets import bucket, bucket_pow2
 from .oracle import _build_index_map, dp_inf_min
-
-
-def bucket(n: int, step: int) -> int:
-    """Smallest rung of the `step`-chain (x1.3, rounded up to `step`) that is
-    >= n; the row padding of the JAX package (compile/buckets.py)."""
-    b = step
-    while b < n:
-        b = ((int(b * 1.3) + step - 1) // step) * step
-    return b
-
-
-def bucket_pow2(n: int) -> int:
-    """Smallest power of two >= n."""
-    p = 1
-    while p < n:
-        p <<= 1
-    return p
 
 
 def initial_band_width(abpt: Params, qlen: int) -> int:

@@ -1,5 +1,6 @@
 """abpoa-compatible command line, the subset this package supports:
-progressive POA consensus (`-r 0`/`-r 5`) with convex gaps in global mode.
+progressive POA consensus (`-r 0`/`-r 5`) with linear, affine or convex gaps
+(`-O`/`-E`) in global, local (`-m 1`) or extend (`-m 2`, Z-drop `-z`) mode.
 
     python -m abpoa_tpu_torch reads.fa [--device cuda|cpu] [-o out.fa]
 
@@ -24,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m abpoa_tpu_torch",
         description="adaptive banded partial-order alignment consensus, "
-                    "banded DP in CUDA (PyTorch port of abpoa-tpu)",
+                    "progressive loop on the card (PyTorch port of "
+                    "abpoa-tpu)",
         add_help=False)
     p.add_argument("input", nargs="?", help="input FASTA/FASTQ")
     p.add_argument("-m", "--aln-mode", type=int, default=C.GLOBAL_MODE)
@@ -35,6 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-E", "--gap-ext", type=str, default=None)
     p.add_argument("-b", "--extra-b", type=int, default=C.EXTRA_B)
     p.add_argument("-f", "--extra-f", type=float, default=C.EXTRA_F)
+    p.add_argument("-z", "--zdrop", type=int, default=-1)
     p.add_argument("-G", "--inc-path-score", action="store_true")
     p.add_argument("-L", "--sort-by-len", action="store_true")
     p.add_argument("-R", "--gap-on-right", action="store_true")
@@ -55,9 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--version", action="version", version=__version__)
     p.add_argument("-V", "--verbose", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the DP: cuda (the CUDA kernel, "
-                        "needs an sm_90 card) or cpu (the kernel's plain "
-                        "PyTorch version) [%(default)s]")
+                   help="torch device of the run: cuda (the CUDA "
+                        "kernels, needs an sm_90 card) or cpu (their plain "
+                        "PyTorch versions) [%(default)s]")
     return p
 
 
@@ -107,6 +110,7 @@ def args_to_params(args: argparse.Namespace) -> Params:
     _apply_gap_args(abpt, args.gap_open, args.gap_ext)
     abpt.wb = args.extra_b
     abpt.wf = args.extra_f
+    abpt.zdrop = args.zdrop
     abpt.inc_path_score = args.inc_path_score
     abpt.sort_input_seq = args.sort_by_len
     abpt.put_gap_on_right = args.gap_on_right

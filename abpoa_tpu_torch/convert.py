@@ -15,6 +15,15 @@ Arrays (N nodes; edge lists in CSR form, in each node's edge order):
   aligned_ptr (N+1,), aligned_ids int64
   index_to_node_id, node_id_to_index, remain, mpl, mpr (N,) int32
   is_topological_sorted () bool
+
+`fused_state_to_numpy` / `fused_state_from_numpy` carry the fused loop's
+device state the same way: the dense `DeviceGraph` arrays (base, in_ids,
+in_w, in_cnt, out_ids, out_w, out_cnt, aligned, aligned_cnt, n_read, n_span
+as int32, node_n and ok as scalars), the topological order `order`, `n2i`,
+`remain` and the counters `read_idx`, `err`, `kahn_runs`, `collisions`. The
+JAX package's `FusedState` (any object with those attributes whose arrays
+numpy can read) converts to the same dict, so a state can cross between the
+two packages in either direction.
 """
 from __future__ import annotations
 
@@ -23,6 +32,10 @@ from itertools import chain
 import numpy as np
 
 from .graph import Node, POAGraph
+
+_GRAPH_FIELDS = ("base", "in_ids", "in_w", "in_cnt", "out_ids", "out_w",
+                 "out_cnt", "aligned", "aligned_cnt", "n_read", "n_span")
+_COUNTERS = ("read_idx", "err", "kahn_runs", "collisions")
 
 _MASK64 = (1 << 64) - 1
 
@@ -98,3 +111,40 @@ def graph_from_numpy(a: dict) -> POAGraph:
     g.node_id_to_max_pos_right = i32("mpr")
     g.is_topological_sorted = bool(a["is_topological_sorted"])
     return g
+
+
+def _as_numpy(x) -> np.ndarray:
+    if hasattr(x, "detach"):  # a torch tensor, on any device
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def fused_state_to_numpy(state) -> dict:
+    """The fused loop's state (this package's or the JAX package's) as a
+    dict of numpy arrays and ints."""
+    g = state.g
+    out = {k: _as_numpy(getattr(g, k)).astype(np.int32) for k in _GRAPH_FIELDS}
+    out["node_n"] = int(_as_numpy(g.node_n))
+    out["ok"] = bool(_as_numpy(g.ok))
+    for k in ("order", "n2i", "remain"):
+        out[k] = _as_numpy(getattr(state, k)).astype(np.int32)
+    for k in _COUNTERS:
+        out[k] = int(_as_numpy(getattr(state, k)))
+    return out
+
+
+def fused_state_from_numpy(a: dict, device="cpu"):
+    """This package's `FusedState` on `device` from `fused_state_to_numpy`'s
+    dict."""
+    import torch
+
+    from .align.device_graph import DeviceGraph
+    from .align.fused_loop import FusedState
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)  # noqa: E731
+    g = DeviceGraph(**{k: t(a[k]) for k in _GRAPH_FIELDS},
+                    node_n=torch.tensor(a["node_n"], dtype=torch.int32,
+                                        device=device),
+                    ok=torch.tensor(bool(a["ok"]), device=device))
+    return FusedState(g=g, order=t(a["order"]), n2i=t(a["n2i"]),
+                      remain=t(a["remain"]),
+                      **{k: int(a[k]) for k in _COUNTERS})

@@ -176,18 +176,22 @@ class POAGraph:
         raise RuntimeError("Failed to set node remain")
 
     def topological_sort(self, abpt: Params) -> None:
-        """(src/abpoa_graph.c:322-357), banded configurations only."""
+        """(src/abpoa_graph.c:322-357): the band metadata is set for banded
+        runs, max_remain also for extend mode's Z-drop."""
         n = self.node_n
         if n <= 0:
             return
         self._bfs_set_node_index()
         self._sort_in_out_ids()
-        if len(self.node_id_to_max_pos_left) < n:
-            self.node_id_to_max_pos_left = np.zeros(n, dtype=np.int32)
-            self.node_id_to_max_pos_right = np.zeros(n, dtype=np.int32)
-        self.node_id_to_max_pos_right[:n] = 0
-        self.node_id_to_max_pos_left[:n] = n
-        self._bfs_set_node_remain()
+        if abpt.wb >= 0:
+            if len(self.node_id_to_max_pos_left) < n:
+                self.node_id_to_max_pos_left = np.zeros(n, dtype=np.int32)
+                self.node_id_to_max_pos_right = np.zeros(n, dtype=np.int32)
+            self.node_id_to_max_pos_right[:n] = 0
+            self.node_id_to_max_pos_left[:n] = n
+            self._bfs_set_node_remain()
+        elif abpt.zdrop > 0:
+            self._bfs_set_node_remain()
         self.is_topological_sorted = True
 
     # ---------------------------------------------------------------- fusion

@@ -1,10 +1,11 @@
 """Build the CUDA kernels once, at first use, and bind them with ctypes.
 
-Every `abpoa_tpu_torch/csrc/*.cu` is compiled by `nvcc` for sm_90a into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). The library lands in `build/abpoa_tpu_torch/` beside the
-package, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused. A failed build raises.
+Every `abpoa_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` for sm_90a
+(all started together), and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds). The
+library lands in `build/abpoa_tpu_torch/` beside the package, named by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused. A failed build raises.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "abpoa_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 # seconds the last build in this process took (0.0 when the library was
@@ -55,6 +56,21 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libabpoa_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list, verbose: bool) -> None:
+    """Run the commands in parallel; raise with the output of the first that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+        if verbose and out:
+            print(out, flush=True)
+
+
 def build(verbose: bool = False) -> str:
     """Compile the sources into the library if it is not built yet; returns
     its path. `verbose` adds `-Xptxas -v` and prints nvcc's output."""
@@ -64,22 +80,17 @@ def build(verbose: bool = False) -> str:
         last_build_seconds = 0.0
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *sources()]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(src) + ".o")
+                for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", src, "-o", obj]
+                  for src, obj in zip(sources(), objs)], verbose)
+        tmp = os.path.join(tmpdir, "lib.so")
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]], verbose)
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     last_build_seconds = time.perf_counter() - t0
     return path
 
@@ -94,6 +105,12 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.abpoa_banded_dp.argtypes = [vp] * 19 + [ci] * 5 + [vp]
     lib.abpoa_banded_dp.restype = ci
+    lib.abpoa_fused_dp.argtypes = [vp] * 18 + [ci] * 9 + [vp]
+    lib.abpoa_fused_dp.restype = ci
+    lib.abpoa_backtrack.argtypes = [vp] * 15 + [ci] * 8 + [vp]
+    lib.abpoa_backtrack.restype = ci
+    lib.abpoa_topo_sort.argtypes = [vp] * 18 + [ci] * 3 + [vp]
+    lib.abpoa_topo_sort.restype = ci
     lib.abpoa_cuda_error_string.argtypes = [ci]
     lib.abpoa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -4,9 +4,10 @@ Mirrors abPOA's parameter lifecycle (`abpoa_init_para` defaults, user
 mutation, `abpoa_post_set_para` derivation in src/abpoa_align.c): construct
 `Params()`, mutate fields, call `finalize()`.
 
-`finalize()` raises NotImplementedError for every configuration outside the
-port's first slice (convex gaps, global mode, adaptive band, one consensus),
-naming the ROADMAP item that will bring it. Nothing is rerouted.
+`finalize()` raises NotImplementedError for every configuration the port
+does not cover yet (it covers progressive POA with linear, affine or convex
+gaps in global, local and extend mode, one consensus), naming the ROADMAP
+item that will bring it. Nothing is rerouted.
 """
 from __future__ import annotations
 
@@ -69,6 +70,8 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
 class Params:
     align_mode: int = C.GLOBAL_MODE
     gap_mode: int = C.CONVEX_GAP  # derived in finalize()
+    # extend mode's Z-drop threshold; <= 0 turns Z-drop off
+    zdrop: int = -1
 
     inc_path_score: bool = False
     sort_input_seq: bool = False
@@ -156,14 +159,9 @@ class Params:
         return self
 
     def _check_slice(self) -> None:
-        if self.gap_mode != C.CONVEX_GAP:
-            raise _not_in_slice("linear and affine gaps (-O/-E with a zero "
-                                "open penalty)", "13")
-        if self.align_mode == C.LOCAL_MODE:
-            raise _not_in_slice("local alignment (-m 1)", "8")
-        if self.align_mode != C.GLOBAL_MODE:
-            raise _not_in_slice("extension alignment (-m 2)", "13")
-        if self.wb < 0:
+        if self.align_mode not in (C.GLOBAL_MODE, C.LOCAL_MODE, C.EXTEND_MODE):
+            raise ValueError(f"unknown alignment mode {self.align_mode}")
+        if self.wb < 0 and self.align_mode != C.LOCAL_MODE:
             raise _not_in_slice("unbanded alignment (-b < 0)", "8")
         if self.inc_path_score:
             raise _not_in_slice("path-score mode (-G)", "8")

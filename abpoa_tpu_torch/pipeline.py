@@ -1,10 +1,19 @@
 """Progressive POA in input order and consensus output.
 
 Counterpart of `abpoa_tpu/pipeline.py` (abPOA src/abpoa_align.c: abpoa_poa
-:313-353, abpoa_msa1 :474-540, abpoa_output :355-371), consensus only: each
-read is aligned to the graph by the banded DP on the Params' device and fused
-into the graph on the host; the heaviest-bundle consensus is read out at the
-end.
+:313-353, abpoa_msa1 :474-540, abpoa_output :355-371), consensus only. Two
+routes, as in the JAX package:
+
+- the fused route (`_run_fused_device`, the default whenever
+  `fused_eligible` holds): the whole progressive loop runs on the Params'
+  device (`align/fused_loop.py`) and the graph is downloaded once;
+- the per-read route (`poa`): each read is aligned by the banded DP kernel
+  on the device and fused into the graph on the host. It takes what the
+  fused route does not: a set of one read. It covers convex gaps in global
+  mode only.
+
+A failure of the fused route raises; nothing falls back to the other route.
+The heaviest-bundle consensus is read out at the end.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from typing import IO, List, Optional
 import numpy as np
 
 from .align.dispatch import align_sequence_to_graph
+from .align.eligibility import fused_eligible
 from .align.result import AlignResult
 from .cons.consensus import ConsensusResult, generate_consensus
 from .graph import POAGraph
@@ -83,6 +93,18 @@ def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
         g.add_alignment(abpt, qseq, weight, res.cigar, True)
 
 
+def _run_fused_device(ab: Abpoa, abpt: Params, seqs: List[np.ndarray],
+                      weights: List[np.ndarray]) -> None:
+    """The fused route (abpoa_tpu/pipeline.py:116-190 without the probe,
+    breaker and admission): progressive POA on the device, then the graph
+    and the per-read strand flags come back to `ab`."""
+    from .align.fused_loop import progressive_poa_fused
+    pg, _, is_rc = progressive_poa_fused(seqs, weights, abpt)
+    ab.graph = pg
+    if abpt.amb_strand:
+        ab.is_rc[:len(is_rc)] = is_rc
+
+
 def _ingest_records(ab: Abpoa, abpt: Params, records):
     """Append records to `ab` (sorting per `-L`), encode sequences, derive
     qv weights (abpoa_msa1's read/encode block, src/abpoa_align.c:493-506).
@@ -127,7 +149,10 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
         raise ValueError("call Params.finalize() first")
     ab.reset()
     seqs, weights = _ingest_records(ab, abpt, records)
-    poa(ab, abpt, seqs, weights, 0)
+    if fused_eligible(abpt, len(seqs)):
+        _run_fused_device(ab, abpt, seqs, weights)
+    else:
+        poa(ab, abpt, seqs, weights, 0)
     output(ab, abpt, out_fp)
 
 

@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
 """On-card smoke run of abpoa_tpu_torch, the PyTorch/CUDA port of abpoa-tpu.
 
-    python3 chip_smoke.py [--reads N] [--ref-len L]
+    python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
-  build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a)
-  A      the banded DP kernel against its plain PyTorch version on the card,
-         on tables of a mid-run graph of tests/data/sim2k.fa, including a
-         forced band overflow relaunched up to W > 1024: all outputs equal
-  B      `python -m abpoa_tpu_torch tests/data/seq.fa` on cuda reproduces
-         tests/golden/ref_consensus.txt byte for byte
+  build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
+         one nvcc per source, all started together
+  A      kernel B2 (banded_dp, the per-read route) against its plain PyTorch
+         version on tables of a mid-run graph of tests/data/sim2k.fa,
+         including a forced band overflow relaunched up to W > 1024
+  A2     on sim2k tables: kernel B1 (fused_dp) against its plain version in
+         every variant (linear/affine/convex x global/extend+Z-drop/local x
+         int16/int32), B3 as B1's local instantiation at sim2k's local width
+         (2048, where the JAX package picks pallas_fused_dp_local_hbm), X1
+         (backtrack) on each variant's planes, and K1 (topo_sort) on a graph
+         that needed a Kahn repair: all outputs equal
+  B      `python -m abpoa_tpu_torch` on cuda, now the fused route,
+         reproduces tests/golden (default, -O 4, -O 0, -m 1, -m 2) byte for
+         byte; then sim2k -m 1 on cuda (the B3 width) equals the port's CPU
+         result on its first 4 reads
   C      the main path at full width: N ONT-like 10 kb reads at 10 % error
-         (made here from a fixed seed) through the CLI on cuda; the kernel
-         counts are set to 0 before and read after; the consensus must match
-         the simulated reference at >= 99 % identity
-  D      the kernel against its plain version at the main path's shape
-         (the graph phase C left and one more read), with times and bound
+         (made here from a fixed seed) through the CLI on cuda, the fused
+         route; the kernel counts are set to 0 before and read after; the
+         consensus must match the simulated reference at >= 99 % identity
+  C2     the per-read route (pipeline.poa, kernel B2) and the fused route on
+         the first M reads of that set give byte-identical consensus
+  D      at the graph phase C left and one more read: B1, X1 and K1 against
+         their plain versions with times and bounds, and the time of the
+         sequential fusion a collision read takes (held equal to the
+         vectorised fusion); B2 the same at the graph of C2's per-read run
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero with no result when there is no
 CUDA device or no checkout of the repository beside this script.
@@ -23,6 +36,7 @@ CUDA device or no checkout of the repository beside this script.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -31,7 +45,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-INT_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit rate (fp32 figure)
+INT32_LANES_PER_SM = 64      # Hopper: 64 INT32 lanes per SM
+OUT = os.path.join(ROOT, "build", "chip_smoke")
 
 
 def log(msg: str) -> None:
@@ -84,26 +99,23 @@ def to_dev(arrays, dev):
             for a in arrays]
 
 
-def kernel_inputs(abpt, g, query, W):
-    from abpoa_tpu_torch.align.tables import build_row_tables, query_tables
-    t = build_row_tables(g, 0, 1)
-    q = query_tables(abpt, t, query, W)
-    return t, [q["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
-               t.out_cnt, t.remain, t.mpl0, t.mpr0, q["qp_pad"], q["row0"]]
+def encode(abpt, seq: str):
+    import numpy as np
+    return abpt.char_to_code[np.frombuffer(seq.encode(), dtype=np.uint8)].astype(np.uint8)
 
 
-def compare(kernel_out, plain_out) -> int:
+def compare(name: str, kernel_out, plain_out) -> int:
     """Max abs difference over all outputs; raises on any mismatch."""
-    names = ["H", "E1", "E2", "F1", "F2", "begend", "mplr", "ok"]
     worst = 0
-    for name, a, b in zip(names, kernel_out, plain_out):
-        if a.shape != b.shape:
-            raise AssertionError(f"{name}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
-        d = int((a.to(b.dtype).long() - b.long()).abs().max().item()) if a.numel() else 0
+    for k, (a, b) in enumerate(zip(kernel_out, plain_out)):
+        if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+            raise AssertionError(f"{name} output {k}: {tuple(a.shape)} {a.dtype}"
+                                 f" vs {tuple(b.shape)} {b.dtype}")
+        d = int((a.cpu().long() - b.cpu().long()).abs().max().item()) if a.numel() else 0
         worst = max(worst, d)
         if d != 0:
-            raise AssertionError(f"kernel and plain version differ on {name} "
-                                 f"(max abs diff {d})")
+            raise AssertionError(f"{name}: kernel and plain version differ on "
+                                 f"output {k} (max abs diff {d})")
     return worst
 
 
@@ -121,43 +133,177 @@ def time_cuda(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound(t, args, out, W: int):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate (each input
-    read once, each output written once) and the in-band cell operations
-    over the 32-bit rate, for this run's data."""
+def time_host(fn):
+    """(ms, result) of one fn() on the host clock, ended by a device sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def smi(query: str) -> str:
+    p = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                        "--format=csv,noheader,nounits" if query.startswith("clocks")
+                        else "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    return p.stdout.strip().splitlines()[0] if p.returncode == 0 else ""
+
+
+class Rates:
+    """The card's peak rates for the bounds: HBM bytes/s, and int32 ops/s
+    = SMs x 64 INT32 lanes x the maximum SM clock."""
+
+    def __init__(self):
+        import torch
+        props = torch.cuda.get_device_properties(0)
+        mhz = smi("clocks.max.sm")
+        self.sms = props.multi_processor_count
+        self.clock_hz = float(mhz) * 1e6 if mhz else 0.0
+        if not self.clock_hz:
+            raise RuntimeError("nvidia-smi gave no maximum SM clock")
+        self.int_ops = self.sms * INT32_LANES_PER_SM * self.clock_hz
+        self.bytes = HBM_BYTES_PER_S
+
+    def bound(self, nbytes: float, ops: float):
+        by_bytes = nbytes / self.bytes * 1e3
+        by_ops = ops / self.int_ops * 1e3
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dp_bound(rates, args, out):
+    """B1/B3 over the rows the kernel computes, 0 to gn - 2 (or to the row
+    whose band passed W); the rows past them are capacity padding. Bytes:
+    those rows of every per-row input read once, their plane rows and band
+    ends written once, the scalars, row 0 and the query profile. Operations
+    per in-band cell: 3 maxes per predecessor, then the query profile,
+    H-hat, the two F chains (add, max, sub, clamp each), H, the E updates
+    and the argmax (22)."""
     import numpy as np
-    in_bytes = sum(a.size for a in args) * 4
-    out_bytes = (5 * t.R * W + 4 * t.R + 1) * 4
-    begend = out[5].cpu().numpy().astype(np.int64)
-    beg, end = begend[: t.R], begend[t.R:]
-    cells = np.clip(end - beg + 1, 0, W)[1: t.gn - 1]
-    npre = t.pre_cnt[1: t.gn - 1].astype(np.int64)
-    # per cell: 3 maxes per predecessor, then query profile, H-hat, the two
-    # F chains (add, max, sub, clamp each), H, the E updates and the argmax
+    scalars, row0, qp = args[0], args[7], args[8]
+    per_row = args[1:7]  # base_packed, pre_idx, pre_cnt, out_idx, out_cnt, remain
+    planes, (beg, end, ok, ext) = out[:5], out[5:]
+    b, e = [x.cpu().numpy().astype(np.int64) for x in (beg, end)]
+    W = planes[0].shape[1]
+    rows = int(scalars[8]) - 1
+    wide = np.nonzero(e[1:rows] - b[1:rows] + 1 > W)[0]
+    if wide.size:
+        rows = int(wide[0]) + 2
+    cells = np.clip(e[:rows] - b[:rows] + 1, 0, W)
+    cells[0] = 0
+    npre = per_row[2].cpu().numpy().astype(np.int64)[:rows]
     ops = float((cells * (3 * npre + 22)).sum())
-    by_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / INT_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    row_bytes = (sum(t[0].numel() * t.element_size() for t in per_row)
+                 + sum(W * p.element_size() for p in planes) + 2 * 4)
+    return rates.bound(nbytes((scalars, row0, qp, ok, ext)) + rows * row_bytes,
+                       ops)
 
 
-def grow_graph(abpt, reads, n):
-    """A port graph of the first n reads, aligned on abpt's device."""
+def bt_bound(rates, planes, pre_cnt, ops, res):
+    """X1: what the walk reads and writes for this run's path: per step the
+    cell and its left neighbour in up to 5 planes, 4 cells and 3 band
+    ints per predecessor slot, base/query/score; the op written; ~30 + 12
+    per predecessor integer operations."""
     import numpy as np
-    from abpoa_tpu_torch.align.banded import align_sequence_to_subgraph
-    from abpoa_tpu_torch.graph import POAGraph
-    g = POAGraph()
-    for i in range(n):
-        q = abpt.char_to_code[np.frombuffer(reads[i].encode(), dtype=np.uint8)].astype(np.uint8)
-        cigar = align_sequence_to_subgraph(g, abpt, 0, 1, q).cigar if g.node_n > 2 else []
-        g.add_alignment(abpt, q, None, cigar, True)
-    g.topological_sort(abpt)
-    return g
+    n_ops = int(res[0])
+    rows = ops[:n_ops, 1].cpu().numpy().astype(np.int64)
+    npre = pre_cnt.cpu().numpy().astype(np.int64)[rows]
+    item = planes[0].element_size()
+    nb = float((10 * item + npre * (4 * item + 12) + 12 + 8).sum())
+    return rates.bound(nb, float((30 + 12 * npre).sum()))
+
+
+def topo_bound(rates, g):
+    """K1: the graph's node_n rows read once and the sorted rows, order and
+    remain written once; per node the exchange sort's comparisons and the
+    two BFS visits."""
+    n = int(g.node_n)
+    E, A = g.in_ids.shape[1], g.aligned.shape[1]
+    nb = n * (4 * E + 3 + A + 1) * 4 + n * (4 * E + 3) * 4
+    return rates.bound(nb, float(n * (2 * E * E + 4 * E + 2 * A)))
+
+
+def fused_case(abpt, st, query, W, plane16, local):
+    """B1's inputs for `query` against a fused-loop state, on its device."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.buckets import qp_rung
+    from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
+    dev = st.g.base.device
+    tables = fl._build_tables(st.g, st.order, st.n2i, st.remain)
+    qlen = len(query)
+    qp = np.zeros((abpt.m, qp_rung(qlen)), dtype=np.int32)
+    qp[:, 1: qlen + 1] = abpt.mat[:, query]
+    inf = dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN)
+    return fl.dp_inputs(abpt, st, tables, torch.from_numpy(qp).to(dev), qlen,
+                        W, inf, local), inf
+
+
+def bt_inputs(abpt, args, out, query, inf, tracked):
+    """X1's inputs for B1's outputs `out`, as the fused loop builds them."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch.align import fused_loop as fl
+    dev = out[0].device
+    H, E1, E2, F1, F2, beg, end, ok, ext = out
+    scalars, base_packed, pre_idx, pre_cnt = args[:4]
+    qlen, n = len(query), scalars[8:9]
+    bi, bj, _ = fl.best_cell(H, beg, end, pre_idx, pre_cnt, n, ext, qlen, inf,
+                             tracked)
+    Qp = args[8].shape[1] - H.shape[1]
+    q = torch.zeros(Qp, dtype=torch.int32, device=dev)
+    q[:qlen] = torch.from_numpy(query.astype(np.int32)).to(dev)
+    max_ops = H.shape[0] + Qp + 8
+    sc = torch.cat([torch.stack([bi, bj]).to(torch.int32),
+                    torch.tensor([abpt.gap_ext1, abpt.gap_oe1, abpt.gap_ext2,
+                                  abpt.gap_oe2, inf, max_ops],
+                                 dtype=torch.int32, device=dev)])
+    mat = torch.from_numpy(abpt.mat.astype(np.int32)).to(dev)
+    return ((H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base_packed, q,
+             mat, sc), max_ops)
+
+
+def fused_state(abpt, seqs, n):
+    """The port's fused-loop state after the first n reads, on abpt's
+    device; also the input of the first Kahn repair that run made."""
+    import numpy as np
+    from abpoa_tpu_torch.align import fused_loop as fl
+    captured = []
+    real = fl.topo_sort
+
+    def capture(*a):
+        if not captured:
+            captured.append([t.clone() for t in a])
+        return real(*a)
+
+    fl.topo_sort = capture
+    try:
+        w = [np.ones(len(s), dtype=np.int64) for s in seqs[:n]]
+        fl.progressive_poa_fused(seqs[:n], w, abpt)
+        st = fl.last_state
+    finally:
+        fl.topo_sort = real
+    return st, (captured[0] if captured else None)
+
+
+def run_cli(argv):
+    from abpoa_tpu_torch import cli
+    rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=500)
     ap.add_argument("--ref-len", type=int, default=10000)
+    ap.add_argument("--c2-reads", type=int, default=50)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -166,42 +312,61 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not os.path.isfile(os.path.join(ROOT, "abpoa_tpu_torch", "csrc", "banded_dp.cu")):
+    if not os.path.isfile(os.path.join(ROOT, "abpoa_tpu_torch", "csrc", "fused_dp.cu")):
         print("chip_smoke: abpoa_tpu_torch/ not found beside this script",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from abpoa_tpu_torch import cli
     from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack, backtrack_torch
     from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
-    from abpoa_tpu_torch.align.tables import initial_band_width
+    from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
+    from abpoa_tpu_torch.align.device_graph import fuse_alignment
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp, fused_dp_torch
+    from abpoa_tpu_torch.align.tables import (build_row_tables,
+                                              initial_band_width, query_tables)
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_torch
+    from abpoa_tpu_torch.graph import POAGraph
     from abpoa_tpu_torch.io.fastx import read_fastx
     from abpoa_tpu_torch.kernels import build
     from abpoa_tpu_torch.params import Params
-    from abpoa_tpu_torch.pipeline import Abpoa, msa_from_file
+    from abpoa_tpu_torch.pipeline import Abpoa, _ingest_records, output, poa
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    card = smi("name,power.limit") or "nvidia-smi failed"
     log(f"card: {card}")
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+    rates = Rates()
+    log(f"[rates] {rates.sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
+        f"{rates.clock_hz / 1e6:.0f} MHz max SM clock = "
+        f"{rates.int_ops / 1e12:.3f} T int32 op/s; HBM {rates.bytes / 1e12:.2f} TB/s")
+    os.makedirs(OUT, exist_ok=True)
+    t_start = time.perf_counter()
 
     # ---- build
     t0 = time.perf_counter()
     build.build(verbose=True)
-    log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.2f} s -> "
+    log(f"[build] nvcc sm_90a, {len(build.sources())} sources in parallel: "
+        f"{time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(build.library_path(), ROOT)}")
 
     dev = torch.device("cuda")
     abpt = Params(device="cuda").finalize()
-    max_err = 0
-
-    # ---- A: kernel vs plain version on sim2k tables
+    cpu = Params(device="cpu").finalize()
+    max_err = {k: 0 for k in ("banded_dp", "fused_dp", "fused_dp[local]",
+                              "backtrack", "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
-    g = grow_graph(abpt, sim2k, 3)
-    query = abpt.char_to_code[np.frombuffer(sim2k[3].encode(), dtype=np.uint8)].astype(np.uint8)
+
+    # ---- A: B2 vs plain on sim2k tables (the per-read route's kernel)
+    g = POAGraph()
+    for i in range(3):
+        q = encode(cpu, sim2k[i])
+        cigar = (banded.align_sequence_to_subgraph(g, abpt, 0, 1, q).cigar
+                 if g.node_n > 2 else [])
+        g.add_alignment(abpt, q, None, cigar, True)
+    g.topological_sort(abpt)
+    query = encode(cpu, sim2k[3])
     wide = Params(device="cuda", wb=600).finalize()
     cases = [(abpt, initial_band_width(abpt, len(query)), True)]
     W = 512
@@ -211,98 +376,292 @@ def main() -> int:
             break
         W = banded.next_band_width(W, len(query))
     for p, W, want_ok in cases:
-        t, a = kernel_inputs(p, g, query, W)
-        ts = to_dev(a, dev)
+        t = build_row_tables(g, 0, 1)
+        qt = query_tables(p, t, query, W)
+        ts = to_dev([qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
+                     t.out_cnt, t.remain, t.mpl0, t.mpr0, qt["qp_pad"],
+                     qt["row0"]], dev)
         got = banded_dp(*ts)
         torch.cuda.synchronize()
-        want = banded_dp_torch(*ts)
-        max_err = max(max_err, compare(got, want))
+        max_err["banded_dp"] = max(max_err["banded_dp"],
+                                   compare("banded_dp", got, banded_dp_torch(*ts)))
         ok = int(got[7].item())
         if want_ok is not None and ok != 1:
             raise AssertionError(f"sim2k W={W}: unexpected band overflow")
-        log(f"[A] sim2k R={t.R} gn={t.gn} W={W} ok={ok}: kernel == plain "
-            f"(all 8 outputs, tolerance 0)")
-    last_ok = int(got[7].item())
-    if last_ok != 1 or cases[-1][1] <= 1024 or sum(1 for c in cases if c[2] is None) < 2:
+        log(f"[A] B2 sim2k R={t.R} gn={t.gn} W={W} ok={ok}: kernel == plain")
+    if int(got[7].item()) != 1 or cases[-1][1] <= 1024:
         raise AssertionError("overflow case did not end in a W > 1024 launch that fits")
-    ms = time_cuda(lambda: banded_dp(*ts), 5)
-    log(f"[A] kernel at R={t.R} W={cases[-1][1]}: {ms:.3f} ms")
 
-    # ---- B: golden consensus on cuda
-    out_b = os.path.join(ROOT, "build", "chip_smoke", "seq_cons.fa")
-    os.makedirs(os.path.dirname(out_b), exist_ok=True)
-    rc = cli.main([os.path.join(ROOT, "tests", "data", "seq.fa"), "-o", out_b])
-    with open(out_b) as fp, open(os.path.join(ROOT, "tests", "golden", "ref_consensus.txt")) as gp:
-        if rc != 0 or fp.read() != gp.read():
-            raise AssertionError("seq.fa consensus on cuda differs from ref_consensus.txt")
-    log("[B] seq.fa on cuda == tests/golden/ref_consensus.txt")
+    # ---- A2: B1 (every variant), B3, X1, K1 vs plain on sim2k tables
+    sim2k_enc = [encode(cpu, s) for s in sim2k]
+    st3, _ = fused_state(abpt, sim2k_enc, 3)
+    q4 = sim2k_enc[3]
+    gaps = {"convex": {}, "affine": {"gap_open2": 0},
+            "linear": {"gap_open1": 0, "gap_open2": 0}}
+    modes = {"global": {}, "extend": {"align_mode": 2, "zdrop": 20},
+             "local": {"align_mode": 1}}
+    local_W = bucket_pow2(len(q4) + 2)
+    b3_case = None
+    for gname, gkw in gaps.items():
+        for mname, mkw in modes.items():
+            for plane16 in (True, False):
+                p = Params(device="cuda", **gkw, **mkw).finalize()
+                local = mname == "local"
+                W = local_W if local else 128
+                a2, inf = fused_case(p, st3, q4, W, plane16, local)
+                kw = dict(gap_mode=p.gap_mode, plane16=plane16,
+                          extend=mname == "extend",
+                          zdrop_on=mname == "extend", local=local)
+                got = fused_dp(*a2, **kw)
+                torch.cuda.synchronize()
+                name = "fused_dp[local]" if local else "fused_dp"
+                max_err[name] = max(max_err[name], compare(
+                    f"{name} {gname}-{mname}", got, fused_dp_torch(*a2, **kw)))
+                bta, max_ops = bt_inputs(p, a2, got, q4, inf, mname != "global")
+                bkw = dict(max_ops=max_ops, gap_mode=p.gap_mode,
+                           gap_on_right=False, put_gap_at_end=False,
+                           local=local)
+                bt = backtrack(*bta, **bkw)
+                torch.cuda.synchronize()
+                max_err["backtrack"] = max(max_err["backtrack"], compare(
+                    f"backtrack {gname}-{mname}", bt, backtrack_torch(*bta, **bkw)))
+                log(f"[A2] {gname}-{mname}-{'int16' if plane16 else 'int32'} "
+                    f"W={W}: B1 kernel == plain (ok={int(got[7][0])}, "
+                    f"ext={got[8].tolist()}); X1 kernel == plain "
+                    f"(n_ops={int(bt[1][0])}, err={int(bt[1][5])})")
+                if local and gname == "convex" and not plane16:
+                    b3_case = (a2, kw, got)
+    # the JAX package picks B3 where B1's three 512-row rings of W int32
+    # columns, the plane blocks and the query profile pass 11 MB of VMEM
+    # (pallas_fused.py:678-690)
+    vmem = 3 * 512 * local_W * 4 + 10 * 32 * local_W * 4 + 5 * (qp_rung(len(q4)) + local_W) * 4
+    log(f"[A2] B3 width: local W = {local_W}, B1's VMEM need {vmem / 2**20:.1f} MB "
+        f"> 11 MB -> B3 in the JAX package: {vmem > 11 * 2**20}")
+    b3_ms = time_cuda(lambda: fused_dp(*b3_case[0], **b3_case[1]), 3)
+    b3_plain_ms, _ = time_host(lambda: fused_dp_torch(*b3_case[0], **b3_case[1]))
+    b3_bound = dp_bound(rates, b3_case[0], b3_case[2])
+    log(f"[A2] B3 (local, gn={int(b3_case[0][0][8])}, R={b3_case[0][1].shape[0]}, "
+        f"W={local_W}): kernel "
+        f"{b3_ms:.3f} ms, plain {b3_plain_ms:.1f} ms, bound {b3_bound[0]:.4f} ms "
+        f"({b3_bound[1]})")
+    st_k, kahn_in = fused_state(abpt, sim2k_enc, 12)
+    if kahn_in is None:
+        raise AssertionError("sim2k made no Kahn repair")
+    got = topo_sort(*kahn_in)
+    torch.cuda.synchronize()
+    max_err["topo_sort"] = compare("topo_sort", got, topo_sort_torch(*kahn_in))
+    log(f"[A2] K1 on the first repaired sim2k graph ({int(kahn_in[8][0])} "
+        f"nodes): kernel == plain (ok={int(got[7][0])})")
 
-    # ---- C: the main path at full width
-    # one read more than the run takes: phase D aligns it to the final graph
+    # ---- B: goldens through the CLI on cuda (the fused route)
+    golden = [([], "ref_consensus"), (["-O", "4"], "seq_affine"),
+              (["-O", "0"], "seq_linear"), (["-m", "1"], "seq_m1"),
+              (["-m", "2"], "seq_m2")]
+    for flags, name in golden:
+        out_b = os.path.join(OUT, f"{name}.fa")
+        fl.reset_stats()
+        run_cli([os.path.join(ROOT, "tests", "data", "seq.fa"), "-o", out_b, *flags])
+        with open(out_b) as fp, open(os.path.join(ROOT, "tests", "golden", f"{name}.txt")) as gp:
+            if fp.read() != gp.read():
+                raise AssertionError(f"seq.fa {flags} on cuda differs from {name}.txt")
+        log(f"[B] seq.fa {' '.join(flags) or '(default)'} on cuda == tests/golden/{name}.txt "
+            f"({fl.stats['reads']} reads on the fused route)")
+    fa4 = os.path.join(OUT, "sim2k_4.fa")
+    with open(fa4, "w") as fp:
+        fp.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(sim2k[:4])))
+    fused_dp.local_launches = 0
+    run_cli([fa4, "-m", "1", "-o", os.path.join(OUT, "m1_cuda.fa")])
+    b3_launches = fused_dp.local_launches
+    run_cli([fa4, "-m", "1", "--device", "cpu", "-o", os.path.join(OUT, "m1_cpu.fa")])
+    with open(os.path.join(OUT, "m1_cuda.fa")) as a, open(os.path.join(OUT, "m1_cpu.fa")) as b:
+        if a.read() != b.read():
+            raise AssertionError("sim2k -m 1 on cuda differs from the CPU result")
+    log(f"[B] sim2k -m 1 (4 reads, W={local_W}) on cuda == on cpu; "
+        f"B3 launches {b3_launches}")
+    if b3_launches < 3:
+        raise AssertionError("the -m 1 run did not launch the local kernel")
+
+    # ---- C: the main path at full width, the fused route
     ref, reads = simulate(args.ref_len, args.reads + 1, 0.10, args.seed)
     held_out = reads.pop()
-    fa = os.path.join(ROOT, "build", "chip_smoke", "sim.fa")
+    fa = os.path.join(OUT, "sim.fa")
     with open(fa, "w") as fp:
         fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads)))
-    out_c = os.path.join(ROOT, "build", "chip_smoke", "sim_cons.fa")
-    # what cli.main does, keeping the Abpoa object for phase D
-    ns = cli.build_parser().parse_args([fa, "-o", out_c])
-    abpt_c = cli.args_to_params(ns).finalize()
-    ab = Abpoa()
-    banded_dp.launches = 0
-    banded.retries = 0
-    for k in banded.stats:
-        banded.stats[k] = 0
+    out_c = os.path.join(OUT, "sim_cons.fa")
+    fl.reset_stats()
+    fl.timing = True
+    fused_dp.launches = fused_dp.local_launches = 0
+    backtrack.launches = topo_sort.launches = banded_dp.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with open(out_c, "w") as fp:
-        msa_from_file(ab, abpt_c, ns.input, fp)
+    run_cli([fa, "-o", out_c])
     wall = time.perf_counter() - t0
-    launches, retries = banded_dp.launches, banded.retries
-    st = dict(banded.stats)
-    if launches < args.reads - 1:
-        raise AssertionError(f"{launches} kernel launches for {args.reads} reads")
+    fl.timing = False
+    launches = {"fused_dp": fused_dp.launches, "backtrack": backtrack.launches,
+                "topo_sort": topo_sort.launches}
+    if banded_dp.launches or fused_dp.local_launches:
+        raise AssertionError("the fused route launched another route's kernel")
+    s = dict(fl.stats)
+    n = args.reads
+    if launches["fused_dp"] < n - 1 or launches["backtrack"] < n - 1 \
+            or launches["topo_sort"] < 1:
+        raise AssertionError(f"main-path launches {launches} for {n} reads")
     cons = read_fastx(out_c)
     if len(cons) != 1 or not set(cons[0].seq) <= set("ACGT"):
         raise AssertionError("expected one ACGT consensus")
     ident = 1 - edit_distance(cons[0].seq, ref) / len(ref)
-    n = args.reads
-    log(f"[C] {n} reads x {args.ref_len} bp at 10% error: wall {wall:.2f} s, "
-        f"{n / wall:.3f} reads/s")
-    log(f"[C] mean R {st['rows'] / max(1, st['reads']):.0f}, W {initial_band_width(abpt, args.ref_len)}, "
-        f"launches {launches}, retries {retries}")
-    log(f"[C] per read: kernel {st['kernel_s'] / n * 1e3:.2f} ms, D2H "
-        f"{st['d2h_s'] / n * 1e3:.2f} ms, host "
-        f"{(wall - st['kernel_s'] - st['d2h_s']) / n * 1e3:.2f} ms")
-    log(f"[C] final graph {ab.graph.node_n} nodes; consensus length "
-        f"{len(cons[0].seq)}, identity to reference {ident:.5f}")
+    dev_s, host_s = s["device_s"], s["host_s"]
+    log(f"[C] {n} reads x {args.ref_len} bp at 10% error, fused route: wall "
+        f"{wall:.2f} s, {n / wall:.3f} reads/s (loop {s['wall_s']:.2f} s; the "
+        f"rest is reading, the graph download and the consensus)")
+    per = lambda x: f"{x / n * 1e3:.2f}"  # noqa: E731
+    log(f"[C] per read (ms): B1 {per(dev_s['fused_dp'])}, X1 "
+        f"{per(dev_s['backtrack'])}, K1 {per(dev_s['topo_sort'])}, host/torch "
+        f"rest {per(wall - dev_s['fused_dp'] - dev_s['backtrack'] - dev_s['topo_sort'])}")
+    log("[C] per read, each step on the stream (CUDA events) / on the host (ms): "
+        + ", ".join(f"{k} {per(dev_s[k])}/{per(host_s[k])}" for k in fl.STEPS)
+        + f"; host waits in syncs {per(host_s['sync'])}; stream time outside "
+        f"the steps {per(s['wall_s'] - sum(dev_s.values()))}")
+    log(f"[C] launches {launches}; read attempts {s['reads']}, host syncs "
+        f"{s['syncs']} ({s['syncs'] / max(1, s['reads']):.3f} per attempt); "
+        f"Kahn repairs {s['kahn']}, collisions {s['collisions']}")
+    log(f"[C] growths by error code {s['grow']}, promotions {s['promotions']}, "
+        f"final caps {s['caps']}")
+    log(f"[C] consensus length {len(cons[0].seq)}, identity to reference {ident:.5f}")
     if ident < 0.99:
         raise AssertionError(f"consensus identity {ident:.5f} < 0.99")
+    st_c, caps_c = fl.last_state, s["caps"]
 
-    # ---- D: kernel vs plain version at the main path's shape
-    q = abpt.char_to_code[np.frombuffer(held_out.encode(), dtype=np.uint8)].astype(np.uint8)
-    W = initial_band_width(abpt, len(q))
-    t, a = kernel_inputs(abpt, ab.graph, q, W)
-    ts = to_dev(a, dev)
+    # ---- C2: per-read route (B2) and fused route on the first M reads
+    m = args.c2_reads
+    recs = read_fastx(fa)[:m]
+    outs, ab_pr = [], None
+    for route in ("per-read", "fused"):
+        ab = Abpoa()
+        seqs, weights = _ingest_records(ab, abpt, recs)
+        banded_dp.launches = 0
+        t0 = time.perf_counter()
+        if route == "per-read":
+            poa(ab, abpt, seqs, weights, 0)
+            b2_launches, ab_pr = banded_dp.launches, ab
+        else:
+            from abpoa_tpu_torch.pipeline import _run_fused_device
+            _run_fused_device(ab, abpt, seqs, weights)
+        buf = io.StringIO()
+        output(ab, abpt, buf)
+        outs.append(buf.getvalue())
+        log(f"[C2] {route} route, {m} reads: {time.perf_counter() - t0:.2f} s")
+    if b2_launches < m - 1:
+        raise AssertionError(f"per-read route: {b2_launches} B2 launches for {m} reads")
+    if outs[0] != outs[1]:
+        raise AssertionError("per-read and fused routes give different consensus")
+    log(f"[C2] per-read (B2 launches {b2_launches}) == fused consensus, byte for byte")
+
+    # ---- D: kernels vs plain at the main path's shape
+    qd = encode(cpu, held_out)
+    W, plane16 = caps_c["W"], caps_c["plane16"]
+    ad, inf = fused_case(abpt, st_c, qd, W, plane16, False)
+    kw = dict(gap_mode=abpt.gap_mode, plane16=plane16, extend=False,
+              zdrop_on=False, local=False)
+    got = fused_dp(*ad, **kw)
+    torch.cuda.synchronize()
+    b1_plain_ms, want = time_host(lambda: fused_dp_torch(*ad, **kw))
+    max_err["fused_dp"] = max(max_err["fused_dp"], compare("fused_dp D", got, want))
+    b1_ms = time_cuda(lambda: fused_dp(*ad, **kw), 3)
+    b1_bound = dp_bound(rates, ad, got)
+    gn = int(ad[0][8])
+    log(f"[D] B1 at the final graph (gn={gn}, R={ad[1].shape[0]}, W={W}, "
+        f"{'int16' if plane16 else 'int32'}): kernel == plain; kernel "
+        f"{b1_ms:.3f} ms, plain {b1_plain_ms:.1f} ms, bound {b1_bound[0]:.4f} ms "
+        f"({b1_bound[1]})")
+    bta, max_ops = bt_inputs(abpt, ad, got, qd, inf, False)
+    bkw = dict(max_ops=max_ops, gap_mode=abpt.gap_mode, gap_on_right=False,
+               put_gap_at_end=False, local=False)
+    bt = backtrack(*bta, **bkw)
+    torch.cuda.synchronize()
+    x1_plain_ms, want = time_host(lambda: backtrack_torch(*bta, **bkw))
+    max_err["backtrack"] = max(max_err["backtrack"], compare("backtrack D", bt, want))
+    x1_ms = time_cuda(lambda: backtrack(*bta, **bkw), 5)
+    x1_bound = bt_bound(rates, bta[:5], bta[8], bt[0], bt[1].tolist())
+    log(f"[D] X1 on those planes (n_ops={int(bt[1][0])}): kernel == plain; "
+        f"kernel {x1_ms:.3f} ms, plain {x1_plain_ms:.1f} ms, bound "
+        f"{x1_bound[0]:.5f} ms ({x1_bound[1]})")
+    # what a collision read adds: the sequential fusion of that read's ops
+    # (the graph's node_n rows down, fused in Python, back up) and the edge
+    # sort after it; it must give the vectorised fusion's graph here
+    qlen_d = len(qd)
+    fwd_op, fwd_arg, n_fwd = fl.forward_ops(bt[0], bt[1], st_c.order, bta[12][1],
+                                            qlen_d, max_ops)
+    q_d, w_d = bta[10], torch.ones_like(bta[10])
+    coll_ms, g_seq = time_host(lambda: fl._finish_fusion(fuse_alignment(
+        st_c.g, fwd_op, fwd_arg, min(int(n_fwd), max_ops), q_d, qlen_d, w_d)))
+    vec = fl._fuse_vectorized(st_c.g, fwd_op, fwd_arg, n_fwd, q_d, qlen_d, w_d)
+    same = "the read collides, so no comparison"
+    if not bool(vec[4]):
+        g_vec = fl._finish_fusion(vec[0])
+        for k, t in g_vec.tensors().items():
+            if not torch.equal(t, g_seq.tensors()[k]):
+                raise AssertionError(f"sequential and vectorised fusion differ on {k}")
+        same = "== the vectorised fusion"
+    log(f"[D] sequential (collision) fusion of that read at the final graph "
+        f"({int(st_c.g.node_n)} rows down and up, {int(n_fwd)} ops): "
+        f"{coll_ms:.1f} ms on the host clock, {same}")
+    g = st_c.g
+    ka = (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt, g.out_cnt,
+          g.aligned, g.aligned_cnt, g.node_n.reshape(1))
+    got = topo_sort(*ka)
+    torch.cuda.synchronize()
+    k1_plain_ms, want = time_host(lambda: topo_sort_torch(*ka))
+    max_err["topo_sort"] = max(max_err["topo_sort"], compare("topo_sort D", got, want))
+    k1_ms = time_cuda(lambda: topo_sort(*ka), 3)
+    k1_bound = topo_bound(rates, g)
+    log(f"[D] K1 on the final graph ({int(g.node_n)} nodes, N={g.caps[0]}): "
+        f"kernel == plain; kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, "
+        f"bound {k1_bound[0]:.5f} ms ({k1_bound[1]})")
+    gp = ab_pr.graph
+    gp.topological_sort(abpt)
+    W2 = initial_band_width(abpt, len(qd))
+    t = build_row_tables(gp, 0, 1)
+    qt = query_tables(abpt, t, qd, W2)
+    a2 = [qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx, t.out_cnt,
+          t.remain, t.mpl0, t.mpr0, qt["qp_pad"], qt["row0"]]
+    ts = to_dev(a2, dev)
     got = banded_dp(*ts)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = banded_dp_torch(*ts)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    max_err = max(max_err, compare(got, want))
-    kernel_ms = time_cuda(lambda: banded_dp(*ts), 3)
-    bound_ms, bound_by = bound(t, a, got, W)
-    log(f"[D] R={t.R} gn={t.gn} W={W}: kernel == plain; kernel {kernel_ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    b2_plain_ms, want = time_host(lambda: banded_dp_torch(*ts))
+    max_err["banded_dp"] = max(max_err["banded_dp"], compare("banded_dp D", got, want))
+    b2_ms = time_cuda(lambda: banded_dp(*ts), 3)
+    beg_end = got[5]
+    b2_bound = rates.bound(nbytes(ts) + nbytes(got), float(
+        (np.clip((beg_end[t.R:] - beg_end[:t.R] + 1).cpu().numpy(), 0, W2)[1: t.gn - 1]
+         * (3 * t.pre_cnt[1: t.gn - 1].astype(np.int64) + 22)).sum()))
+    log(f"[D] B2 at the {m}-read per-read graph (R={t.R}, gn={t.gn}, W={W2}): "
+        f"kernel == plain; kernel {b2_ms:.3f} ms, plain {b2_plain_ms:.1f} ms, "
+        f"bound {b2_bound[0]:.4f} ms ({b2_bound[1]})")
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [{
-        "name": "banded_dp", "route": "cuda",
-        "source": "abpoa_tpu_torch/csrc/banded_dp.cu",
-        "replaces": "abpoa_tpu/align/pallas_kernel.py:215",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}), flush=True)
+    def entry(name, source, replaces, launched, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("banded_dp", "abpoa_tpu_torch/csrc/banded_dp.cu",
+              "abpoa_tpu/align/pallas_kernel.py:215", b2_launches, b2_ms,
+              b2_plain_ms, b2_bound),
+        entry("fused_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
+              "abpoa_tpu/align/pallas_fused.py:696", launches["fused_dp"],
+              b1_ms, b1_plain_ms, b1_bound),
+        entry("fused_dp[local]", "abpoa_tpu_torch/csrc/fused_dp.cu",
+              "abpoa_tpu/align/pallas_fused.py:615", b3_launches, b3_ms,
+              b3_plain_ms, b3_bound),
+        entry("backtrack", "abpoa_tpu_torch/csrc/backtrack.cu",
+              "abpoa_tpu/align/fused_loop.py:601", launches["backtrack"],
+              x1_ms, x1_plain_ms, x1_bound),
+        entry("topo_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
+              "abpoa_tpu/align/device_graph.py:210", launches["topo_sort"],
+              k1_ms, k1_plain_ms, k1_bound)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

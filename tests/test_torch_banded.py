@@ -141,7 +141,8 @@ def test_wrapper_rejects_bad_inputs(fault):
 
 def test_kernel_build_is_keyed_by_sources():
     srcs = build.sources()
-    assert [os.path.basename(s) for s in srcs] == ["banded_dp.cu"]
+    assert [os.path.basename(s) for s in srcs] == [
+        "backtrack.cu", "banded_dp.cu", "fused_dp.cu", "topo_sort.cu"]
     path = build.library_path()
     assert path == build.library_path()
     assert os.path.dirname(path).endswith(os.path.join("build", "abpoa_tpu_torch"))

@@ -31,8 +31,13 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "abpoa_tpu" or m.startswith("abpoa_tpu."))
-print(len(names), ",".join(bad))
+print(",".join(names), ",".join(bad))
 """
+
+# the modules of the fused route, which must be among those imported
+FUSED_ROUTE = {"abpoa_tpu_torch.align." + m for m in (
+    "buckets", "eligibility", "device_graph", "fused_dp_kernel",
+    "backtrack_kernel", "topo_kernel", "fused_loop")}
 
 
 def test_port_imports_neither_jax_nor_abpoa_tpu():
@@ -40,8 +45,9 @@ def test_port_imports_neither_jax_nor_abpoa_tpu():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    n, _, bad = proc.stdout.strip().partition(" ")
-    assert int(n) >= 20
+    names, _, bad = proc.stdout.strip().partition(" ")
+    names = set(names.split(","))
+    assert len(names) >= 27 and FUSED_ROUTE <= names
     assert bad == ""
 
 
@@ -89,10 +95,6 @@ def test_unknown_device_rejected(name):
 
 
 @pytest.mark.parametrize("fields,item", [
-    ({"gap_open1": 0}, "13"),                    # linear gaps
-    ({"gap_open2": 0}, "13"),                    # affine gaps
-    ({"align_mode": 1}, "8"),                    # local
-    ({"align_mode": 2}, "13"),                   # extend
     ({"wb": -1}, "8"),                           # unbanded
     ({"inc_path_score": True}, "8"),             # -G
     ({"disable_seeding": False}, "8"),           # -S
@@ -112,7 +114,21 @@ def test_configs_outside_the_slice_raise(fields, item):
         abpt.finalize()
 
 
-@pytest.mark.parametrize("flags", [["-l"], ["-r", "1"], ["-S"], ["-m", "1"]])
+@pytest.mark.parametrize("fields,gap_mode,wb", [
+    ({"gap_open1": 0}, 0, 10),                   # linear gaps
+    ({"gap_open2": 0}, 1, 10),                   # affine gaps
+    ({"align_mode": 1}, 2, -1),                  # local: unbanded
+    ({"align_mode": 2, "zdrop": 50}, 2, 10),     # extend with Z-drop
+])
+def test_configs_of_the_fused_route_finalize(fields, gap_mode, wb):
+    abpt = Params(device="cpu")
+    for k, v in fields.items():
+        setattr(abpt, k, v)
+    abpt.finalize()
+    assert (abpt.gap_mode, abpt.wb) == (gap_mode, wb)
+
+
+@pytest.mark.parametrize("flags", [["-l"], ["-r", "1"], ["-S"], ["-G"]])
 def test_cli_rejects_flags_outside_the_slice(flags, capsys):
     assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
                      *flags]) == 1
