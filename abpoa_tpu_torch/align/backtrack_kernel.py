@@ -6,8 +6,9 @@ zero cell) through the banded planes B1 wrote, with abPOA's op priority
 (src/abpoa_align_simd.c:309-458): match, then deletion (E1/E2), then
 insertion (F1/F2), then a second match, with the put_gap_on_right and
 put_gap_at_end switches; among predecessor slots the first hit wins. Each
-step depends on the last, so on the card it is one thread of
-`csrc/backtrack.cu`.
+step depends on the last, so on the card one warp of `csrc/backtrack.cu`
+walks: lane k takes predecessor slot k (32 slots at a time) and a ballot
+finds the first hit.
 
 `backtrack(...)` checks its inputs and, for CUDA tensors, launches the kernel
 (or raises); for CPU tensors it runs `backtrack_torch`, the same walk over

@@ -3,17 +3,24 @@
 Counterpart of the Pallas kernels `abpoa_tpu/align/pallas_fused.py`
 `pallas_fused_dp` (body `_make_kernel`, row math `_row_dp_math`) and
 `pallas_fused_dp_local_hbm` (`_make_local_hbm_kernel`). Both become one CUDA
-kernel, `csrc/fused_dp.cu`: it keeps no ring of recent rows, so local mode
-at any width (B3's case) is the kernel's local instantiation.
+kernel, `csrc/fused_dp.cu`: its ring of recent rows lives in shared memory
+with a fallback to the planes in device memory, so no predecessor distance
+overflows it, and local mode at any width (B3's case) is the kernel's local
+instantiation.
 
 The adaptive-banded DP of one read against a topologically ordered graph,
 for linear, affine or convex gaps, in global, extend (with Z-drop) or local
 mode, with int16 or int32 planes (all arithmetic in int32; the fused loop's
-promotion bound keeps every value inside int16 while it picks int16).
+promotion bound keeps every value inside int16 while it picks int16). A
+row's band is pulled from its predecessors (min/max of the left+1/right+1
+each stored), which equals Pallas's push to the successors because the
+fused loop's pre and out tables are transposes over rows 1..gn-2; out_idx
+and out_cnt are taken, as by Pallas, but neither version reads them.
 
 `fused_dp(...)` checks its inputs and, for CUDA tensors, launches the kernel
 (or raises); for CPU tensors it runs `fused_dp_torch`, the same row loop in
 torch ops, which is also the kernel's yardstick on the card.
+`launch_shape` picks the kernel's block and shared-memory layout.
 
 Inputs (int32, contiguous, one device):
   scalars (16,) [qlen, w, remain_end, inf, e1, oe1, e2, oe2, gn, dp_end0,
@@ -26,8 +33,11 @@ Outputs: H, E1, E2, F1, F2 (R, W) banded planes in the plane dtype (lane k
 of row i is column beg[i] + k), beg, end (R,), ok (1,) = 0 when a row's band
 was wider than W (rows after it are not computed), ext (4,) = [best score,
 row, column, zdropped] of extend/local mode ([inf, 0, 0, 0] in global).
-Unlike the Pallas kernels, row 0 and beg/end[0] are written from `row0` and
-dp_end0, so no caller patches them.
+Only plane rows 0..last computed are defined: gn - 2, or on ok = 0 the row
+whose band overflowed (`computed_rows`). The kernel leaves the later rows
+as allocated; the plain version fills them with -inf. beg/end are 0 past
+the last computed row in both. Unlike the Pallas kernels, row 0 and
+beg/end[0] are written from `row0` and dp_end0, so no caller patches them.
 """
 from __future__ import annotations
 
@@ -41,6 +51,84 @@ from ..kernels import build
 _NAMES = ("scalars", "base_packed", "pre_idx", "pre_cnt", "out_idx",
           "out_cnt", "remain", "row0", "qp_pad")
 _MODES = {"global": 0, "extend": 1, "local": 2}
+
+# the kernel's shared-memory layout (csrc/fused_dp.cu): a ring of
+# _SCALAR_RING rows of beg/end/left/right (16 B each), _STAGES table rows of
+# P + 4 ints, two rows of P predecessor records (16 B), 8 ints per warp, and
+# the ring of D rows of the planes the gap regime reads (int32)
+SMEM_LIMIT = 232448   # bytes of shared memory a block may use on Hopper
+MAX_W = 16 * 1024     # 1024 threads x 16 columns
+_SCALAR_RING = 256
+_STAGES = 4
+_MAX_DEPTH = 64       # ring rows; headline predecessors: p99 16, max 37 back
+# column warps (the control warp comes on top) at the widths chip_smoke.py
+# sweeps: W = 128 and the B3 width 2048 (phase A2), 512 (phase D, the
+# headline). Another width takes the entry of the next swept width at or
+# above it; past the widest, that entry, raised where 16 columns a thread
+# would not cover W. The columns a thread takes follow (at most 16)
+_WARPS = {128: 4, 512: 8, 2048: 32}
+
+
+def ring_planes(gap_mode: int) -> int:
+    """Planes the ring keeps: H (linear), + E1 (affine), + E2 (convex)."""
+    return {C.LINEAR_GAP: 1, C.AFFINE_GAP: 2}.get(gap_mode, 3)
+
+
+def smem_bytes(W: int, P: int, block_warps: int, depth: int,
+               gap_mode: int) -> int:
+    return (_SCALAR_RING * 16 + _STAGES * (P + 4) * 4 + 2 * P * 16
+            + block_warps * 32 + ring_planes(gap_mode) * depth * W * 4)
+
+
+def table_warps(W: int) -> int:
+    """Column warps for band width W from _WARPS and its rule."""
+    widest = max(_WARPS)
+    if W <= widest:
+        return _WARPS[min(k for k in _WARPS if k >= W)]
+    return max(_WARPS[widest], min(32, -(-W // (32 * 16)) - 1))
+
+
+def launch_shape(W: int, P: int, gap_mode: int, warps=None) -> dict:
+    """The kernel's launch: `warps` warps that take the columns (from the
+    table unless given; chip_smoke.py's sweep gives them) plus the control
+    warp (the block's last; at 32 warps it takes columns too), columns per
+    thread (cpt, a power of two up to 16), ring depth D (0 or a power of
+    two, the deepest up to _MAX_DEPTH that fits) and the dynamic
+    shared-memory bytes. Raises when W or P does not fit."""
+    if W < 1 or W > MAX_W:
+        raise ValueError(f"fused_dp: band width {W} outside the kernel's "
+                         f"1..{MAX_W} columns")
+    if warps is None:
+        warps = table_warps(W)
+    if not 1 <= warps <= 32:
+        raise ValueError(f"fused_dp: {warps} warps")
+    block_warps = min(32, warps + 1)
+    cpt = 1
+    while cpt * block_warps * 32 < W:
+        cpt *= 2
+    if cpt > 16:
+        raise ValueError(f"fused_dp: {warps} warps cannot cover W = {W}")
+    depth = _MAX_DEPTH
+    while depth >= 2 and smem_bytes(W, P, block_warps, depth,
+                                    gap_mode) > SMEM_LIMIT:
+        depth //= 2
+    if depth < 2:  # a ring of one row serves no predecessor
+        depth = 0
+    smem = smem_bytes(W, P, block_warps, depth, gap_mode)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_dp: {smem} bytes of shared memory for W = {W},"
+                         f" P = {P} pass the block's {SMEM_LIMIT}")
+    return dict(warps=warps, block_warps=block_warps, cpt=cpt, depth=depth,
+                smem=smem)
+
+
+def computed_rows(beg, end, ok, gn: int, W: int) -> int:
+    """How many plane rows (from row 0) the DP defined: gn - 1, or on a band
+    overflow up to and including the row whose band passed W."""
+    if int(ok[0]):
+        return gn - 1
+    wide = ((end[1:gn - 1] - beg[1:gn - 1] + 1) > W).nonzero()
+    return int(wide[0, 0]) + 2 if wide.numel() else 1
 
 
 def row0_planes(W: int, dp_end0: torch.Tensor, abpt, inf: int,
@@ -114,9 +202,10 @@ def _check_inputs(args) -> tuple:
 def fused_dp(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
              remain, row0, qp_pad, *, gap_mode: int, plane16: bool,
              extend: bool = False, zdrop_on: bool = False,
-             local: bool = False):
+             local: bool = False, warps=None):
     """Banded forward DP; see the module docstring. Returns
-    (H, E1, E2, F1, F2, beg, end, ok, ext)."""
+    (H, E1, E2, F1, F2, beg, end, ok, ext). `warps` overrides the launch
+    table's column warps (chip_smoke.py's sweep)."""
     args = (scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt, remain,
             row0, qp_pad)
     R, W, P, O = _check_inputs(args)
@@ -129,25 +218,26 @@ def fused_dp(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
         return fused_dp_torch(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_dp: unsupported device {dev}")
-    if W > 16 * 1024:
-        raise ValueError(f"fused_dp: band width {W} exceeds the kernel's "
-                         "16384 columns")
+    ls = launch_shape(W, P, gap_mode, warps)
     lib = build.load()
     dt = torch.int16 if plane16 else torch.int32
     mode = _MODES["local" if local else "extend" if extend else "global"]
+    kernel_in = (scalars, base_packed, pre_idx, pre_cnt, remain, row0, qp_pad)
     with torch.cuda.device(dev):
         planes = torch.empty((5, R, W), dtype=dt, device=dev)
         begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
         ok = torch.empty(1, dtype=torch.int32, device=dev)
         ext = torch.empty(4, dtype=torch.int32, device=dev)
-        mplr = torch.empty(2 * R, dtype=torch.int32, device=dev)  # scratch
-        outs = (*planes.unbind(0), begend, ok, ext, mplr)
+        lr = torch.empty(2 * R, dtype=torch.int32, device=dev)  # scratch
+        outs = (*planes.unbind(0), begend, ok, ext, lr)
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_fused_dp(
-            *(ptr(t) for t in args), *(ptr(t) for t in outs),
-            R, W, P, O, qp_pad.shape[1], int(gap_mode), mode,
-            int(bool(zdrop_on)), int(bool(plane16)), ctypes.c_void_p(stream))
+            *(ptr(t) for t in kernel_in), *(ptr(t) for t in outs),
+            R, W, P, qp_pad.shape[1], int(gap_mode), mode,
+            int(bool(zdrop_on)), int(bool(plane16)), ls["block_warps"],
+            ls["depth"], ls["smem"],
+            ctypes.c_void_p(stream))
     build.check(err, "fused_dp launch")
     if local:
         fused_dp.local_launches += 1
@@ -174,7 +264,9 @@ def fused_dp_torch(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
                    local: bool = False):
     """The plain PyTorch version of `fused_dp`: the row loop of
     pallas_fused.py `_make_kernel`, step by step, in int64 on the inputs'
-    device, stored in the plane dtype."""
+    device, stored in the plane dtype, with the band pulled from the
+    predecessors as the kernel pulls it. Rows past the last computed one
+    are -inf."""
     dev = scalars.device
     R = base_packed.shape[0]
     W = row0.shape[1]
@@ -186,9 +278,10 @@ def fused_dp_torch(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
     convex = gap_mode == C.CONVEX_GAP
     bp = base_packed.tolist()
     pre_l, pre_cnt_l = pre_idx.tolist(), pre_cnt.tolist()
-    out_l, out_cnt_l = out_idx.tolist(), out_cnt.tolist()
     remain_l = remain.tolist()
-    mpl, mpr = [gn] * R, [0] * R
+    # what each computed row leaves for its successors to pull: left+1 and
+    # right+1 of its row max, or (gn, 0) where Z-drop stops it (and row 0)
+    pull_l, pull_r = [gn] * R, [0] * R
     beg_l, end_l = [0] * R, [0] * R
     end_l[0] = end0
     ok = 0 if end0 + 1 > W else 1
@@ -212,11 +305,14 @@ def fused_dp_torch(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
         if local:
             beg, end = 0, qlen
         else:
+            back = [p for p in preds if p < row]
+            mpl = min((pull_l[p] for p in back), default=gn)
+            mpr = max((pull_r[p] for p in back), default=0)
             if bp[row] & 0x100:  # a successor of the source row
-                mpl[row], mpr[row] = min(mpl[row], 1), max(mpr[row], 1)
+                mpl, mpr = min(mpl, 1), max(mpr, 1)
             r = qlen - (remain_l[row] - remain_end - 1)
-            beg = max(0, min(mpl[row], r) - w)
-            end = min(qlen, max(mpr[row], r) + w)
+            beg = max(0, min(mpl, r) - w)
+            end = min(qlen, max(mpr, r) + w)
             beg = max(beg, min((beg_l[p] for p in preds), default=1 << 30))
         if end - beg + 1 > W:
             ok = 0  # this row is still computed; the later ones are not
@@ -306,9 +402,7 @@ def fused_dp_torch(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
             if better:
                 bs, bi, bj, brem = mx, row, right, remain_l[row]
         if not local and not (extend and zdrop_on and zdropped):
-            for t in out_l[row][:out_cnt_l[row]]:
-                mpr[t] = max(mpr[t], right + 1)
-                mpl[t] = min(mpl[t], left + 1)
+            pull_l[row], pull_r[row] = left + 1, right + 1
 
     i32 = dict(dtype=torch.int32, device=dev)
     dt = torch.int16 if plane16 else torch.int32

@@ -9,38 +9,57 @@
 // the block); int16 or int32 planes (runtime `plane16`), with every value
 // computed in int32 and stored in the plane type. The plain PyTorch version
 // is `fused_dp_torch` in align/fused_dp_kernel.py and must agree with this
-// kernel bit for bit on all nine outputs.
+// kernel bit for bit on all nine outputs, over the rows it computes.
 //
-// What bounds it: as for banded_dp.cu, the rows form a serial chain (each
-// row reads its predecessors' rows and its band start depends on earlier
-// rows' argmax), so a read's R rows run one after another, each costing a
-// handful of block-wide barriers and the latency of reading predecessor
-// rows back from L2. Its bytes and integer operations are far below what
-// the card could stream or compute in that time: it is latency bound.
+// What bounds it: the rows form a serial chain (each row reads its
+// predecessors' rows, and its band comes from their argmax), so a read's
+// rows run one after another. The bytes and integer operations of a row are
+// far below what the card streams or computes in its time: it is bound by
+// the latency of each row's dependent steps (loads, barriers, reductions).
 //
 // What the design does about it: one block owns the alignment and loops
-// over rows, ordered by __syncthreads(); columns go across threads, CPT
-// contiguous columns per thread (W up to 16384 for local mode at 10 kb).
-// Predecessor rows are read from the output planes, so there is no ring:
-// B1's ring overflow (a predecessor or successor 512 or more rows away) does
-// not exist here, `ok` reports only a band wider than W, and local mode at
-// any width is this kernel with mode = local (B3's case). Per-row band
-// scalars live in device memory (beg/end in the outputs, mpl/mpr in a
-// scratch array) and thread 0 alone updates them, as it does the extend and
-// local best-cell state. The gap chains are a block-wide max-plus prefix
-// scan in 64 bit. Row 0 is written from the row0 input and rows past the
-// last computed one are filled with -inf, so the outputs need no patching.
+// over rows. Its column warps take CPT contiguous columns a thread (the warp
+// count per band width is chosen in the wrapper from measurement); the
+// block's last warp is the control warp, which keeps the band and best-cell
+// state (at 32 warps it takes columns too). Per row:
+//  (a) only rows 0..last computed are written; rows past it stay as
+//      allocated (the wrapper documents them as undefined), beg/end are
+//      zeroed for every row;
+//  (b) a ring of the last D rows of H/E1/E2 (as many planes as the gap
+//      regime reads) sits in dynamic shared memory beside a ring of the last
+//      kScalarRing rows' beg/end/left/right; a predecessor further back is
+//      read from the global planes, which every row still writes (X1 reads
+//      them), so there is no overflow condition: `ok` = 0 means only a band
+//      wider than W;
+//  (c) the band is pulled, not pushed: each row stores left+1/right+1 of its
+//      row max (or a neutral pair when Z-drop gates it), and the next row
+//      takes min/max over its predecessors, lanes over the predecessor
+//      slots; exact because the fused loop's pre/out tables are transposes
+//      over rows 1..gn-2. The same pass gives min_pre_beg and each
+//      predecessor's ring slot;
+//  (d) the table rows (pre_idx, base, remain, pre_cnt) are copied into
+//      shared memory kStages - 1 rows ahead with cp.async, and the control
+//      warp gathers row r + 1's predecessors while the column warps compute
+//      row r, so between two rows only row r's max, its best-cell update
+//      and row r + 1's band remain in the chain;
+//  (e) three block barriers a row: after the gap chains' warp totals (both
+//      convex chains at once; each thread's chain input is shifted one
+//      column so it needs no neighbour's H-hat; int32 scan), after the row
+//      max (value and leftmost/rightmost argmax from hardware warp
+//      reductions, __reduce_max/min_sync), and after the next row's band.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr long long kScanId = -(1LL << 62);  // identity of the max scan
-constexpr int kIntMin = -2147483647 - 1;
+constexpr int kIntMin = -2147483647 - 1;  // identity of the max scan
 constexpr int kLinear = 0, kAffine = 1, kConvex = 2;
 constexpr int kExtend = 1, kLocal = 2;  // mode 0 is global
+// Shared-memory layout constants; align/fused_dp_kernel.py `launch_shape`
+// computes the same layout.
+constexpr int kScalarRing = 256;  // rows of beg/end/left/right kept
+constexpr int kStages = 4;        // table rows in flight (cp.async)
 
 __device__ __forceinline__ int ld(const void* p, size_t i, bool p16) {
   return p16 ? (int)((const short*)p)[i] : ((const int*)p)[i];
@@ -53,23 +72,59 @@ __device__ __forceinline__ void st(void* p, size_t i, int v, bool p16) {
     ((int*)p)[i] = v;
 }
 
-// Block-wide inclusive max scan of per-thread runs: returns the exclusive
-// carry for this thread (the max over all earlier threads' runs).
-__device__ __forceinline__ long long scan_carry(long long run,
-                                                long long* s_warp, int lane_id,
-                                                int warp) {
-  long long inc = run;
+// the value a plane gives back after a store (int16 planes truncate)
+__device__ __forceinline__ int as_plane(int v, bool p16) {
+  return p16 ? (int)(short)v : v;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// inclusive max scan over a warp; returns the exclusive value
+__device__ __forceinline__ int warp_scan_excl(int run, int lane_id,
+                                             int* total) {
+  int inc = run;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const long long v = __shfl_up_sync(kFull, inc, off);
+    const int v = __shfl_up_sync(kFull, inc, off);
     if (lane_id >= off) inc = max(inc, v);
   }
-  long long ex = __shfl_up_sync(kFull, inc, 1);
-  if (lane_id == 0) ex = kScanId;
-  if (lane_id == 31) s_warp[warp] = inc;
-  __syncthreads();
-  for (int k = 0; k < warp; ++k) ex = max(ex, s_warp[k]);
+  int ex = __shfl_up_sync(kFull, inc, 1);
+  if (lane_id == 0) ex = kIntMin;
+  *total = inc;
   return ex;
+}
+
+// the max of v over the warp, and the lowest/highest col among the lanes
+// that hold it (hardware warp reductions)
+__device__ __forceinline__ void warp_argmax(int v, int lo, int hi, int* mx,
+                                            int* left, int* right) {
+  *mx = __reduce_max_sync(kFull, v);
+  *left = __reduce_min_sync(kFull, v == *mx ? lo : 0x7fffffff);
+  *right = __reduce_max_sync(kFull, v == *mx ? hi : -1);
+}
+
+// bytes of dynamic shared memory for a launch (see launch_shape)
+__host__ __device__ inline size_t smem_bytes(int W, int P, int nwarps, int D,
+                                             int nplanes) {
+  return (size_t)kScalarRing * 16 + (size_t)kStages * (P + 4) * 4 +
+         (size_t)2 * P * 16 + (size_t)nwarps * 32 +
+         (size_t)nplanes * D * W * 4;
+}
+
+template <int GAP>
+__host__ __device__ constexpr int ring_planes() {
+  return GAP == kLinear ? 1 : GAP == kAffine ? 2 : 3;
 }
 
 template <int CPT, int GAP>
@@ -77,241 +132,393 @@ __global__ void __launch_bounds__(kMaxThreads)
 fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
                 const int* __restrict__ pre_idx,
                 const int* __restrict__ pre_cnt,
-                const int* __restrict__ out_idx,
-                const int* __restrict__ out_cnt,
                 const int* __restrict__ remain, const int* __restrict__ row0,
                 const int* __restrict__ qp, void* H, void* E1, void* E2,
                 void* F1, void* F2, int* begend, int* ok_out, int* ext_out,
-                int* mplr, int R, int W, int P, int O, int QW, int mode,
+                int* lr, int R, int W, int P, int QW, int D, int mode,
                 int zdrop_on, int plane16) {
-  __shared__ int s_beg, s_end, s_ovf;
-  __shared__ int s_last_hhat[kMaxThreads];
-  __shared__ long long s_warp1[kMaxWarps], s_warp2[kMaxWarps];
-  __shared__ int s_wmax[kMaxWarps], s_wleft[kMaxWarps], s_wright[kMaxWarps];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_beg, s_end, s_ovf, s_npre, s_qb, s_allring;
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane_id = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
+  const int ctl = nwarps - 1;  // the control warp (columns too if any)
+  const int ncol_warps = min(nwarps, (W + 32 * CPT - 1) / (32 * CPT));
+  const bool has_cols = warp < ncol_warps;
   const bool p16 = plane16 != 0;
   const bool local = mode == kLocal, extend = mode == kExtend;
+
+  int4* s_sring = (int4*)smem;                         // kScalarRing
+  int* s_tab = (int*)(s_sring + kScalarRing);          // kStages x (P + 4)
+  int4* s_pred = (int4*)(s_tab + kStages * (P + 4));   // 2 x P
+  int* s_part = (int*)(s_pred + 2 * P);                // 8 x nwarps
+  int* s_ring = s_part + 8 * nwarps;                   // planes x D x W
 
   const int qlen = sc[0], w = sc[1], remain_end = sc[2], inf = sc[3];
   const int e1 = sc[4], oe1 = sc[5], e2 = sc[6], oe2 = sc[7];
   const int gn = sc[8], end0 = sc[9], zdrop = sc[10];
 
+  // table row q into its stage, by the control warp (one group per call,
+  // maybe empty)
+  auto issue = [&](int q) {
+    if (q < R && q < gn - 1) {
+      int* dst = s_tab + (q % kStages) * (P + 4);
+      for (int k = lane_id; k < P; k += 32)
+        cp_async4(dst + k, pre_idx + (size_t)q * P + k);
+      if (lane_id == 0) {
+        cp_async4(dst + P, base + q);
+        cp_async4(dst + P + 1, remain + q);
+        cp_async4(dst + P + 2, pre_cnt + q);
+      }
+    }
+    cp_async_commit();
+  };
+
   for (int k = tid; k < R; k += nthreads) {
-    mplr[k] = gn;
-    mplr[R + k] = 0;
     begend[k] = 0;
-    begend[R + k] = 0;
+    begend[R + k] = k == 0 ? end0 : 0;
   }
   for (int k = tid; k < W; k += nthreads) {
-    st(H, k, row0[k], p16);
-    st(E1, k, row0[W + k], p16);
-    st(E2, k, row0[2 * W + k], p16);
-    st(F1, k, row0[3 * W + k], p16);
-    st(F2, k, row0[4 * W + k], p16);
+    const int v[5] = {row0[k], row0[W + k], row0[2 * W + k], row0[3 * W + k],
+                      row0[4 * W + k]};
+    st(H, k, v[0], p16);
+    st(E1, k, v[1], p16);
+    st(E2, k, v[2], p16);
+    st(F1, k, v[3], p16);
+    st(F2, k, v[4], p16);
+    if (D > 0)
+      for (int q = 0; q < ring_planes<GAP>(); ++q)
+        s_ring[(size_t)q * D * W + k] = as_plane(v[q], p16);
+  }
+  __syncthreads();  // begend zeroed before the control warp writes row 1's
+
+  int ok = (end0 + 1 > W) ? 0 : 1;  // block-uniform
+  // The control warp's state, the same in every lane: the best cell (score,
+  // row, column, remain, zdropped), the band of the row in flight (cur_*),
+  // and what `prepare` gathered for the next row (nx_*).
+  int bs = inf, bi = 0, bj = 0, brem = 0, zdropped = 0;
+  int cur_beg = 0, cur_end = end0, cur_rem = 0;
+  int nx_npre = 0, nx_bp = 0, nx_rem = 0, nx_mnbeg = 0, nx_mnl = 0,
+      nx_mxr = 0;
+  bool nx_has_cur = false, nx_allring = false;
+
+  // Gather the band inputs of row q from its predecessors, all closed
+  // except possibly row q - 1 (whose pulled pair `finish` adds), into
+  // s_pred's buffer q & 1.
+  auto prepare = [&](int q) {
+    cp_async_wait<kStages - 2>();
+    __syncwarp();
+    const int* tab = s_tab + (q % kStages) * (P + 4);
+    const int npre = tab[P + 2];
+    nx_npre = npre;
+    nx_bp = tab[P];
+    nx_rem = tab[P + 1];
+    int4* pred = s_pred + (q & 1) * P;
+    int mn_l = gn, mx_r = 0, mn_beg = 1 << 30;
+    bool has_cur = false, far = false;
+    for (int k = lane_id; k < npre; k += 32) {
+      const int p = tab[k];
+      int4 v;
+      if (p == q - 1) {  // its pulled pair comes at `finish`
+        v = make_int4(cur_beg, cur_end, gn, 0);
+        has_cur = true;
+      } else if (p < q && q - p < kScalarRing) {
+        v = s_sring[p & (kScalarRing - 1)];
+      } else {
+        const bool back = p < q;
+        v = make_int4(begend[p], begend[R + p], back ? lr[p] : gn,
+                      back ? lr[R + p] : 0);
+      }
+      mn_beg = min(mn_beg, v.x);
+      mn_l = min(mn_l, v.z);
+      mx_r = max(mx_r, v.w);
+      const bool in_ring = p < q && q - p < D;
+      far = far || !in_ring;
+      pred[k] = make_int4(p, v.x, v.y, in_ring ? (p & (D - 1)) : -1);
+    }
+    nx_mnbeg = __reduce_min_sync(kFull, mn_beg);
+    nx_mnl = __reduce_min_sync(kFull, mn_l);
+    nx_mxr = __reduce_max_sync(kFull, mx_r);
+    nx_has_cur = __any_sync(kFull, has_cur);
+    nx_allring = !__any_sync(kFull, far);
+    issue(q + kStages - 1);
+  };
+
+  // Row q's band, from `prepare` and the pair row q - 1 left (pl, pr),
+  // published for the block.
+  auto finish = [&](int q, int pl, int pr) {
+    int mn_l = nx_mnl, mx_r = nx_mxr;
+    if (nx_has_cur) {
+      mn_l = min(mn_l, pl);
+      mx_r = max(mx_r, pr);
+    }
+    if (local) {
+      cur_beg = 0;
+      cur_end = qlen;
+    } else {
+      if (nx_bp & 0x100) {  // a successor of the source row
+        mn_l = min(mn_l, 1);
+        mx_r = max(mx_r, 1);
+      }
+      const int r = qlen - (nx_rem - remain_end - 1);
+      cur_beg = max(max(0, min(mn_l, r) - w), nx_mnbeg);
+      cur_end = min(qlen, max(mx_r, r) + w);
+    }
+    cur_rem = nx_rem;
+    if (lane_id == 0) {
+      begend[q] = cur_beg;
+      begend[R + q] = cur_end;
+      s_beg = cur_beg;
+      s_end = cur_end;
+      s_ovf = (cur_end - cur_beg + 1 > W) ? 1 : 0;
+      s_npre = nx_npre;
+      s_qb = nx_bp & 0xFF;
+      s_allring = nx_allring ? 1 : 0;
+    }
+  };
+
+  if (warp == ctl) {
+    if (lane_id == 0) {
+      lr[0] = gn;
+      lr[R] = 0;
+      s_sring[0] = make_int4(0, end0, gn, 0);
+    }
+    for (int q = 1; q < kStages; ++q) issue(q);
+    if (ok && 1 < gn - 1 && 1 < R) {
+      prepare(1);
+      finish(1, gn, 0);
+    }
   }
   __syncthreads();
-  if (tid == 0) begend[R] = end0;
-  int ok = (end0 + 1 > W) ? 0 : 1;  // block-uniform
-  // best-cell state (thread 0): score, row, column, remain, zdropped
-  int bs = inf, bi = 0, bj = 0, brem = 0, zdropped = 0;
 
-  int row = 1;
-  for (; row < R; ++row) {
+  for (int row = 1; row < R; ++row) {
     if (row >= gn - 1 || !ok) break;
-
-    // ---- band of this row (pallas_fused.py:235-286), thread 0 only
-    if (tid == 0) {
-      int beg, end;
-      if (local) {
-        beg = 0;
-        end = qlen;
-      } else {
-        if (base[row] & 0x100) {  // a successor of the source row
-          mplr[row] = min(mplr[row], 1);
-          mplr[R + row] = max(mplr[R + row], 1);
-        }
-        const int r = qlen - (remain[row] - remain_end - 1);
-        beg = max(0, min(mplr[row], r) - w);
-        end = min(qlen, max(mplr[R + row], r) + w);
-        const int npre = pre_cnt[row];
-        int min_pre_beg = 1 << 30;
-        for (int k = 0; k < npre; ++k)
-          min_pre_beg =
-              min(min_pre_beg, begend[pre_idx[(size_t)row * P + k]]);
-        beg = max(beg, min_pre_beg);
-      }
-      begend[row] = beg;
-      begend[R + row] = end;
-      s_beg = beg;
-      s_end = end;
-      s_ovf = (end - beg + 1 > W) ? 1 : 0;
-    }
-    __syncthreads();
-    const int beg = s_beg, end = s_end;
+    const int beg = s_beg, end = s_end, npre = s_npre;
     ok = ok && !s_ovf;  // the overflow row itself is still computed
+    const int4* pred = s_pred + (row & 1) * P;
+
+    // ---- the control warp gathers the next row's predecessors while the
+    // others compute this row
+    if (warp == ctl && ok && row + 1 < gn - 1 && row + 1 < R) prepare(row + 1);
 
     // ---- predecessor maxima: H one column left, and E1/E2 (linear: H)
     int mq[CPT], e1r[CPT], e2r[CPT], hhat[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) mq[c] = e1r[c] = e2r[c] = inf;
-    const int npre = pre_cnt[row];
-    for (int k = 0; k < npre; ++k) {
-      const int p = pre_idx[(size_t)row * P + k];
-      const int pbeg = begend[p], pend = begend[R + p];
-      const size_t pr = (size_t)p * W;
+    int own1[CPT], own2[CPT];
+    int run1 = kIntMin, run2 = kIntMin;
+    if (has_cols) {
+      const int* qrow = qp + (size_t)s_qb * QW + beg;
+      int qv[CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int lane = tid * CPT + c;
-        if (lane >= W) continue;
-        const int col = beg + lane;
-        if (col - 1 >= pbeg && col - 1 <= pend && col - 1 - pbeg < W)
-          mq[c] = max(mq[c], ld(H, pr + col - 1 - pbeg, p16));
-        if (col >= pbeg && col <= pend && col - pbeg < W) {
-          if (GAP == kLinear) {
-            e1r[c] = max(e1r[c], ld(H, pr + col - pbeg, p16));
-          } else {
-            e1r[c] = max(e1r[c], ld(E1, pr + col - pbeg, p16));
+        mq[c] = e1r[c] = e2r[c] = inf;
+        qv[c] = (lane < W && beg + lane <= end) ? qrow[lane] : 0;
+      }
+      if (s_allring) {
+        // every predecessor in the ring: four at a time, loads at clamped
+        // addresses and selects, so their loads overlap
+        for (int k0 = 0; k0 < npre; k0 += 4) {
+          int4 pr[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)  // an empty record matches no column
+            pr[u] = k0 + u < npre ? pred[k0 + u] : make_int4(0, 1, 0, 0);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int pbeg = pr[u].y, pend = pr[u].z;
+            const int* rh = s_ring + (size_t)pr[u].w * W;
+            const int* re1 = rh + (size_t)D * W;
+            const int* re2 = re1 + (size_t)D * W;
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              const int col = beg + tid * CPT + c;
+              const int x = col - 1 - pbeg, y = col - pbeg;
+              const int xc = min(max(x, 0), W - 1), yc = min(max(y, 0), W - 1);
+              const bool hx = col - 1 >= pbeg && col - 1 <= pend && x < W;
+              const bool hy = col >= pbeg && col <= pend && y < W;
+              mq[c] = max(mq[c], hx ? rh[xc] : inf);
+              if (GAP == kLinear) {
+                e1r[c] = max(e1r[c], hy ? rh[yc] : inf);
+              } else {
+                e1r[c] = max(e1r[c], hy ? re1[yc] : inf);
+                if (GAP == kConvex) e2r[c] = max(e2r[c], hy ? re2[yc] : inf);
+              }
+            }
+          }
+        }
+      } else {
+        for (int k = 0; k < npre; ++k) {
+          const int4 pr = pred[k];
+          const int p = pr.x, pbeg = pr.y, pend = pr.z, slot = pr.w;
+          const size_t grow = (size_t)p * W;
+          const int* rh = s_ring + (size_t)max(slot, 0) * W;
+          const int* re1 = rh + (size_t)D * W;
+          const int* re2 = re1 + (size_t)D * W;
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            const int lane = tid * CPT + c;
+            if (lane >= W) continue;
+            const int col = beg + lane;
+            const int x = col - 1 - pbeg;
+            if (col - 1 >= pbeg && col - 1 <= pend && x < W)
+              mq[c] = max(mq[c], slot >= 0 ? rh[x] : ld(H, grow + x, p16));
+            const int y = col - pbeg;
+            if (col >= pbeg && col <= pend && y < W) {
+              if (GAP == kLinear) {
+                e1r[c] =
+                    max(e1r[c], slot >= 0 ? rh[y] : ld(H, grow + y, p16));
+              } else {
+                e1r[c] =
+                    max(e1r[c], slot >= 0 ? re1[y] : ld(E1, grow + y, p16));
+                if (GAP == kConvex)
+                  e2r[c] = max(e2r[c],
+                               slot >= 0 ? re2[y] : ld(E2, grow + y, p16));
+              }
+            }
+          }
+        }
+      }
+
+      // ---- query profile band, local lead cell, H-hat
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int lane = tid * CPT + c;
+        const bool in_band = lane < W && beg + lane <= end;
+        if (local && beg + lane == 0) mq[c] = max(mq[c], 0);
+        mq[c] = in_band ? mq[c] + qv[c] : inf;
+        if (GAP == kLinear) {
+          e1r[c] = in_band ? e1r[c] - e1 : inf;  // E row from the preds' H
+          hhat[c] = max(mq[c], e1r[c]);
+        } else {
+          if (!in_band) e1r[c] = e2r[c] = inf;
+          hhat[c] = GAP == kConvex ? max(max(mq[c], e1r[c]), e2r[c])
+                                   : max(mq[c], e1r[c]);
+        }
+      }
+
+      // ---- gap chains F[j] = max(inf, max_{k<=j} A[k] - (j-k)*ext) as a
+      // prefix max of A[k] + k*ext. Linear: A = H-hat. Otherwise A[0] =
+      // mq[0] - oe and A[k] = H-hat[k-1] - oe, so the thread that holds
+      // H-hat[k-1] contributes A[k]: own[c] covers k <= this thread's
+      // column c. int32 holds every term: A >= inf - oe stays above
+      // INT32_MIN by inf's 512 * ext margin (oracle.dp_inf_min), and
+      // k * ext only adds
+      if (GAP != kLinear && tid == 0) {  // A[0], from column 0's own mq
+        const bool ib = beg <= end;
+        run1 = ib ? mq[0] - oe1 : inf;
+        if (GAP == kConvex) run2 = ib ? mq[0] - oe2 : inf;
+      }
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int lane = tid * CPT + c;
+        if (GAP == kLinear) {
+          if (lane < W) run1 = max(run1, hhat[c] + lane * e1);
+          own1[c] = run1;
+        } else {
+          own1[c] = run1;
+          own2[c] = run2;
+          const int k = lane + 1;
+          if (k < W) {
+            const bool ib = beg + k <= end;
+            run1 = max(run1, (ib ? hhat[c] - oe1 : inf) + k * e1);
             if (GAP == kConvex)
-              e2r[c] = max(e2r[c], ld(E2, pr + col - pbeg, p16));
+              run2 = max(run2, (ib ? hhat[c] - oe2 : inf) + k * e2);
           }
         }
       }
     }
-
-    // ---- query profile band, local lead cell, H-hat
-    const int* qrow = qp + (size_t)(base[row] & 0xFF) * QW + beg;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int lane = tid * CPT + c;
-      const bool in_band = lane < W && beg + lane <= end;
-      if (local && beg + lane == 0) mq[c] = max(mq[c], 0);
-      mq[c] = in_band ? mq[c] + qrow[lane] : inf;
-      if (GAP == kLinear) {
-        e1r[c] = in_band ? e1r[c] - e1 : inf;  // E row from the preds' H
-        hhat[c] = max(mq[c], e1r[c]);
-      } else {
-        if (!in_band) e1r[c] = e2r[c] = inf;
-        hhat[c] = GAP == kConvex ? max(max(mq[c], e1r[c]), e2r[c])
-                                 : max(mq[c], e1r[c]);
-      }
+    int tot1, tot2 = kIntMin;
+    int ex1 = warp_scan_excl(run1, lane_id, &tot1);
+    int ex2 = kIntMin;
+    if (GAP == kConvex) ex2 = warp_scan_excl(run2, lane_id, &tot2);
+    if (lane_id == 31) {
+      s_part[warp] = tot1;
+      s_part[nwarps + warp] = tot2;
     }
-    if (GAP != kLinear) s_last_hhat[tid] = hhat[CPT - 1];
-    __syncthreads();
+    __syncthreads();  // barrier 2: the chains' warp totals
 
-    // ---- gap chains F[j] = max(inf, max_{k<=j} A[k] - (j-k)*ext) as a
-    // prefix max of A[k] + k*ext in 64 bit (linear: A = H-hat itself)
-    const int hm1_first = tid > 0 ? s_last_hhat[tid - 1] : inf;
-    long long t1[CPT], t2[CPT];
-    long long run1 = kScanId, run2 = kScanId;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int lane = tid * CPT + c;
-      const bool in_band = lane < W && beg + lane <= end;
-      int a1, a2 = inf;
-      if (GAP == kLinear) {
-        a1 = hhat[c];
-      } else {
-        const int hm1 = c == 0 ? hm1_first : hhat[c - 1];
-        const int src = lane == 0 ? mq[c] : hm1;
-        a1 = in_band ? src - oe1 : inf;
-        if (GAP == kConvex) a2 = in_band ? src - oe2 : inf;
-      }
-      if (lane < W) {
-        run1 = max(run1, (long long)a1 + (long long)lane * e1);
+    // ---- H, E, F per regime (pallas_fused.py:59-123), store, row max
+    if (has_cols) {
+      if (warp > 0) {  // the earlier warps' totals, one a lane
+        const bool before = lane_id < warp;
+        ex1 = max(ex1, __reduce_max_sync(kFull, before ? s_part[lane_id] : kIntMin));
         if (GAP == kConvex)
-          run2 = max(run2, (long long)a2 + (long long)lane * e2);
+          ex2 = max(ex2, __reduce_max_sync(
+                             kFull, before ? s_part[nwarps + lane_id] : kIntMin));
       }
-      t1[c] = run1;
-      t2[c] = run2;
-    }
-    const long long ex1 = scan_carry(run1, s_warp1, lane_id, warp);
-    long long ex2 = kScanId;
-    if (GAP == kConvex) ex2 = scan_carry(run2, s_warp2, lane_id, warp);
-
-    // ---- H, E, F per regime (pallas_fused.py:59-123), store, local max
-    int hrow[CPT];
-    int local_max = kIntMin;
+      int t_max = kIntMin, t_left = 0x7fffffff, t_right = -1;
+      const int slot = D > 0 ? (row & (D - 1)) : 0;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int lane = tid * CPT + c;
-      if (lane >= W) {
-        hrow[c] = kIntMin;
-        continue;
-      }
-      const bool in_band = beg + lane <= end;
-      const int f1 =
-          (int)max(max(ex1, t1[c]) - (long long)lane * e1, (long long)inf);
-      int h, en1 = inf, en2 = inf, g1 = inf, g2 = inf;
-      if (GAP == kLinear) {
-        h = f1;
-        if (local) h = max(h, 0);
-      } else if (GAP == kAffine) {
-        g1 = f1;
-        h = max(hhat[c], f1);
-        if (local) h = max(h, 0);
-        en1 = h == hhat[c] ? max(e1r[c] - e1, h - oe1) : (local ? 0 : inf);
-      } else {
-        g1 = f1;
-        g2 = (int)max(max(ex2, t2[c]) - (long long)lane * e2, (long long)inf);
-        h = max(hhat[c], max(g1, g2));
-        if (local) h = max(h, 0);
-        en1 = max(e1r[c] - e1, h - oe1);
-        en2 = max(e2r[c] - e2, h - oe2);
-        if (local) {
-          en1 = max(en1, 0);
-          en2 = max(en2, 0);
+      for (int c = 0; c < CPT; ++c) {
+        const int lane = tid * CPT + c;
+        if (lane >= W) continue;
+        const bool in_band = beg + lane <= end;
+        const int f1 = max(max(ex1, own1[c]) - lane * e1, inf);
+        int h, en1 = inf, en2 = inf, g1 = inf, g2 = inf;
+        if (GAP == kLinear) {
+          h = f1;
+          if (local) h = max(h, 0);
+        } else if (GAP == kAffine) {
+          g1 = f1;
+          h = max(hhat[c], f1);
+          if (local) h = max(h, 0);
+          en1 = h == hhat[c] ? max(e1r[c] - e1, h - oe1) : (local ? 0 : inf);
+        } else {
+          g1 = f1;
+          g2 = max(max(ex2, own2[c]) - lane * e2, inf);
+          h = max(hhat[c], max(g1, g2));
+          if (local) h = max(h, 0);
+          en1 = max(e1r[c] - e1, h - oe1);
+          en2 = max(e2r[c] - e2, h - oe2);
+          if (local) {
+            en1 = max(en1, 0);
+            en2 = max(en2, 0);
+          }
+        }
+        if (!in_band) h = en1 = en2 = g1 = g2 = inf;
+        const size_t at = (size_t)row * W + lane;
+        st(H, at, h, p16);
+        st(E1, at, en1, p16);
+        st(E2, at, en2, p16);
+        st(F1, at, g1, p16);
+        st(F2, at, g2, p16);
+        if (D > 0) {
+          int* rs = s_ring + (size_t)slot * W + lane;
+          rs[0] = as_plane(h, p16);
+          if (GAP != kLinear) rs[(size_t)D * W] = as_plane(en1, p16);
+          if (GAP == kConvex) rs[(size_t)2 * D * W] = as_plane(en2, p16);
+        }
+        if (in_band) {  // the row max and its lowest / highest column
+          const int col = beg + lane;
+          if (h > t_max) {
+            t_max = h;
+            t_left = col;
+          }
+          if (h >= t_max) t_right = col;
         }
       }
-      if (!in_band) h = en1 = en2 = g1 = g2 = inf;
-      const size_t at = (size_t)row * W + lane;
-      st(H, at, h, p16);
-      st(E1, at, en1, p16);
-      st(E2, at, en2, p16);
-      st(F1, at, g1, p16);
-      st(F2, at, g2, p16);
-      hrow[c] = h;
-      local_max = max(local_max, h);
-    }
-
-    // ---- band_extents: row max, then leftmost/rightmost column holding it
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      local_max = max(local_max, __shfl_xor_sync(kFull, local_max, off));
-    if (lane_id == 0) s_wmax[warp] = local_max;
-    __syncthreads();
-    int mx = kIntMin;
-    for (int k = 0; k < nwarps; ++k) mx = max(mx, s_wmax[k]);
-    int left = 1 << 30, right = -1;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int lane = tid * CPT + c;
-      if (lane < W && beg + lane <= end && hrow[c] == mx) {
-        left = min(left, beg + lane);
-        right = max(right, beg + lane);
+      int mx, left, right;
+      warp_argmax(t_max, t_left, t_right, &mx, &left, &right);
+      if (lane_id == 0) {
+        s_part[2 * nwarps + warp] = mx;
+        s_part[3 * nwarps + warp] = left;
+        s_part[4 * nwarps + warp] = right;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      left = min(left, __shfl_xor_sync(kFull, left, off));
-      right = max(right, __shfl_xor_sync(kFull, right, off));
-    }
-    if (lane_id == 0) {
-      s_wleft[warp] = left;
-      s_wright[warp] = right;
-    }
-    __syncthreads();
+    __syncthreads();  // barrier 3: the row max and its columns
 
-    // ---- best cell (local, extend + Z-drop), then the successor scatter
-    if (tid == 0) {
-      for (int k = 1; k < nwarps; ++k) {
-        left = min(left, s_wleft[k]);
-        right = max(right, s_wright[k]);
-      }
+    // ---- the control warp closes the row (best cell in local and extend
+    // + Z-drop, the pair the successors pull) and publishes the next band
+    if (warp == ctl) {
+      const bool mine = lane_id < ncol_warps;
+      int mx, left, right;
+      warp_argmax(mine ? s_part[2 * nwarps + lane_id] : kIntMin,
+                  mine ? s_part[3 * nwarps + lane_id] : 0x7fffffff,
+                  mine ? s_part[4 * nwarps + lane_id] : -1, &mx, &left,
+                  &right);
+      // no cell in the band: mx = INT32_MIN, which no best score passes
       const bool has_row = mx > inf;
       if (!has_row) left = right = -1;
       if (local && mx > bs) {
@@ -324,7 +531,7 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
         if (zdrop_on && !zdropped && !better) {
           int zd;
           if (has_row) {
-            const int delta = brem - remain[row];
+            const int delta = brem - cur_rem;
             zd = bs - mx > zdrop + e1 * abs(delta - (right - bj));
           } else {
             zd = bs > inf;
@@ -335,30 +542,24 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
           bs = mx;
           bi = row;
           bj = right;
-          brem = remain[row];
+          brem = cur_rem;
         }
       }
-      if (!local && !(extend && zdrop_on && zdropped)) {
-        const int nout = out_cnt[row];
-        for (int k = 0; k < nout; ++k) {
-          const int t = out_idx[(size_t)row * O + k];
-          mplr[R + t] = max(mplr[R + t], right + 1);
-          mplr[t] = min(mplr[t], left + 1);
-        }
+      const bool push = !local && !(extend && zdrop_on && zdropped);
+      const int pl = push ? left + 1 : gn, pr = push ? right + 1 : 0;
+      if (lane_id == 0) {
+        s_sring[row & (kScalarRing - 1)] = make_int4(cur_beg, cur_end, pl, pr);
+        lr[row] = pl;
+        lr[R + row] = pr;
       }
+      if (ok && row + 1 < gn - 1 && row + 1 < R) finish(row + 1, pl, pr);
+      __syncwarp();
     }
+    __syncthreads();  // barrier 1: the next row's band and predecessors
   }
 
-  // rows past the last computed one are padding
-  const size_t pad_from = (size_t)row * W, total = (size_t)R * W;
-  for (size_t k = pad_from + tid; k < total; k += nthreads) {
-    st(H, k, inf, p16);
-    st(E1, k, inf, p16);
-    st(E2, k, inf, p16);
-    st(F1, k, inf, p16);
-    st(F2, k, inf, p16);
-  }
-  if (tid == 0) {
+  if (warp == ctl) cp_async_wait<0>();
+  if (warp == ctl && lane_id == 0) {
     ok_out[0] = ok;
     const bool track = local || extend;
     ext_out[0] = track ? bs : inf;
@@ -368,33 +569,35 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   }
 }
 
-template <int CPT>
-cudaError_t launch_cpt(int gap, int threads, cudaStream_t s, const int* sc,
-                       const int* base, const int* pre_idx,
-                       const int* pre_cnt, const int* out_idx,
-                       const int* out_cnt, const int* remain, const int* row0,
-                       const int* qp, void* H, void* E1, void* E2, void* F1,
-                       void* F2, int* begend, int* ok, int* ext, int* mplr,
-                       int R, int W, int P, int O, int QW, int mode,
-                       int zdrop_on, int plane16) {
-#define ABPOA_FUSED_ARGS                                                     \
-  sc, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, row0, qp, H, E1, E2, \
-      F1, F2, begend, ok, ext, mplr, R, W, P, O, QW, mode, zdrop_on, plane16
-  switch (gap) {
-    case kLinear:
-      fused_dp_kernel<CPT, kLinear><<<1, threads, 0, s>>>(ABPOA_FUSED_ARGS);
-      break;
-    case kAffine:
-      fused_dp_kernel<CPT, kAffine><<<1, threads, 0, s>>>(ABPOA_FUSED_ARGS);
-      break;
-    case kConvex:
-      fused_dp_kernel<CPT, kConvex><<<1, threads, 0, s>>>(ABPOA_FUSED_ARGS);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef ABPOA_FUSED_ARGS
+struct Args {
+  const int *sc, *base, *pre_idx, *pre_cnt, *remain, *row0, *qp;
+  void *H, *E1, *E2, *F1, *F2;
+  int *begend, *ok, *ext, *lr;
+  int R, W, P, QW, D, mode, zdrop_on, plane16;
+};
+
+template <int CPT, int GAP>
+cudaError_t launch(const Args& a, int threads, size_t smem, cudaStream_t s) {
+  auto kern = fused_dp_kernel<CPT, GAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<1, threads, smem, s>>>(a.sc, a.base, a.pre_idx, a.pre_cnt, a.remain,
+                                a.row0, a.qp, a.H, a.E1, a.E2, a.F1, a.F2,
+                                a.begend, a.ok, a.ext, a.lr, a.R, a.W, a.P,
+                                a.QW, a.D, a.mode, a.zdrop_on, a.plane16);
   return cudaGetLastError();
+}
+
+template <int CPT>
+cudaError_t launch_gap(int gap, const Args& a, int threads, size_t smem,
+                       cudaStream_t s) {
+  switch (gap) {
+    case kLinear: return launch<CPT, kLinear>(a, threads, smem, s);
+    case kAffine: return launch<CPT, kAffine>(a, threads, smem, s);
+    case kConvex: return launch<CPT, kConvex>(a, threads, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -402,35 +605,42 @@ cudaError_t launch_cpt(int gap, int threads, cudaStream_t s, const int* sc,
 // Launches the kernel on `stream` and returns a cudaError_t as an int
 // (0 = launched). gap_mode 0/1/2 = linear/affine/convex; mode 0/1/2 =
 // global/extend/local. Planes are int16 when plane16 is 1, else int32.
+// `warps` sets the block, column warps and the control warp (CPT = W /
+// (32 warps), a power of two up to 16),
+// D the shared-memory ring's rows (0 or a power of two); `smem` must be the
+// layout's byte count, which the wrapper computes the same way.
 extern "C" int abpoa_fused_dp(const void* sc, const void* base,
                               const void* pre_idx, const void* pre_cnt,
-                              const void* out_idx, const void* out_cnt,
                               const void* remain, const void* row0,
                               const void* qp, void* H, void* E1, void* E2,
                               void* F1, void* F2, void* begend, void* ok,
-                              void* ext, void* mplr, int R, int W, int P,
-                              int O, int QW, int gap_mode, int mode,
-                              int zdrop_on, int plane16, void* stream) {
-  int cpt = 1;
-  while (cpt * kMaxThreads < W) cpt *= 2;
-  if (cpt > 16 || W < 1 || R < 1 || mode < 0 || mode > 2)
+                              void* ext, void* lr, int R, int W, int P,
+                              int QW, int gap_mode, int mode, int zdrop_on,
+                              int plane16, int warps, int D, int smem,
+                              void* stream) {
+  const int threads = warps * 32;
+  if (warps < 1 || threads > kMaxThreads || W < 1 || R < 1 || P < 1 ||
+      mode < 0 || mode > 2 || gap_mode < 0 || gap_mode > 2 || D < 0 ||
+      (D & (D - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  const int threads = ((W + cpt - 1) / cpt + 31) / 32 * 32;
+  int cpt = 1;
+  while (cpt * threads < W) cpt *= 2;
+  const int nplanes = gap_mode == kLinear ? 1 : gap_mode == kAffine ? 2 : 3;
+  if (cpt > 16 || (size_t)smem != smem_bytes(W, P, warps, D, nplanes))
+    return (int)cudaErrorInvalidValue;
+  Args a{(const int*)sc,      (const int*)base, (const int*)pre_idx,
+         (const int*)pre_cnt, (const int*)remain, (const int*)row0,
+         (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
+         (int*)ext,           (int*)lr, R, W, P, QW, D, mode, zdrop_on,
+         plane16};
   cudaStream_t s = (cudaStream_t)stream;
-#define ABPOA_ARGS                                                          \
-  gap_mode, threads, s, (const int*)sc, (const int*)base,                   \
-      (const int*)pre_idx, (const int*)pre_cnt, (const int*)out_idx,        \
-      (const int*)out_cnt, (const int*)remain, (const int*)row0,            \
-      (const int*)qp, H, E1, E2, F1, F2, (int*)begend, (int*)ok, (int*)ext, \
-      (int*)mplr, R, W, P, O, QW, mode, zdrop_on, plane16
   cudaError_t err;
   switch (cpt) {
-    case 1: err = launch_cpt<1>(ABPOA_ARGS); break;
-    case 2: err = launch_cpt<2>(ABPOA_ARGS); break;
-    case 4: err = launch_cpt<4>(ABPOA_ARGS); break;
-    case 8: err = launch_cpt<8>(ABPOA_ARGS); break;
-    default: err = launch_cpt<16>(ABPOA_ARGS); break;
+    case 1: err = launch_gap<1>(gap_mode, a, threads, smem, s); break;
+    case 2: err = launch_gap<2>(gap_mode, a, threads, smem, s); break;
+    case 4: err = launch_gap<4>(gap_mode, a, threads, smem, s); break;
+    case 8: err = launch_gap<8>(gap_mode, a, threads, smem, s); break;
+    default: err = launch_gap<16>(gap_mode, a, threads, smem, s); break;
   }
-#undef ABPOA_ARGS
   return (int)err;
 }

@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.abpoa_banded_dp.argtypes = [vp] * 19 + [ci] * 5 + [vp]
     lib.abpoa_banded_dp.restype = ci
-    lib.abpoa_fused_dp.argtypes = [vp] * 18 + [ci] * 9 + [vp]
+    lib.abpoa_fused_dp.argtypes = [vp] * 16 + [ci] * 11 + [vp]
     lib.abpoa_fused_dp.restype = ci
     lib.abpoa_backtrack.argtypes = [vp] * 15 + [ci] * 8 + [vp]
     lib.abpoa_backtrack.restype = ci

@@ -14,7 +14,13 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          int16/int32), B3 as B1's local instantiation at sim2k's local width
          (2048, where the JAX package picks pallas_fused_dp_local_hbm), X1
          (backtrack) on each variant's planes, and K1 (topo_sort) on a graph
-         that needed a Kahn repair: all outputs equal
+         that needed a Kahn repair: all outputs equal; then B1 and X1 on two
+         synthetic graphs (`synthetic_graph`): predecessors 70 rows back,
+         past B1's shared-memory ring, and 64 predecessor slots with the
+         backtrack's first hit in slot 40. B1/B3 are compared on the plane
+         rows they compute (0..gn-2, or to the overflow row). A sweep of
+         B1's column warps at W = 128 and of B3's at W = 2048, each shape
+         held equal to the plain version
   B      `python -m abpoa_tpu_torch` on cuda, now the fused route,
          reproduces tests/golden (default, -O 4, -O 0, -m 1, -m 2) byte for
          byte; then sim2k -m 1 on cuda (the B3 width) equals the port's CPU
@@ -26,9 +32,12 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   C2     the per-read route (pipeline.poa, kernel B2) and the fused route on
          the first M reads of that set give byte-identical consensus
   D      at the graph phase C left and one more read: B1, X1 and K1 against
-         their plain versions with times and bounds, and the time of the
-         sequential fusion a collision read takes (held equal to the
-         vectorised fusion); B2 the same at the graph of C2's per-read run
+         their plain versions with times and bounds (B1 also per computed
+         row, X1 per step), the share of predecessor reads B1's rings serve
+         (from the tables), a sweep of B1's column warps, each held equal
+         to the plain version, and the time of the sequential fusion a
+         collision read takes (held equal to the vectorised fusion); B2 the
+         same at the graph of C2's per-read run
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero with no result when there is no
 CUDA device or no checkout of the repository beside this script.
@@ -119,11 +128,28 @@ def compare(name: str, kernel_out, plain_out) -> int:
     return worst
 
 
+def compare_dp(name: str, got, want, args) -> tuple:
+    """compare() for B1/B3 outputs over the plane rows the kernel defines
+    (0..last computed; the kernel leaves later rows as allocated). Returns
+    (max abs difference, rows compared)."""
+    from abpoa_tpu_torch.align.fused_dp_kernel import computed_rows
+    rows = computed_rows(want[5].cpu(), want[6].cpu(), want[7].cpu(),
+                         int(args[0][8]), want[0].shape[1])
+    cut = lambda out: [t[:rows] if k < 5 else t for k, t in enumerate(out)]  # noqa: E731
+    return compare(name, cut(got), cut(want)), rows
+
+
 def time_cuda(fn, reps: int) -> float:
-    """Mean ms of fn() over reps runs, by CUDA events, after one warm-up."""
+    """Mean ms of fn() over reps runs, by CUDA events, after a warm-up of at
+    least two runs and 0.3 s (a card that sat idle through a plain version
+    comes back at a lower clock)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1000):
+        fn()
+        torch.cuda.synchronize()
+        if k >= 1 and time.perf_counter() - t0 >= 0.3:
+            break
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(reps):
@@ -245,6 +271,101 @@ def fused_case(abpt, st, query, W, plane16, local):
                         W, inf, local), inf
 
 
+def synthetic_graph(kind: str):
+    """A graph in topological order as (preds, bases) plus a query, for the
+    shapes no read set reaches at test size. Row 0 is the source, the last
+    row the sink, preds[r] the predecessor rows of r.
+    far:  a 120-row chain whose rows past 70 also follow the row 70 back,
+          so the DP reads predecessors past the kernel's ring (64 rows at
+          W = 128) but inside Pallas's 512-row ring;
+    wide: 40 decoy rows after the source, each a predecessor of every row
+          of a 60-row chain in slots 0-39, with the chain's own predecessor
+          in slot 40 (P = 64 once padded), so the backtrack's first hit sits
+          past slot 32.
+    Each kind has its own seed: the one under which extend mode's Z-drop
+    fires in all three gap regimes."""
+    import numpy as np
+    rng = np.random.default_rng({"far": 1, "wide": 3}[kind])
+    if kind == "far":
+        L, far = 120, 70
+        preds = [[]] + [[r - 1] + ([r - far] if r > far else [])
+                        for r in range(1, L + 1)] + [[L]]
+        chain = list(range(1, L + 1))
+    elif kind == "wide":
+        nd, L = 40, 60
+        decoys = list(range(1, nd + 1))
+        chain = list(range(nd + 1, nd + L + 1))
+        preds = [[]] + [[0] for _ in decoys]
+        preds += [decoys + [r - 1 if r > chain[0] else 0] for r in chain]
+        preds += [[chain[-1]]]
+    else:
+        raise ValueError(kind)
+    bases = rng.integers(0, 4, len(preds))
+    bases[0] = bases[-1] = 0
+    query = bases[chain].copy()
+    flip = rng.random(len(query)) < 0.08
+    query[flip] = (query[flip] + rng.integers(1, 4, int(flip.sum()))) % 4
+    query[-12:] = rng.integers(0, 4, 12)  # a noisy tail for Z-drop
+    return preds, bases, query.astype(np.uint8)
+
+
+def synthetic_inputs(abpt, preds, bases, query, W, plane16, local, P=None,
+                     R=None, O=None, dev="cpu"):
+    """B1's inputs for `query` against the graph (preds, bases), laid out
+    as the fused loop's `_build_tables` lays a state out: out lists the
+    transpose of the pre lists, pre_cnt on rows 1..n-1, out_cnt on rows
+    1..n-2, remain the longest path to the sink; R rows, P predecessor and
+    O successor slots (zero-padded; by default as many as the graph
+    needs). Returns (inputs, inf)."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.buckets import qp_rung
+    from abpoa_tpu_torch.align.fused_dp_kernel import row0_planes
+    from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
+    n = len(preds)
+    outs = [[] for _ in range(n)]
+    for r, ps in enumerate(preds):
+        for p in ps:
+            outs[p].append(r)
+    P = P or max(len(p) for p in preds)
+    O = O or max(len(o) for o in outs)
+    R = R or n
+    pre_idx = np.zeros((R, P), np.int32)
+    out_idx = np.zeros((R, O), np.int32)
+    for r in range(n):
+        pre_idx[r, :len(preds[r])] = preds[r]
+        out_idx[r, :len(outs[r])] = outs[r]
+    pre_cnt = np.zeros(R, np.int32)
+    out_cnt = np.zeros(R, np.int32)
+    pre_cnt[1:n] = [len(p) for p in preds[1:]]
+    out_cnt[1:n - 1] = [len(o) for o in outs[1:n - 1]]
+    remain = np.zeros(R, np.int32)
+    remain[n - 1] = -1
+    for r in range(n - 2, -1, -1):
+        remain[r] = max(remain[t] + 1 for t in outs[r])
+    base_packed = np.zeros(R, np.int32)
+    base_packed[:n] = np.asarray(bases, np.int32) | np.array(
+        [256 if r > 0 and 0 in preds[r] else 0 for r in range(n)], np.int32)
+    qlen = len(query)
+    w = fl._band_w(abpt, qlen)
+    inf = dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN)
+    if local:
+        end0 = qlen
+    else:
+        end0 = min(max(qlen - (int(remain[0]) - int(remain[n - 1]) - 1), 0) + w, qlen)
+    scalars = np.array([qlen, w, remain[n - 1], inf, abpt.gap_ext1, abpt.gap_oe1,
+                        abpt.gap_ext2, abpt.gap_oe2, n, end0,
+                        max(abpt.zdrop, 0), 0, 0, 0, 0, 0], np.int32)
+    qp = np.zeros((abpt.m, qp_rung(qlen) + W), np.int32)
+    qp[:, 1: qlen + 1] = abpt.mat[:, query]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    row0 = row0_planes(W, torch.tensor(end0, dtype=torch.int32), abpt, inf,
+                       local, "cpu").to(dev)
+    return (t(scalars), t(base_packed), t(pre_idx), t(pre_cnt), t(out_idx),
+            t(out_cnt), t(remain), row0, t(qp)), inf
+
+
 def bt_inputs(abpt, args, out, query, inf, tracked):
     """X1's inputs for B1's outputs `out`, as the fused loop builds them."""
     import numpy as np
@@ -292,6 +413,28 @@ def fused_state(abpt, seqs, n):
     return st, (captured[0] if captured else None)
 
 
+def sweep_warps(tag, args, kw, want):
+    """Times B1/B3 at every column-warp count that covers the band (at
+    most 16 columns a thread), each launch held equal to the plain
+    version's outputs `want` on the computed rows; logs µs a computed row."""
+    import torch
+    from abpoa_tpu_torch.align.fused_dp_kernel import (fused_dp,
+                                                       launch_shape,
+                                                       table_warps)
+    W, P = args[7].shape[1], args[2].shape[1]
+    for wp in (1, 2, 4, 8, 16, 32):
+        if min(32, wp + 1) * 32 * 16 < W:
+            continue
+        got = fused_dp(*args, **kw, warps=wp)
+        torch.cuda.synchronize()
+        _, rows = compare_dp(f"{tag} warps={wp}", got, want, args)
+        ms = time_cuda(lambda: fused_dp(*args, **kw, warps=wp), 3)
+        ls = launch_shape(W, P, kw["gap_mode"], wp)
+        log(f"[sweep] {tag} W={W} warps={wp}{' (table)' if wp == table_warps(W) else ''}"
+            f" (cpt {ls['cpt']}, ring D={ls['depth']}): {ms:.3f} ms, "
+            f"{ms * 1e3 / max(1, rows - 1):.3f} us a computed row, == plain")
+
+
 def run_cli(argv):
     from abpoa_tpu_torch import cli
     rc = cli.main(argv)
@@ -323,7 +466,9 @@ def main() -> int:
     from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
     from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
     from abpoa_tpu_torch.align.device_graph import fuse_alignment
-    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp, fused_dp_torch
+    from abpoa_tpu_torch.align.fused_dp_kernel import (fused_dp,
+                                                       fused_dp_torch,
+                                                       launch_shape)
     from abpoa_tpu_torch.align.tables import (build_row_tables,
                                               initial_band_width, query_tables)
     from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_torch
@@ -401,7 +546,7 @@ def main() -> int:
     modes = {"global": {}, "extend": {"align_mode": 2, "zdrop": 20},
              "local": {"align_mode": 1}}
     local_W = bucket_pow2(len(q4) + 2)
-    b3_case = None
+    b3_case = b1_case = None
     for gname, gkw in gaps.items():
         for mname, mkw in modes.items():
             for plane16 in (True, False):
@@ -415,8 +560,9 @@ def main() -> int:
                 got = fused_dp(*a2, **kw)
                 torch.cuda.synchronize()
                 name = "fused_dp[local]" if local else "fused_dp"
-                max_err[name] = max(max_err[name], compare(
-                    f"{name} {gname}-{mname}", got, fused_dp_torch(*a2, **kw)))
+                want = fused_dp_torch(*a2, **kw)
+                err, rows = compare_dp(f"{name} {gname}-{mname}", got, want, a2)
+                max_err[name] = max(max_err[name], err)
                 bta, max_ops = bt_inputs(p, a2, got, q4, inf, mname != "global")
                 bkw = dict(max_ops=max_ops, gap_mode=p.gap_mode,
                            gap_on_right=False, put_gap_at_end=False,
@@ -426,11 +572,46 @@ def main() -> int:
                 max_err["backtrack"] = max(max_err["backtrack"], compare(
                     f"backtrack {gname}-{mname}", bt, backtrack_torch(*bta, **bkw)))
                 log(f"[A2] {gname}-{mname}-{'int16' if plane16 else 'int32'} "
-                    f"W={W}: B1 kernel == plain (ok={int(got[7][0])}, "
+                    f"W={W}: B1 kernel == plain on rows 0..{rows - 1} (ok={int(got[7][0])}, "
                     f"ext={got[8].tolist()}); X1 kernel == plain "
                     f"(n_ops={int(bt[1][0])}, err={int(bt[1][5])})")
-                if local and gname == "convex" and not plane16:
-                    b3_case = (a2, kw, got)
+                if gname == "convex" and not plane16 and mname != "extend":
+                    case = (a2, kw, got, want)
+                    if local:
+                        b3_case = case
+                    else:
+                        b1_case = case
+    # shapes no read set reaches at this size: predecessors 70 rows back,
+    # past the kernel's shared-memory ring, and 64 predecessor slots with
+    # the backtrack's first hit in slot 40
+    for kind in ("far", "wide"):
+        preds, bases, qs = synthetic_graph(kind)
+        for gname, gkw in gaps.items():
+            for mname in ("global", "extend"):
+                p = Params(device="cuda", **gkw, **(
+                    {"align_mode": 2, "zdrop": 5} if mname == "extend" else {})).finalize()
+                a2, inf = synthetic_inputs(p, preds, bases, qs, 128, False, False,
+                                           P=64 if kind == "wide" else None, dev=dev)
+                kw = dict(gap_mode=p.gap_mode, plane16=False,
+                          extend=mname == "extend", zdrop_on=mname == "extend")
+                got = fused_dp(*a2, **kw)
+                torch.cuda.synchronize()
+                err, rows = compare_dp(f"fused_dp {kind} {gname}-{mname}", got,
+                                       fused_dp_torch(*a2, **kw), a2)
+                max_err["fused_dp"] = max(max_err["fused_dp"], err)
+                bta, max_ops = bt_inputs(p, a2, got, qs, inf, mname != "global")
+                bkw = dict(max_ops=max_ops, gap_mode=p.gap_mode,
+                           gap_on_right=False, put_gap_at_end=False, local=False)
+                bt = backtrack(*bta, **bkw)
+                torch.cuda.synchronize()
+                max_err["backtrack"] = max(max_err["backtrack"], compare(
+                    f"backtrack {kind} {gname}-{mname}", bt,
+                    backtrack_torch(*bta, **bkw)))
+                ls = launch_shape(128, a2[2].shape[1], p.gap_mode)
+                log(f"[A2] {kind} {gname}-{mname} (P={a2[2].shape[1]}, W=128, "
+                    f"ring D={ls['depth']}): B1 kernel == plain on rows 0..{rows - 1} "
+                    f"(ext={got[8].tolist()}); X1 kernel == plain "
+                    f"(n_ops={int(bt[1][0])}, err={int(bt[1][5])})")
     # the JAX package picks B3 where B1's three 512-row rings of W int32
     # columns, the plane blocks and the query profile pass 11 MB of VMEM
     # (pallas_fused.py:678-690)
@@ -444,6 +625,8 @@ def main() -> int:
         f"W={local_W}): kernel "
         f"{b3_ms:.3f} ms, plain {b3_plain_ms:.1f} ms, bound {b3_bound[0]:.4f} ms "
         f"({b3_bound[1]})")
+    sweep_warps("A2 B1 convex-global-int32", b1_case[0], b1_case[1], b1_case[3])
+    sweep_warps("A2 B3 convex-local-int32", b3_case[0], b3_case[1], b3_case[3])
     st_k, kahn_in = fused_state(abpt, sim2k_enc, 12)
     if kahn_in is None:
         raise AssertionError("sim2k made no Kahn repair")
@@ -566,14 +749,32 @@ def main() -> int:
     got = fused_dp(*ad, **kw)
     torch.cuda.synchronize()
     b1_plain_ms, want = time_host(lambda: fused_dp_torch(*ad, **kw))
-    max_err["fused_dp"] = max(max_err["fused_dp"], compare("fused_dp D", got, want))
+    err, rows_d = compare_dp("fused_dp D", got, want, ad)
+    max_err["fused_dp"] = max(max_err["fused_dp"], err)
     b1_ms = time_cuda(lambda: fused_dp(*ad, **kw), 3)
     b1_bound = dp_bound(rates, ad, got)
     gn = int(ad[0][8])
-    log(f"[D] B1 at the final graph (gn={gn}, R={ad[1].shape[0]}, W={W}, "
-        f"{'int16' if plane16 else 'int32'}): kernel == plain; kernel "
-        f"{b1_ms:.3f} ms, plain {b1_plain_ms:.1f} ms, bound {b1_bound[0]:.4f} ms "
+    P_d = ad[2].shape[1]
+    shape_d = launch_shape(W, P_d, abpt.gap_mode)
+    log(f"[D] B1 at the final graph (gn={gn}, R={ad[1].shape[0]}, W={W}, P={P_d}, "
+        f"{'int16' if plane16 else 'int32'}; {shape_d['warps']} column warps + "
+        f"the control warp, {shape_d['cpt']} columns a thread, ring D={shape_d['depth']}, "
+        f"{shape_d['smem']} B shared): kernel == plain on rows 0..{rows_d - 1}; "
+        f"kernel {b1_ms:.3f} ms ({b1_ms * 1e3 / max(1, rows_d - 1):.3f} us a "
+        f"computed row), plain {b1_plain_ms:.1f} ms, bound {b1_bound[0]:.4f} ms "
         f"({b1_bound[1]})")
+    # the share of predecessor reads each ring serves, from the tables
+    pre_np = ad[2][:gn - 1].cpu().numpy().astype(np.int64)
+    cnt_np = ad[3][:gn - 1].cpu().numpy()
+    rr = np.arange(gn - 1)[:, None]
+    live = (np.arange(P_d)[None, :] < cnt_np[:, None]) & (rr >= 1)
+    dist = (rr - pre_np)[live]
+    log(f"[D] predecessor reads at the final graph: {dist.size}; rows back "
+        f"p50 {np.percentile(dist, 50):.0f}, p99 {np.percentile(dist, 99):.0f}, "
+        f"max {dist.max()}; served by the plane ring (D={shape_d['depth']}) "
+        f"{(dist < shape_d['depth']).mean() * 100:.3f} %, by the band ring "
+        f"(256 rows) {(dist < 256).mean() * 100:.3f} %")
+    sweep_warps("D B1", ad, kw, want)
     bta, max_ops = bt_inputs(abpt, ad, got, qd, inf, False)
     bkw = dict(max_ops=max_ops, gap_mode=abpt.gap_mode, gap_on_right=False,
                put_gap_at_end=False, local=False)
@@ -584,7 +785,8 @@ def main() -> int:
     x1_ms = time_cuda(lambda: backtrack(*bta, **bkw), 5)
     x1_bound = bt_bound(rates, bta[:5], bta[8], bt[0], bt[1].tolist())
     log(f"[D] X1 on those planes (n_ops={int(bt[1][0])}): kernel == plain; "
-        f"kernel {x1_ms:.3f} ms, plain {x1_plain_ms:.1f} ms, bound "
+        f"kernel {x1_ms:.3f} ms ({x1_ms * 1e3 / max(1, int(bt[1][0])):.3f} us a "
+        f"step), plain {x1_plain_ms:.1f} ms, bound "
         f"{x1_bound[0]:.5f} ms ({x1_bound[1]})")
     # what a collision read adds: the sequential fusion of that read's ops
     # (the graph's node_n rows down, fused in Python, back up) and the edge

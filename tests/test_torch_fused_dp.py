@@ -7,15 +7,20 @@ on the same inputs, on all nine outputs, with tolerance 0: over linear,
 affine and convex gaps x global, extend (+Z-drop) and local mode x int16 and
 int32 planes, plus a band overflow. Inputs are the kernel tables of mid-run
 graphs of tests/data/seq.fa, test.fa and sim2k.fa, built by the port's
-fused loop on the CPU. The Pallas side runs in one subprocess with a timeout, as
+fused loop on the CPU, and a synthetic graph (`chip_smoke.synthetic_graph`)
+whose predecessors sit 70 rows back, past the CUDA kernel's 64-row
+shared-memory ring at W = 128 but inside Pallas's 512-row ring, in three
+gap regimes, global and extend with Z-drop: there the plain version pulls
+each row's band from its predecessors, the Pallas kernel pushes it to the
+successors. The Pallas side runs in one subprocess with a timeout, as
 tests/test_pallas_fused.py runs it. The Pallas kernel leaves row 0 and
 beg/end[0] to its caller, which patches them (fused_loop.py:1305-1315); the
 port's kernel writes them itself, so the Pallas outputs are patched the same
 way before the comparison. In local mode `fused_dp_torch` must also equal
 `pallas_fused_dp_local_hbm` (B3) on every row it computes (rows 0..gn-2;
 B3 leaves later rows unwritten and reports end = qlen for every row).
-The CUDA kernel itself is compared with the plain version on the card
-(marked `cuda`, skipped without one).
+The CUDA kernel itself is compared with the plain version on the card, on
+the plane rows it computes (marked `cuda`, skipped without one).
 """
 import os
 import subprocess
@@ -30,10 +35,12 @@ from conftest import DATA_DIR
 import jax.numpy as jnp
 
 from abpoa_tpu.align.fused_loop import _row0_planes as jax_row0_planes
+import chip_smoke
 from abpoa_tpu_torch import constants as C
 from abpoa_tpu_torch.align import fused_loop as tfl
 from abpoa_tpu_torch.align.buckets import qp_rung
-from abpoa_tpu_torch.align.fused_dp_kernel import (fused_dp, fused_dp_torch,
+from abpoa_tpu_torch.align.fused_dp_kernel import (computed_rows, fused_dp,
+                                                   fused_dp_torch, launch_shape,
                                                    row0_planes)
 from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
 from abpoa_tpu_torch.io.fastx import read_fastx
@@ -57,6 +64,7 @@ GRID = [f"{g}-{m}-{w}" for g in GAPS for m in MODES
 EXTRA = ["overflow-convex-global-int32", "testfa-convex-global-int32",
          "testfa-linear-local-int16"]
 HBM = ["hbm-convex-int32", "hbm-affine-int16"]
+FAR = [f"far-{g}-{m}" for g in GAPS for m in ("global", "extend")]
 
 
 def make_params(**kw) -> Params:
@@ -137,6 +145,19 @@ def build_cases() -> dict:
         cases[name] = (args, dict(
             gap_mode=abpt.gap_mode, plane16=plane16, extend=False,
             zdrop_on=False, local=mode == "local", hbm=False), seqs3[3])
+    # predecessors 70 rows back, in the seq.fa cases' table shapes, so the
+    # Pallas child reuses those cases' compilations
+    like = cases["convex-global-int32"][0]
+    preds, bases, query = chip_smoke.synthetic_graph("far")
+    for name in FAR:
+        _, gap, mode = name.split("-")
+        abpt = make_params(**GAPS[gap], **MODES[mode])
+        args, _ = chip_smoke.synthetic_inputs(
+            abpt, preds, bases, query, 128, False, False, P=like[2].shape[1],
+            R=like[1].shape[0], O=like[4].shape[1])
+        cases[name] = (args, dict(
+            gap_mode=abpt.gap_mode, plane16=False, extend=mode == "extend",
+            zdrop_on=mode == "extend", local=False, hbm=False), query)
     return cases
 
 
@@ -249,6 +270,20 @@ def test_grid_reaches_zdrop_and_overflow(cases, pallas_out):
     assert ovf[7][0] == 0 and (ovf[6][1:] > 0).sum() >= 5
 
 
+@pytest.mark.parametrize("name", FAR)
+def test_fused_dp_far_predecessors_match_pallas(name, cases, pallas_out):
+    args = cases[name][0]
+    got = _run_plain(cases[name])
+    _assert_equal(got, pallas_out[name])
+    gn = int(args[0][8])
+    assert computed_rows(got[5], got[6], got[7], gn, 128) == gn - 1
+    beg, end = got[5], got[6]
+    # the rows past 70 read their far predecessor's cells
+    assert any(beg[r] <= end[r - 70] + 1 for r in range(71, gn - 1))
+    if "extend" in name:
+        assert int(got[8][3]) == 1  # Z-drop fired
+
+
 @pytest.mark.parametrize("name", HBM)
 def test_fused_dp_local_matches_pallas_local_hbm(name, cases, pallas_out):
     args = cases[name][0]
@@ -305,4 +340,21 @@ def test_fused_dp_kernel_matches_plain_on_card(name, cases):
     got = fused_dp(*[a.to(dev) for a in args], **kw)
     torch.cuda.synchronize()
     want = _run_plain(cases[name])
-    _assert_equal([g.cpu() for g in got], [w.numpy() for w in want])
+    # the kernel defines the plane rows 0..last computed only
+    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]),
+                         args[7].shape[1])
+    _assert_equal([g.cpu() for g in got], [w.numpy() for w in want], rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FAR)
+def test_fused_dp_far_kernel_matches_plain_on_card(name, cases):
+    dev = _card()
+    args, s, _ = cases[name]
+    assert launch_shape(128, args[2].shape[1], s["gap_mode"])["depth"] < 70
+    kw = {k: v for k, v in s.items() if k != "hbm"}
+    got = fused_dp(*[a.to(dev) for a in args], **kw)
+    torch.cuda.synchronize()
+    want = _run_plain(cases[name])
+    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]), 128)
+    _assert_equal([g.cpu() for g in got], [w.numpy() for w in want], rows=rows)
