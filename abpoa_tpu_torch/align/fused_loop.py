@@ -7,7 +7,8 @@ device as dense tensors (`device_graph.DeviceGraph`); every read runs
   tables (`_build_tables`) -> kernel B1/B3 (`fused_dp`, the banded forward
   DP) -> best cell -> kernel X1 (`backtrack`) -> forward op stream ->
   fusion (`_fuse_vectorized`, or the sequential `fuse_alignment` on a
-  group-root collision) -> span update and edge sort -> topological order by
+  group-root collision) -> span update and edge sort (kernel S1,
+  `edge_sort`, one launch) -> topological order by
   splicing (`_splice_order`), repaired by kernel K1 (`topo_sort`) when the
   splice is not a valid order -> max_remain (`_remain_doubling`)
 
@@ -22,7 +23,7 @@ grows the capacity the error names and runs the read again, as JAX resumes.
 There is no fallback: a diverged backtrack, an unknown error or growth that
 does not converge raises.
 
-Every step is torch code on the state's device except the three kernels,
+Every step is torch code on the state's device except the four kernels,
 whose wrappers run their plain PyTorch version for CPU tensors. The step
 functions take and return tensors laid out as the JAX functions' arrays, so
 the tests hold each against its JAX twin on the same state.
@@ -43,6 +44,7 @@ from ..params import Params
 from .backtrack_kernel import backtrack
 from .buckets import chunk_node_cap, grow_node_cap, plan_chunk_buckets
 from .device_graph import DeviceGraph, fuse_alignment, init_device_graph
+from .edge_sort_kernel import edge_sort
 from .fused_dp_kernel import fused_dp, row0_planes
 from .oracle import (INT16_MIN, INT32_MIN, dp_inf_min, int16_score_limit,
                      max_score_bound)
@@ -213,26 +215,11 @@ def _add_at(arr: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     return spill_scatter(arr.reshape(-1), lin, ok, vals, op="add").view(S, K)
 
 
-def _sort_slots(ids: torch.Tensor, w: torch.Tensor, cnt: torch.Tensor):
-    """abPOA's weight-descending exchange sort of every node's slots, with
-    its (unstable) tie behaviour (abpoa_graph.c:192-219)."""
-    E = ids.shape[1]
-    ids_t = ids.t().contiguous()
-    w_t = w.t().contiguous()
-    for j in range(E):
-        for k in range(j + 1, E):
-            swap = (cnt > k) & (w_t[j] < w_t[k])
-            wj, wk, ij, ik = w_t[j], w_t[k], ids_t[j], ids_t[k]
-            w_t[j], w_t[k] = torch.where(swap, wk, wj), torch.where(swap, wj, wk)
-            ids_t[j], ids_t[k] = (torch.where(swap, ik, ij),
-                                  torch.where(swap, ij, ik))
-    return ids_t.t().contiguous(), w_t.t().contiguous()
-
-
 def _edge_sort(g: DeviceGraph) -> DeviceGraph:
-    """fused_loop.py:145: every node's in and out slots sorted by weight."""
-    in_ids, in_w = _sort_slots(g.in_ids, g.in_w, g.in_cnt)
-    out_ids, out_w = _sort_slots(g.out_ids, g.out_w, g.out_cnt)
+    """fused_loop.py:145: every node's in and out slots sorted by weight,
+    in one launch of kernel S1."""
+    in_ids, in_w, out_ids, out_w = edge_sort(g.in_ids, g.in_w, g.out_ids,
+                                             g.out_w, g.in_cnt, g.out_cnt)
     return g._replace(in_ids=in_ids, in_w=in_w, out_ids=out_ids, out_w=out_w)
 
 

@@ -109,8 +109,10 @@ def load() -> ctypes.CDLL:
     lib.abpoa_fused_dp.restype = ci
     lib.abpoa_backtrack.argtypes = [vp] * 15 + [ci] * 8 + [vp]
     lib.abpoa_backtrack.restype = ci
-    lib.abpoa_topo_sort.argtypes = [vp] * 18 + [ci] * 3 + [vp]
+    lib.abpoa_topo_sort.argtypes = [vp] * 19 + [ci] * 6 + [vp]
     lib.abpoa_topo_sort.restype = ci
+    lib.abpoa_edge_sort.argtypes = [vp] * 10 + [ci] * 2 + [vp]
+    lib.abpoa_edge_sort.restype = ci
     lib.abpoa_cuda_error_string.argtypes = [ci]
     lib.abpoa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

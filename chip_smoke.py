@@ -14,7 +14,10 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          int16/int32), B3 as B1's local instantiation at sim2k's local width
          (2048, where the JAX package picks pallas_fused_dp_local_hbm), X1
          (backtrack) on each variant's planes, and K1 (topo_sort) on a graph
-         that needed a Kahn repair: all outputs equal; then B1 and X1 on two
+         that needed a Kahn repair and on the adversarial graphs of
+         `k1_graph`, each in its two degree variants; S1 (edge_sort) on
+         the sim2k graphs and on `tie_graph` at E = 8, 16, 32, timed with
+         its bound: all outputs equal; then B1 and X1 on two
          synthetic graphs (`synthetic_graph`): predecessors 70 rows back,
          past B1's shared-memory ring, and 64 predecessor slots with the
          backtrack's first hit in slot 40. B1/B3 are compared on the plane
@@ -27,13 +30,16 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          result on its first 4 reads
   C      the main path at full width: N ONT-like 10 kb reads at 10 % error
          (made here from a fixed seed) through the CLI on cuda, the fused
-         route; the kernel counts are set to 0 before and read after; the
-         consensus must match the simulated reference at >= 99 % identity
+         route; the kernel counts are set to 0 before and read after (S1 at
+         most once per read attempt and collision); the consensus must
+         match the simulated reference at >= 99 % identity
   C2     the per-read route (pipeline.poa, kernel B2) and the fused route on
          the first M reads of that set give byte-identical consensus
-  D      at the graph phase C left and one more read: B1, X1 and K1 against
-         their plain versions with times and bounds (B1 also per computed
-         row, X1 per step), the share of predecessor reads B1's rings serve
+  D      at the graph phase C left and one more read: B1, X1, S1 and K1
+         against their plain versions with times and bounds (B1 also per
+         computed row, X1 per step, K1 per pass, in both degree variants
+         and with its two walks' lengths), the share of predecessor reads B1's
+         rings serve
          (from the tables), a sweep of B1's column warps, each held equal
          to the plain version, and the time of the sequential fusion a
          collision read takes (held equal to the vectorised fusion); B2 the
@@ -254,6 +260,64 @@ def topo_bound(rates, g):
     return rates.bound(nb, float(n * (2 * E * E + 4 * E + 2 * A)))
 
 
+def s1_bound(rates, args, n):
+    """S1: the node_n = n rows of the four (N, E) slot arrays and two counts
+    read once and of the four sorted arrays written once (the rows past
+    node_n have count 0: a sort in place would not touch them); per row the
+    exchange sort's cnt (cnt - 1) / 2 compare-and-selects."""
+    import numpy as np
+    ops = sum(float((c * (c - 1) // 2).sum()) for c in
+              (np.minimum(t[:n].cpu().numpy().astype(np.int64),
+                          args[0].shape[1]) for t in args[4:6]))
+    return rates.bound(2 * nbytes(t[:n] for t in args[:4])
+                       + nbytes(t[:n] for t in args[4:6]), ops)
+
+
+def k1_chains(args):
+    """K1's two walks at these inputs, replayed in the plain version's
+    order: (nodes visited, mean and max look-ahead) each, the look-ahead of
+    a visit being how many visits earlier its queue entry was pushed (how
+    far ahead of the walk a helper could prefetch it)."""
+    import numpy as np
+    from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort_torch
+    cpu = [t.cpu() for t in args]
+    icnt, ocnt, acnt = cpu[4].tolist(), cpu[5].tolist(), cpu[7].tolist()
+    oid, aln = cpu[2].tolist(), cpu[6].tolist()
+    iid = edge_sort_torch(*cpu[:6])[0].tolist()
+    deg, odeg = list(icnt), list(ocnt)
+
+    def kahn(cur):
+        pushed = []
+        for t in oid[cur][:max(ocnt[cur], 0)] if cur != 1 else ():
+            deg[t] -= 1
+            grp = aln[t][:max(acnt[t], 0)]
+            if deg[t] == 0 and all(deg[m] == 0 for m in grp):
+                pushed += [t, *grp]
+        return pushed
+
+    def reverse(cur):
+        pushed = []
+        for t in iid[cur][:max(icnt[cur], 0)] if cur != 0 else ():
+            odeg[t] -= 1
+            if odeg[t] == 0:
+                pushed.append(t)
+        return pushed
+
+    out = []
+    for first, stop, visit in ((0, int(cpu[8][0]), kahn),
+                               (1, len(icnt) + 1, reverse)):
+        queue, by, head = [first], [-1], 0
+        while head < len(queue) and head < stop:
+            pushed = visit(queue[head])
+            queue += pushed
+            by += [head] * len(pushed)
+            head += 1
+        ahead = np.arange(1, head) - np.asarray(by[1:head])
+        out.append((head, float(ahead.mean()) if ahead.size else 0.0,
+                    int(ahead.max()) if ahead.size else 0))
+    return out
+
+
 def fused_case(abpt, st, query, W, plane16, local):
     """B1's inputs for `query` against a fused-loop state, on its device."""
     import numpy as np
@@ -307,6 +371,120 @@ def synthetic_graph(kind: str):
     query[flip] = (query[flip] + rng.integers(1, 4, int(flip.sum()))) % 4
     query[-12:] = rng.integers(0, 4, 12)  # a noisy tail for Z-drop
     return preds, bases, query.astype(np.uint8)
+
+
+def slot_graph(n, edges, groups=None, N=None, E=4, A=2):
+    """K1's inputs (numpy int32, in its argument order) for a graph of n
+    nodes in N rows: edges (u, v, w) listed in slot order, aligned groups
+    {v: members}, E edge slots and A aligned slots a node."""
+    import numpy as np
+    N = N or n
+    z = lambda *shape: np.zeros(shape, np.int32)  # noqa: E731
+    in_ids, in_w, out_ids, out_w = z(N, E), z(N, E), z(N, E), z(N, E)
+    in_cnt, out_cnt, aligned, aligned_cnt = z(N), z(N), z(N, A), z(N)
+    for u, v, w in edges:
+        out_ids[u, out_cnt[u]], out_w[u, out_cnt[u]] = v, w
+        out_cnt[u] += 1
+        in_ids[v, in_cnt[v]], in_w[v, in_cnt[v]] = u, w
+        in_cnt[v] += 1
+    for v, members in (groups or {}).items():
+        aligned[v, :len(members)] = members
+        aligned_cnt[v] = len(members)
+    return [in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, aligned,
+            aligned_cnt, np.array([n], np.int32)]
+
+
+K1_GRAPHS = ("unsorted", "group_later_slot", "queued_twice", "cycle", "hub",
+             "wide_groups", "random")
+
+
+def k1_graph(kind: str):
+    """K1's adversarial graphs (`slot_graph` arrays; source 0, sink 1):
+    unsorted:         the source's out slots are not in weight order (and
+                      2 -> 5 is listed twice), so a pass 1 that sorted first
+                      would order the nodes differently;
+    group_later_slot: 2 and 3 are aligned and only follow the source; at
+                      slot 0 (node 2) the group check sees 3's degree before
+                      slot 1 decrements it, so 3 is queued first, then 2;
+    queued_twice:     3's group holds 2 but 2's is empty, so 2 is queued on
+                      its own and again after 3: the queue passes
+                      N = node_n = 6 and 2 is visited twice;
+    cycle:            2 and 3 follow each other: ok = 0, and the reverse BFS
+                      stops at the cycle as well;
+    hub:              the source has 40 out slots (E = 64, two warp chunks)
+                      to nodes aligned in pairs, one pair across the chunks;
+    wide_groups:      the source has 64 out slots, each target aligned with
+                      the same 100 other nodes (E = 64, A = 100), so the
+                      source's record places the groups of slots 41-63 past
+                      4096 words after its slot table, and every slot
+                      queues 101 nodes (the queue passes N = 176 at once);
+    random:           a random DAG of 200 nodes, 1-3 out slots each in random
+                      order, weights 1-3, neighbours in its order aligned."""
+    import numpy as np
+    if kind == "unsorted":
+        return slot_graph(7, [(0, 2, 1), (0, 3, 5), (0, 4, 3), (2, 5, 2),
+                              (2, 5, 2), (3, 6, 2), (4, 6, 1), (5, 1, 1),
+                              (6, 1, 4)], N=16)
+    if kind == "group_later_slot":
+        return slot_graph(4, [(0, 2, 1), (0, 3, 1), (2, 1, 1), (3, 1, 1)],
+                          {2: [3], 3: [2]}, N=16)
+    if kind == "queued_twice":
+        return slot_graph(6, [(0, 2, 1), (0, 3, 1), (2, 4, 1), (3, 5, 1),
+                              (4, 1, 1), (5, 1, 1)], {3: [2]})
+    if kind == "cycle":
+        return slot_graph(5, [(0, 2, 1), (0, 4, 1), (2, 3, 1), (3, 2, 1),
+                              (3, 1, 1), (4, 1, 1)], N=16)
+    rng = np.random.default_rng({"hub": 5, "wide_groups": 7, "random": 6}[kind])
+    if kind == "hub":
+        k = 40
+        edges = [(0, 2 + i, int(rng.integers(1, 4))) for i in range(k)]
+        edges += [(2 + i, 1, 1) for i in range(k)]
+        groups = {}
+        for i in range(1, k - 1, 2):
+            groups[2 + i], groups[3 + i] = [3 + i], [2 + i]
+        return slot_graph(k + 2, edges, groups, N=48, E=64, A=2)
+    if kind == "wide_groups":
+        targets, members = range(2, 66), list(range(66, 166))
+        edges = [(0, t, int(rng.integers(1, 4))) for t in targets]
+        edges += [(t, 1, 1) for t in targets]
+        return slot_graph(166, edges, {t: members for t in targets}, N=176,
+                          E=64, A=100)
+    if kind != "random":
+        raise ValueError(kind)
+    n = 200
+    order = [0] + [int(v) for v in rng.permutation(np.arange(2, n))] + [1]
+    edges, has_in = [], {0}
+    for i, u in enumerate(order[:-1]):
+        window = order[i + 1: i + 6]
+        for v in rng.permutation(window)[:int(rng.integers(1, 4))]:
+            edges.append((u, int(v), int(rng.integers(1, 4))))
+            has_in.add(int(v))
+        nxt = order[i + 1]
+        if nxt not in has_in:
+            edges.append((u, nxt, 1))
+            has_in.add(nxt)
+    linked = {(u, v) for u, v, _ in edges}
+    groups = {}
+    for i in range(1, n - 2, 3):
+        a, b = order[i], order[i + 1]
+        if (a, b) not in linked and rng.random() < 0.6:
+            groups[a], groups[b] = [b], [a]
+    return slot_graph(n, edges, groups, E=8, A=4)
+
+
+def tie_graph(E: int, seed: int = 11, N: int = 96, n: int = 80):
+    """S1's inputs (numpy int32): random slot rows with weights 1-3 (many
+    ties), counts 0..E with every seventh row full, rows past n with count
+    0 and random contents (copied unchanged)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + E)
+    cnt = [rng.integers(0, E + 1, N).astype(np.int32) for _ in range(2)]
+    for c in cnt:
+        c[::7] = E
+        c[n:] = 0
+    slots = [rng.integers(lo, hi, (N, E)).astype(np.int32)
+             for lo, hi in ((0, N), (1, 4), (0, N), (1, 4))]
+    return slots + cnt
 
 
 def synthetic_inputs(abpt, preds, bases, query, W, plane16, local, P=None,
@@ -466,11 +644,14 @@ def main() -> int:
     from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
     from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
     from abpoa_tpu_torch.align.device_graph import fuse_alignment
+    from abpoa_tpu_torch.align.edge_sort_kernel import (edge_sort,
+                                                        edge_sort_torch)
     from abpoa_tpu_torch.align.fused_dp_kernel import (fused_dp,
                                                        fused_dp_torch,
                                                        launch_shape)
     from abpoa_tpu_torch.align.tables import (build_row_tables,
                                               initial_band_width, query_tables)
+    from abpoa_tpu_torch.align.topo_kernel import launch_shape as launch_shape_k1
     from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_torch
     from abpoa_tpu_torch.graph import POAGraph
     from abpoa_tpu_torch.io.fastx import read_fastx
@@ -500,7 +681,7 @@ def main() -> int:
     abpt = Params(device="cuda").finalize()
     cpu = Params(device="cpu").finalize()
     max_err = {k: 0 for k in ("banded_dp", "fused_dp", "fused_dp[local]",
-                              "backtrack", "topo_sort")}
+                              "backtrack", "edge_sort", "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
 
     # ---- A: B2 vs plain on sim2k tables (the per-read route's kernel)
@@ -635,6 +816,35 @@ def main() -> int:
     max_err["topo_sort"] = compare("topo_sort", got, topo_sort_torch(*kahn_in))
     log(f"[A2] K1 on the first repaired sim2k graph ({int(kahn_in[8][0])} "
         f"nodes): kernel == plain (ok={int(got[7][0])})")
+    # K1's degree variants, and the graphs made for its traps
+    for kind, ka in [("sim2k", kahn_in)] + [(k, to_dev(k1_graph(k), dev))
+                                            for k in K1_GRAPHS]:
+        want = topo_sort_torch(*ka)
+        for variant in ("s8", "g32"):
+            got = topo_sort(*ka, variant=variant)
+            torch.cuda.synchronize()
+            max_err["topo_sort"] = max(max_err["topo_sort"], compare(
+                f"topo_sort {kind} {variant}", got, want))
+        log(f"[A2] K1 {kind} (N={ka[0].shape[0]}, E={ka[0].shape[1]}, "
+            f"A={ka[6].shape[1]}, node_n={int(ka[8][0])}, ok={int(want[7][0])}): "
+            f"kernel == plain in the s8 and g32 variants")
+    # S1 on the sim2k graphs and the tie-heavy rows
+    s1_cases = [(name, (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt,
+                        g.out_cnt), int(g.node_n))
+                for name, g in (("sim2k 3 reads", st3.g),
+                                ("sim2k 12 reads", st_k.g))]
+    s1_cases.append(("sim2k Kahn input", kahn_in[:6], int(kahn_in[8][0])))
+    s1_cases += [(f"ties E={E}", to_dev(tie_graph(E), dev), 80)
+                 for E in (8, 16, 32)]
+    for name, sa, n_rows in s1_cases:
+        got = edge_sort(*sa)
+        torch.cuda.synchronize()
+        max_err["edge_sort"] = max(max_err["edge_sort"], compare(
+            f"edge_sort {name}", got, edge_sort_torch(*sa)))
+        ms = time_cuda(lambda: edge_sort(*sa), 20)
+        bnd = s1_bound(rates, sa, n_rows)
+        log(f"[A2] S1 {name} (N={sa[0].shape[0]}, E={sa[0].shape[1]}): kernel "
+            f"== plain; kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
 
     # ---- B: goldens through the CLI on cuda (the fused route)
     golden = [([], "ref_consensus"), (["-O", "4"], "seq_affine"),
@@ -675,20 +885,24 @@ def main() -> int:
     fl.timing = True
     fused_dp.launches = fused_dp.local_launches = 0
     backtrack.launches = topo_sort.launches = banded_dp.launches = 0
+    edge_sort.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_cli([fa, "-o", out_c])
     wall = time.perf_counter() - t0
     fl.timing = False
     launches = {"fused_dp": fused_dp.launches, "backtrack": backtrack.launches,
-                "topo_sort": topo_sort.launches}
+                "edge_sort": edge_sort.launches, "topo_sort": topo_sort.launches}
     if banded_dp.launches or fused_dp.local_launches:
         raise AssertionError("the fused route launched another route's kernel")
     s = dict(fl.stats)
     n = args.reads
     if launches["fused_dp"] < n - 1 or launches["backtrack"] < n - 1 \
-            or launches["topo_sort"] < 1:
+            or launches["topo_sort"] < 1 or launches["edge_sort"] < n - 1:
         raise AssertionError(f"main-path launches {launches} for {n} reads")
+    if launches["edge_sort"] > s["reads"] + s["collisions"]:
+        raise AssertionError(f"{launches['edge_sort']} S1 launches for "
+                             f"{s['reads']} read attempts")
     cons = read_fastx(out_c)
     if len(cons) != 1 or not set(cons[0].seq) <= set("ACGT"):
         raise AssertionError("expected one ACGT consensus")
@@ -705,6 +919,9 @@ def main() -> int:
         + ", ".join(f"{k} {per(dev_s[k])}/{per(host_s[k])}" for k in fl.STEPS)
         + f"; host waits in syncs {per(host_s['sync'])}; stream time outside "
         f"the steps {per(s['wall_s'] - sum(dev_s.values()))}")
+    log(f"[C] edge_sort per read: {per(dev_s['edge_sort'])} ms on the stream, "
+        f"{per(host_s['edge_sort'])} ms on the host ({launches['edge_sort']} "
+        f"S1 launches); topo_sort {per(dev_s['topo_sort'])} ms on the stream")
     log(f"[C] launches {launches}; read attempts {s['reads']}, host syncs "
         f"{s['syncs']} ({s['syncs'] / max(1, s['reads']):.3f} per attempt); "
         f"Kahn repairs {s['kahn']}, collisions {s['collisions']}")
@@ -811,15 +1028,56 @@ def main() -> int:
     g = st_c.g
     ka = (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt, g.out_cnt,
           g.aligned, g.aligned_cnt, g.node_n.reshape(1))
+    sa = ka[:6]
+    got = edge_sort(*sa)
+    torch.cuda.synchronize()
+    s1_plain_ms, want = time_host(lambda: edge_sort_torch(*sa))
+    max_err["edge_sort"] = max(max_err["edge_sort"], compare("edge_sort D", got, want))
+    s1_ms = time_cuda(lambda: edge_sort(*sa), 50)
+    s1_bound_d = s1_bound(rates, sa, int(g.node_n))
+    # a yardstick only, a different function: a stable descending torch.sort
+    # of each side's weights and the gather of its ids (abPOA's exchange sort
+    # is unstable: no single torch call gives its tie order)
+    def torch_sort():
+        for ids, w in ((sa[0], sa[1]), (sa[2], sa[3])):
+            _, idx = torch.sort(w, dim=1, descending=True, stable=True)
+            torch.gather(ids, 1, idx)
+    ts_ms = time_cuda(torch_sort, 20)
+    log(f"[D] S1 on the final graph (N={sa[0].shape[0]}, E={sa[0].shape[1]}, "
+        f"node_n {int(g.node_n)}): kernel == plain; kernel {s1_ms:.4f} ms, plain "
+        f"{s1_plain_ms:.1f} ms, bound {s1_bound_d[0]:.4f} ms ({s1_bound_d[1]}); "
+        f"torch.sort + gather of both sides (a different function) {ts_ms:.4f} ms")
     got = topo_sort(*ka)
     torch.cuda.synchronize()
     k1_plain_ms, want = time_host(lambda: topo_sort_torch(*ka))
     max_err["topo_sort"] = max(max_err["topo_sort"], compare("topo_sort D", got, want))
     k1_ms = time_cuda(lambda: topo_sort(*ka), 3)
     k1_bound = topo_bound(rates, g)
-    log(f"[D] K1 on the final graph ({int(g.node_n)} nodes, N={g.caps[0]}): "
-        f"kernel == plain; kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, "
-        f"bound {k1_bound[0]:.5f} ms ({k1_bound[1]})")
+    k1_shape = launch_shape_k1(*g.caps)
+    (v1, a1, m1), (v3, a3, m3) = k1_chains(ka)
+    log(f"[D] K1 on the final graph ({int(g.node_n)} nodes, N={g.caps[0]}; "
+        f"{k1_shape['variant']} degrees, cache of {k1_shape['cache']} records, "
+        f"{k1_shape['smem']} B shared): kernel == plain; kernel {k1_ms:.3f} ms, "
+        f"plain {k1_plain_ms:.1f} ms, bound {k1_bound[0]:.5f} ms ({k1_bound[1]}); "
+        f"pass 1 visits {v1} nodes in order (look-ahead mean {a1:.2f}, max {m1}), "
+        f"pass 3 {v3} (mean {a3:.2f}, max {m3}); "
+        f"{k1_ms * 1e3 / max(1, v1 + v3):.3f} us a visit")
+    k1_walks = {name: time_cuda(lambda: topo_sort(*ka, walks=mask), 3)
+                for name, mask in (("neither", 0), ("pass 1", 1),
+                                   ("pass 3", 2))}
+    log("[D] K1 by pass (ms): pass 2 (S1) {:.4f}; the launch with no walk "
+        "(S1 and the set-up) {:.3f}; pass 1 {:.3f}, pass 3 {:.3f} (each the "
+        "launch with that walk alone, less the launch with neither)".format(
+            s1_ms, k1_walks["neither"],
+            k1_walks["pass 1"] - k1_walks["neither"],
+            k1_walks["pass 3"] - k1_walks["neither"]))
+    got = topo_sort(*ka, variant="g32")
+    torch.cuda.synchronize()
+    max_err["topo_sort"] = max(max_err["topo_sort"], compare(
+        "topo_sort D g32", got, want))
+    log(f"[D] K1 with int32 degrees in device memory (g32, cache of "
+        f"{launch_shape_k1(*g.caps, 'g32')['cache']}): kernel == plain; "
+        f"{time_cuda(lambda: topo_sort(*ka, variant='g32'), 3):.3f} ms")
     gp = ab_pr.graph
     gp.topological_sort(abpt)
     W2 = initial_band_width(abpt, len(qd))
@@ -861,6 +1119,9 @@ def main() -> int:
         entry("backtrack", "abpoa_tpu_torch/csrc/backtrack.cu",
               "abpoa_tpu/align/fused_loop.py:601", launches["backtrack"],
               x1_ms, x1_plain_ms, x1_bound),
+        entry("edge_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
+              "abpoa_tpu/align/fused_loop.py:145", launches["edge_sort"],
+              s1_ms, s1_plain_ms, s1_bound_d),
         entry("topo_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
               "abpoa_tpu/align/device_graph.py:210", launches["topo_sort"],
               k1_ms, k1_plain_ms, k1_bound)]}), flush=True)

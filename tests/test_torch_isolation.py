@@ -37,7 +37,7 @@ print(",".join(names), ",".join(bad))
 # the modules of the fused route, which must be among those imported
 FUSED_ROUTE = {"abpoa_tpu_torch.align." + m for m in (
     "buckets", "eligibility", "device_graph", "fused_dp_kernel",
-    "backtrack_kernel", "topo_kernel", "fused_loop")}
+    "backtrack_kernel", "edge_sort_kernel", "topo_kernel", "fused_loop")}
 
 
 def test_port_imports_neither_jax_nor_abpoa_tpu():
