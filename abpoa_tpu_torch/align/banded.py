@@ -100,14 +100,17 @@ def align_sequence_to_subgraph(g: POAGraph, abpt: Params, beg_node_id: int,
     stats["reads"] += 1
     stats["rows"] += t.R
     t0 = time.perf_counter()
+    # the kernel defines plane rows 0..gn-2, all the backtrack reads (the
+    # sink's predecessors and back)
+    rows = gn - 1
     if out[0].is_cuda:
-        host = _staging(5 * gn * W).view(5, gn, W)
+        host = _staging(5 * rows * W).view(5, rows, W)
         for k in range(5):
-            host[k].copy_(out[k][:gn], non_blocking=True)
+            host[k].copy_(out[k][:rows], non_blocking=True)
         torch.cuda.current_stream(out[0].device).synchronize()
         planes = list(host.numpy())
     else:
-        planes = [p[:gn].numpy() for p in out[:5]]
+        planes = [p[:rows].numpy() for p in out[:5]]
     begend = out[5].cpu().numpy()
     mplr = out[6].cpu().numpy()
     stats["d2h_s"] += time.perf_counter() - t0

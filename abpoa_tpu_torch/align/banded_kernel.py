@@ -1,13 +1,20 @@
-"""The banded DP kernel's wrapper and its plain PyTorch version.
+"""Kernel B2, the per-read route's banded DP: wrapper and plain version.
 
 Counterpart of the Pallas kernel `abpoa_tpu/align/pallas_kernel.py`
 `pallas_banded_dp`: the adaptive-banded forward DP of one read against a
 topologically ordered graph, convex gaps, global mode, int32 scores.
 
-`banded_dp(...)` checks its inputs and, for CUDA tensors, launches the
-hand-written kernel `csrc/banded_dp.cu` (or raises); for CPU tensors it runs
-`banded_dp_torch`, the same row loop in torch ops, which is also the
-kernel's yardstick on the card.
+`banded_dp(...)` checks its inputs and, for CUDA tensors, launches kernel
+B1's seeded instantiation in `csrc/fused_dp.cu` (entry `abpoa_banded_dp`;
+or raises); for CPU tensors it runs `banded_dp_torch`, the same row loop in
+torch ops, which is also the kernel's yardstick on the card. The kernel
+takes B1's design (shared-memory ring, control warp, cp.async table
+prefetch, three barriers a row; the launch from
+`fused_dp_kernel.launch_shape(..., seeded=True)`) and pulls each row's band
+from its predecessors; the plain version pushes it to the successors, as
+Pallas does. The two agree because `tables.build_row_tables` gives pre and
+out tables that are transposes over rows 1..gn-2, and row 0 pushes nothing
+(its successors' 1 comes with mpl0/mpr0).
 
 Inputs (all int32, contiguous, one device):
   scalars (16,)   [qlen, w, remain_end, inf, o1, e1, oe1, o2, e2, oe2, gn,
@@ -17,6 +24,12 @@ Inputs (all int32, contiguous, one device):
 Outputs: H, E1, E2, F1, F2 (R, W) banded planes (band lane k of row i is
 column dp_beg[i] + k), begend (2R,) = [dp_beg, dp_end], mplr (2R,) = the
 final [mpl, mpr], ok (1,) = 0 when some row's band was wider than W.
+Only plane rows 0..last computed are defined on the card: gn - 2, or on
+ok = 0 the row whose band overflowed (`fused_dp_kernel.computed_rows`);
+the kernel leaves the later rows as allocated, the plain version fills
+them with -inf (as Pallas pads them). The per-read backtrack reads rows
+below gn - 1 only (align/banded.py). begend, mplr and ok are defined on
+every row in both, and equal Pallas's.
 """
 from __future__ import annotations
 
@@ -24,7 +37,9 @@ import ctypes
 
 import torch
 
+from .. import constants as C
 from ..kernels import build
+from .fused_dp_kernel import launch_shape
 
 _NAMES = ("scalars", "base", "pre_idx", "pre_cnt", "out_idx", "out_cnt",
           "remain", "mpl0", "mpr0", "qp_pad", "row0")
@@ -67,9 +82,10 @@ def _check_inputs(args) -> tuple:
 
 
 def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
-              mpl0, mpr0, qp_pad, row0):
+              mpl0, mpr0, qp_pad, row0, *, warps=None):
     """Banded forward DP; see the module docstring. Returns
-    (H, E1, E2, F1, F2, begend, mplr, ok)."""
+    (H, E1, E2, F1, F2, begend, mplr, ok). `warps` overrides the launch
+    table's column warps (chip_smoke.py's sweep)."""
     args = (scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0,
             mpr0, qp_pad, row0)
     R, W, P, O = _check_inputs(args)
@@ -78,21 +94,24 @@ def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
         return banded_dp_torch(*args)
     if dev.type != "cuda":
         raise ValueError(f"banded_dp: unsupported device {dev}")
-    if W > 32 * 1024:
-        raise ValueError(f"banded_dp: band width {W} exceeds the kernel's "
-                         "32768 columns")
+    ls = launch_shape(W, P, C.CONVEX_GAP, warps, seeded=True)
     lib = build.load()
+    kernel_in = (scalars, base, pre_idx, pre_cnt, remain, mpl0, mpr0, row0,
+                 qp_pad)
     with torch.cuda.device(dev):
         planes = torch.empty((5, R, W), dtype=torch.int32, device=dev)
         begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
         mplr = torch.empty(2 * R, dtype=torch.int32, device=dev)
         ok = torch.empty(1, dtype=torch.int32, device=dev)
+        ext = torch.empty(4, dtype=torch.int32, device=dev)     # scratch
+        lr = torch.empty(2 * R, dtype=torch.int32, device=dev)  # scratch
         outs = (*planes.unbind(0), begend, mplr, ok)
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_banded_dp(
-            *(ptr(t) for t in args), *(ptr(t) for t in outs),
-            R, W, P, O, qp_pad.shape[1], ctypes.c_void_p(stream))
+            *(ptr(t) for t in kernel_in), *(ptr(t) for t in outs),
+            ptr(ext), ptr(lr), R, W, P, qp_pad.shape[1], ls["block_warps"],
+            ls["depth"], ls["smem"], ctypes.c_void_p(stream))
     build.check(err, "banded_dp launch")
     banded_dp.launches += 1
     return outs

@@ -6,7 +6,8 @@ Counterpart of the Pallas kernels `abpoa_tpu/align/pallas_fused.py`
 kernel, `csrc/fused_dp.cu`: its ring of recent rows lives in shared memory
 with a fallback to the planes in device memory, so no predecessor distance
 overflows it, and local mode at any width (B3's case) is the kernel's local
-instantiation.
+instantiation. Its seeded instantiation is the per-read route's kernel B2
+(`align/banded_kernel.py`).
 
 The adaptive-banded DP of one read against a topologically ordered graph,
 for linear, affine or convex gaps, in global, extend (with Z-drop) or local
@@ -54,10 +55,12 @@ _MODES = {"global": 0, "extend": 1, "local": 2}
 
 # the kernel's shared-memory layout (csrc/fused_dp.cu): a ring of
 # _SCALAR_RING rows of beg/end/left/right (16 B each), _STAGES table rows of
-# P + 4 ints, two rows of P predecessor records (16 B), 8 ints per warp, and
-# the ring of D rows of the planes the gap regime reads (int32)
+# P + 4 ints (P + 5 for B2, the seeded instantiation), two rows of P
+# predecessor records (16 B), 8 ints per warp, and the ring of D rows of the
+# planes the gap regime reads (int32)
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on Hopper
 MAX_W = 16 * 1024     # 1024 threads x 16 columns
+MAX_W_SEEDED = 32 * 1024  # B2: 1024 threads x 32 columns
 _SCALAR_RING = 256
 _STAGES = 4
 _MAX_DEPTH = 64       # ring rows; headline predecessors: p99 16, max 37 back
@@ -75,9 +78,10 @@ def ring_planes(gap_mode: int) -> int:
 
 
 def smem_bytes(W: int, P: int, block_warps: int, depth: int,
-               gap_mode: int) -> int:
-    return (_SCALAR_RING * 16 + _STAGES * (P + 4) * 4 + 2 * P * 16
-            + block_warps * 32 + ring_planes(gap_mode) * depth * W * 4)
+               gap_mode: int, seeded: bool = False) -> int:
+    return (_SCALAR_RING * 16 + _STAGES * (P + (5 if seeded else 4)) * 4
+            + 2 * P * 16 + block_warps * 32
+            + ring_planes(gap_mode) * depth * W * 4)
 
 
 def table_warps(W: int) -> int:
@@ -88,16 +92,19 @@ def table_warps(W: int) -> int:
     return max(_WARPS[widest], min(32, -(-W // (32 * 16)) - 1))
 
 
-def launch_shape(W: int, P: int, gap_mode: int, warps=None) -> dict:
+def launch_shape(W: int, P: int, gap_mode: int, warps=None,
+                 seeded: bool = False) -> dict:
     """The kernel's launch: `warps` warps that take the columns (from the
     table unless given; chip_smoke.py's sweep gives them) plus the control
     warp (the block's last; at 32 warps it takes columns too), columns per
-    thread (cpt, a power of two up to 16), ring depth D (0 or a power of
-    two, the deepest up to _MAX_DEPTH that fits) and the dynamic
-    shared-memory bytes. Raises when W or P does not fit."""
-    if W < 1 or W > MAX_W:
+    thread (cpt, a power of two up to 16, or 32 for B2's `seeded`
+    instantiation), ring depth D (0 or a power of two, the deepest up to
+    _MAX_DEPTH that fits) and the dynamic shared-memory bytes. Raises when
+    W or P does not fit."""
+    max_w = MAX_W_SEEDED if seeded else MAX_W
+    if W < 1 or W > max_w:
         raise ValueError(f"fused_dp: band width {W} outside the kernel's "
-                         f"1..{MAX_W} columns")
+                         f"1..{max_w} columns")
     if warps is None:
         warps = table_warps(W)
     if not 1 <= warps <= 32:
@@ -106,15 +113,15 @@ def launch_shape(W: int, P: int, gap_mode: int, warps=None) -> dict:
     cpt = 1
     while cpt * block_warps * 32 < W:
         cpt *= 2
-    if cpt > 16:
+    if cpt > max_w // 1024:
         raise ValueError(f"fused_dp: {warps} warps cannot cover W = {W}")
     depth = _MAX_DEPTH
-    while depth >= 2 and smem_bytes(W, P, block_warps, depth,
-                                    gap_mode) > SMEM_LIMIT:
+    while depth >= 2 and smem_bytes(W, P, block_warps, depth, gap_mode,
+                                    seeded) > SMEM_LIMIT:
         depth //= 2
     if depth < 2:  # a ring of one row serves no predecessor
         depth = 0
-    smem = smem_bytes(W, P, block_warps, depth, gap_mode)
+    smem = smem_bytes(W, P, block_warps, depth, gap_mode, seeded)
     if smem > SMEM_LIMIT:
         raise ValueError(f"fused_dp: {smem} bytes of shared memory for W = {W},"
                          f" P = {P} pass the block's {SMEM_LIMIT}")

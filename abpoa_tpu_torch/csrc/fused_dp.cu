@@ -1,15 +1,28 @@
-// The fused loop's banded forward DP for one read against one graph
-// (kernels B1 and B3), written for Hopper (sm_90a).
+// The banded forward DP of one read against one graph, written for Hopper
+// (sm_90a): the fused loop's kernels B1 and B3, and the per-read route's
+// kernel B2 as the kernel's seeded instantiation.
 //
 // Replaces: the Pallas TPU kernels abpoa_tpu/align/pallas_fused.py
 // `pallas_fused_dp` (body `_make_kernel`, row math `_row_dp_math`) and
-// `pallas_fused_dp_local_hbm` (`_make_local_hbm_kernel`). It computes the
+// `pallas_fused_dp_local_hbm` (`_make_local_hbm_kernel`), and
+// abpoa_tpu/align/pallas_kernel.py `pallas_banded_dp` (B2). It computes the
 // same thing row for row: linear, affine or convex gaps (template GAP);
 // global, extend (with Z-drop) or local mode (runtime `mode`, uniform over
 // the block); int16 or int32 planes (runtime `plane16`), with every value
-// computed in int32 and stored in the plane type. The plain PyTorch version
-// is `fused_dp_torch` in align/fused_dp_kernel.py and must agree with this
-// kernel bit for bit on all nine outputs, over the rows it computes.
+// computed in int32 and stored in the plane type. The plain PyTorch versions
+// are `fused_dp_torch` in align/fused_dp_kernel.py and `banded_dp_torch` in
+// align/banded_kernel.py; each must agree with its instantiation bit for
+// bit on every output, over the rows it computes.
+//
+// B2 (template SEEDED, entry `abpoa_banded_dp`) is convex, global, int32.
+// It reads B2's tables: the scalars in pallas_kernel.py's layout, `base`
+// with no source bit, and per-row seeds mpl0/mpr0, which start each row's
+// band state in place of B1's neutral pair (the source's successors get
+// their 1 from the seeds, and with `-s` the seeds are the last launch's
+// mpl/mpr). It also writes `mplr`, every row's final mpl/mpr: the computed
+// rows from the loop, the rows it did not reach (the sink, or every row
+// after a band overflow) from one pull after it, and rows past gn keep
+// their seed. It takes up to 32 columns a thread (W <= 32768).
 //
 // What bounds it: the rows form a serial chain (each row reads its
 // predecessors' rows, and its band comes from their argmax), so a read's
@@ -23,7 +36,7 @@
 // block's last warp is the control warp, which keeps the band and best-cell
 // state (at 32 warps it takes columns too). Per row:
 //  (a) only rows 0..last computed are written; rows past it stay as
-//      allocated (the wrapper documents them as undefined), beg/end are
+//      allocated (the wrappers document them as undefined), beg/end are
 //      zeroed for every row;
 //  (b) a ring of the last D rows of H/E1/E2 (as many planes as the gap
 //      regime reads) sits in dynamic shared memory beside a ring of the last
@@ -34,14 +47,15 @@
 //  (c) the band is pulled, not pushed: each row stores left+1/right+1 of its
 //      row max (or a neutral pair when Z-drop gates it), and the next row
 //      takes min/max over its predecessors, lanes over the predecessor
-//      slots; exact because the fused loop's pre/out tables are transposes
-//      over rows 1..gn-2. The same pass gives min_pre_beg and each
+//      slots; exact because the pre/out tables (the fused loop's, and
+//      align/tables.py's for B2) are transposes over rows 1..gn-2, and row 0
+//      leaves the neutral pair. The same pass gives min_pre_beg and each
 //      predecessor's ring slot;
-//  (d) the table rows (pre_idx, base, remain, pre_cnt) are copied into
-//      shared memory kStages - 1 rows ahead with cp.async, and the control
-//      warp gathers row r + 1's predecessors while the column warps compute
-//      row r, so between two rows only row r's max, its best-cell update
-//      and row r + 1's band remain in the chain;
+//  (d) the table rows (pre_idx, base, remain, pre_cnt; B2 also mpl0/mpr0)
+//      are copied into shared memory kStages - 1 rows ahead with cp.async,
+//      and the control warp gathers row r + 1's predecessors while the
+//      column warps compute row r, so between two rows only row r's max,
+//      its best-cell update and row r + 1's band remain in the chain;
 //  (e) three block barriers a row: after the gap chains' warp totals (both
 //      convex chains at once; each thread's chain input is shifted one
 //      column so it needs no neighbour's H-hat; int32 scan), after the row
@@ -60,6 +74,25 @@ constexpr int kExtend = 1, kLocal = 2;  // mode 0 is global
 // computes the same layout.
 constexpr int kScalarRing = 256;  // rows of beg/end/left/right kept
 constexpr int kStages = 4;        // table rows in flight (cp.async)
+
+// ints of a staged table row past its P predecessors: base, remain,
+// pre_cnt and a spare (B1), or base, remain, pre_cnt, mpl0, mpr0 (B2)
+template <bool SEEDED>
+__host__ __device__ constexpr int tab_extra() {
+  return SEEDED ? 5 : 4;
+}
+
+// The pair a row that pushes nothing leaves for its successors to pull (row
+// 0; B1's Z-drop): B1's band state starts from (gn, 0), B2's from its
+// seeds, so B2's pair must lose to any value.
+template <bool SEEDED>
+__device__ __forceinline__ int quiet_l(int gn) {
+  return SEEDED ? 0x7fffffff : gn;
+}
+template <bool SEEDED>
+__device__ __forceinline__ int quiet_r() {
+  return SEEDED ? kIntMin : 0;
+}
 
 __device__ __forceinline__ int ld(const void* p, size_t i, bool p16) {
   return p16 ? (int)((const short*)p)[i] : ((const int*)p)[i];
@@ -116,8 +149,8 @@ __device__ __forceinline__ void warp_argmax(int v, int lo, int hi, int* mx,
 
 // bytes of dynamic shared memory for a launch (see launch_shape)
 __host__ __device__ inline size_t smem_bytes(int W, int P, int nwarps, int D,
-                                             int nplanes) {
-  return (size_t)kScalarRing * 16 + (size_t)kStages * (P + 4) * 4 +
+                                             int nplanes, int extra) {
+  return (size_t)kScalarRing * 16 + (size_t)kStages * (P + extra) * 4 +
          (size_t)2 * P * 16 + (size_t)nwarps * 32 +
          (size_t)nplanes * D * W * 4;
 }
@@ -127,7 +160,7 @@ __host__ __device__ constexpr int ring_planes() {
   return GAP == kLinear ? 1 : GAP == kAffine ? 2 : 3;
 }
 
-template <int CPT, int GAP>
+template <int CPT, int GAP, bool SEEDED>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
                 const int* __restrict__ pre_idx,
@@ -136,7 +169,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
                 const int* __restrict__ qp, void* H, void* E1, void* E2,
                 void* F1, void* F2, int* begend, int* ok_out, int* ext_out,
                 int* lr, int R, int W, int P, int QW, int D, int mode,
-                int zdrop_on, int plane16) {
+                int zdrop_on, int plane16, const int* __restrict__ mpl0,
+                const int* __restrict__ mpr0, int* mplr) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_beg, s_end, s_ovf, s_npre, s_qb, s_allring;
 
@@ -148,30 +182,39 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   const int ctl = nwarps - 1;  // the control warp (columns too if any)
   const int ncol_warps = min(nwarps, (W + 32 * CPT - 1) / (32 * CPT));
   const bool has_cols = warp < ncol_warps;
-  const bool p16 = plane16 != 0;
-  const bool local = mode == kLocal, extend = mode == kExtend;
+  const bool p16 = !SEEDED && plane16 != 0;
+  const bool local = !SEEDED && mode == kLocal;
+  const bool extend = !SEEDED && mode == kExtend;
+  constexpr int kTab = tab_extra<SEEDED>();
 
   int4* s_sring = (int4*)smem;                         // kScalarRing
-  int* s_tab = (int*)(s_sring + kScalarRing);          // kStages x (P + 4)
-  int4* s_pred = (int4*)(s_tab + kStages * (P + 4));   // 2 x P
+  int* s_tab = (int*)(s_sring + kScalarRing);          // kStages x (P + kTab)
+  int4* s_pred = (int4*)(s_tab + kStages * (P + kTab));  // 2 x P
   int* s_part = (int*)(s_pred + 2 * P);                // 8 x nwarps
   int* s_ring = s_part + 8 * nwarps;                   // planes x D x W
 
+  // the scalars in B1's layout, or in B2's (pallas_kernel.py) when seeded
   const int qlen = sc[0], w = sc[1], remain_end = sc[2], inf = sc[3];
-  const int e1 = sc[4], oe1 = sc[5], e2 = sc[6], oe2 = sc[7];
-  const int gn = sc[8], end0 = sc[9], zdrop = sc[10];
+  const int e1 = sc[SEEDED ? 5 : 4], oe1 = sc[SEEDED ? 6 : 5];
+  const int e2 = sc[SEEDED ? 8 : 6], oe2 = sc[SEEDED ? 9 : 7];
+  const int gn = sc[SEEDED ? 10 : 8], end0 = sc[SEEDED ? 11 : 9];
+  const int zdrop = SEEDED ? 0 : sc[10];
 
   // table row q into its stage, by the control warp (one group per call,
   // maybe empty)
   auto issue = [&](int q) {
     if (q < R && q < gn - 1) {
-      int* dst = s_tab + (q % kStages) * (P + 4);
+      int* dst = s_tab + (q % kStages) * (P + kTab);
       for (int k = lane_id; k < P; k += 32)
         cp_async4(dst + k, pre_idx + (size_t)q * P + k);
       if (lane_id == 0) {
         cp_async4(dst + P, base + q);
         cp_async4(dst + P + 1, remain + q);
         cp_async4(dst + P + 2, pre_cnt + q);
+        if constexpr (SEEDED) {
+          cp_async4(dst + P + 3, mpl0 + q);
+          cp_async4(dst + P + 4, mpr0 + q);
+        }
       }
     }
     cp_async_commit();
@@ -180,6 +223,11 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   for (int k = tid; k < R; k += nthreads) {
     begend[k] = 0;
     begend[R + k] = k == 0 ? end0 : 0;
+    if constexpr (SEEDED) {  // row 0 and the rows past gn keep their seed;
+      mplr[k] = mpl0[k];    // lr's -1 marks a row the loop does not reach
+      mplr[R + k] = mpr0[k];
+      lr[R + k] = -1;
+    }
   }
   for (int k = tid; k < W; k += nthreads) {
     const int v[5] = {row0[k], row0[W + k], row0[2 * W + k], row0[3 * W + k],
@@ -211,26 +259,31 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   auto prepare = [&](int q) {
     cp_async_wait<kStages - 2>();
     __syncwarp();
-    const int* tab = s_tab + (q % kStages) * (P + 4);
+    const int* tab = s_tab + (q % kStages) * (P + kTab);
     const int npre = tab[P + 2];
     nx_npre = npre;
     nx_bp = tab[P];
     nx_rem = tab[P + 1];
     int4* pred = s_pred + (q & 1) * P;
     int mn_l = gn, mx_r = 0, mn_beg = 1 << 30;
+    if constexpr (SEEDED) {
+      mn_l = tab[P + 3];
+      mx_r = tab[P + 4];
+    }
     bool has_cur = false, far = false;
     for (int k = lane_id; k < npre; k += 32) {
       const int p = tab[k];
       int4 v;
       if (p == q - 1) {  // its pulled pair comes at `finish`
-        v = make_int4(cur_beg, cur_end, gn, 0);
+        v = make_int4(cur_beg, cur_end, quiet_l<SEEDED>(gn), quiet_r<SEEDED>());
         has_cur = true;
       } else if (p < q && q - p < kScalarRing) {
         v = s_sring[p & (kScalarRing - 1)];
       } else {
         const bool back = p < q;
-        v = make_int4(begend[p], begend[R + p], back ? lr[p] : gn,
-                      back ? lr[R + p] : 0);
+        v = make_int4(begend[p], begend[R + p],
+                      back ? lr[p] : quiet_l<SEEDED>(gn),
+                      back ? lr[R + p] : quiet_r<SEEDED>());
       }
       mn_beg = min(mn_beg, v.x);
       mn_l = min(mn_l, v.z);
@@ -271,6 +324,10 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
     if (lane_id == 0) {
       begend[q] = cur_beg;
       begend[R + q] = cur_end;
+      if constexpr (SEEDED) {  // the row's final mpl/mpr: all pushes came
+        mplr[q] = mn_l;
+        mplr[R + q] = mx_r;
+      }
       s_beg = cur_beg;
       s_end = cur_end;
       s_ovf = (cur_end - cur_beg + 1 > W) ? 1 : 0;
@@ -282,14 +339,14 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
 
   if (warp == ctl) {
     if (lane_id == 0) {
-      lr[0] = gn;
-      lr[R] = 0;
-      s_sring[0] = make_int4(0, end0, gn, 0);
+      lr[0] = quiet_l<SEEDED>(gn);
+      lr[R] = quiet_r<SEEDED>();
+      s_sring[0] = make_int4(0, end0, quiet_l<SEEDED>(gn), quiet_r<SEEDED>());
     }
     for (int q = 1; q < kStages; ++q) issue(q);
     if (ok && 1 < gn - 1 && 1 < R) {
       prepare(1);
-      finish(1, gn, 0);
+      finish(1, quiet_l<SEEDED>(gn), quiet_r<SEEDED>());
     }
   }
   __syncthreads();
@@ -403,8 +460,9 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       // mq[0] - oe and A[k] = H-hat[k-1] - oe, so the thread that holds
       // H-hat[k-1] contributes A[k]: own[c] covers k <= this thread's
       // column c. int32 holds every term: A >= inf - oe stays above
-      // INT32_MIN by inf's 512 * ext margin (oracle.dp_inf_min), and
-      // k * ext only adds
+      // INT32_MIN by inf's 512 * ext margin (oracle.dp_inf_min), k * ext
+      // only adds, and a prefix max at column j less j * ext is at least
+      // A[j], so no width (B2's 32768 included) takes it below inf - oe
       if (GAP != kLinear && tid == 0) {  // A[0], from column 0's own mq
         const bool ib = beg <= end;
         run1 = ib ? mq[0] - oe1 : inf;
@@ -558,6 +616,26 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
     __syncthreads();  // barrier 1: the next row's band and predecessors
   }
 
+  if constexpr (SEEDED) {
+    // the rows the loop did not reach (the sink; after a band overflow,
+    // every later row) take the pairs their computed predecessors left, as
+    // Pallas's pushes leave them
+    __syncthreads();
+    for (int t = 1 + tid; t < gn; t += nthreads) {
+      if (lr[R + t] != -1) continue;
+      int mn_l = mpl0[t], mx_r = mpr0[t];
+      const int npre = pre_cnt[t];
+      for (int k = 0; k < npre; ++k) {
+        const int p = pre_idx[(size_t)t * P + k];
+        if (p >= 1 && lr[R + p] != -1) {
+          mn_l = min(mn_l, lr[p]);
+          mx_r = max(mx_r, lr[R + p]);
+        }
+      }
+      mplr[t] = mn_l;
+      mplr[R + t] = mx_r;
+    }
+  }
   if (warp == ctl) cp_async_wait<0>();
   if (warp == ctl && lane_id == 0) {
     ok_out[0] = ok;
@@ -574,18 +652,21 @@ struct Args {
   void *H, *E1, *E2, *F1, *F2;
   int *begend, *ok, *ext, *lr;
   int R, W, P, QW, D, mode, zdrop_on, plane16;
+  const int *mpl0, *mpr0;  // B2 only
+  int* mplr;
 };
 
-template <int CPT, int GAP>
+template <int CPT, int GAP, bool SEEDED>
 cudaError_t launch(const Args& a, int threads, size_t smem, cudaStream_t s) {
-  auto kern = fused_dp_kernel<CPT, GAP>;
+  auto kern = fused_dp_kernel<CPT, GAP, SEEDED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<1, threads, smem, s>>>(a.sc, a.base, a.pre_idx, a.pre_cnt, a.remain,
                                 a.row0, a.qp, a.H, a.E1, a.E2, a.F1, a.F2,
                                 a.begend, a.ok, a.ext, a.lr, a.R, a.W, a.P,
-                                a.QW, a.D, a.mode, a.zdrop_on, a.plane16);
+                                a.QW, a.D, a.mode, a.zdrop_on, a.plane16,
+                                a.mpl0, a.mpr0, a.mplr);
   return cudaGetLastError();
 }
 
@@ -593,11 +674,18 @@ template <int CPT>
 cudaError_t launch_gap(int gap, const Args& a, int threads, size_t smem,
                        cudaStream_t s) {
   switch (gap) {
-    case kLinear: return launch<CPT, kLinear>(a, threads, smem, s);
-    case kAffine: return launch<CPT, kAffine>(a, threads, smem, s);
-    case kConvex: return launch<CPT, kConvex>(a, threads, smem, s);
+    case kLinear: return launch<CPT, kLinear, false>(a, threads, smem, s);
+    case kAffine: return launch<CPT, kAffine, false>(a, threads, smem, s);
+    case kConvex: return launch<CPT, kConvex, false>(a, threads, smem, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// columns a thread for W over `threads` threads: a power of two
+int cols_per_thread(int W, int threads) {
+  int cpt = 1;
+  while (cpt * threads < W) cpt *= 2;
+  return cpt;
 }
 
 }  // namespace
@@ -623,16 +711,16 @@ extern "C" int abpoa_fused_dp(const void* sc, const void* base,
       mode < 0 || mode > 2 || gap_mode < 0 || gap_mode > 2 || D < 0 ||
       (D & (D - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  int cpt = 1;
-  while (cpt * threads < W) cpt *= 2;
+  const int cpt = cols_per_thread(W, threads);
   const int nplanes = gap_mode == kLinear ? 1 : gap_mode == kAffine ? 2 : 3;
-  if (cpt > 16 || (size_t)smem != smem_bytes(W, P, warps, D, nplanes))
+  if (cpt > 16 || (size_t)smem != smem_bytes(W, P, warps, D, nplanes,
+                                             tab_extra<false>()))
     return (int)cudaErrorInvalidValue;
   Args a{(const int*)sc,      (const int*)base, (const int*)pre_idx,
          (const int*)pre_cnt, (const int*)remain, (const int*)row0,
          (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
          (int*)ext,           (int*)lr, R, W, P, QW, D, mode, zdrop_on,
-         plane16};
+         plane16,             nullptr, nullptr, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (cpt) {
@@ -643,4 +731,45 @@ extern "C" int abpoa_fused_dp(const void* sc, const void* base,
     default: err = launch_gap<16>(gap_mode, a, threads, smem, s); break;
   }
   return (int)err;
+}
+
+// Kernel B2: the seeded instantiation (convex gaps, global mode, int32
+// planes) on B2's tables; see the header. Up to 32 columns a thread. `lr`
+// (2R) is scratch, `ext` (4) is written and carries nothing; the other
+// arguments are as for abpoa_fused_dp.
+extern "C" int abpoa_banded_dp(const void* sc, const void* base,
+                               const void* pre_idx, const void* pre_cnt,
+                               const void* remain, const void* mpl0,
+                               const void* mpr0, const void* row0,
+                               const void* qp, void* H, void* E1, void* E2,
+                               void* F1, void* F2, void* begend, void* mplr,
+                               void* ok, void* ext, void* lr, int R, int W,
+                               int P, int QW, int warps, int D, int smem,
+                               void* stream) {
+  const int threads = warps * 32;
+  if (warps < 1 || threads > kMaxThreads || W < 1 || R < 1 || P < 1 ||
+      D < 0 || (D & (D - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int cpt = cols_per_thread(W, threads);
+  if (cpt > 32 ||
+      (size_t)smem != smem_bytes(W, P, warps, D, 3, tab_extra<true>()))
+    return (int)cudaErrorInvalidValue;
+  Args a{(const int*)sc,      (const int*)base, (const int*)pre_idx,
+         (const int*)pre_cnt, (const int*)remain, (const int*)row0,
+         (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
+         (int*)ext,           (int*)lr, R, W, P, QW, D, 0, 0, 0,
+         (const int*)mpl0,    (const int*)mpr0, (int*)mplr};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cpt) {
+    case 1: return (int)launch<1, kConvex, true>(a, threads, smem, s);
+    case 2: return (int)launch<2, kConvex, true>(a, threads, smem, s);
+    case 4: return (int)launch<4, kConvex, true>(a, threads, smem, s);
+    case 8: return (int)launch<8, kConvex, true>(a, threads, smem, s);
+    case 16: return (int)launch<16, kConvex, true>(a, threads, smem, s);
+    default: return (int)launch<32, kConvex, true>(a, threads, smem, s);
+  }
+}
+
+extern "C" const char* abpoa_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }

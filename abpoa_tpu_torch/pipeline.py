@@ -8,9 +8,12 @@ routes, as in the JAX package:
   `fused_eligible` holds): the whole progressive loop runs on the Params'
   device (`align/fused_loop.py`) and the graph is downloaded once;
 - the per-read route (`poa`): each read is aligned by the banded DP kernel
-  on the device and fused into the graph on the host. It takes what the
-  fused route does not: a set of one read. It covers convex gaps in global
-  mode only.
+  (B2) on the device and fused into the graph on the host. It covers
+  convex gaps in global mode only. From the CLI it takes what the fused
+  route does not, a set of one read, and that read launches no kernel:
+  `poa` aligns only once the graph has nodes (`g.node_n > 2`), so the first
+  read of a set becomes the graph as it is. So no CLI run launches B2
+  today; chip_smoke.py (phase C2) and the tests call `poa` directly.
 
 A failure of the fused route raises; nothing falls back to the other route.
 The heaviest-bundle consensus is read out at the end.

@@ -6,9 +6,13 @@
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
          one nvcc per source, all started together
-  A      kernel B2 (banded_dp, the per-read route) against its plain PyTorch
-         version on tables of a mid-run graph of tests/data/sim2k.fa,
-         including a forced band overflow relaunched up to W > 1024
+  A      kernel B2 (banded_dp, the per-read route; B1's seeded
+         instantiation) against its plain PyTorch version on the plane rows
+         it computes and on begend, mplr and ok: tables of a mid-run graph
+         of tests/data/sim2k.fa, including a forced band overflow relaunched
+         up to W > 1024; the `-s` retry's re-seeded launch on rcmix.fa; a
+         simulated 20 kb read relaunched up to W > 16384 (32 columns a
+         thread); a sweep of B2's column warps at W = 512
   A2     on sim2k tables: kernel B1 (fused_dp) against its plain version in
          every variant (linear/affine/convex x global/extend+Z-drop/local x
          int16/int32), B3 as B1's local instantiation at sim2k's local width
@@ -34,7 +38,8 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          most once per read attempt and collision); the consensus must
          match the simulated reference at >= 99 % identity
   C2     the per-read route (pipeline.poa, kernel B2) and the fused route on
-         the first M reads of that set give byte-identical consensus
+         the first M reads of that set give byte-identical consensus; the
+         per-read route's wall split into B2, the planes' copy and the host
   D      at the graph phase C left and one more read: B1, X1, S1 and K1
          against their plain versions with times and bounds (B1 also per
          computed row, X1 per step, K1 per pass, in both degree variants
@@ -43,7 +48,8 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          (from the tables), a sweep of B1's column warps, each held equal
          to the plain version, and the time of the sequential fusion a
          collision read takes (held equal to the vectorised fusion); B2 the
-         same at the graph of C2's per-read run
+         same at the graph of C2's per-read run (time, per computed row,
+         bound, ring share, warp sweep)
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero with no result when there is no
 CUDA device or no checkout of the repository beside this script.
@@ -120,13 +126,15 @@ def encode(abpt, seq: str):
 
 
 def compare(name: str, kernel_out, plain_out) -> int:
-    """Max abs difference over all outputs; raises on any mismatch."""
+    """Max abs difference over all outputs (on the kernel output's device);
+    raises on any mismatch."""
     worst = 0
     for k, (a, b) in enumerate(zip(kernel_out, plain_out)):
         if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
             raise AssertionError(f"{name} output {k}: {tuple(a.shape)} {a.dtype}"
                                  f" vs {tuple(b.shape)} {b.dtype}")
-        d = int((a.cpu().long() - b.cpu().long()).abs().max().item()) if a.numel() else 0
+        d = (int((a.long() - b.to(a.device).long()).abs().max().item())
+             if a.numel() else 0)
         worst = max(worst, d)
         if d != 0:
             raise AssertionError(f"{name}: kernel and plain version differ on "
@@ -135,12 +143,18 @@ def compare(name: str, kernel_out, plain_out) -> int:
 
 
 def compare_dp(name: str, got, want, args) -> tuple:
-    """compare() for B1/B3 outputs over the plane rows the kernel defines
-    (0..last computed; the kernel leaves later rows as allocated). Returns
-    (max abs difference, rows compared)."""
+    """compare() for B1/B3 outputs, or B2's (args of banded_dp: 11 tensors),
+    over the plane rows the kernel defines (0..last computed; the kernel
+    leaves later rows as allocated). Returns (max abs difference, rows
+    compared)."""
     from abpoa_tpu_torch.align.fused_dp_kernel import computed_rows
-    rows = computed_rows(want[5].cpu(), want[6].cpu(), want[7].cpu(),
-                         int(args[0][8]), want[0].shape[1])
+    if len(args) == 11:  # B2: begend (2R,), gn at scalars[10]
+        R = want[5].shape[0] // 2
+        beg, end, gn = want[5][:R], want[5][R:], int(args[0][10])
+    else:
+        beg, end, gn = want[5], want[6], int(args[0][8])
+    rows = computed_rows(beg.cpu(), end.cpu(), want[7].cpu(), gn,
+                         want[0].shape[1])
     cut = lambda out: [t[:rows] if k < 5 else t for k, t in enumerate(out)]  # noqa: E731
     return compare(name, cut(got), cut(want)), rows
 
@@ -209,31 +223,39 @@ def nbytes(tensors) -> int:
 
 
 def dp_bound(rates, args, out):
-    """B1/B3 over the rows the kernel computes, 0 to gn - 2 (or to the row
-    whose band passed W); the rows past them are capacity padding. Bytes:
-    those rows of every per-row input read once, their plane rows and band
-    ends written once, the scalars, row 0 and the query profile. Operations
-    per in-band cell: 3 maxes per predecessor, then the query profile,
-    H-hat, the two F chains (add, max, sub, clamp each), H, the E updates
-    and the argmax (22)."""
+    """B1/B3, or B2 (args of banded_dp: 11 tensors), over the rows the
+    kernel computes, 0 to gn - 2 (or to the row whose band passed W); the
+    rows past them are capacity padding. Bytes: those rows of every per-row
+    input read once, their plane rows and band ends written once; the
+    scalars, row 0, the query profile and the other outputs (ok and ext;
+    B2's ok and mplr, every row's final mpl/mpr) once. Operations per
+    in-band cell: 3 maxes per predecessor, then the query profile, H-hat,
+    the two F chains (add, max, sub, clamp each), H, the E updates and the
+    argmax (22)."""
     import numpy as np
-    scalars, row0, qp = args[0], args[7], args[8]
-    per_row = args[1:7]  # base_packed, pre_idx, pre_cnt, out_idx, out_cnt, remain
-    planes, (beg, end, ok, ext) = out[:5], out[5:]
+    planes = out[:5]
+    if len(args) == 11:  # B2: begend (2R,), gn at scalars[10]
+        R = out[5].shape[0] // 2
+        beg, end, gn = out[5][:R], out[5][R:], int(args[0][10])
+        fixed = (args[0], args[10], args[9], out[7], out[6])
+        per_row = args[1:9]  # base .. mpr0
+    else:
+        beg, end, gn = out[5], out[6], int(args[0][8])
+        fixed = (args[0], args[7], args[8], out[7], out[8])
+        per_row = args[1:7]  # base_packed .. remain
     b, e = [x.cpu().numpy().astype(np.int64) for x in (beg, end)]
     W = planes[0].shape[1]
-    rows = int(scalars[8]) - 1
+    rows = gn - 1
     wide = np.nonzero(e[1:rows] - b[1:rows] + 1 > W)[0]
     if wide.size:
         rows = int(wide[0]) + 2
     cells = np.clip(e[:rows] - b[:rows] + 1, 0, W)
     cells[0] = 0
-    npre = per_row[2].cpu().numpy().astype(np.int64)[:rows]
+    npre = per_row[2].cpu().numpy().astype(np.int64)[:rows]  # pre_cnt
     ops = float((cells * (3 * npre + 22)).sum())
     row_bytes = (sum(t[0].numel() * t.element_size() for t in per_row)
                  + sum(W * p.element_size() for p in planes) + 2 * 4)
-    return rates.bound(nbytes((scalars, row0, qp, ok, ext)) + rows * row_bytes,
-                       ops)
+    return rates.bound(nbytes(fixed) + rows * row_bytes, ops)
 
 
 def bt_bound(rates, planes, pre_cnt, ops, res):
@@ -592,22 +614,32 @@ def fused_state(abpt, seqs, n):
 
 
 def sweep_warps(tag, args, kw, want):
-    """Times B1/B3 at every column-warp count that covers the band (at
-    most 16 columns a thread), each launch held equal to the plain
-    version's outputs `want` on the computed rows; logs µs a computed row."""
+    """Times B1/B3 (kw: fused_dp's keywords), or B2 (kw None), at every
+    column-warp count that covers the band (at most 16 columns a thread,
+    32 for B2), each launch held equal to the plain version's outputs
+    `want` on the computed rows; logs µs a computed row."""
     import torch
+    from abpoa_tpu_torch import constants as C
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
     from abpoa_tpu_torch.align.fused_dp_kernel import (fused_dp,
                                                        launch_shape,
                                                        table_warps)
-    W, P = args[7].shape[1], args[2].shape[1]
+    W, P = want[0].shape[1], args[2].shape[1]
+    if kw is None:
+        run = lambda wp: banded_dp(*args, warps=wp)  # noqa: E731
+        shape = lambda wp: launch_shape(W, P, C.CONVEX_GAP, wp, seeded=True)  # noqa: E731
+    else:
+        run = lambda wp: fused_dp(*args, **kw, warps=wp)  # noqa: E731
+        shape = lambda wp: launch_shape(W, P, kw["gap_mode"], wp)  # noqa: E731
     for wp in (1, 2, 4, 8, 16, 32):
-        if min(32, wp + 1) * 32 * 16 < W:
+        try:
+            ls = shape(wp)
+        except ValueError:  # too few warps for W
             continue
-        got = fused_dp(*args, **kw, warps=wp)
+        got = run(wp)
         torch.cuda.synchronize()
         _, rows = compare_dp(f"{tag} warps={wp}", got, want, args)
-        ms = time_cuda(lambda: fused_dp(*args, **kw, warps=wp), 3)
-        ls = launch_shape(W, P, kw["gap_mode"], wp)
+        ms = time_cuda(lambda: run(wp), 3)
         log(f"[sweep] {tag} W={W} warps={wp}{' (table)' if wp == table_warps(W) else ''}"
             f" (cpt {ls['cpt']}, ring D={ls['depth']}): {ms:.3f} ms, "
             f"{ms * 1e3 / max(1, rows - 1):.3f} us a computed row, == plain")
@@ -657,7 +689,8 @@ def main() -> int:
     from abpoa_tpu_torch.io.fastx import read_fastx
     from abpoa_tpu_torch.kernels import build
     from abpoa_tpu_torch.params import Params
-    from abpoa_tpu_torch.pipeline import Abpoa, _ingest_records, output, poa
+    from abpoa_tpu_torch.pipeline import (Abpoa, _ingest_records, _rc_encode,
+                                          output, poa)
 
     card = smi("name,power.limit") or "nvidia-smi failed"
     log(f"card: {card}")
@@ -684,7 +717,30 @@ def main() -> int:
                               "backtrack", "edge_sort", "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
 
-    # ---- A: B2 vs plain on sim2k tables (the per-read route's kernel)
+    # ---- A: B2 vs plain (the per-read route's kernel, B1's seeded
+    # instantiation): sim2k tables, the forced relaunch chain, a re-seeded
+    # `-s` launch, a 20 kb read past W = 16384, a warp sweep at W = 512
+    def b2_case(tag, p, g, query, W, want_ok=None):
+        t = build_row_tables(g, 0, 1)
+        qt = query_tables(p, t, query, W)
+        ts = to_dev([qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
+                     t.out_cnt, t.remain, t.mpl0, t.mpr0, qt["qp_pad"],
+                     qt["row0"]], dev)
+        got = banded_dp(*ts)
+        torch.cuda.synchronize()
+        plain_ms, want = time_host(lambda: banded_dp_torch(*ts))
+        err, rows = compare_dp(f"banded_dp {tag}", got, want, ts)
+        max_err["banded_dp"] = max(max_err["banded_dp"], err)
+        ok = int(got[7].item())
+        if want_ok is not None and ok != want_ok:
+            raise AssertionError(f"B2 {tag} W={W}: ok={ok}, expected {want_ok}")
+        ls = launch_shape(W, t.pre_idx.shape[1], abpt.gap_mode, seeded=True)
+        log(f"[A] B2 {tag} R={t.R} gn={t.gn} W={W} P={t.pre_idx.shape[1]} "
+            f"({ls['block_warps']} warps, cpt {ls['cpt']}, ring D={ls['depth']}) "
+            f"ok={ok}: kernel == plain on rows 0..{rows - 1}, begend, mplr, ok"
+            f" (plain {plain_ms:.1f} ms)")
+        return ts, got, want, rows, ok
+
     g = POAGraph()
     for i in range(3):
         q = encode(cpu, sim2k[i])
@@ -693,30 +749,54 @@ def main() -> int:
         g.add_alignment(abpt, q, None, cigar, True)
     g.topological_sort(abpt)
     query = encode(cpu, sim2k[3])
+    b2_case("sim2k", abpt, g, query, initial_band_width(abpt, len(query)), 1)
+    ts512, _, want512, _, _ = b2_case("sim2k", abpt, g, query, 512, 1)
     wide = Params(device="cuda", wb=600).finalize()
-    cases = [(abpt, initial_band_width(abpt, len(query)), True)]
     W = 512
     while True:  # forced overflow: the relaunch chain of align/banded.py
-        cases.append((wide, W, None))
-        if W >= len(query) + 1:
+        last = W >= len(query) + 1
+        ok = b2_case("sim2k wb=600", wide, g, query, W, 1 if last else None)[4]
+        if last:
             break
         W = banded.next_band_width(W, len(query))
-    for p, W, want_ok in cases:
-        t = build_row_tables(g, 0, 1)
-        qt = query_tables(p, t, query, W)
-        ts = to_dev([qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
-                     t.out_cnt, t.remain, t.mpl0, t.mpr0, qt["qp_pad"],
-                     qt["row0"]], dev)
-        got = banded_dp(*ts)
-        torch.cuda.synchronize()
-        max_err["banded_dp"] = max(max_err["banded_dp"],
-                                   compare("banded_dp", got, banded_dp_torch(*ts)))
-        ok = int(got[7].item())
-        if want_ok is not None and ok != 1:
-            raise AssertionError(f"sim2k W={W}: unexpected band overflow")
-        log(f"[A] B2 sim2k R={t.R} gn={t.gn} W={W} ok={ok}: kernel == plain")
-    if int(got[7].item()) != 1 or cases[-1][1] <= 1024:
+    if ok != 1 or W <= 1024:
         raise AssertionError("overflow case did not end in a W > 1024 launch that fits")
+    # the `-s` retry: the forward launch writes its mpl/mpr back into the
+    # unsorted graph, and the reverse complement's tables are seeded from them
+    rcmix = [encode(cpu, r.seq) for r in
+             read_fastx(os.path.join(ROOT, "tests", "data", "rcmix.fa"))]
+    g = POAGraph()
+    for q in rcmix[:3]:
+        cigar = (banded.align_sequence_to_subgraph(g, abpt, 0, 1, q).cigar
+                 if g.node_n > 2 else [])
+        g.add_alignment(abpt, q, None, cigar, True)
+    g.topological_sort(abpt)
+    banded.align_sequence_to_subgraph(g, abpt, 0, 1, rcmix[3])
+    rc = _rc_encode(rcmix[3])
+    b2_case("rcmix -s re-seeded", abpt, g, rc, initial_band_width(abpt, len(rc)), 1)
+    # one ~20 kb read against another's chain, forced past W = 16384 (32
+    # columns a thread, no ring; B1 stops at 16384)
+    _, long_reads = simulate(20000, 2, 0.10, args.seed + 1)
+    g = POAGraph()
+    g.add_alignment(abpt, encode(cpu, long_reads[0]), None, [], True)
+    q20 = encode(cpu, long_reads[1])
+    wide = Params(device="cuda", wb=9000).finalize()
+    W = 512
+    while True:
+        last = W >= len(q20) + 1
+        ts20, _, _, rows20, ok = b2_case("20 kb wb=9000", wide, g, q20, W,
+                                         1 if last else None)
+        if last:
+            break
+        W = banded.next_band_width(W, len(q20))
+    if ok != 1 or W <= 16384:
+        raise AssertionError("the 20 kb case did not end in a W > 16384 launch that fits")
+    b2_long_ms = time_cuda(lambda: banded_dp(*ts20), 1)
+    log(f"[A] B2 20 kb at W={W}: kernel {b2_long_ms:.3f} ms, "
+        f"{b2_long_ms * 1e3 / max(1, rows20 - 1):.3f} us a computed row")
+    del ts20
+    torch.cuda.empty_cache()
+    sweep_warps("A B2 sim2k", ts512, None, want512)
 
     # ---- A2: B1 (every variant), B3, X1, K1 vs plain on sim2k tables
     sim2k_enc = [encode(cpu, s) for s in sim2k]
@@ -940,10 +1020,12 @@ def main() -> int:
         ab = Abpoa()
         seqs, weights = _ingest_records(ab, abpt, recs)
         banded_dp.launches = 0
+        banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
         t0 = time.perf_counter()
         if route == "per-read":
             poa(ab, abpt, seqs, weights, 0)
             b2_launches, ab_pr = banded_dp.launches, ab
+            pr_wall, pr_stats = time.perf_counter() - t0, dict(banded.stats)
         else:
             from abpoa_tpu_torch.pipeline import _run_fused_device
             _run_fused_device(ab, abpt, seqs, weights)
@@ -951,6 +1033,14 @@ def main() -> int:
         output(ab, abpt, buf)
         outs.append(buf.getvalue())
         log(f"[C2] {route} route, {m} reads: {time.perf_counter() - t0:.2f} s")
+    n_pr = max(1, pr_stats["reads"])
+    k_ms, d_ms = pr_stats["kernel_s"] * 1e3, pr_stats["d2h_s"] * 1e3
+    log(f"[C2] per-read route, per aligned read ({pr_stats['reads']} reads, "
+        f"{pr_stats['rows']} DP rows launched, {b2_launches} B2 launches): "
+        f"wall {pr_wall * 1e3 / n_pr:.1f} ms = B2 kernel {k_ms / n_pr:.1f} "
+        f"(CUDA events) + planes D2H {d_ms / n_pr:.1f} + host rest "
+        f"{(pr_wall * 1e3 - k_ms - d_ms) / n_pr:.1f} (tables, backtrack, "
+        f"fusion, sort); the POA loop {pr_wall:.2f} s")
     if b2_launches < m - 1:
         raise AssertionError(f"per-read route: {b2_launches} B2 launches for {m} reads")
     if outs[0] != outs[1]:
@@ -1089,15 +1179,28 @@ def main() -> int:
     got = banded_dp(*ts)
     torch.cuda.synchronize()
     b2_plain_ms, want = time_host(lambda: banded_dp_torch(*ts))
-    max_err["banded_dp"] = max(max_err["banded_dp"], compare("banded_dp D", got, want))
+    err, rows_b2 = compare_dp("banded_dp D", got, want, ts)
+    max_err["banded_dp"] = max(max_err["banded_dp"], err)
     b2_ms = time_cuda(lambda: banded_dp(*ts), 3)
-    beg_end = got[5]
-    b2_bound = rates.bound(nbytes(ts) + nbytes(got), float(
-        (np.clip((beg_end[t.R:] - beg_end[:t.R] + 1).cpu().numpy(), 0, W2)[1: t.gn - 1]
-         * (3 * t.pre_cnt[1: t.gn - 1].astype(np.int64) + 22)).sum()))
-    log(f"[D] B2 at the {m}-read per-read graph (R={t.R}, gn={t.gn}, W={W2}): "
-        f"kernel == plain; kernel {b2_ms:.3f} ms, plain {b2_plain_ms:.1f} ms, "
-        f"bound {b2_bound[0]:.4f} ms ({b2_bound[1]})")
+    b2_bnd = dp_bound(rates, ts, got)
+    P2 = t.pre_idx.shape[1]
+    shape_b2 = launch_shape(W2, P2, abpt.gap_mode, seeded=True)
+    log(f"[D] B2 at the {m}-read per-read graph (R={t.R}, gn={t.gn}, W={W2}, "
+        f"P={P2}; {shape_b2['block_warps']} warps, cpt {shape_b2['cpt']}, ring "
+        f"D={shape_b2['depth']}, {shape_b2['smem']} B shared): kernel == plain "
+        f"on rows 0..{rows_b2 - 1}, begend, mplr, ok; kernel {b2_ms:.3f} ms "
+        f"({b2_ms * 1e3 / max(1, rows_b2 - 1):.3f} us a computed row), plain "
+        f"{b2_plain_ms:.1f} ms, bound {b2_bnd[0]:.4f} ms ({b2_bnd[1]}; "
+        f"all R rows and every output: {rates.bound(nbytes(ts) + nbytes(got), 0)[0]:.4f} ms)")
+    rr = np.arange(t.gn - 1)[:, None]
+    live = (np.arange(P2)[None, :] < t.pre_cnt[:t.gn - 1, None]) & (rr >= 1)
+    dist = (rr - t.pre_idx[:t.gn - 1].astype(np.int64))[live]
+    log(f"[D] B2 predecessor reads: {dist.size}; rows back p50 "
+        f"{np.percentile(dist, 50):.0f}, p99 {np.percentile(dist, 99):.0f}, max "
+        f"{dist.max()}; served by the plane ring (D={shape_b2['depth']}) "
+        f"{(dist < shape_b2['depth']).mean() * 100:.3f} %, by the band ring "
+        f"(256 rows) {(dist < 256).mean() * 100:.3f} %")
+    sweep_warps("D B2", ts, None, want)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launched, ms, plain_ms, bnd):
@@ -1107,9 +1210,9 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     print(json.dumps({"kernels": [
-        entry("banded_dp", "abpoa_tpu_torch/csrc/banded_dp.cu",
+        entry("banded_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/pallas_kernel.py:215", b2_launches, b2_ms,
-              b2_plain_ms, b2_bound),
+              b2_plain_ms, b2_bnd),
         entry("fused_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/pallas_fused.py:696", launches["fused_dp"],
               b1_ms, b1_plain_ms, b1_bound),

@@ -4,8 +4,10 @@
 the `banded_dp` wrapper) must equal `pallas_banded_dp` run in interpret mode
 on the same tables, on every output: five int32 planes, band bounds, final
 mpl/mpr and the overflow flag, with tolerance 0. Tables come from real
-mid-run graphs of tests/data fixtures. The CUDA kernel itself is compared
-with the plain version on the card (marked `cuda`, skipped without one).
+mid-run graphs of tests/data fixtures, including the `-s` retry's
+re-seeded launch and a source with several successors. The CUDA kernel
+itself is compared with the plain version on the card in
+test_torch_banded_shapes.py (marked `cuda`, skipped without one).
 """
 import os
 
@@ -13,51 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import DATA_DIR
-
 from abpoa_tpu.align.pallas_kernel import pallas_banded_dp
-from abpoa_tpu_torch.align import banded_kernel
-from abpoa_tpu_torch.align.banded import align_sequence_to_subgraph
 from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
-from abpoa_tpu_torch.align.tables import (build_row_tables, initial_band_width,
-                                          query_tables)
-from abpoa_tpu_torch.graph import POAGraph
-from abpoa_tpu_torch.io.fastx import read_fastx
+from abpoa_tpu_torch.align.tables import initial_band_width
 from abpoa_tpu_torch.kernels import build
-from abpoa_tpu_torch.params import Params
 
-
-def _params(device="cpu", **kw):
-    abpt = Params(device=device)
-    for k, v in kw.items():
-        setattr(abpt, k, v)
-    return abpt.finalize()
-
-
-def _encode(abpt, rec):
-    return abpt.char_to_code[np.frombuffer(rec.seq.encode(), dtype=np.uint8)].astype(np.uint8)
-
-
-def _graph_and_query(fa, n_graph, abpt):
-    """A graph of the first n_graph reads (built by the port on the CPU) and
-    the next read."""
-    recs = read_fastx(os.path.join(DATA_DIR, fa))
-    g = POAGraph()
-    for i in range(n_graph):
-        q = _encode(abpt, recs[i])
-        cigar = []
-        if g.node_n > 2:
-            cigar = align_sequence_to_subgraph(g, abpt, 0, 1, q).cigar
-        g.add_alignment(abpt, q, None, cigar, True)
-    g.topological_sort(abpt)
-    return g, _encode(abpt, recs[n_graph])
-
-
-def _inputs(abpt, g, query, W):
-    t = build_row_tables(g, 0, 1)
-    q = query_tables(abpt, t, query, W)
-    return t, [q["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
-               t.out_cnt, t.remain, t.mpl0, t.mpr0, q["qp_pad"], q["row0"]]
+from test_torch_banded_shapes import (OUT_NAMES, graph_and_query, inputs,
+                                      params, reseeded, tensors)
 
 
 def _pallas(args, W):
@@ -87,25 +51,59 @@ CASES = [
 
 @pytest.mark.parametrize("fa,n_graph,force_w", CASES)
 def test_banded_dp_torch_equals_pallas(fa, n_graph, force_w):
-    abpt = _params()
-    g, query = _graph_and_query(fa, n_graph, abpt)
+    abpt = params()
+    g, query = graph_and_query(fa, n_graph, abpt)
     W = force_w or initial_band_width(abpt, len(query))
-    _, args = _inputs(abpt, g, query, W)
-    want = _pallas(args, W)
-    got = banded_dp_torch(*[torch.from_numpy(np.ascontiguousarray(a, np.int32))
-                            for a in args])
-    names = ["H", "E1", "E2", "F1", "F2", "begend", "mplr", "ok"]
-    for name, a, b in zip(names, got, want):
-        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+    _, args = inputs(abpt, g, query, W)
+    got = _assert_plain_equals_pallas(args, W)
     assert int(got[7][0]) == (0 if force_w else 1)
 
 
-def test_wrapper_runs_plain_version_on_cpu_without_counting():
-    abpt = _params()
-    g, query = _graph_and_query("seq.fa", 4, abpt)
+def _assert_plain_equals_pallas(args, W):
+    want = _pallas(args, W)
+    got = banded_dp_torch(*tensors(args))
+    for name, a, b in zip(OUT_NAMES, got, want):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("fa,n_graph,force_w", [
+    ("rcmix.fa", 3, None),
+    ("seq.fa", 5, None),
+    ("sim2k.fa", 2, 128),  # band wider than W: ok == 0 on both sides
+])
+def test_banded_dp_torch_equals_pallas_reseeded(fa, n_graph, force_w):
+    """The `-s` retry's launch: seeds mpl0/mpr0 are the forward launch's
+    final mpl/mpr, not the neutral pair of a fresh sort."""
+    abpt = params()
+    g, rc = reseeded(fa, n_graph, abpt)
+    W = force_w or initial_band_width(abpt, len(rc))
+    t, args = inputs(abpt, g, rc, W)
+    rows = slice(1, t.gn)
+    seeded = (t.mpl0[rows] != t.gn) & (t.mpl0[rows] != 1)
+    assert seeded.mean() > 0.5, "the seeds are not the last launch's"
+    got = _assert_plain_equals_pallas(args, W)
+    assert int(got[7][0]) == (0 if force_w else 1)
+
+
+@pytest.mark.parametrize("fa,n_graph", [("rcmix.fa", 2), ("seq.fa", 3)])
+def test_banded_dp_torch_equals_pallas_source_fanout(fa, n_graph):
+    """A source with several successors: each is seeded with 1 through
+    mpl0/mpr0 (row 0 pushes nothing)."""
+    abpt = params()
+    g, query = graph_and_query(fa, n_graph, abpt)
+    assert len(g.nodes[0].out_ids) >= 2
     W = initial_band_width(abpt, len(query))
-    _, args = _inputs(abpt, g, query, W)
-    ts = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in args]
+    _, args = inputs(abpt, g, query, W)
+    assert int(_assert_plain_equals_pallas(args, W)[7][0]) == 1
+
+
+def test_wrapper_runs_plain_version_on_cpu_without_counting():
+    abpt = params()
+    g, query = graph_and_query("seq.fa", 4, abpt)
+    W = initial_band_width(abpt, len(query))
+    _, args = inputs(abpt, g, query, W)
+    ts = tensors(args)
     before = banded_dp.launches
     got = banded_dp(*ts)
     want = banded_dp_torch(*ts)
@@ -115,14 +113,14 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
 
 
 def _cpu_args():
-    abpt = _params()
-    g, query = _graph_and_query("seq.fa", 3, abpt)
-    _, args = _inputs(abpt, g, query, 256)
-    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in args]
+    abpt = params()
+    g, query = graph_and_query("seq.fa", 3, abpt)
+    _, args = inputs(abpt, g, query, 256)
+    return tensors(args)
 
 
 @pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "row0"])
-def test_wrapper_rejects_bad_inputs(fault):
+def test_wrapper_rejects_badinputs(fault):
     ts = _cpu_args()
     if fault == "dtype":
         ts[1] = ts[1].to(torch.int64)
@@ -142,27 +140,8 @@ def test_wrapper_rejects_bad_inputs(fault):
 def test_kernel_build_is_keyed_by_sources():
     srcs = build.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "backtrack.cu", "banded_dp.cu", "fused_dp.cu", "topo_sort.cu"]
+        "backtrack.cu", "fused_dp.cu", "topo_sort.cu"]
     path = build.library_path()
     assert path == build.library_path()
     assert os.path.dirname(path).endswith(os.path.join("build", "abpoa_tpu_torch"))
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_equals_plain_version_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (sm_90); run with chip_smoke.py")
-    abpt = _params(device="cuda")
-    cpu = _params()
-    g, query = _graph_and_query("sim2k.fa", 3, cpu)
-    for W in (64, initial_band_width(abpt, len(query)), 1536):
-        _, args = _inputs(abpt, g, query, W)
-        ts = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda() for a in args]
-        before = banded_kernel.banded_dp.launches
-        got = banded_dp(*ts)
-        torch.cuda.synchronize()
-        assert banded_kernel.banded_dp.launches == before + 1
-        want = banded_dp_torch(*ts)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)

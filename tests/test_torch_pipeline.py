@@ -138,3 +138,22 @@ def test_cli_cpu_matches_jax_cli_on_sim2k(tmp_path):
 def test_cli_cpu_matches_jax_cli_on_fixtures(fa, flags):
     path = os.path.join(DATA_DIR, fa)
     assert _port_cli([path, "--device", "cpu", *flags]) == _jax_cli([path, *flags])
+
+
+def test_per_read_route_with_s_matches_jax_on_rcmix():
+    """`-s` on the per-read route (pipeline.poa, kernel B2's plain version
+    on the CPU): the reverse-complement retries run on re-seeded tables,
+    and the consensus equals the JAX package's per-read route."""
+    from abpoa_tpu_torch.pipeline import Abpoa, _ingest_records, output, poa
+    path = os.path.join(DATA_DIR, "rcmix.fa")
+    ns = torch_cli.build_parser().parse_args([path, "--device", "cpu", "-s"])
+    abpt = torch_cli.args_to_params(ns).finalize()
+    ab = Abpoa()
+    seqs, weights = _ingest_records(ab, abpt, read_fastx(path))
+    reads = banded.stats["reads"]
+    poa(ab, abpt, seqs, weights, 0)
+    assert banded.stats["reads"] - reads > len(seqs) - 1  # retries ran
+    assert any(ab.is_rc)
+    buf = io.StringIO()
+    output(ab, abpt, buf)
+    assert buf.getvalue() == _jax_cli([path, "-s"])
