@@ -15,7 +15,9 @@ mismatch columns of one read touch the same aligned-node group (a
 "collision"; none on the test fixtures and on the headline set). It walks the
 op stream in Python over the graph's first node_n rows, copied to the host
 once, and copies those rows back: the same steps as the JAX function, one op
-at a time.
+at a time. It also returns the node path the read took, which the fused loop
+records for the read-id outputs (the JAX loop hands such a run to its host
+loop instead).
 """
 from __future__ import annotations
 
@@ -171,18 +173,21 @@ class _HostGraph:
 
 
 def fuse_alignment(g: DeviceGraph, fwd_op, fwd_arg, n_fwd: int, query,
-                   qlen: int, weight) -> DeviceGraph:
+                   qlen: int, weight) -> tuple:
     """Fuse one read's forward op stream into a non-empty graph
     (abpoa_graph.c:689-774, device_graph.py:120-206): op 0 matches the node
     in `fwd_arg` (reusing or creating an aligned node on a mismatch), op 2
     inserts a new node, op 1 deletes. `fwd_op`/`fwd_arg` are int tensors,
-    `query`/`weight` the read's padded base and weight tensors."""
+    `query`/`weight` the read's padded base and weight tensors. Returns
+    (graph, path): the path is the node each consumed op ended on, so the
+    read's edges are SRC -> path[0] -> ... -> path[-1] -> SINK."""
     h = _HostGraph(g)
     ops = fwd_op[:n_fwd].tolist()
     args = fwd_arg[:n_fwd].tolist()
     q = query.tolist()
     wt = weight.tolist()
     last, last_new, qpos = C.SRC_NODE_ID, 0, 0
+    path = []
     for op, arg in zip(ops, args):
         if op == 0:
             b, w = q[qpos], wt[qpos]
@@ -203,6 +208,7 @@ def fuse_alignment(g: DeviceGraph, fwd_op, fwd_arg, n_fwd: int, query,
                     h.add_aligned(arg, nid)
                     last, last_new = nid, 1
             qpos += 1
+            path.append(last)
         elif op == 2:
             b, w = q[qpos], wt[qpos]
             nid = h.new_node(b)
@@ -212,7 +218,8 @@ def fuse_alignment(g: DeviceGraph, fwd_op, fwd_arg, n_fwd: int, query,
             h.n_span[nid] = h.n_span[last]
             last, last_new = nid, 1
             qpos += 1
+            path.append(last)
     else:
         h.add_edge(last, C.SINK_NODE_ID, last_new == 0,
                    wt[max(qlen - 1, 0)])
-    return h.to_device(g)
+    return h.to_device(g), path

@@ -12,7 +12,12 @@ device as dense tensors (`device_graph.DeviceGraph`); every read runs
   splicing (`_splice_order`), repaired by kernel K1 (`topo_sort`) when the
   splice is not a valid order -> max_remain (`_remain_doubling`)
 
-and the graph is downloaded once at the end for the consensus. JAX's
+and the graph is downloaded once at the end for the outputs. With read-id
+outputs (`Params.use_read_ids`: MSA, GFA, `-a 1`, `-d > 1`) each committed
+read's node path is also written into a (reads x Pcap) buffer on the device
+(a copy and an index write, no host sync); the paths come down after the
+loop and the per-edge read-id bitsets are rebuilt from them on the host
+(`replay_read_ids`). JAX's
 `lax.while_loop` over reads is a host loop here, on one stream. Each
 `lax.cond` is either computed on both sides and selected on the device, or
 decided by one flag read where one side is expensive: the `-s` reverse
@@ -71,10 +76,12 @@ _MAX_PASSES = 24
 # read attempts (a read that reports an error is attempted again after the
 # growth), host syncs, Kahn repairs, collisions, reverse-strand alignments,
 # attempts refused on the host before any device work, growths by error
-# code, promotions, and the wall of the loop. When `timing` is set, each
-# step of a read also adds its time on the stream (`device_s`, by CUDA
-# events read back at the end of the run, so no extra sync) and its host
-# time (`host_s`); `host_s["sync"]` is the time the host waits in syncs.
+# code, promotions, the wall of the loop (with the download), and within it
+# the graph's download and the paths' download plus the read-id replay.
+# When `timing` is set, each step of a read also adds its time on the
+# stream (`device_s`, by CUDA events read back at the end of the run, so no
+# extra sync) and its host time (`host_s`); `host_s["sync"]` is the time
+# the host waits in syncs.
 STEPS = ("tables", "fused_dp", "best_cell", "backtrack", "fwd_ops", "fuse",
          "edge_sort", "splice", "remain", "topo_sort")
 stats: dict = {}
@@ -85,6 +92,7 @@ def reset_stats() -> None:
     stats.clear()
     stats.update(reads=0, syncs=0, kahn=0, collisions=0, rc_reads=0,
                  host_errs=0, grow={}, promotions=0, wall_s=0.0,
+                 download_s=0.0, replay_s=0.0,
                  device_s=dict.fromkeys(STEPS, 0.0),
                  host_s=dict.fromkeys(STEPS + ("sync",), 0.0))
 
@@ -146,7 +154,9 @@ class FusedState:
     """The loop's state (fused_loop.py FusedState): the graph, its topo
     order (index -> node id), node id -> index, max_remain per node id, and
     the host counters. rc_flags[k] is 1 where read k was fused reverse-
-    complemented (`-s`)."""
+    complemented (`-s`). With read-id outputs, paths[k, :path_lens[k]] is
+    the node path read k was fused along (`None` otherwise); a row is
+    written once, when its read is committed."""
     g: DeviceGraph
     order: torch.Tensor
     n2i: torch.Tensor
@@ -156,12 +166,22 @@ class FusedState:
     kahn_runs: int = 0
     collisions: int = 0
     rc_flags: List[int] = field(default_factory=list)
+    paths: Optional[torch.Tensor] = None       # (n_reads, Pcap) int32
+    path_lens: Optional[torch.Tensor] = None   # (n_reads,) int32
 
 
-def init_fused_state(N: int, E: int, A: int, device) -> FusedState:
+def init_fused_state(N: int, E: int, A: int, device, n_reads: int = 0,
+                     Pcap: int = 0) -> FusedState:
+    """An empty state; path buffers for n_reads reads of up to Pcap nodes
+    when n_reads > 0."""
     z = lambda: torch.zeros(N, dtype=torch.int32, device=device)  # noqa: E731
-    return FusedState(g=init_device_graph(N, E, A, device), order=z(),
-                      n2i=z(), remain=z())
+    st = FusedState(g=init_device_graph(N, E, A, device), order=z(),
+                    n2i=z(), remain=z())
+    if n_reads:
+        st.paths = torch.zeros((n_reads, Pcap), dtype=torch.int32,
+                               device=device)
+        st.path_lens = torch.zeros(n_reads, dtype=torch.int32, device=device)
+    return st
 
 
 # --------------------------------------------------------------------------- #
@@ -320,6 +340,10 @@ def _seed_state(state: FusedState, query: torch.Tensor, qlen: int,
     active = nodes < node_n
     n2i = spill_scatter(zero, order, active, torch.where(active, nodes, zero))
     remain = torch.where(active, node_n - 2 - n2i, zero)
+    if state.paths is not None:  # the seed read's path: the chain 2..qlen+1
+        k = state.read_idx
+        state.paths[k, :qlen] = nodes[2: qlen + 2]
+        state.path_lens[k] = qlen
     return replace(state, g=g2, order=order, n2i=n2i, remain=remain,
                    read_idx=state.read_idx + 1)
 
@@ -749,9 +773,10 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
     (collision, overflow, bt_err, ops_cap, edge_cap, grp_full, bad, g2_ok,
      n2, use_rc) = flags
     if collision:
-        g2s = _finish_fusion(fuse_alignment(
+        g_seq, seq_path = fuse_alignment(
             g, fwd_op, fwd_arg, min(_sync_read(n_fwd), run.max_ops),
-            query_u, qlen, weight_u))
+            query_u, qlen, weight_u)
+        g2s = _finish_fusion(g_seq)
         n2 = int(g2s.node_n)
         g2_ok = int(g2s.ok)
     err = (ERR_NODE_CAP if n2 + 2 > N else ERR_BAND_CAP if overflow
@@ -779,6 +804,14 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
         g3, order3, n2i3 = g2s, order2, n2i2
         with _step("remain"):
             remain3 = _remain_doubling(g2s)
+    if st.paths is not None:  # the read is committed: record its path
+        if collision:
+            st.paths[k, :len(seq_path)] = torch.tensor(
+                seq_path, dtype=torch.int32, device=dev)
+            st.path_lens[k] = len(seq_path)
+        else:
+            st.paths[k] = path_nodes[:st.paths.shape[1]]
+            st.path_lens[k] = path_len
     stats["kahn"] += int(need_kahn)
     stats["collisions"] += int(bool(collision))
     new = replace(st, g=g3, order=order3, n2i=n2i3, remain=remain3,
@@ -906,7 +939,10 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
     plane16 = max_score_bound(abpt, qmax, 2) <= int16_limit
     extend = abpt.align_mode == C.EXTEND_MODE
     seqs_d, wgts_d, qp_d, mat_d = to(seqs_pad), to(wgts_pad), to(qp_all), to(mat)
-    st = init_fused_state(N, E, A, dev)
+    # a read's path holds at most qlen nodes (Pcap = Qp + 2, as the JAX loop)
+    st = init_fused_state(N, E, A, dev,
+                          n_reads=n_reads if abpt.use_read_ids else 0,
+                          Pcap=Qp + 2)
     node_n = 2
     t0 = time.perf_counter()
     for _ in range(_MAX_PASSES):
@@ -931,7 +967,13 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
             st = _grow_state(st, N, E, A)
     else:
         raise RuntimeError("fused loop: capacity growth did not converge")
+    t1 = time.perf_counter()
     pg = download_graph(st.g, abpt)
+    t2 = time.perf_counter()
+    if st.paths is not None:
+        replay_read_ids(pg, st.paths.cpu().numpy(), st.path_lens.cpu().numpy())
+    stats["download_s"] += t2 - t1
+    stats["replay_s"] += time.perf_counter() - t2
     _drain_events()
     stats["wall_s"] += time.perf_counter() - t0
     stats["caps"] = dict(N=N, E=E, A=A, W=W, plane16=plane16)
@@ -961,3 +1003,33 @@ def download_graph(g: DeviceGraph, abpt: Params) -> POAGraph:
         pg.nodes.append(nd)
     pg.topological_sort(abpt)
     return pg
+
+
+def replay_read_ids(pg: POAGraph, paths: np.ndarray, lens: np.ndarray) -> None:
+    """Set the per-edge read-id bitsets of `pg` from the reads' fusion paths
+    (fused_loop.py:1926 `_replay_read_ids`; the reference sets them during
+    fusion, abpoa_graph.c:465-469). Read r's edges are the consecutive pairs
+    SRC -> p0 -> ... -> p(L-1) -> SINK of paths[r, :lens[r]]. The (edge,
+    read) pairs accumulate into a uint64 word matrix, then one Python pass
+    turns each edge's words into the graph's int bitset. `pg` must be in
+    its final edge order, with all bitsets still zero."""
+    n_reads = len(lens)
+    n_nodes = pg.node_n
+    frs, tos, rids = [], [], []
+    for r in range(n_reads):
+        L = int(lens[r])
+        p = paths[r, :L].astype(np.int64)
+        frs.append(np.concatenate(([C.SRC_NODE_ID], p)))
+        tos.append(np.concatenate((p, [C.SINK_NODE_ID])))
+        rids.append(np.full(L + 1, r, np.int64))
+    fr = np.concatenate(frs)
+    to = np.concatenate(tos)
+    rid = np.concatenate(rids)
+    uniq, inverse = np.unique(fr * n_nodes + to, return_inverse=True)
+    words = np.zeros((len(uniq), (n_reads + 63) >> 6), np.uint64)
+    np.bitwise_or.at(words, (inverse, rid >> 6),
+                     np.uint64(1) << (rid & 63).astype(np.uint64))
+    for e, key in enumerate(uniq.tolist()):
+        nd = pg.nodes[key // n_nodes]
+        slot = nd.out_ids.index(key % n_nodes)
+        nd.read_ids[slot] = int.from_bytes(words[e].tobytes(), "little")

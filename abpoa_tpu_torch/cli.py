@@ -1,6 +1,9 @@
 """abpoa-compatible command line, the subset this package supports:
-progressive POA consensus (`-r 0`/`-r 5`) with linear, affine or convex gaps
-(`-O`/`-E`) in global, local (`-m 1`) or extend (`-m 2`, Z-drop `-z`) mode.
+progressive POA with linear, affine or convex gaps (`-O`/`-E`) in global,
+local (`-m 1`) or extend (`-m 2`, Z-drop `-z`) mode, writing consensus
+(`-r 0`/`-r 5`), row-column MSA (`-r 1`/`-r 2`) or GFA (`-r 3`/`-r 4`), by
+heaviest bundling or majority vote (`-a 1`), with up to 10 clustered
+consensus sequences (`-d`, `-q`).
 
     python -m abpoa_tpu_torch reads.fa [--device cuda|cpu] [-o out.fa]
 
@@ -38,12 +41,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--extra-b", type=int, default=C.EXTRA_B)
     p.add_argument("-f", "--extra-f", type=float, default=C.EXTRA_F)
     p.add_argument("-z", "--zdrop", type=int, default=-1)
+    p.add_argument("-e", "--bonus", type=int, default=-1)
     p.add_argument("-G", "--inc-path-score", action="store_true")
     p.add_argument("-L", "--sort-by-len", action="store_true")
     p.add_argument("-R", "--gap-on-right", action="store_true")
     p.add_argument("-J", "--gap-at-end", action="store_true")
     p.add_argument("-Q", "--use-qual-weight", action="store_true")
     p.add_argument("-S", "--seeding", action="store_true")
+    p.add_argument("-k", "--k-mer", type=int, default=C.DEFAULT_MMK)
+    p.add_argument("-w", "--window", type=int, default=C.DEFAULT_MMW)
+    p.add_argument("-n", "--min-poa-win", type=int, default=C.DEFAULT_MIN_POA_WIN)
     p.add_argument("-p", "--progressive", action="store_true")
     p.add_argument("-c", "--amino-acid", action="store_true")
     p.add_argument("-l", "--in-list", action="store_true")
@@ -54,6 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", "--out-pog", type=str, default=None)
     p.add_argument("-a", "--cons-algrm", type=int, default=C.CONS_HB)
     p.add_argument("-d", "--maxnum-cons", type=int, default=1)
+    p.add_argument("-q", "--min-freq", type=float, default=C.MULTIP_MIN_FREQ)
     p.add_argument("-h", "--help", action="help")
     p.add_argument("-v", "--version", action="version", version=__version__)
     p.add_argument("-V", "--verbose", type=int, default=0)
@@ -111,12 +119,16 @@ def args_to_params(args: argparse.Namespace) -> Params:
     abpt.wb = args.extra_b
     abpt.wf = args.extra_f
     abpt.zdrop = args.zdrop
+    abpt.end_bonus = args.bonus
     abpt.inc_path_score = args.inc_path_score
     abpt.sort_input_seq = args.sort_by_len
     abpt.put_gap_on_right = args.gap_on_right
     abpt.put_gap_at_end = args.gap_at_end
     abpt.use_qv = args.use_qual_weight
     abpt.disable_seeding = not args.seeding
+    abpt.k = args.k_mer
+    abpt.w = args.window
+    abpt.min_w = args.min_poa_win
     abpt.progressive_poa = args.progressive
     if args.amino_acid:
         abpt.m = 27
@@ -126,6 +138,7 @@ def args_to_params(args: argparse.Namespace) -> Params:
     abpt.out_pog = args.out_pog
     abpt.cons_algrm = args.cons_algrm
     abpt.max_n_cons = args.maxnum_cons
+    abpt.min_freq = args.min_freq
     abpt.verbose = args.verbose
     abpt.device = args.device
     return abpt

@@ -1,14 +1,24 @@
-"""Heaviest-bundling consensus, one cluster (abPOA src/abpoa_output.c:
-heaviest bundling :478-548, max-path walk :376-392, phred :297-303)."""
+"""Consensus calling: heaviest bundling and majority vote, over one cluster
+or the read clusters of `cluster.py` (abPOA src/abpoa_output.c: heaviest
+bundling :478-548, max-path walk :376-392, majority vote :394-452,550-587,
+phred :297-303, coverage :347-374, driver :1184-1215).
+
+With clusters, an edge weighs the number of the cluster's reads on it. The
+reference weighs it by the reads' quality weights instead when `-Q` is set
+with `-d > 1`; `Params.finalize()` refuses that configuration in this port
+(ROADMAP.md queue A, item 3, step 2), so that weighting is not here.
+"""
 from __future__ import annotations
 
 import math
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
+
+import numpy as np
 
 from .. import constants as C
-from ..graph import POAGraph
+from ..graph import Node, POAGraph
 from ..params import Params
 
 NAT_E = 2.718281828459045
@@ -18,10 +28,14 @@ NAT_E = 2.718281828459045
 class ConsensusResult:
     n_cons: int = 0
     n_seq: int = 0
+    clu_n_seq: List[int] = field(default_factory=list)
+    clu_read_ids: List[List[int]] = field(default_factory=list)
     cons_node_ids: List[List[int]] = field(default_factory=list)
     cons_base: List[List[int]] = field(default_factory=list)
     cons_cov: List[List[int]] = field(default_factory=list)
     cons_phred: List[List[int]] = field(default_factory=list)
+    msa_len: int = 0
+    msa_base: List[np.ndarray] = field(default_factory=list)  # n_seq + n_cons rows
 
 
 def phred_score(n_cov: int, n_seq: int) -> int:
@@ -33,71 +47,184 @@ def phred_score(n_cov: int, n_seq: int) -> int:
     return 33 + int(-10 * math.log10(p) + 0.499)
 
 
-def heaviest_bundling(g: POAGraph, abpt: Params, abc: ConsensusResult) -> None:
-    """Reverse-BFS argmax-out-edge consensus over read-count edge weights,
-    one cluster (src/abpoa_output.c:478-548)."""
+def _edge_inclu_read_count(node: Node, edge_i: int, clu_bits: int) -> int:
+    return (node.read_ids[edge_i] & clu_bits).bit_count()
+
+
+def _edge_weight(node: Node, edge_i: int, clu_bits: Optional[int],
+                 n_clu: int) -> int:
+    if n_clu == 1:
+        return node.out_w[edge_i]
+    return _edge_inclu_read_count(node, edge_i, clu_bits)
+
+
+def _node_out_cov(node: Node, clu_bits: Optional[int], n_cons: int) -> int:
+    if n_cons == 1:
+        return node.n_read
+    return sum(_edge_inclu_read_count(node, i, clu_bits)
+               for i in range(len(node.out_ids)))
+
+
+def _node_in_cov(g: POAGraph, node_id: int, clu_bits: int) -> int:
+    cov = 0
+    for in_id in g.nodes[node_id].in_ids:
+        pre = g.nodes[in_id]
+        for j, out_id in enumerate(pre.out_ids):
+            if out_id == node_id:
+                cov += _edge_inclu_read_count(pre, j, clu_bits)
+                break
+    return cov
+
+
+def _node_cov(g: POAGraph, node_id: int, clu_bits: Optional[int], n_cons: int) -> int:
+    if n_cons == 1:
+        return g.nodes[node_id].n_read
+    return max(_node_in_cov(g, node_id, clu_bits),
+               _node_out_cov(g.nodes[node_id], clu_bits, n_cons))
+
+
+def _set_clu_read_ids(abc: ConsensusResult, clu_bits_list: Optional[List[int]],
+                      n_clu: int, n_seq: int) -> None:
+    abc.clu_n_seq = []
+    abc.clu_read_ids = []
+    if n_clu == 1:
+        abc.clu_n_seq.append(n_seq)
+        abc.clu_read_ids.append(list(range(n_seq)))
+        return
+    for bits in clu_bits_list:
+        ids = [i for i in range(n_seq) if (bits >> i) & 1]
+        abc.clu_n_seq.append(len(ids))
+        abc.clu_read_ids.append(ids)
+
+
+def heaviest_bundling(g: POAGraph, abpt: Params, n_clu: int,
+                      clu_bits_list: Optional[List[int]], abc: ConsensusResult) -> None:
+    """Reverse-BFS argmax-out-edge consensus, one per cluster
+    (src/abpoa_output.c:478-548)."""
     n = g.node_n
     src, sink = C.SRC_NODE_ID, C.SINK_NODE_ID
-    abc.n_cons = 1
+    _set_clu_read_ids(abc, clu_bits_list, n_clu, abc.n_seq)
+    abc.n_cons = n_clu
+    abc.cons_node_ids, abc.cons_base, abc.cons_cov, abc.cons_phred = [], [], [], []
 
     score = [0] * n
-    max_out_id = [-1] * n
-    out_degree = [len(nd.out_ids) for nd in g.nodes]
-    q: deque[int] = deque([sink])
-    while q:
-        cur = q.popleft()
-        node = g.nodes[cur]
-        if cur == sink:
-            max_out_id[cur] = -1
-            score[cur] = 0
-        elif cur == src:
-            path_score, path_max_w, max_id = -1, -1, -1
-            for i, out_id in enumerate(node.out_ids):
-                out_w = node.out_w[i]
-                if out_w > path_max_w or (out_w == path_max_w and score[out_id] > path_score):
-                    max_id = out_id
-                    path_score = score[out_id]
-                    path_max_w = out_w
-            max_out_id[cur] = max_id
-            break
-        else:
-            max_w, max_id = -(1 << 31), -1
-            for i, out_id in enumerate(node.out_ids):
-                out_w = node.out_w[i]
-                if max_w < out_w:
-                    max_w, max_id = out_w, out_id
-                elif max_w == out_w and score[max_id] <= score[out_id]:
-                    max_id = out_id
-            score[cur] = max_w + score[max_id]
-            max_out_id[cur] = max_id
-        for in_id in node.in_ids:
-            out_degree[in_id] -= 1
-            if out_degree[in_id] == 0:
-                q.append(in_id)
+    for cons_i in range(n_clu):
+        clu_bits = clu_bits_list[cons_i] if clu_bits_list else None
+        max_out_id = [-1] * n
+        out_degree = [len(nd.out_ids) for nd in g.nodes]
+        q: deque[int] = deque([sink])
+        while q:
+            cur = q.popleft()
+            node = g.nodes[cur]
+            if cur == sink:
+                max_out_id[cur] = -1
+                score[cur] = 0
+            elif cur == src:
+                path_score, path_max_w, max_id = -1, -1, -1
+                for i, out_id in enumerate(node.out_ids):
+                    out_w = _edge_weight(node, i, clu_bits, n_clu)
+                    if out_w > path_max_w or (out_w == path_max_w and score[out_id] > path_score):
+                        max_id = out_id
+                        path_score = score[out_id]
+                        path_max_w = out_w
+                max_out_id[cur] = max_id
+                break
+            else:
+                max_w, max_id = -(1 << 31), -1
+                for i, out_id in enumerate(node.out_ids):
+                    out_w = _edge_weight(node, i, clu_bits, n_clu)
+                    if max_w < out_w:
+                        max_w, max_id = out_w, out_id
+                    elif max_w == out_w and score[max_id] <= score[out_id]:
+                        max_id = out_id
+                score[cur] = max_w + score[max_id]
+                max_out_id[cur] = max_id
+            for in_id in node.in_ids:
+                out_degree[in_id] -= 1
+                if out_degree[in_id] == 0:
+                    q.append(in_id)
 
-    ids: List[int] = []
-    bases: List[int] = []
-    covs: List[int] = []
-    phreds: List[int] = []
-    cur = max_out_id[src]
-    while cur != sink:
-        ids.append(cur)
-        bases.append(g.nodes[cur].base)
-        cov = g.nodes[cur].n_read
-        covs.append(cov)
-        phreds.append(phred_score(cov, abc.n_seq))
-        cur = max_out_id[cur]
-    abc.cons_node_ids = [ids]
-    abc.cons_base = [bases]
-    abc.cons_cov = [covs]
-    abc.cons_phred = [phreds]
+        ids: List[int] = []
+        bases: List[int] = []
+        covs: List[int] = []
+        phreds: List[int] = []
+        cur = max_out_id[src]
+        while cur != sink:
+            ids.append(cur)
+            bases.append(g.nodes[cur].base)
+            cov = _node_cov(g, cur, clu_bits, n_clu)
+            covs.append(cov)
+            phreds.append(phred_score(cov, abc.clu_n_seq[cons_i]))
+            cur = max_out_id[cur]
+        abc.cons_node_ids.append(ids)
+        abc.cons_base.append(bases)
+        abc.cons_cov.append(covs)
+        abc.cons_phred.append(phreds)
+
+
+def most_frequent(g: POAGraph, abpt: Params, n_clu: int,
+                  clu_bits_list: Optional[List[int]], abc: ConsensusResult) -> None:
+    """Column majority-vote consensus (src/abpoa_output.c:394-452,550-587)."""
+    g.set_msa_rank()
+    m = abpt.m
+    msa_l = int(g.node_id_to_msa_rank[C.SINK_NODE_ID]) - 1
+    abc.n_cons = n_clu
+    _set_clu_read_ids(abc, clu_bits_list, n_clu, abc.n_seq)
+    # per-cluster column weights; the gap column (m-1) starts at the cluster size
+    rc_weight = [np.zeros((msa_l, m), dtype=np.int64) for _ in range(n_clu)]
+    for cons_i in range(n_clu):
+        rc_weight[cons_i][:, m - 1] = abc.clu_n_seq[cons_i]
+    msa_node_id = np.zeros((msa_l, m), dtype=np.int64)
+    for i in range(2, g.node_n):
+        rank = g.msa_rank_of(i)
+        node = g.nodes[i]
+        msa_node_id[rank - 1, node.base] = i
+        for cons_i in range(n_clu):
+            clu_bits = clu_bits_list[cons_i] if clu_bits_list else None
+            node_w = _node_out_cov(node, clu_bits, n_clu)
+            rc_weight[cons_i][rank - 1, node.base] = node_w
+            rc_weight[cons_i][rank - 1, m - 1] -= node_w
+
+    abc.cons_node_ids, abc.cons_base, abc.cons_cov, abc.cons_phred = [], [], [], []
+    for cons_i in range(n_clu):
+        ids, bases, covs, phreds = [], [], [], []
+        for i in range(msa_l):
+            max_c, total_c, max_base = 0, 0, m
+            for j in range(m - 1):
+                cnt = int(rc_weight[cons_i][i, j])
+                if cnt > max_c:
+                    max_c = cnt
+                    max_base = j
+                total_c += cnt
+            if abpt.sub_aln:
+                gap_c = g.nodes[int(msa_node_id[i, max_base])].n_span_read - total_c
+            else:
+                gap_c = abc.clu_n_seq[cons_i] - total_c
+            if max_c >= gap_c:
+                ids.append(int(msa_node_id[i, max_base]))
+                bases.append(max_base)
+                covs.append(max_c)
+                phreds.append(phred_score(max_c, abc.clu_n_seq[cons_i]))
+        abc.cons_node_ids.append(ids)
+        abc.cons_base.append(bases)
+        abc.cons_cov.append(covs)
+        abc.cons_phred.append(phreds)
 
 
 def generate_consensus(g: POAGraph, abpt: Params, n_seq: int) -> ConsensusResult:
-    """Consensus entry point (src/abpoa_output.c:1184-1215), heaviest bundling only."""
+    """Consensus entry point (src/abpoa_output.c:1184-1215): the read
+    clusters when `-d > 1`, then heaviest bundling or majority vote."""
     abc = ConsensusResult(n_seq=n_seq)
     if g.node_n <= 2:
         return abc
-    heaviest_bundling(g, abpt, abc)
+    n_clu = 1
+    clu_bits_list: Optional[List[int]] = None
+    if abpt.max_n_cons > 1:
+        from .cluster import multip_read_clu_kmedoids
+        n_clu, clu_bits_list = multip_read_clu_kmedoids(g, abpt, n_seq)
+    if abpt.cons_algrm == C.CONS_HB:
+        heaviest_bundling(g, abpt, n_clu, clu_bits_list, abc)
+    else:
+        most_frequent(g, abpt, n_clu, clu_bits_list, abc)
     g.is_called_cons = True
     return abc

@@ -2,14 +2,16 @@
 
 The mutable graph that the DP kernel reads a snapshot of: cigar fusion,
 topological sort with aligned-group atomicity and adaptive-band metadata
-(abPOA src/abpoa_graph.c). Read-id bitsets are carried per out edge (see
-convert.py) but not set, since read-id outputs are not ported yet.
+(abPOA src/abpoa_graph.c), and the read-id bitset of each out edge, set
+when `Params.use_read_ids` is (a Python int per edge, so any read count fits
+without the reference's `tot_read_n` words).
 - topo sort keeps mismatch-aligned node groups adjacent (:221-266)
 - in/out edges are sorted by weight descending with abPOA's exact
   (unstable) exchange sort (:192-219); edge order feeds the DP tie-breaks
 - max_remain is the longest-heaviest-remaining-path metric driving the
   adaptive band (:268-309)
 - cigar->graph fusion rules (:680-774)
+- MSA column ranks by a LIFO walk (:359-419)
 """
 from __future__ import annotations
 
@@ -44,8 +46,10 @@ class POAGraph:
         self.nodes: List[Node] = [Node(C.SRC_NODE_ID), Node(C.SINK_NODE_ID)]
         self.is_topological_sorted = False
         self.is_called_cons = False
+        self.is_set_msa_rank = False
         self.index_to_node_id: np.ndarray = np.zeros(0, dtype=np.int32)
         self.node_id_to_index: np.ndarray = np.zeros(0, dtype=np.int32)
+        self.node_id_to_msa_rank: np.ndarray = np.zeros(0, dtype=np.int32)
         self.node_id_to_max_pos_left: np.ndarray = np.zeros(0, dtype=np.int32)
         self.node_id_to_max_pos_right: np.ndarray = np.zeros(0, dtype=np.int32)
         self.node_id_to_max_remain: np.ndarray = np.zeros(0, dtype=np.int32)
@@ -57,17 +61,20 @@ class POAGraph:
     def reset(self) -> None:
         self.nodes = [Node(C.SRC_NODE_ID), Node(C.SINK_NODE_ID)]
         self.is_topological_sorted = self.is_called_cons = False
+        self.is_set_msa_rank = False
 
     def add_node(self, base: int) -> int:
         node_id = len(self.nodes)
         self.nodes.append(Node(node_id, base))
         return node_id
 
-    def add_edge(self, from_id: int, to_id: int, check_edge: bool, w: int) -> None:
-        """Add or reweight an edge (src/abpoa_graph.c:480-556). `n_read` of
-        the source node is incremented unconditionally, as in abPOA."""
+    def add_edge(self, from_id: int, to_id: int, check_edge: bool, w: int,
+                 add_read_id: bool = False, read_id: int = 0) -> None:
+        """Add or reweight an edge (src/abpoa_graph.c:480-556), setting bit
+        `read_id` of its read-id bitset when `add_read_id`. `n_read` of the
+        source node is incremented unconditionally, as in abPOA."""
         fr, to = self.nodes[from_id], self.nodes[to_id]
-        found = False
+        out_edge_i = -1
         if check_edge:
             for i, t in enumerate(to.in_ids):
                 if t == from_id:
@@ -76,14 +83,17 @@ class POAGraph:
             for i, t in enumerate(fr.out_ids):
                 if t == to_id:
                     fr.out_w[i] += w
-                    found = True
+                    out_edge_i = i
                     break
-        if not found:
+        if out_edge_i < 0:
             to.in_ids.append(from_id)
             to.in_w.append(w)
             fr.out_ids.append(to_id)
             fr.out_w.append(w)
             fr.read_ids.append(0)
+            out_edge_i = len(fr.out_ids) - 1
+        if add_read_id:
+            fr.read_ids[out_edge_i] |= 1 << read_id
         fr.n_read += 1
 
     def get_aligned_id(self, node_id: int, base: int) -> int:
@@ -194,6 +204,51 @@ class POAGraph:
             self._bfs_set_node_remain()
         self.is_topological_sorted = True
 
+    # -------------------------------------------------------------- msa rank
+    def set_msa_rank(self) -> None:
+        """DFS column-rank assignment for the row-column MSA
+        (src/abpoa_graph.c:359-419): a LIFO stack seeded with the source;
+        aligned nodes share the rank of the first group member reached."""
+        if self.is_set_msa_rank:
+            return
+        n = self.node_n
+        if len(self.node_id_to_msa_rank) < n:
+            self.node_id_to_msa_rank = np.zeros(n, dtype=np.int32)
+        rank_arr = self.node_id_to_msa_rank
+        in_degree = [len(nd.in_ids) for nd in self.nodes]
+        stack: List[int] = [C.SRC_NODE_ID]
+        rank_arr[C.SRC_NODE_ID] = -1
+        msa_rank = 0
+        while stack:
+            cur = stack.pop()
+            if rank_arr[cur] < 0:
+                rank_arr[cur] = msa_rank
+                for a in self.nodes[cur].aligned_ids:
+                    rank_arr[a] = msa_rank
+                msa_rank += 1
+            if cur == C.SINK_NODE_ID:
+                self.is_set_msa_rank = True
+                return
+            for out_id in self.nodes[cur].out_ids:
+                in_degree[out_id] -= 1
+                if in_degree[out_id] == 0:
+                    if any(in_degree[a] != 0 for a in self.nodes[out_id].aligned_ids):
+                        continue
+                    stack.append(out_id)
+                    rank_arr[out_id] = -1
+                    for a in self.nodes[out_id].aligned_ids:
+                        stack.append(a)
+                        rank_arr[a] = -1
+        raise RuntimeError("Error in set_msa_rank")
+
+    def msa_rank_of(self, node_id: int) -> int:
+        """A node's MSA column: the largest rank over its aligned group
+        (src/abpoa_output.c:136-142)."""
+        rank = int(self.node_id_to_msa_rank[node_id])
+        for a in self.nodes[node_id].aligned_ids:
+            rank = max(rank, int(self.node_id_to_msa_rank[a]))
+        return rank
+
     # ---------------------------------------------------------------- fusion
     def update_n_span_reads(self, beg_node_id: int, end_node_id: int,
                             inc_both_ends: bool) -> None:
@@ -205,33 +260,40 @@ class POAGraph:
             self.nodes[beg_node_id].n_span_read += 1
             self.nodes[end_node_id].n_span_read += 1
 
-    def add_sequence(self, abpt: Params, seq: np.ndarray, weight: np.ndarray) -> None:
+    def add_sequence(self, abpt: Params, seq: np.ndarray, weight: np.ndarray,
+                     read_id: int = 0) -> None:
         """Seed an empty graph with a chain of nodes (src/abpoa_graph.c:573-593)."""
         seq_l = len(seq)
         if seq_l <= 0:
             return
+        rid = abpt.use_read_ids
         last_id = C.SRC_NODE_ID
         for i in range(seq_l):
             cur = self.add_node(int(seq[i]))
-            self.add_edge(last_id, cur, False, int(weight[i]))
+            self.add_edge(last_id, cur, False, int(weight[i]), rid, read_id)
             self.nodes[cur].n_span_read = self.nodes[last_id].n_span_read
             last_id = cur
-        self.add_edge(last_id, C.SINK_NODE_ID, False, int(weight[seq_l - 1]))
-        self.is_called_cons = self.is_topological_sorted = False
+        self.add_edge(last_id, C.SINK_NODE_ID, False, int(weight[seq_l - 1]),
+                      rid, read_id)
+        self.is_called_cons = self.is_set_msa_rank = False
+        self.is_topological_sorted = False
         self.topological_sort(abpt)
         self.update_n_span_reads(C.SRC_NODE_ID, C.SINK_NODE_ID, True)
 
     def add_subgraph_alignment(self, abpt: Params, beg_node_id: int, end_node_id: int,
                                seq: np.ndarray, weight: Optional[np.ndarray],
-                               cigar: list, inc_both_ends: bool) -> None:
-        """Fuse one alignment into the graph (src/abpoa_graph.c:689-774).
-        cigar is a list of packed 64-bit ops (see cigar.py)."""
+                               cigar: list, inc_both_ends: bool,
+                               read_id: int = 0) -> None:
+        """Fuse read `read_id`'s alignment into the graph
+        (src/abpoa_graph.c:689-774). cigar is a list of packed 64-bit ops
+        (see cigar.py)."""
         seq_l = len(seq)
         if weight is None:
             weight = np.ones(seq_l, dtype=np.int64)
         if self.node_n == 2:  # empty graph
-            self.add_sequence(abpt, seq, weight)
+            self.add_sequence(abpt, seq, weight, read_id)
             return
+        rid = abpt.use_read_ids
         if not cigar:
             return
         query_id = -1
@@ -247,20 +309,23 @@ class POAGraph:
                 if self.nodes[node_id].base != base:  # mismatch
                     aligned_id = self.get_aligned_id(node_id, base)
                     if aligned_id != -1:
-                        self.add_edge(last_id, aligned_id, not last_new, int(weight[query_id]))
+                        self.add_edge(last_id, aligned_id, not last_new, int(weight[query_id]),
+                                      rid and add, read_id)
                         if not add:
                             self.nodes[last_id].n_read -= 1
                         last_id, last_new = aligned_id, False
                     else:
                         new_id = self.add_node(base)
-                        self.add_edge(last_id, new_id, False, int(weight[query_id]))
+                        self.add_edge(last_id, new_id, False, int(weight[query_id]),
+                                      rid and add, read_id)
                         self.nodes[new_id].n_span_read = self.nodes[last_id].n_span_read
                         if not add:
                             self.nodes[last_id].n_read -= 1
                         last_id, last_new = new_id, True
                         self.add_aligned_node(node_id, new_id)
                 else:  # match
-                    self.add_edge(last_id, node_id, not last_new, int(weight[query_id]))
+                    self.add_edge(last_id, node_id, not last_new, int(weight[query_id]),
+                                  rid and add, read_id)
                     if not add:
                         self.nodes[last_id].n_read -= 1
                     last_id, last_new = node_id, False
@@ -270,19 +335,22 @@ class POAGraph:
                 for j in range(length - 1, -1, -1):
                     new_id = self.add_node(int(seq[query_id - j]))
                     add = bool(last_id != beg_node_id or inc_both_ends)
-                    self.add_edge(last_id, new_id, False, int(weight[query_id - j]))
+                    self.add_edge(last_id, new_id, False, int(weight[query_id - j]),
+                                  rid and add, read_id)
                     self.nodes[new_id].n_span_read = self.nodes[last_id].n_span_read
                     if not add:
                         self.nodes[last_id].n_read -= 1
                     last_id, last_new = new_id, True
             elif op == C.CDEL:
                 continue
-        self.add_edge(last_id, end_node_id, not last_new, int(weight[seq_l - 1]))
-        self.is_called_cons = self.is_topological_sorted = False
+        self.add_edge(last_id, end_node_id, not last_new, int(weight[seq_l - 1]),
+                      rid, read_id)
+        self.is_called_cons = self.is_set_msa_rank = False
+        self.is_topological_sorted = False
         self.topological_sort(abpt)
         self.update_n_span_reads(beg_node_id, end_node_id, inc_both_ends)
 
     def add_alignment(self, abpt: Params, seq: np.ndarray, weight: Optional[np.ndarray],
-                      cigar: list, inc_both_ends: bool) -> None:
+                      cigar: list, inc_both_ends: bool, read_id: int = 0) -> None:
         self.add_subgraph_alignment(abpt, C.SRC_NODE_ID, C.SINK_NODE_ID, seq,
-                                    weight, cigar, inc_both_ends)
+                                    weight, cigar, inc_both_ends, read_id)

@@ -6,8 +6,9 @@ mutation, `abpoa_post_set_para` derivation in src/abpoa_align.c): construct
 
 `finalize()` raises NotImplementedError for every configuration the port
 does not cover yet (it covers progressive POA with linear, affine or convex
-gaps in global, local and extend mode, one consensus), naming the ROADMAP
-item that will bring it. Nothing is rerouted.
+gaps in global, local and extend mode, with consensus, MSA and GFA output,
+majority-vote consensus and up to 10 clustered consensus sequences), naming
+the ROADMAP item that will bring it. Nothing is rerouted.
 """
 from __future__ import annotations
 
@@ -72,6 +73,8 @@ class Params:
     gap_mode: int = C.CONVEX_GAP  # derived in finalize()
     # extend mode's Z-drop threshold; <= 0 turns Z-drop off
     zdrop: int = -1
+    # -e: stored as abPOA stores it; no alignment mode reads it
+    end_bonus: int = -1
 
     inc_path_score: bool = False
     sort_input_seq: bool = False
@@ -89,6 +92,13 @@ class Params:
     out_msa: bool = False
     cons_algrm: int = C.CONS_HB
     max_n_cons: int = 1
+    # majority vote (-a 1) counts gaps against the reads spanning a column
+    # instead of all reads
+    sub_aln: bool = False
+    # -q: a het column's minor allele needs this share of the reads (-d > 1)
+    min_freq: float = C.MULTIP_MIN_FREQ
+    # derived: per-edge read-id bitsets are kept for the outputs that read them
+    use_read_ids: bool = False
     incr_fn: Optional[str] = None
     out_pog: Optional[str] = None
 
@@ -107,9 +117,15 @@ class Params:
 
     use_qv: bool = False
     disable_seeding: bool = True
+    # -k/-w/-n: minimizer k-mer, window and minimum POA window of seeding (-S)
+    k: int = C.DEFAULT_MMK
+    w: int = C.DEFAULT_MMW
+    min_w: int = C.DEFAULT_MIN_POA_WIN
     progressive_poa: bool = False
 
     verbose: int = C.VERBOSE_NONE
+    # set index in the consensus names of a `-l` run (0: a single set)
+    batch_index: int = 0
 
     # torch device the DP kernel runs on: "cuda" (the kernel) or "cpu"
     # (its plain PyTorch version); resolved by finalize()
@@ -140,8 +156,13 @@ class Params:
             self.gap_mode = C.AFFINE_GAP
         else:
             self.gap_mode = C.CONVEX_GAP
+        if (self.out_msa or self.out_gfa or self.max_n_cons > 1
+                or self.cons_algrm == C.CONS_MF):
+            self.use_read_ids = True
         if self.align_mode == C.LOCAL_MODE:
             self.wb = -1
+        if self.m > 5 and self.k > 11:  # aa sequences: smaller minimizers
+            self.k, self.w = 7, 4
         self._check_slice()
 
         if not self.use_score_matrix:
@@ -167,15 +188,13 @@ class Params:
             raise _not_in_slice("path-score mode (-G)", "8")
         if not self.disable_seeding or self.progressive_poa:
             raise _not_in_slice("seeding and guide-tree order (-S/-p)", "8")
-        if self.max_n_cons > 1:
-            raise _not_in_slice("more than one consensus (-d > 1)", "3")
-        if self.out_msa or self.out_gfa or self.cons_algrm == C.CONS_MF:
-            raise _not_in_slice("MSA, GFA and read-id outputs (-r 1..4, "
-                                "-a 1)", "3")
+        if self.use_qv and self.max_n_cons > 1:
+            raise _not_in_slice("quality-weighted clustering (-Q with -d > 1)",
+                                "3, step 2")
         if self.incr_fn:
-            raise _not_in_slice("incremental alignment (-i)", "3")
+            raise _not_in_slice("incremental alignment (-i)", "3, step 2")
         if self.out_pog:
-            raise _not_in_slice("graph plots (-g)", "3")
+            raise _not_in_slice("graph plots (-g)", "3, step 3")
 
     @property
     def is_aa(self) -> bool:

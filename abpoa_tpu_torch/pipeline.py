@@ -1,8 +1,8 @@
 """Progressive POA in input order and consensus output.
 
 Counterpart of `abpoa_tpu/pipeline.py` (abPOA src/abpoa_align.c: abpoa_poa
-:313-353, abpoa_msa1 :474-540, abpoa_output :355-371), consensus only. Two
-routes, as in the JAX package:
+:313-353, abpoa_msa1 :474-540, abpoa_output :355-371): consensus, row-column
+MSA and GFA. Two routes, as in the JAX package:
 
 - the fused route (`_run_fused_device`, the default whenever
   `fused_eligible` holds): the whole progressive loop runs on the Params'
@@ -16,7 +16,7 @@ routes, as in the JAX package:
   today; chip_smoke.py (phase C2) and the tests call `poa` directly.
 
 A failure of the fused route raises; nothing falls back to the other route.
-The heaviest-bundle consensus is read out at the end.
+The outputs are read out of the host graph at the end.
 """
 from __future__ import annotations
 
@@ -30,9 +30,10 @@ from .align.dispatch import align_sequence_to_graph
 from .align.eligibility import fused_eligible
 from .align.result import AlignResult
 from .cons.consensus import ConsensusResult, generate_consensus
+from .cons.msa import generate_rc_msa
 from .graph import POAGraph
 from .io.fastx import read_fastx
-from .io.output import output_fx_consensus
+from .io.output import generate_gfa, output_fx_consensus, output_rc_msa
 from .params import Params
 
 
@@ -93,7 +94,7 @@ def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
                     res = rc_res
                     qseq, weight = rc_qseq, weight[::-1].copy()
                     ab.is_rc[read_id] = True
-        g.add_alignment(abpt, qseq, weight, res.cigar, True)
+        g.add_alignment(abpt, qseq, weight, res.cigar, True, read_id)
 
 
 def _run_fused_device(ab: Abpoa, abpt: Params, seqs: List[np.ndarray],
@@ -137,17 +138,26 @@ def _ingest_records(ab: Abpoa, abpt: Params, records):
 
 
 def output(ab: Abpoa, abpt: Params, out_fp: IO[str]) -> None:
-    """Consensus output (src/abpoa_align.c:355-371)."""
-    if not abpt.out_cons:
-        return
-    ab.cons = generate_consensus(ab.graph, abpt, ab.n_seq)
-    if not ab.graph.is_called_cons:
-        print("Warning: no consensus sequence generated.", file=sys.stderr)
-    output_fx_consensus(ab.cons, abpt, out_fp)
+    """GFA, MSA or consensus output (src/abpoa_align.c:355-371); the
+    consensus, where one is made, is kept in `ab.cons`."""
+    g = ab.graph
+    if abpt.out_gfa:
+        def consensus() -> ConsensusResult:
+            ab.cons = generate_consensus(g, abpt, ab.n_seq)
+            return ab.cons
+        generate_gfa(g, abpt, ab.names, ab.is_rc, consensus, out_fp)
+    elif abpt.out_msa:
+        ab.cons = generate_rc_msa(g, abpt, ab.n_seq)
+        output_rc_msa(ab.cons, abpt, ab.names, ab.is_rc, out_fp)
+    elif abpt.out_cons:
+        ab.cons = generate_consensus(g, abpt, ab.n_seq)
+        if not g.is_called_cons:
+            print("Warning: no consensus sequence generated.", file=sys.stderr)
+        output_fx_consensus(ab.cons, abpt, out_fp)
 
 
 def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
-    """One read set (abpoa_msa1): progressive POA, then consensus."""
+    """One read set (abpoa_msa1): progressive POA, then the outputs."""
     if not abpt._finalized:
         raise ValueError("call Params.finalize() first")
     ab.reset()
@@ -160,4 +170,6 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
 
 
 def msa_from_file(ab: Abpoa, abpt: Params, path: str, out_fp: IO[str]) -> None:
+    if not (abpt.out_msa or abpt.out_cons or abpt.out_gfa):
+        return
     msa(ab, abpt, read_fastx(path), out_fp)

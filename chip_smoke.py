@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of abpoa_tpu_torch, the PyTorch/CUDA port of abpoa-tpu.
 
-    python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M]
+    python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -29,9 +29,12 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          B1's column warps at W = 128 and of B3's at W = 2048, each shape
          held equal to the plain version
   B      `python -m abpoa_tpu_torch` on cuda, now the fused route,
-         reproduces tests/golden (default, -O 4, -O 0, -m 1, -m 2) byte for
-         byte; then sim2k -m 1 on cuda (the B3 width) equals the port's CPU
-         result on its first 4 reads
+         reproduces tests/golden byte for byte: consensus (default, -O 4,
+         -O 0, -m 1, -m 2) and the read-id outputs (seq.fa -a 1, -r 2, -r 4;
+         heter.fa -d 2, -d 2 -r 2; 3alleles.fa -d 3); seq.fa -r 1, -r 3 and
+         rcmix.fa -s -r 1 on cuda equal the port's CPU runs; then sim2k -m 1
+         on cuda (the B3 width) equals the port's CPU result on its first 4
+         reads
   C      the main path at full width: N ONT-like 10 kb reads at 10 % error
          (made here from a fixed seed) through the CLI on cuda, the fused
          route; the kernel counts are set to 0 before and read after (S1 at
@@ -40,6 +43,20 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   C2     the per-read route (pipeline.poa, kernel B2) and the fused route on
          the first M reads of that set give byte-identical consensus; the
          per-read route's wall split into B2, the planes' copy and the host
+  C3     phase C's set again with -r 2 (MSA and consensus; the loop records
+         each read's path, the read-id bitsets are replayed on the host): the
+         consensus equals phase C's, each MSA row without gaps is its read,
+         the consensus row without gaps is the consensus, the kernel counts
+         and the host syncs equal phase C's; the wall split into the loop,
+         the downloads, the replay, the MSA ranks and rows, the consensus and
+         the writing
+  C4     a diploid set: two haplotypes of --ref-len bp, 1 % apart (SNVs and
+         1-3 bp indels, made from --seed), K reads (200) of 10 % error,
+         alternating between them, with -d 2 -r 4: one or two consensus
+         sequences whose read lists partition the reads, and a GFA whose P
+         lines spell the reads; each consensus's identity to both
+         haplotypes and its reads by haplotype are printed (C4 is 200 reads,
+         not 500, to keep the script within its time)
   D      at the graph phase C left and one more read: B1, X1, S1 and K1
          against their plain versions with times and bounds (B1 also per
          computed row, X1 per step, K1 per pass, in both degree variants
@@ -81,21 +98,84 @@ def simulate(ref_len: int, n_reads: int, err: float, seed: int):
     import numpy as np
     rng = np.random.default_rng(seed)
     ref = rng.integers(0, 4, ref_len)
+    return acgt(ref), [acgt(r) for r in sim_reads(ref, n_reads, err, rng)]
+
+
+def sim_reads(ref, n_reads: int, err: float, rng) -> list:
+    """`simulate`'s reads of the 0..3 code array `ref`, as code arrays."""
+    import numpy as np
+    n = len(ref)
     sub, ins = err * 0.4, err * 0.3
     reads = []
     for _ in range(n_reads):
-        x = rng.random(ref_len)
+        x = rng.random(n)
         is_sub = x < sub
         is_ins = (x >= sub) & (x < sub + ins)
         is_del = (x >= sub + ins) & (x < err)
-        first = np.where(is_sub, (ref + rng.integers(1, 4, ref_len)) % 4, ref)
-        second = rng.integers(0, 4, ref_len)
+        first = np.where(is_sub, (ref + rng.integers(1, 4, n)) % 4, ref)
+        second = rng.integers(0, 4, n)
         pair = np.stack([first, second], 1)
         keep = np.stack([~is_del, is_ins], 1)
         reads.append(pair[keep])
-    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    return (acgt[ref].tobytes().decode(),
-            [acgt[r].tobytes().decode() for r in reads])
+    return reads
+
+
+def acgt(codes) -> str:
+    import numpy as np
+    return np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes().decode()
+
+
+def haplotypes(ref_len: int, rate: float, seed: int):
+    """Two haplotypes of one locus as 0..3 code arrays: a random sequence
+    and a copy with a variant at a `rate` share of its positions, 70 % SNVs
+    and 30 % indels of 1-3 bp (half insertions, half deletions)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h1 = rng.integers(0, 4, ref_len)
+    pos = np.sort(rng.choice(np.arange(50, ref_len - 50), int(ref_len * rate),
+                             replace=False))
+    out, last = [], 0
+    for p in pos.tolist():
+        if p < last:  # inside the last deletion
+            continue
+        out.append(h1[last:p])
+        kind, k = rng.random(), int(rng.integers(1, 4))
+        if kind < 0.7:
+            out.append([(h1[p] + int(rng.integers(1, 4))) % 4])
+            last = p + 1
+        elif kind < 0.85:
+            out.append([h1[p]])
+            out.append(rng.integers(0, 4, k))
+            last = p + 1
+        else:
+            last = p + k
+    out.append(h1[last:])
+    return h1, np.concatenate([np.asarray(x, dtype=h1.dtype) for x in out])
+
+
+def read_fasta_rows(path: str) -> list:
+    """(name, sequence) of each record of a FASTA file whose records are one
+    line each, as the MSA writer makes them."""
+    with open(path) as fp:
+        lines = fp.read().split("\n")
+    return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines) - 1, 2)]
+
+
+def gfa_spells(path: str) -> dict:
+    """P-line name -> the sequence its path spells in a GFA file (a path
+    walked backwards, `-`, spells the reverse complement)."""
+    seg, paths = {}, {}
+    with open(path) as fp:
+        for line in fp:
+            f = line.rstrip("\n").split("\t")
+            if f[0] == "S":
+                seg[f[1]] = f[2]
+            elif f[0] == "P":
+                paths[f[1]] = f[2].split(",") if f[2] else []
+    comp = str.maketrans("ACGTN", "TGCAN")
+    return {name: "".join(seg[x[:-1]] if x[-1] == "+"
+                          else seg[x[:-1]].translate(comp) for x in steps)
+            for name, steps in paths.items()}
 
 
 def edit_distance(a: str, b: str) -> int:
@@ -645,6 +725,34 @@ def sweep_warps(tag, args, kw, want):
             f"{ms * 1e3 / max(1, rows - 1):.3f} us a computed row, == plain")
 
 
+def timed(owner, name: str, acc: dict, key: str):
+    """Replace owner.name by a wrapper that adds its wall time to acc[key];
+    returns the function that puts the original back."""
+    real = getattr(owner, name)
+
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+    return lambda: setattr(owner, name, real)
+
+
+def run_pipeline(argv, out_path: str):
+    """The CLI's run of argv (its parser, Params and pipeline), writing to
+    out_path; returns the pipeline's Abpoa, which holds the consensus."""
+    from abpoa_tpu_torch import cli
+    from abpoa_tpu_torch.pipeline import Abpoa, msa_from_file
+    ns = cli.build_parser().parse_args(argv)
+    ab = Abpoa()
+    with open(out_path, "w") as fp:
+        msa_from_file(ab, cli.args_to_params(ns).finalize(), ns.input, fp)
+    return ab
+
+
 def run_cli(argv):
     from abpoa_tpu_torch import cli
     rc = cli.main(argv)
@@ -657,6 +765,7 @@ def main() -> int:
     ap.add_argument("--reads", type=int, default=500)
     ap.add_argument("--ref-len", type=int, default=10000)
     ap.add_argument("--c2-reads", type=int, default=50)
+    ap.add_argument("--c4-reads", type=int, default=200)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -927,18 +1036,34 @@ def main() -> int:
             f"== plain; kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
 
     # ---- B: goldens through the CLI on cuda (the fused route)
-    golden = [([], "ref_consensus"), (["-O", "4"], "seq_affine"),
-              (["-O", "0"], "seq_linear"), (["-m", "1"], "seq_m1"),
-              (["-m", "2"], "seq_m2")]
-    for flags, name in golden:
+    data = lambda f: os.path.join(ROOT, "tests", "data", f)  # noqa: E731
+    golden = [("seq.fa", [], "ref_consensus"), ("seq.fa", ["-O", "4"], "seq_affine"),
+              ("seq.fa", ["-O", "0"], "seq_linear"), ("seq.fa", ["-m", "1"], "seq_m1"),
+              ("seq.fa", ["-m", "2"], "seq_m2"), ("seq.fa", ["-a", "1"], "ref_msa"),
+              ("seq.fa", ["-r", "2"], "seq_r2"), ("seq.fa", ["-r", "4"], "seq_r4"),
+              ("heter.fa", ["-d", "2"], "ref_heter"),
+              ("heter.fa", ["-d", "2", "-r", "2"], "heter_d2r2"),
+              ("3alleles.fa", ["-d", "3"], "3alleles_d3")]
+    for fa_b, flags, name in golden:
         out_b = os.path.join(OUT, f"{name}.fa")
         fl.reset_stats()
-        run_cli([os.path.join(ROOT, "tests", "data", "seq.fa"), "-o", out_b, *flags])
+        run_cli([data(fa_b), "-o", out_b, *flags])
         with open(out_b) as fp, open(os.path.join(ROOT, "tests", "golden", f"{name}.txt")) as gp:
             if fp.read() != gp.read():
-                raise AssertionError(f"seq.fa {flags} on cuda differs from {name}.txt")
-        log(f"[B] seq.fa {' '.join(flags) or '(default)'} on cuda == tests/golden/{name}.txt "
+                raise AssertionError(f"{fa_b} {flags} on cuda differs from {name}.txt")
+        log(f"[B] {fa_b} {' '.join(flags) or '(default)'} on cuda == tests/golden/{name}.txt "
             f"({fl.stats['reads']} reads on the fused route)")
+    # read-id outputs with no golden: cuda against the port's CPU run
+    for fa_b, flags in (("seq.fa", ["-r", "1"]), ("seq.fa", ["-r", "3"]),
+                        ("rcmix.fa", ["-s", "-r", "1"])):
+        outs_b = []
+        for device in ("cuda", "cpu"):
+            outs_b.append(os.path.join(OUT, f"{fa_b}{''.join(flags)}.{device}"))
+            run_cli([data(fa_b), "--device", device, "-o", outs_b[-1], *flags])
+        with open(outs_b[0]) as a, open(outs_b[1]) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{fa_b} {flags} on cuda differs from cpu")
+        log(f"[B] {fa_b} {' '.join(flags)} on cuda == on cpu")
     fa4 = os.path.join(OUT, "sim2k_4.fa")
     with open(fa4, "w") as fp:
         fp.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(sim2k[:4])))
@@ -1047,6 +1172,124 @@ def main() -> int:
         raise AssertionError("per-read and fused routes give different consensus")
     log(f"[C2] per-read (B2 launches {b2_launches}) == fused consensus, byte for byte")
 
+    # ---- C3: the read-id outputs at full width: the headline set with -r 2
+    from abpoa_tpu_torch import pipeline as pl
+    from abpoa_tpu_torch.cons import msa as msa_mod
+    split = {}
+    undo = [timed(POAGraph, "set_msa_rank", split, "rank"),
+            timed(msa_mod, "collect_msa", split, "rank"),
+            timed(msa_mod, "generate_consensus", split, "consensus"),
+            timed(pl, "output_rc_msa", split, "write")]
+    out_c3 = os.path.join(OUT, "sim_msa.fa")
+    fl.reset_stats()
+    fused_dp.launches = fused_dp.local_launches = 0
+    backtrack.launches = topo_sort.launches = banded_dp.launches = 0
+    edge_sort.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ab3 = run_pipeline([fa, "-r", "2"], out_c3)
+    wall3 = time.perf_counter() - t0
+    for u in undo:
+        u()
+    launches3 = {"fused_dp": fused_dp.launches, "backtrack": backtrack.launches,
+                 "edge_sort": edge_sort.launches, "topo_sort": topo_sort.launches}
+    s3 = dict(fl.stats)
+    if launches3 != launches or banded_dp.launches or fused_dp.local_launches:
+        raise AssertionError(f"-r 2 launches {launches3}, the consensus run's {launches}")
+    if (s3["syncs"], s3["reads"]) != (s["syncs"], s["reads"]):
+        raise AssertionError(f"-r 2: {s3['syncs']} host syncs in {s3['reads']} read "
+                             f"attempts, the consensus run {s['syncs']} in {s['reads']}")
+    cons3 = "".join(chr(c) for c in abpt.code_to_char[ab3.cons.cons_base[0]])
+    if cons3 != cons[0].seq:
+        raise AssertionError("-r 2's consensus differs from the consensus run's")
+    rows = read_fasta_rows(out_c3)
+    if [name for name, _ in rows] != [f"read_{i}" for i in range(n)] + ["Consensus_sequence"]:
+        raise AssertionError("-r 2: the MSA's rows are not the reads and the consensus")
+    for i, (_, row) in enumerate(rows[:n]):
+        if row.replace("-", "") != reads[i]:
+            raise AssertionError(f"-r 2: MSA row {i} without gaps is not read {i}")
+    if rows[n][1].replace("-", "") != cons3:
+        raise AssertionError("-r 2: the MSA's consensus row is not the consensus")
+    msa_len = len(rows[0][1])
+    if any(len(row) != msa_len for _, row in rows):
+        raise AssertionError("-r 2: MSA rows of different lengths")
+    loop3 = s3["wall_s"] - s3["download_s"] - s3["replay_s"]
+    known = loop3 + s3["download_s"] + s3["replay_s"] + sum(split.values())
+    log(f"[C3] {n} reads x {args.ref_len} bp, -r 2 (MSA and consensus), fused "
+        f"route: wall {wall3:.2f} s ({n / wall3:.3f} reads/s); MSA {msa_len} "
+        f"columns; each row without gaps == its read, the consensus row == the "
+        f"consensus == phase C's; launches == phase C's {launches3}; host syncs "
+        f"{s3['syncs']} in {s3['reads']} attempts == phase C's")
+    log(f"[C3] wall split (s): loop {loop3:.2f}, graph download "
+        f"{s3['download_s']:.2f}, paths download + read-id replay "
+        f"{s3['replay_s']:.2f}, set_msa_rank + collect_msa "
+        f"{split.get('rank', 0.0):.2f}, consensus "
+        f"{split.get('consensus', 0.0):.2f}, writing the MSA "
+        f"{split.get('write', 0.0):.2f}, the rest (reading, encoding) "
+        f"{wall3 - known:.2f}")
+
+    # ---- C4: clustering at a diploid user's scale: two haplotypes, -d 2 -r 4
+    m4 = args.c4_reads
+    h1, h2 = haplotypes(args.ref_len, 0.01, args.seed + 2)
+    rng = np.random.default_rng(args.seed + 3)
+    r1, r2 = sim_reads(h1, m4 // 2, 0.10, rng), sim_reads(h2, m4 // 2, 0.10, rng)
+    reads4 = [acgt(x) for pair in zip(r1, r2) for x in pair]
+    names4 = [f"read_{i}_h{i % 2 + 1}" for i in range(len(reads4))]
+    fa_c4 = os.path.join(OUT, "diploid.fa")
+    with open(fa_c4, "w") as fp:
+        fp.write("".join(f">{nm}\n{r}\n" for nm, r in zip(names4, reads4)))
+    out_c4 = os.path.join(OUT, "diploid.gfa")
+    from abpoa_tpu_torch.cons import cluster as cluster_mod
+    from abpoa_tpu_torch.cons import consensus as cons_mod
+    split4 = {}
+    undo = [timed(cluster_mod, "multip_read_clu_kmedoids", split4, "cluster"),
+            timed(cons_mod, "heaviest_bundling", split4, "bundling"),
+            timed(pl, "generate_gfa", split4, "gfa")]
+    fl.reset_stats()
+    fused_dp.launches = backtrack.launches = edge_sort.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ab4 = run_pipeline([fa_c4, "-d", "2", "-r", "4"], out_c4)
+    wall4 = time.perf_counter() - t0
+    for u in undo:
+        u()
+    s4 = dict(fl.stats)
+    m4 = len(reads4)
+    if min(fused_dp.launches, backtrack.launches, edge_sort.launches) < m4 - 1:
+        raise AssertionError("-d 2 -r 4: the fused route did not run every read")
+    abc4 = ab4.cons
+    if abc4.n_cons not in (1, 2):
+        raise AssertionError(f"-d 2 gave {abc4.n_cons} consensus sequences")
+    if sorted(r for ids in abc4.clu_read_ids for r in ids) != list(range(m4)):
+        raise AssertionError("-d 2: the clusters' read lists do not partition the reads")
+    spells = gfa_spells(out_c4)
+    for nm, r in zip(names4, reads4):
+        if spells.get(nm) != r:
+            raise AssertionError(f"-d 2 -r 4: the GFA path of {nm} does not spell it")
+    hs = (acgt(h1), acgt(h2))
+    log(f"[C4] {m4} reads ({m4 // 2} a haplotype, interleaved) x {args.ref_len} bp "
+        f"at 10% error, haplotypes {len(hs[0])} and {len(hs[1])} bp "
+        f"({edit_distance(hs[0], hs[1])} edits apart), -d 2 -r 4, fused route: "
+        f"wall {wall4:.2f} s; {abc4.n_cons} consensus sequences; the read "
+        f"lists partition the reads; every P line spells its read")
+    loop4 = s4["wall_s"] - s4["download_s"] - s4["replay_s"]
+    gfa_only = split4["gfa"] - split4.get("cluster", 0.0) - split4.get("bundling", 0.0)
+    rest4 = wall4 - s4["wall_s"] - split4["gfa"]
+    log(f"[C4] wall split (s): loop {loop4:.2f}, graph download "
+        f"{s4['download_s']:.2f}, paths download + read-id replay "
+        f"{s4['replay_s']:.2f}, clustering (MSA, het columns, k-medoids) "
+        f"{split4.get('cluster', 0.0):.2f}, heaviest bundling of the clusters "
+        f"{split4.get('bundling', 0.0):.2f}, the GFA's walk and writing "
+        f"{gfa_only:.2f}, the rest {rest4:.2f}")
+    for k in range(abc4.n_cons):
+        seq4 = "".join(chr(c) for c in abpt.code_to_char[abc4.cons_base[k]])
+        idents = [1 - edit_distance(seq4, h) / len(h) for h in hs]
+        hap_n = [sum(1 for r in abc4.clu_read_ids[k] if r % 2 == j) for j in (0, 1)]
+        log(f"[C4] consensus {k + 1}: {len(seq4)} bp, identity {idents[0]:.5f} "
+            f"to haplotype 1, {idents[1]:.5f} to haplotype 2; its "
+            f"{len(abc4.clu_read_ids[k])} reads: {hap_n[0]} of haplotype 1, "
+            f"{hap_n[1]} of haplotype 2")
+
     # ---- D: kernels vs plain at the main path's shape
     qd = encode(cpu, held_out)
     W, plane16 = caps_c["W"], caps_c["plane16"]
@@ -1103,7 +1346,8 @@ def main() -> int:
                                             qlen_d, max_ops)
     q_d, w_d = bta[10], torch.ones_like(bta[10])
     coll_ms, g_seq = time_host(lambda: fl._finish_fusion(fuse_alignment(
-        st_c.g, fwd_op, fwd_arg, min(int(n_fwd), max_ops), q_d, qlen_d, w_d)))
+        st_c.g, fwd_op, fwd_arg, min(int(n_fwd), max_ops), q_d, qlen_d,
+        w_d)[0]))
     vec = fl._fuse_vectorized(st_c.g, fwd_op, fwd_arg, n_fwd, q_d, qlen_d, w_d)
     same = "the read collides, so no comparison"
     if not bool(vec[4]):

@@ -1,0 +1,367 @@
+"""The CUDA kernels B1/B3, X1, S1 and K1 against their plain PyTorch
+versions on the card, and the cases they share with the CPU tests.
+
+This file imports no JAX, so the card machine, which has none, collects it.
+The cases are the ones the CPU test files hold against the JAX package:
+- B1/B3 (`fused_dp`): the kernel tables of mid-run graphs of
+  tests/data/seq.fa, test.fa and sim2k.fa in every gap regime x align mode
+  x plane width, a band overflow, and predecessors 70 rows back
+  (`build_cases`; against Pallas in test_torch_fused_dp.py);
+- X1 (`backtrack`): the planes of those cases, with the gap-placement flags
+  (`BT_CASES`; against JAX in test_torch_fused_steps.py), and a synthetic
+  graph with 64 predecessor slots (`_wide_case`; test_torch_kernel_shapes.py);
+- K1 (`topo_sort`) on graphs of the fused loop (`topo_graph_cases`; against
+  JAX in test_torch_fused_steps.py). S1 and K1 on the graphs made for their
+  traps are in test_torch_sort_twins.py.
+Every comparison is exact; B1/B3 are compared on the plane rows they compute.
+Without a card every test here skips before its cases are built.
+
+    pytest -m cuda tests/test_torch_cuda_twins.py    # on the card
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import DATA_DIR
+
+import chip_smoke
+from abpoa_tpu_torch import constants as C
+from abpoa_tpu_torch.align import fused_loop as tfl
+from abpoa_tpu_torch.align.backtrack_kernel import backtrack, backtrack_torch
+from abpoa_tpu_torch.align.buckets import qp_rung
+from abpoa_tpu_torch.align.fused_dp_kernel import (computed_rows, fused_dp,
+                                                   fused_dp_torch, launch_shape)
+from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
+from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_torch
+from abpoa_tpu_torch.io.fastx import read_fastx
+from abpoa_tpu_torch.params import Params
+
+# the suite runs several test processes at once: one torch thread each
+# keeps the plain versions from competing with the other workers' timings
+torch.set_num_threads(1)
+
+# ---- the cases ---------------------------------------------------------------
+
+OUT_NAMES = ("H", "E1", "E2", "F1", "F2", "beg", "end", "ok", "ext")
+IN_NAMES = ("scalars", "base_packed", "pre_idx", "pre_cnt", "out_idx",
+            "out_cnt", "remain", "row0", "qp_pad")
+
+GAPS = {"convex": {}, "affine": {"gap_open2": 0},
+        "linear": {"gap_open1": 0, "gap_open2": 0}}
+MODES = {"global": {}, "extend": {"align_mode": C.EXTEND_MODE, "zdrop": 5},
+         "local": {"align_mode": C.LOCAL_MODE}}
+GRID = [f"{g}-{m}-{w}" for g in GAPS for m in MODES
+        for w in ("int16", "int32")]
+EXTRA = ["overflow-convex-global-int32", "testfa-convex-global-int32",
+         "testfa-linear-local-int16"]
+HBM = ["hbm-convex-int32", "hbm-affine-int16"]
+FAR = [f"far-{g}-{m}" for g in GAPS for m in ("global", "extend")]
+
+
+def make_params(**kw) -> Params:
+    abpt = Params(device="cpu")
+    for k, v in kw.items():
+        setattr(abpt, k, v)
+    return abpt.finalize()
+
+
+def encode(abpt, seq: str) -> np.ndarray:
+    return abpt.char_to_code[np.frombuffer(seq.encode(), dtype=np.uint8)].astype(np.uint8)
+
+
+def port_state(fa: str, n_reads: int, abpt: Params, init_caps=None):
+    """The port's fused-loop state after the first n_reads reads of fa
+    (built on the CPU), and every read of fa encoded."""
+    seqs = [encode(abpt, r.seq) for r in read_fastx(os.path.join(DATA_DIR, fa))]
+    w = [np.ones(len(s), dtype=np.int64) for s in seqs[:n_reads]]
+    tfl.progressive_poa_fused(seqs[:n_reads], w, abpt, init_caps=init_caps)
+    return tfl.last_state, seqs
+
+
+def kernel_inputs(abpt: Params, st, query: np.ndarray, W: int, plane16: bool,
+                  local: bool) -> tuple:
+    """B1's inputs for `query` against the state's graph, as the fused loop
+    builds them."""
+    tables = tfl._build_tables(st.g, st.order, st.n2i, st.remain)
+    qlen = len(query)
+    qp = np.zeros((abpt.m, qp_rung(qlen)), dtype=np.int32)
+    qp[:, 1: qlen + 1] = abpt.mat[:, query]
+    inf = dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN)
+    return tfl.dp_inputs(abpt, st, tables, torch.from_numpy(qp), qlen, W,
+                         inf, local)
+
+
+def _query(seqs) -> np.ndarray:
+    """Read 7 of seq.fa with its last 15 bases replaced by random ones, so
+    extend mode's Z-drop fires."""
+    rng = np.random.default_rng(5)
+    q = seqs[6].copy()
+    q[-15:] = rng.integers(0, 4, 15)
+    return q
+
+
+def build_cases() -> dict:
+    """name -> (inputs, statics, query) where statics = dict(gap_mode,
+    plane16, extend, zdrop_on, local, hbm)."""
+    cases = {}
+    base = make_params()
+    st, seqs = port_state("seq.fa", 6, base, init_caps=(256, 8, 8, 128))
+    query = _query(seqs)
+    for name in GRID + HBM:
+        parts = name.split("-")
+        hbm = parts[0] == "hbm"
+        gap = parts[1] if hbm else parts[0]
+        mode = "local" if hbm else parts[1]
+        plane16 = parts[-1] == "int16"
+        abpt = make_params(**GAPS[gap], **MODES[mode])
+        args = kernel_inputs(abpt, st, query, 128, plane16, mode == "local")
+        cases[name] = (args, dict(
+            gap_mode=abpt.gap_mode, plane16=plane16,
+            extend=mode == "extend", zdrop_on=mode == "extend",
+            local=mode == "local", hbm=hbm), query)
+    # a band wider than W: sim2k with a 100-column extra band at W = 128
+    abpt = make_params(wb=100)
+    st2, seqs2 = port_state("sim2k.fa", 2, abpt)
+    args = kernel_inputs(abpt, st2, seqs2[2], 128, False, False)
+    cases[EXTRA[0]] = (args, dict(gap_mode=abpt.gap_mode, plane16=False,
+                                  extend=False, zdrop_on=False, local=False,
+                                  hbm=False), seqs2[2])
+    # test.fa: the graph of its first 3 reads and the 4th
+    st3, seqs3 = port_state("test.fa", 3, base, init_caps=(256, 8, 8, 128))
+    for name in EXTRA[1:]:
+        _, gap, mode, width = name.split("-")
+        abpt = make_params(**GAPS[gap], **MODES[mode])
+        plane16 = width == "int16"
+        args = kernel_inputs(abpt, st3, seqs3[3], 128, plane16, mode == "local")
+        cases[name] = (args, dict(
+            gap_mode=abpt.gap_mode, plane16=plane16, extend=False,
+            zdrop_on=False, local=mode == "local", hbm=False), seqs3[3])
+    # predecessors 70 rows back, in the seq.fa cases' table shapes, so the
+    # Pallas child reuses those cases' compilations
+    like = cases["convex-global-int32"][0]
+    preds, bases, query = chip_smoke.synthetic_graph("far")
+    for name in FAR:
+        _, gap, mode = name.split("-")
+        abpt = make_params(**GAPS[gap], **MODES[mode])
+        args, _ = chip_smoke.synthetic_inputs(
+            abpt, preds, bases, query, 128, False, False, P=like[2].shape[1],
+            R=like[1].shape[0], O=like[4].shape[1])
+        cases[name] = (args, dict(
+            gap_mode=abpt.gap_mode, plane16=False, extend=mode == "extend",
+            zdrop_on=mode == "extend", local=False, hbm=False), query)
+    return cases
+
+
+def _assert_equal(got, want, rows=None, skip=()):
+    for k, (a, b) in enumerate(zip(got, want)):
+        name = OUT_NAMES[k]
+        if name in skip:
+            continue
+        a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        if rows is not None and name in ("H", "E1", "E2", "F1", "F2", "beg", "end"):
+            a, b = a[:rows], b[:rows]
+        assert a.dtype == b.dtype, f"{name}: dtype {a.dtype} vs {b.dtype}"
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _run_plain(case):
+    args, s, _ = case
+    return fused_dp_torch(*args, gap_mode=s["gap_mode"], plane16=s["plane16"],
+                          extend=s["extend"], zdrop_on=s["zdrop_on"],
+                          local=s["local"])
+
+
+def make_run(abpt, seqs, st, W, plane16):
+    """The loop's per-run constants for reads `seqs` at band width W."""
+    from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
+    Qp = qp_rung(max(len(s) for s in seqs))
+    mat = np.ascontiguousarray(abpt.mat.astype(np.int32))
+    sp, wp, lens, qp = tfl._pad_read_set(
+        seqs, [np.ones(len(s), dtype=np.int64) for s in seqs], Qp, mat, abpt.m)
+    N = st.g.caps[0]
+    return tfl._Run(abpt=abpt, seqs=torch.from_numpy(sp),
+                    wgts=torch.from_numpy(wp), lens=lens.tolist(),
+                    qp=torch.from_numpy(qp), mat=torch.from_numpy(mat), W=W,
+                    max_ops=N + Qp + 8, plane16=plane16,
+                    inf=dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN),
+                    local=abpt.align_mode == C.LOCAL_MODE,
+                    extend=abpt.align_mode == C.EXTEND_MODE,
+                    zdrop_on=abpt.align_mode == C.EXTEND_MODE and abpt.zdrop > 0,
+                    int16_limit=1 << 30)
+
+
+def aligned_read(fa, n_graph, **kw):
+    """A port state after n_graph reads of fa, the next read's forward op
+    stream against it, and the loop constants."""
+    abpt = make_params(**kw)
+    st, seqs = port_state(fa, n_graph, abpt)
+    run = make_run(abpt, seqs, st, 256, False)
+    k = n_graph
+    tables = tfl._build_tables(st.g, st.order, st.n2i, st.remain)
+    fwd = tfl._align_strand(run, st, tables, run.seqs[k], run.qp[k],
+                            run.lens[k])
+    return abpt, st, run, k, fwd
+
+
+BT_CASES = [(n, False, False) for n in GRID] + [
+    ("convex-global-int16", True, False), ("convex-global-int16", False, True),
+    ("convex-global-int32", True, True), ("affine-global-int32", True, True),
+    ("linear-global-int16", True, True), ("convex-local-int32", False, True),
+    ("convex-extend-int16", True, False)]
+
+
+def _bt_inputs(case):
+    args, s, q = case
+    scalars, base_packed, pre_idx, pre_cnt = args[:4]
+    H, E1, E2, F1, F2, beg, end, ok, ext = fused_dp_torch(
+        *args, gap_mode=s["gap_mode"], plane16=s["plane16"],
+        extend=s["extend"], zdrop_on=s["zdrop_on"], local=s["local"])
+    sc = scalars.tolist()
+    qlen, inf = sc[0], sc[3]
+    n = torch.tensor([sc[8]], dtype=torch.int32)
+    bi, bj, _ = tfl.best_cell(H, beg, end, pre_idx, pre_cnt, n, ext, qlen, inf,
+                              s["extend"] or s["local"])
+    Qp = args[8].shape[1] - H.shape[1]
+    query = torch.zeros(Qp, dtype=torch.int32)
+    query[:qlen] = torch.from_numpy(q.astype(np.int32))
+    return (H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base_packed,
+            query), (int(bi), int(bj)), sc, Qp
+
+
+def topo_graph_cases():
+    """name -> port DeviceGraph: a fused-but-unsorted graph (seq.fa), a
+    sorted mid-run graph with aligned groups (heter.fa) and a larger one
+    (sim2k.fa)."""
+    out = {}
+    abpt, st, run, k, fwd = aligned_read("seq.fa", 6)
+    fwd_op, fwd_arg, n_fwd = fwd[:3]
+    out["seq-fused-unsorted"] = tfl._fuse_vectorized(
+        st.g, fwd_op, fwd_arg, n_fwd, run.seqs[k], run.lens[k], run.wgts[k])[0]
+    out["heter-sorted"] = port_state("heter.fa", 8, make_params())[0].g
+    out["sim2k-sorted"] = port_state("sim2k.fa", 5, make_params())[0].g
+    return out
+
+
+def _topo_args(g):
+    return (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt, g.out_cnt,
+            g.aligned, g.aligned_cnt, g.node_n.reshape(1))
+
+
+def _wide_case(gap):
+    abpt = make_params(**GAPS[gap])
+    preds, bases, query = chip_smoke.synthetic_graph("wide")
+    args, inf = chip_smoke.synthetic_inputs(abpt, preds, bases, query, 128,
+                                            False, False, P=64)
+    out = fused_dp_torch(*args, gap_mode=abpt.gap_mode, plane16=False)
+    bta, max_ops = chip_smoke.bt_inputs(abpt, args, out, query, inf, False)
+    kw = dict(max_ops=max_ops, gap_mode=abpt.gap_mode, gap_on_right=False,
+              put_gap_at_end=False, local=False)
+    return abpt, args, bta, kw
+
+
+# ---- the kernels on the card ---------------------------------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def _card_present():
+    """Skip the module before any case is built when there is no card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _card():
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return build_cases()
+
+
+@pytest.fixture(scope="module")
+def topo_graphs():
+    return topo_graph_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRID + EXTRA)
+def test_fused_dp_kernel_matches_plain_on_card(name, cases):
+    dev = _card()
+    args, s, _ = cases[name]
+    kw = {k: v for k, v in s.items() if k != "hbm"}
+    got = fused_dp(*[a.to(dev) for a in args], **kw)
+    torch.cuda.synchronize()
+    want = _run_plain(cases[name])
+    # the kernel defines the plane rows 0..last computed only
+    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]),
+                         args[7].shape[1])
+    _assert_equal([g.cpu() for g in got], [w.numpy() for w in want], rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FAR)
+def test_fused_dp_far_kernel_matches_plain_on_card(name, cases):
+    dev = _card()
+    args, s, _ = cases[name]
+    assert launch_shape(128, args[2].shape[1], s["gap_mode"])["depth"] < 70
+    kw = {k: v for k, v in s.items() if k != "hbm"}
+    got = fused_dp(*[a.to(dev) for a in args], **kw)
+    torch.cuda.synchronize()
+    want = _run_plain(cases[name])
+    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]), 128)
+    _assert_equal([g.cpu() for g in got], [w.numpy() for w in want], rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,right,at_end", BT_CASES)
+def test_backtrack_kernel_matches_plain_on_card(name, right, at_end, cases):
+    dev = _card()
+    planes_etc, (bi, bj), sc, Qp = _bt_inputs(cases[name])
+    s = cases[name][1]
+    mat = torch.from_numpy(make_params().mat.astype(np.int32))
+    max_ops = planes_etc[0].shape[0] + Qp + 8
+    bt_sc = torch.tensor([bi, bj, sc[4], sc[5], sc[6], sc[7], sc[3], max_ops],
+                         dtype=torch.int32)
+    kw = dict(max_ops=max_ops, gap_mode=s["gap_mode"], gap_on_right=right,
+              put_gap_at_end=at_end, local=s["local"])
+    want = backtrack_torch(*planes_etc, mat, bt_sc, **kw)
+    got = backtrack(*[t.to(dev) for t in (*planes_etc, mat, bt_sc)], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["seq-fused-unsorted", "heter-sorted",
+                                  "sim2k-sorted"])
+def test_topo_sort_kernel_matches_plain_on_card(name, topo_graphs):
+    dev = _card()
+    args = _topo_args(topo_graphs[name])
+    want = topo_sort_torch(*args)
+    got = topo_sort(*[t.to(dev).contiguous() for t in args])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gap", list(GAPS))
+def test_wide_kernels_match_plain_on_card(gap):
+    dev = _card()
+    abpt, args, bta, kw = _wide_case(gap)
+    got = fused_dp(*[a.to(dev) for a in args], gap_mode=abpt.gap_mode,
+                   plane16=False)
+    torch.cuda.synchronize()
+    want = fused_dp_torch(*args, gap_mode=abpt.gap_mode, plane16=False)
+    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]), 128)
+    for k in range(9):
+        a, b = got[k].cpu(), want[k]
+        if k < 5:
+            a, b = a[:rows], b[:rows]
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=OUT_NAMES[k])
+    ops, res = backtrack(*[t.to(dev) for t in bta], **kw)
+    torch.cuda.synchronize()
+    wops, wres = backtrack_torch(*bta, **kw)
+    np.testing.assert_array_equal(ops.cpu().numpy(), wops.numpy())
+    np.testing.assert_array_equal(res.cpu().numpy(), wres.numpy())

@@ -14,9 +14,9 @@ JAX package, on graphs made to hit their traps.
 - the fused loop runs S1 once per read attempt that reaches the fusion;
 - K1's launch shapes (degree variant and record cache) fit the card's
   shared memory;
-- `cuda` twins hold both kernels against their plain versions on the same
-  graphs, K1 in both its degree variants (skipped without a card).
-Every comparison is exact.
+Every comparison is exact. The CUDA kernels are held against their plain
+versions on the same graphs in test_torch_sort_twins.py, which imports no
+JAX.
 """
 import numpy as np
 import pytest
@@ -29,15 +29,14 @@ import abpoa_tpu.align.fused_loop as jfl
 from abpoa_tpu_torch.align import fused_loop as tfl
 from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort, edge_sort_torch
 from abpoa_tpu_torch.align.topo_kernel import (SMEM_MAX, launch_shape,
-                                               topo_sort, topo_sort_torch)
+                                               topo_sort_torch)
 
 import chip_smoke
-from test_torch_fused_dp import make_params, port_state
-from test_torch_fused_steps import aligned_read
+from test_torch_cuda_twins import aligned_read, make_params, port_state
+from test_torch_sort_twins import TIE_E, tensors
 
 torch.set_num_threads(1)
 
-TIE_E = (8, 16, 32)
 SLOTS = ("in_ids", "in_w", "out_ids", "out_w")
 K1_OUT = SLOTS + ("i2n", "n2i", "remain", "ok")
 
@@ -57,10 +56,6 @@ def jax_graph(arrays):
         aligned=jnp.asarray(aligned), aligned_cnt=jnp.asarray(aligned_cnt),
         n_read=z, n_span=z, node_n=jnp.int32(int(node_n[0])),
         ok=jnp.bool_(True))
-
-
-def tensors(arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
 def graph_arrays(g):
@@ -204,36 +199,3 @@ def test_launch_shapes_fit_shared_memory():
         launch_shape(64, 64, 128)
     with pytest.raises(ValueError):
         launch_shape(64, 128, 64)
-
-
-# ---- the kernels on the card -------------------------------------------------
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-def _on_card_equal(got, want):
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("E", TIE_E)
-def test_edge_sort_kernel_matches_plain_on_card(E):
-    dev = _card()
-    args = tensors(chip_smoke.tie_graph(E))
-    _on_card_equal(edge_sort(*[t.to(dev) for t in args]),
-                   edge_sort_torch(*args))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", chip_smoke.K1_GRAPHS)
-@pytest.mark.parametrize("variant", ["s8", "g32"])
-def test_topo_sort_kernel_matches_plain_on_card(kind, variant):
-    dev = _card()
-    args = tensors(chip_smoke.k1_graph(kind))
-    _on_card_equal(topo_sort(*[t.to(dev) for t in args], variant=variant),
-                   topo_sort_torch(*args))

@@ -20,7 +20,8 @@ way before the comparison. In local mode `fused_dp_torch` must also equal
 `pallas_fused_dp_local_hbm` (B3) on every row it computes (rows 0..gn-2;
 B3 leaves later rows unwritten and reports end = qlen for every row).
 The CUDA kernel itself is compared with the plain version on the card, on
-the plane rows it computes (marked `cuda`, skipped without one).
+the plane rows it computes, in test_torch_cuda_twins.py (which also holds
+the cases, and imports no JAX).
 """
 import os
 import subprocess
@@ -30,136 +31,22 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import DATA_DIR
-
 import jax.numpy as jnp
 
 from abpoa_tpu.align.fused_loop import _row0_planes as jax_row0_planes
-import chip_smoke
-from abpoa_tpu_torch import constants as C
-from abpoa_tpu_torch.align import fused_loop as tfl
-from abpoa_tpu_torch.align.buckets import qp_rung
 from abpoa_tpu_torch.align.fused_dp_kernel import (computed_rows, fused_dp,
-                                                   fused_dp_torch, launch_shape,
                                                    row0_planes)
 from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
-from abpoa_tpu_torch.io.fastx import read_fastx
-from abpoa_tpu_torch.params import Params
+
+from test_torch_cuda_twins import (EXTRA, FAR, GAPS, GRID, HBM, IN_NAMES,
+                                   OUT_NAMES, _assert_equal, _run_plain,
+                                   build_cases, make_params)
 
 # the suite runs several test processes at once: one torch thread each
 # keeps the plain versions from competing with the other workers' timings
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT_NAMES = ("H", "E1", "E2", "F1", "F2", "beg", "end", "ok", "ext")
-IN_NAMES = ("scalars", "base_packed", "pre_idx", "pre_cnt", "out_idx",
-            "out_cnt", "remain", "row0", "qp_pad")
-
-GAPS = {"convex": {}, "affine": {"gap_open2": 0},
-        "linear": {"gap_open1": 0, "gap_open2": 0}}
-MODES = {"global": {}, "extend": {"align_mode": C.EXTEND_MODE, "zdrop": 5},
-         "local": {"align_mode": C.LOCAL_MODE}}
-GRID = [f"{g}-{m}-{w}" for g in GAPS for m in MODES
-        for w in ("int16", "int32")]
-EXTRA = ["overflow-convex-global-int32", "testfa-convex-global-int32",
-         "testfa-linear-local-int16"]
-HBM = ["hbm-convex-int32", "hbm-affine-int16"]
-FAR = [f"far-{g}-{m}" for g in GAPS for m in ("global", "extend")]
-
-
-def make_params(**kw) -> Params:
-    abpt = Params(device="cpu")
-    for k, v in kw.items():
-        setattr(abpt, k, v)
-    return abpt.finalize()
-
-
-def encode(abpt, seq: str) -> np.ndarray:
-    return abpt.char_to_code[np.frombuffer(seq.encode(), dtype=np.uint8)].astype(np.uint8)
-
-
-def port_state(fa: str, n_reads: int, abpt: Params, init_caps=None):
-    """The port's fused-loop state after the first n_reads reads of fa
-    (built on the CPU), and every read of fa encoded."""
-    seqs = [encode(abpt, r.seq) for r in read_fastx(os.path.join(DATA_DIR, fa))]
-    w = [np.ones(len(s), dtype=np.int64) for s in seqs[:n_reads]]
-    tfl.progressive_poa_fused(seqs[:n_reads], w, abpt, init_caps=init_caps)
-    return tfl.last_state, seqs
-
-
-def kernel_inputs(abpt: Params, st, query: np.ndarray, W: int, plane16: bool,
-                  local: bool) -> tuple:
-    """B1's inputs for `query` against the state's graph, as the fused loop
-    builds them."""
-    tables = tfl._build_tables(st.g, st.order, st.n2i, st.remain)
-    qlen = len(query)
-    qp = np.zeros((abpt.m, qp_rung(qlen)), dtype=np.int32)
-    qp[:, 1: qlen + 1] = abpt.mat[:, query]
-    inf = dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN)
-    return tfl.dp_inputs(abpt, st, tables, torch.from_numpy(qp), qlen, W,
-                         inf, local)
-
-
-def _query(seqs) -> np.ndarray:
-    """Read 7 of seq.fa with its last 15 bases replaced by random ones, so
-    extend mode's Z-drop fires."""
-    rng = np.random.default_rng(5)
-    q = seqs[6].copy()
-    q[-15:] = rng.integers(0, 4, 15)
-    return q
-
-
-def build_cases() -> dict:
-    """name -> (inputs, statics, query) where statics = dict(gap_mode,
-    plane16, extend, zdrop_on, local, hbm)."""
-    cases = {}
-    base = make_params()
-    st, seqs = port_state("seq.fa", 6, base, init_caps=(256, 8, 8, 128))
-    query = _query(seqs)
-    for name in GRID + HBM:
-        parts = name.split("-")
-        hbm = parts[0] == "hbm"
-        gap = parts[1] if hbm else parts[0]
-        mode = "local" if hbm else parts[1]
-        plane16 = parts[-1] == "int16"
-        abpt = make_params(**GAPS[gap], **MODES[mode])
-        args = kernel_inputs(abpt, st, query, 128, plane16, mode == "local")
-        cases[name] = (args, dict(
-            gap_mode=abpt.gap_mode, plane16=plane16,
-            extend=mode == "extend", zdrop_on=mode == "extend",
-            local=mode == "local", hbm=hbm), query)
-    # a band wider than W: sim2k with a 100-column extra band at W = 128
-    abpt = make_params(wb=100)
-    st2, seqs2 = port_state("sim2k.fa", 2, abpt)
-    args = kernel_inputs(abpt, st2, seqs2[2], 128, False, False)
-    cases[EXTRA[0]] = (args, dict(gap_mode=abpt.gap_mode, plane16=False,
-                                  extend=False, zdrop_on=False, local=False,
-                                  hbm=False), seqs2[2])
-    # test.fa: the graph of its first 3 reads and the 4th
-    st3, seqs3 = port_state("test.fa", 3, base, init_caps=(256, 8, 8, 128))
-    for name in EXTRA[1:]:
-        _, gap, mode, width = name.split("-")
-        abpt = make_params(**GAPS[gap], **MODES[mode])
-        plane16 = width == "int16"
-        args = kernel_inputs(abpt, st3, seqs3[3], 128, plane16, mode == "local")
-        cases[name] = (args, dict(
-            gap_mode=abpt.gap_mode, plane16=plane16, extend=False,
-            zdrop_on=False, local=mode == "local", hbm=False), seqs3[3])
-    # predecessors 70 rows back, in the seq.fa cases' table shapes, so the
-    # Pallas child reuses those cases' compilations
-    like = cases["convex-global-int32"][0]
-    preds, bases, query = chip_smoke.synthetic_graph("far")
-    for name in FAR:
-        _, gap, mode = name.split("-")
-        abpt = make_params(**GAPS[gap], **MODES[mode])
-        args, _ = chip_smoke.synthetic_inputs(
-            abpt, preds, bases, query, 128, False, False, P=like[2].shape[1],
-            R=like[1].shape[0], O=like[4].shape[1])
-        cases[name] = (args, dict(
-            gap_mode=abpt.gap_mode, plane16=False, extend=mode == "extend",
-            zdrop_on=mode == "extend", local=False, hbm=False), query)
-    return cases
-
 
 _PALLAS_CHILD = """
 import sys
@@ -236,25 +123,6 @@ def pallas_out(cases, tmp_path_factory):
     return out
 
 
-def _assert_equal(got, want, rows=None, skip=()):
-    for k, (a, b) in enumerate(zip(got, want)):
-        name = OUT_NAMES[k]
-        if name in skip:
-            continue
-        a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-        if rows is not None and name in ("H", "E1", "E2", "F1", "F2", "beg", "end"):
-            a, b = a[:rows], b[:rows]
-        assert a.dtype == b.dtype, f"{name}: dtype {a.dtype} vs {b.dtype}"
-        np.testing.assert_array_equal(a, b, err_msg=name)
-
-
-def _run_plain(case):
-    args, s, _ = case
-    return fused_dp_torch(*args, gap_mode=s["gap_mode"], plane16=s["plane16"],
-                          extend=s["extend"], zdrop_on=s["zdrop_on"],
-                          local=s["local"])
-
-
 @pytest.mark.parametrize("name", GRID + EXTRA)
 def test_fused_dp_torch_matches_pallas(name, cases, pallas_out):
     got = _run_plain(cases[name])
@@ -323,38 +191,3 @@ def test_wrapper_runs_plain_version_on_cpu(cases):
     _assert_equal(got, [t.numpy() for t in _run_plain(cases["convex-global-int16"])])
     with pytest.raises(TypeError):
         fused_dp(*[a.long() for a in args], **{k: v for k, v in s.items() if k != "hbm"})
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", GRID + EXTRA)
-def test_fused_dp_kernel_matches_plain_on_card(name, cases):
-    dev = _card()
-    args, s, _ = cases[name]
-    kw = {k: v for k, v in s.items() if k != "hbm"}
-    got = fused_dp(*[a.to(dev) for a in args], **kw)
-    torch.cuda.synchronize()
-    want = _run_plain(cases[name])
-    # the kernel defines the plane rows 0..last computed only
-    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]),
-                         args[7].shape[1])
-    _assert_equal([g.cpu() for g in got], [w.numpy() for w in want], rows=rows)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", FAR)
-def test_fused_dp_far_kernel_matches_plain_on_card(name, cases):
-    dev = _card()
-    args, s, _ = cases[name]
-    assert launch_shape(128, args[2].shape[1], s["gap_mode"])["depth"] < 70
-    kw = {k: v for k, v in s.items() if k != "hbm"}
-    got = fused_dp(*[a.to(dev) for a in args], **kw)
-    torch.cuda.synchronize()
-    want = _run_plain(cases[name])
-    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]), 128)
-    _assert_equal([g.cpu() for g in got], [w.numpy() for w in want], rows=rows)

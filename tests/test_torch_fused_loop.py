@@ -8,7 +8,9 @@ collision fusions, and the same strand flags as
 the three gap regimes and the three align modes on tests/data/seq.fa, the
 `-s` strand rescue, aligned groups (heter.fa), capacity growth with Kahn
 repairs (sim2k.fa) and the int16 -> int32 promotion with the limit lowered
-to 160, as tests/test_fused_loop.py:70-90 drive the JAX loop.
+to 160, as tests/test_fused_loop.py:70-90 drive the JAX loop; and, with
+read-id outputs set on both sides, the same per-edge read-id bitsets, which
+each loop rebuilds from the read paths it recorded.
 """
 import importlib
 import os
@@ -80,6 +82,20 @@ def assert_same_run(res):
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert (kahn, coll, is_rc) == (jkahn, jcoll, list(jis_rc))
+
+
+# with read-id outputs on both sides (MSA, `-r 1`): the downloaded graphs'
+# `out_read_ids` come from each loop's recorded paths
+READ_ID_CONFIGS = ["seq-convex", "seq-local", "seq-extend", "rcmix-amb",
+                   "heter", "sim2k"]
+
+
+@pytest.mark.parametrize("name", READ_ID_CONFIGS)
+def test_fused_loop_read_ids_match_jax(name):
+    fa, kw = CONFIGS[name]
+    res = run_both(fa, dict(kw, out_msa=True))
+    assert_same_run(res)
+    assert res[0]["out_read_ids"].any()
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

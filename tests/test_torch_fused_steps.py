@@ -12,7 +12,8 @@
   `fuse_alignment` equal their JAX twins (a synthetic op stream covers a
   group-root collision, which no fixture produces).
 Every comparison is exact. The CUDA kernels X1 and K1 are compared with
-their plain versions on the card (marked `cuda`, skipped without one).
+their plain versions on the card in test_torch_cuda_twins.py, which holds
+the cases and imports no JAX.
 """
 import os
 
@@ -29,15 +30,14 @@ import abpoa_tpu.align.fused_loop as jfl
 from abpoa_tpu_torch import constants as C
 from abpoa_tpu_torch import convert
 from abpoa_tpu_torch.align import fused_loop as tfl
-from abpoa_tpu_torch.align.backtrack_kernel import backtrack, backtrack_torch
-from abpoa_tpu_torch.align.buckets import qp_rung
+from abpoa_tpu_torch.align.backtrack_kernel import backtrack_torch
 from abpoa_tpu_torch.align.device_graph import fuse_alignment
-from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp_torch
-from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_torch
+from abpoa_tpu_torch.align.topo_kernel import topo_sort_torch
 from abpoa_tpu_torch.io.fastx import read_fastx
 
-from test_torch_fused_dp import (GRID, build_cases, encode, make_params,
-                                 port_state)
+from test_torch_cuda_twins import (BT_CASES, _bt_inputs, _topo_args,
+                                   aligned_read, build_cases, encode,
+                                   make_params, topo_graph_cases)
 
 # the suite runs several test processes at once: one torch thread each
 # keeps the plain versions from competing with the other workers' timings
@@ -68,68 +68,11 @@ def t2j(t):
     return jnp.asarray(t.numpy())
 
 
-def make_run(abpt, seqs, st, W, plane16):
-    """The loop's per-run constants for reads `seqs` at band width W."""
-    from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
-    Qp = qp_rung(max(len(s) for s in seqs))
-    mat = np.ascontiguousarray(abpt.mat.astype(np.int32))
-    sp, wp, lens, qp = tfl._pad_read_set(
-        seqs, [np.ones(len(s), dtype=np.int64) for s in seqs], Qp, mat, abpt.m)
-    N = st.g.caps[0]
-    return tfl._Run(abpt=abpt, seqs=torch.from_numpy(sp),
-                    wgts=torch.from_numpy(wp), lens=lens.tolist(),
-                    qp=torch.from_numpy(qp), mat=torch.from_numpy(mat), W=W,
-                    max_ops=N + Qp + 8, plane16=plane16,
-                    inf=dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN),
-                    local=abpt.align_mode == C.LOCAL_MODE,
-                    extend=abpt.align_mode == C.EXTEND_MODE,
-                    zdrop_on=abpt.align_mode == C.EXTEND_MODE and abpt.zdrop > 0,
-                    int16_limit=1 << 30)
-
-
-def aligned_read(fa, n_graph, **kw):
-    """A port state after n_graph reads of fa, the next read's forward op
-    stream against it, and the loop constants."""
-    abpt = make_params(**kw)
-    st, seqs = port_state(fa, n_graph, abpt)
-    run = make_run(abpt, seqs, st, 256, False)
-    k = n_graph
-    tables = tfl._build_tables(st.g, st.order, st.n2i, st.remain)
-    fwd = tfl._align_strand(run, st, tables, run.seqs[k], run.qp[k],
-                            run.lens[k])
-    return abpt, st, run, k, fwd
-
-
 # ---- X1 --------------------------------------------------------------------
-
-BT_CASES = [(n, False, False) for n in GRID] + [
-    ("convex-global-int16", True, False), ("convex-global-int16", False, True),
-    ("convex-global-int32", True, True), ("affine-global-int32", True, True),
-    ("linear-global-int16", True, True), ("convex-local-int32", False, True),
-    ("convex-extend-int16", True, False)]
-
 
 @pytest.fixture(scope="module")
 def dp_cases():
     return build_cases()
-
-
-def _bt_inputs(case):
-    args, s, q = case
-    scalars, base_packed, pre_idx, pre_cnt = args[:4]
-    H, E1, E2, F1, F2, beg, end, ok, ext = fused_dp_torch(
-        *args, gap_mode=s["gap_mode"], plane16=s["plane16"],
-        extend=s["extend"], zdrop_on=s["zdrop_on"], local=s["local"])
-    sc = scalars.tolist()
-    qlen, inf = sc[0], sc[3]
-    n = torch.tensor([sc[8]], dtype=torch.int32)
-    bi, bj, _ = tfl.best_cell(H, beg, end, pre_idx, pre_cnt, n, ext, qlen, inf,
-                              s["extend"] or s["local"])
-    Qp = args[8].shape[1] - H.shape[1]
-    query = torch.zeros(Qp, dtype=torch.int32)
-    query[:qlen] = torch.from_numpy(q.astype(np.int32))
-    return (H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base_packed,
-            query), (int(bi), int(bj)), sc, Qp
 
 
 @pytest.mark.parametrize("name,right,at_end", BT_CASES)
@@ -164,22 +107,7 @@ def test_backtrack_torch_matches_jax(name, right, at_end, dp_cases):
 
 @pytest.fixture(scope="module")
 def topo_graphs():
-    """name -> port DeviceGraph: a fused-but-unsorted graph (seq.fa), a
-    sorted mid-run graph with aligned groups (heter.fa) and a larger one
-    (sim2k.fa)."""
-    out = {}
-    abpt, st, run, k, fwd = aligned_read("seq.fa", 6)
-    fwd_op, fwd_arg, n_fwd = fwd[:3]
-    out["seq-fused-unsorted"] = tfl._fuse_vectorized(
-        st.g, fwd_op, fwd_arg, n_fwd, run.seqs[k], run.lens[k], run.wgts[k])[0]
-    out["heter-sorted"] = port_state("heter.fa", 8, make_params())[0].g
-    out["sim2k-sorted"] = port_state("sim2k.fa", 5, make_params())[0].g
-    return out
-
-
-def _topo_args(g):
-    return (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt, g.out_cnt,
-            g.aligned, g.aligned_cnt, g.node_n.reshape(1))
+    return topo_graph_cases()
 
 
 @pytest.mark.parametrize("name", ["seq-fused-unsorted", "heter-sorted",
@@ -289,7 +217,7 @@ def test_sequential_fusion_matches_jax(read_case):
     abpt, st, run, k, fwd = read_case
     fwd_op, fwd_arg, n_fwd = fwd[:3]
     q, qlen, w = run.seqs[k], run.lens[k], run.wgts[k]
-    got = fuse_alignment(st.g, fwd_op, fwd_arg, int(n_fwd), q, qlen, w)
+    got, path = fuse_alignment(st.g, fwd_op, fwd_arg, int(n_fwd), q, qlen, w)
     ops = torch.stack([fwd_op, fwd_arg], 1)
     ops[int(n_fwd):] = 0
     want = jdg.fuse_alignment(jax_graph(st.g), t2j(ops), jnp.int32(int(n_fwd)),
@@ -297,9 +225,12 @@ def test_sequential_fusion_matches_jax(read_case):
                               C.SRC_NODE_ID, C.SINK_NODE_ID,
                               max_ops=ops.shape[0])
     assert_graph_equal(got, want)
-    # with no collision the vectorised fusion gives the same graph
-    assert_graph_equal(tfl._fuse_vectorized(st.g, fwd_op, fwd_arg, n_fwd, q,
-                                            qlen, w)[0], want)
+    # with no collision the vectorised fusion gives the same graph and the
+    # same path, one node a base of the read
+    vec = tfl._fuse_vectorized(st.g, fwd_op, fwd_arg, n_fwd, q, qlen, w)
+    assert_graph_equal(vec[0], want)
+    assert len(path) == int(vec[2]) == qlen
+    assert path == vec[1][:qlen].tolist()
 
 
 def test_collision_stream_matches_jax(read_case):
@@ -323,7 +254,7 @@ def test_collision_stream_matches_jax(read_case):
     want = _jax_fuse(st, fwd_op, fwd_arg, 2, q, 2, w)
     _compare_fusion(got, want)
     assert bool(got[4])
-    seq = fuse_alignment(st.g, fwd_op, fwd_arg, 2, q, 2, w)
+    seq, seq_path = fuse_alignment(st.g, fwd_op, fwd_arg, 2, q, 2, w)
     ops = torch.stack([fwd_op, fwd_arg], 1)
     ops[2:] = 0
     j_seq = jdg.fuse_alignment(jax_graph(st.g), t2j(ops), jnp.int32(2), t2j(q),
@@ -333,44 +264,5 @@ def test_collision_stream_matches_jax(read_case):
     # the second column reuses the node the first one created: one new
     # node, where the vectorised fusion made two
     assert int(seq.node_n) == int(st.g.node_n) + 1
+    assert seq_path == [int(st.g.node_n)] * 2
     assert int(got[0].node_n) == int(st.g.node_n) + 2
-
-
-# ---- the kernels on the card -----------------------------------------------
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,right,at_end", BT_CASES)
-def test_backtrack_kernel_matches_plain_on_card(name, right, at_end, dp_cases):
-    dev = _card()
-    planes_etc, (bi, bj), sc, Qp = _bt_inputs(dp_cases[name])
-    s = dp_cases[name][1]
-    mat = torch.from_numpy(make_params().mat.astype(np.int32))
-    max_ops = planes_etc[0].shape[0] + Qp + 8
-    bt_sc = torch.tensor([bi, bj, sc[4], sc[5], sc[6], sc[7], sc[3], max_ops],
-                         dtype=torch.int32)
-    kw = dict(max_ops=max_ops, gap_mode=s["gap_mode"], gap_on_right=right,
-              put_gap_at_end=at_end, local=s["local"])
-    want = backtrack_torch(*planes_etc, mat, bt_sc, **kw)
-    got = backtrack(*[t.to(dev) for t in (*planes_etc, mat, bt_sc)], **kw)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["seq-fused-unsorted", "heter-sorted",
-                                  "sim2k-sorted"])
-def test_topo_sort_kernel_matches_plain_on_card(name, topo_graphs):
-    dev = _card()
-    args = _topo_args(topo_graphs[name])
-    want = topo_sort_torch(*args)
-    got = topo_sort(*[t.to(dev).contiguous() for t in args])
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())

@@ -4,7 +4,9 @@
     `abpoa_tpu` module (checked in a fresh interpreter).
 (e) with no CUDA device, the default `Params()` and the CLI raise instead of
     running on the CPU, and `device="cpu"` runs.
-Configurations outside the ported slice raise NotImplementedError.
+Configurations outside the ported slice raise NotImplementedError; those
+with read-id outputs (MSA, GFA, `-a 1`, `-d > 1`) finalize with
+`use_read_ids` set.
 """
 import os
 import subprocess
@@ -99,10 +101,7 @@ def test_unknown_device_rejected(name):
     ({"inc_path_score": True}, "8"),             # -G
     ({"disable_seeding": False}, "8"),           # -S
     ({"progressive_poa": True}, "8"),            # -p
-    ({"max_n_cons": 2}, "3"),                    # -d 2
-    ({"out_msa": True}, "3"),                    # -r 1
-    ({"out_gfa": True}, "3"),                    # -r 3
-    ({"cons_algrm": 1}, "3"),                    # -a 1
+    ({"use_qv": True, "max_n_cons": 2}, "3"),    # -Q -d 2
     ({"incr_fn": "g.gfa"}, "3"),                 # -i
     ({"out_pog": "g.png"}, "3"),                 # -g
 ])
@@ -112,6 +111,20 @@ def test_configs_outside_the_slice_raise(fields, item):
         setattr(abpt, k, v)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         abpt.finalize()
+
+
+@pytest.mark.parametrize("fields", [
+    {"max_n_cons": 2},                           # -d 2
+    {"out_msa": True},                           # -r 1
+    {"out_gfa": True},                           # -r 3
+    {"cons_algrm": 1},                           # -a 1
+])
+def test_read_id_configs_finalize(fields):
+    abpt = Params(device="cpu")
+    assert not abpt.use_read_ids
+    for k, v in fields.items():
+        setattr(abpt, k, v)
+    assert abpt.finalize().use_read_ids
 
 
 @pytest.mark.parametrize("fields,gap_mode,wb", [
@@ -128,11 +141,29 @@ def test_configs_of_the_fused_route_finalize(fields, gap_mode, wb):
     assert (abpt.gap_mode, abpt.wb) == (gap_mode, wb)
 
 
-@pytest.mark.parametrize("flags", [["-l"], ["-r", "1"], ["-S"], ["-G"]])
+@pytest.mark.parametrize("flags", [["-l"], ["-i", "x.gfa"], ["-S"], ["-G"]])
 def test_cli_rejects_flags_outside_the_slice(flags, capsys):
     assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
                      *flags]) == 1
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,value,field,want", [
+    ("-e", "5", "end_bonus", 5),
+    ("-k", "15", "k", 15),
+    ("-w", "7", "w", 7),
+    ("-n", "300", "min_w", 300),
+    ("-q", "0.3", "min_freq", 0.3),
+])
+def test_cli_stores_the_flags_of_the_jax_cli(flag, value, field, want):
+    ns = cli.build_parser().parse_args(["x.fa", flag, value])
+    assert getattr(cli.args_to_params(ns), field) == want
+
+
+def test_cli_seeding_with_k_names_its_item(capsys):
+    assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
+                     "-S", "-k", "15"]) == 1
+    assert "item 8" in capsys.readouterr().err
 
 
 def test_kernel_sources_ship_as_package_data():

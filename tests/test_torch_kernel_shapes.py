@@ -11,7 +11,8 @@
 - `backtrack_torch` equals JAX's `_backtrack_w` on a synthetic graph with
   P = 64 predecessor slots whose first hit sits in slot 40.
 Every comparison is exact. The CUDA kernels are held against their plain
-versions on the same cases on the card (marked `cuda`, skipped without one).
+versions on the same cases on the card in test_torch_cuda_twins.py, which
+imports no JAX.
 The far-predecessor cases against Pallas are in test_torch_fused_dp.py,
 whose one Pallas subprocess runs them.
 """
@@ -26,17 +27,14 @@ from conftest import DATA_DIR
 import jax.numpy as jnp
 
 import abpoa_tpu.align.fused_loop as jfl
-import chip_smoke
 from abpoa_tpu_torch import constants as C
 from abpoa_tpu_torch.align import fused_loop as tfl
-from abpoa_tpu_torch.align.backtrack_kernel import backtrack, backtrack_torch
+from abpoa_tpu_torch.align.backtrack_kernel import backtrack_torch
 from abpoa_tpu_torch.align.fused_dp_kernel import (MAX_W, SMEM_LIMIT,
-                                                   computed_rows, fused_dp,
-                                                   fused_dp_torch,
-                                                   launch_shape)
+                                                   computed_rows, launch_shape)
 from abpoa_tpu_torch.io.fastx import read_fastx
 
-from test_torch_fused_dp import OUT_NAMES, encode, make_params
+from test_torch_cuda_twins import _wide_case, encode, make_params
 
 torch.set_num_threads(1)
 
@@ -137,18 +135,6 @@ def test_launch_shape_refuses_what_does_not_fit():
 
 # ---- a backtrack over 64 predecessor slots ---------------------------------
 
-def _wide_case(gap):
-    abpt = make_params(**GAPS[gap])
-    preds, bases, query = chip_smoke.synthetic_graph("wide")
-    args, inf = chip_smoke.synthetic_inputs(abpt, preds, bases, query, 128,
-                                            False, False, P=64)
-    out = fused_dp_torch(*args, gap_mode=abpt.gap_mode, plane16=False)
-    bta, max_ops = chip_smoke.bt_inputs(abpt, args, out, query, inf, False)
-    kw = dict(max_ops=max_ops, gap_mode=abpt.gap_mode, gap_on_right=False,
-              put_gap_at_end=False, local=False)
-    return abpt, args, bta, kw
-
-
 @pytest.mark.parametrize("gap", list(GAPS))
 def test_backtrack_p64_matches_jax(gap):
     abpt, args, bta, kw = _wide_case(gap)
@@ -170,33 +156,3 @@ def test_backtrack_p64_matches_jax(gap):
     steps = list(zip(ops[:n, 0].tolist(), rows, rows[1:]))
     assert any(op == 0 and r >= 42 and nxt == r - 1 for op, r, nxt in steps)
     assert int(res[5]) == 0
-
-
-# ---- the kernels on the card -----------------------------------------------
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("gap", list(GAPS))
-def test_wide_kernels_match_plain_on_card(gap):
-    dev = _card()
-    abpt, args, bta, kw = _wide_case(gap)
-    got = fused_dp(*[a.to(dev) for a in args], gap_mode=abpt.gap_mode,
-                   plane16=False)
-    torch.cuda.synchronize()
-    want = fused_dp_torch(*args, gap_mode=abpt.gap_mode, plane16=False)
-    rows = computed_rows(want[5], want[6], want[7], int(args[0][8]), 128)
-    for k in range(9):
-        a, b = got[k].cpu(), want[k]
-        if k < 5:
-            a, b = a[:rows], b[:rows]
-        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=OUT_NAMES[k])
-    ops, res = backtrack(*[t.to(dev) for t in bta], **kw)
-    torch.cuda.synchronize()
-    wops, wres = backtrack_torch(*bta, **kw)
-    np.testing.assert_array_equal(ops.cpu().numpy(), wops.numpy())
-    np.testing.assert_array_equal(res.cpu().numpy(), wres.numpy())
