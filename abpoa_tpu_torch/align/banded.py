@@ -19,9 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import constants as C
 from ..graph import POAGraph
-from ..params import Params
+from ..params import Params, per_read_covers, per_read_refusal
 from .banded_kernel import banded_dp
 from .oracle import _backtrack, _DPState, dp_inf_min
 from .result import AlignResult
@@ -78,10 +77,8 @@ def align_sequence_to_subgraph(g: POAGraph, abpt: Params, beg_node_id: int,
     """Align `query` to the subgraph; `band_width` overrides the first
     launch's W (the relaunch path is taken when it is too narrow)."""
     global retries
-    if abpt.gap_mode != C.CONVEX_GAP or abpt.align_mode != C.GLOBAL_MODE:
-        raise NotImplementedError(
-            "the per-read route covers convex gaps in global mode; other "
-            "configurations run on the fused route (align/fused_loop.py)")
+    if not per_read_covers(abpt):
+        raise per_read_refusal("a per-read alignment")
     qlen = len(query)
     inf_min = dp_inf_min(abpt)
     t = build_row_tables(g, beg_node_id, end_node_id)

@@ -72,6 +72,7 @@ def plan_chunk_buckets(abpt, qmax: int) -> Tuple[int, int, bool]:
     return Qp, W, local_m
 
 
-def chunk_node_cap(qmax: int) -> int:
-    """Starting node capacity of a fused run."""
-    return bucket(2 * (qmax + 2) + 64, 1024)
+def chunk_node_cap(qmax: int, n0: int = 0) -> int:
+    """Starting node capacity of a fused run from a graph of n0 nodes (0:
+    the empty graph; abpoa_tpu/align/fused_loop.py:1805)."""
+    return bucket(n0 + 2 * (qmax + 2) + 64, 1024)

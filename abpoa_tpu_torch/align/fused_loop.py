@@ -47,7 +47,8 @@ from .. import constants as C
 from ..graph import Node, POAGraph
 from ..params import Params
 from .backtrack_kernel import backtrack
-from .buckets import chunk_node_cap, grow_node_cap, plan_chunk_buckets
+from .buckets import (bucket_pow2, chunk_node_cap, grow_node_cap,
+                      plan_chunk_buckets)
 from .device_graph import DeviceGraph, fuse_alignment, init_device_graph
 from .edge_sort_kernel import edge_sort
 from .fused_dp_kernel import fused_dp, row0_planes
@@ -76,8 +77,9 @@ _MAX_PASSES = 24
 # read attempts (a read that reports an error is attempted again after the
 # growth), host syncs, Kahn repairs, collisions, reverse-strand alignments,
 # attempts refused on the host before any device work, growths by error
-# code, promotions, the wall of the loop (with the download), and within it
-# the graph's download and the paths' download plus the read-id replay.
+# code, promotions, the wall of the loop (with the upload of a restored
+# graph and the download), and within it that upload, the graph's download
+# and the paths' download plus the read-id replay.
 # When `timing` is set, each step of a read also adds its time on the
 # stream (`device_s`, by CUDA events read back at the end of the run, so no
 # extra sync) and its host time (`host_s`); `host_s["sync"]` is the time
@@ -92,7 +94,7 @@ def reset_stats() -> None:
     stats.clear()
     stats.update(reads=0, syncs=0, kahn=0, collisions=0, rc_reads=0,
                  host_errs=0, grow={}, promotions=0, wall_s=0.0,
-                 download_s=0.0, replay_s=0.0,
+                 upload_s=0.0, download_s=0.0, replay_s=0.0,
                  device_s=dict.fromkeys(STEPS, 0.0),
                  host_s=dict.fromkeys(STEPS + ("sync",), 0.0))
 
@@ -182,6 +184,56 @@ def init_fused_state(N: int, E: int, A: int, device, n_reads: int = 0,
                                device=device)
         st.path_lens = torch.zeros(n_reads, dtype=torch.int32, device=device)
     return st
+
+
+def state_from_host_graph(pg: POAGraph, N: int, E: int, A: int,
+                          device) -> FusedState:
+    """A restored host graph (`-i`) as the loop's starting state
+    (fused_loop.py:1565 `_state_from_host_graph`). `pg` must be
+    topologically sorted: its BFS order (`index_to_node_id`) is the loop's
+    order, its edge slots keep the host's weight-sorted order, and its
+    max_remain comes along. A graph sorted without the band metadata
+    (local mode without Z-drop) gets max_remain computed here, as the loop
+    computes it for every graph it builds."""
+    n = pg.node_n
+    if len(pg.node_id_to_max_remain) < n:
+        pg._bfs_set_node_remain()
+    a = {k: np.zeros(N, np.int32) for k in (
+        "base", "in_cnt", "out_cnt", "aligned_cnt", "n_read", "n_span")}
+    for k in ("in_ids", "in_w", "out_ids", "out_w"):
+        a[k] = np.zeros((N, E), np.int32)
+    a["aligned"] = np.zeros((N, A), np.int32)
+    for i, nd in enumerate(pg.nodes):
+        ic, oc, ac = len(nd.in_ids), len(nd.out_ids), len(nd.aligned_ids)
+        a["base"][i] = nd.base
+        a["in_ids"][i, :ic], a["in_w"][i, :ic], a["in_cnt"][i] = \
+            nd.in_ids, nd.in_w, ic
+        a["out_ids"][i, :oc], a["out_w"][i, :oc], a["out_cnt"][i] = \
+            nd.out_ids, nd.out_w, oc
+        a["aligned"][i, :ac], a["aligned_cnt"][i] = nd.aligned_ids, ac
+        a["n_read"][i], a["n_span"][i] = nd.n_read, nd.n_span_read
+    order = np.zeros(N, np.int32)
+    order[:n] = pg.index_to_node_id[:n]
+    n2i = np.zeros(N, np.int32)
+    n2i[order[:n]] = np.arange(n, dtype=np.int32)
+    remain = np.zeros(N, np.int32)
+    remain[:n] = pg.node_id_to_max_remain[:n]
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    g = DeviceGraph(**{k: t(v) for k, v in a.items()},
+                    node_n=torch.tensor(n, dtype=torch.int32, device=device),
+                    ok=torch.tensor(True, device=device))
+    return FusedState(g=g, order=t(order), n2i=t(n2i), remain=t(remain))
+
+
+def restored_caps(pg: POAGraph, qmax: int) -> tuple:
+    """(N, E, A) for a run from the restored graph `pg`
+    (fused_loop.py:1794-1805): E and A the power-of-two buckets of the
+    largest degree + 1 and aligned group + 1, at least 8."""
+    n0 = pg.node_n
+    maxdeg = max(max(len(nd.in_ids), len(nd.out_ids)) for nd in pg.nodes)
+    maxaln = max(len(nd.aligned_ids) for nd in pg.nodes)
+    return (chunk_node_cap(qmax, n0), max(8, bucket_pow2(maxdeg + 1)),
+            max(8, bucket_pow2(maxaln + 1)))
 
 
 # --------------------------------------------------------------------------- #
@@ -917,18 +969,29 @@ def _pad_read_set(seqs, weights, Qp: int, mat: np.ndarray, m: int):
 
 
 def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
-                          abpt: Params, init_caps: Optional[tuple] = None):
+                          abpt: Params, init_caps: Optional[tuple] = None,
+                          init_graph: Optional[POAGraph] = None):
     """Run the fused loop over a read set on abpt's torch device (reference
     abpoa_poa, src/abpoa_align.c:313-353). Returns (host POAGraph, kahn
     runs, per-read is_rc flags) and keeps the final FusedState in
-    `last_state`. `init_caps` = (N, E, A, W) overrides the starting
-    capacities (tests use tiny ones to drive every growth path)."""
+    `last_state`. `init_graph` is a restored host graph (`-i`, more than
+    the source and sink) the reads are aligned onto, sorted here if it is
+    not; None starts from the empty graph. `init_caps` = (N, E, A, W)
+    overrides the starting capacities (tests use tiny ones to drive every
+    growth path)."""
     global last_state
     dev = abpt.torch_device
     n_reads = len(seqs)
     qmax = max(len(s) for s in seqs)
     Qp, W, local_m = plan_chunk_buckets(abpt, qmax)
     N, E, A = chunk_node_cap(qmax), 8, 8
+    if init_graph is not None:
+        if abpt.use_read_ids:  # the restored reads' bitsets have no paths
+            raise RuntimeError("fused loop: a restored graph with read-id "
+                               "outputs takes the per-read route")
+        if not init_graph.is_topological_sorted:
+            init_graph.topological_sort(abpt)
+        N, E, A = restored_caps(init_graph, qmax)
     if init_caps is not None:
         N, E, A, W = init_caps
     mat = np.ascontiguousarray(abpt.mat.astype(np.int32))
@@ -939,12 +1002,18 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
     plane16 = max_score_bound(abpt, qmax, 2) <= int16_limit
     extend = abpt.align_mode == C.EXTEND_MODE
     seqs_d, wgts_d, qp_d, mat_d = to(seqs_pad), to(wgts_pad), to(qp_all), to(mat)
-    # a read's path holds at most qlen nodes (Pcap = Qp + 2, as the JAX loop)
-    st = init_fused_state(N, E, A, dev,
-                          n_reads=n_reads if abpt.use_read_ids else 0,
-                          Pcap=Qp + 2)
-    node_n = 2
     t0 = time.perf_counter()
+    if init_graph is not None:
+        st = state_from_host_graph(init_graph, N, E, A, dev)
+        node_n = init_graph.node_n
+        stats["upload_s"] += time.perf_counter() - t0
+    else:
+        # a read's path holds at most qlen nodes (Pcap = Qp + 2, as the JAX
+        # loop)
+        st = init_fused_state(N, E, A, dev,
+                              n_reads=n_reads if abpt.use_read_ids else 0,
+                              Pcap=Qp + 2)
+        node_n = 2
     for _ in range(_MAX_PASSES):
         run = _Run(abpt=abpt, seqs=seqs_d, wgts=wgts_d, lens=lens.tolist(),
                    qp=qp_d, mat=mat_d, W=W, max_ops=N + Qp + 8,

@@ -3,14 +3,22 @@ progressive POA with linear, affine or convex gaps (`-O`/`-E`) in global,
 local (`-m 1`) or extend (`-m 2`, Z-drop `-z`) mode, writing consensus
 (`-r 0`/`-r 5`), row-column MSA (`-r 1`/`-r 2`) or GFA (`-r 3`/`-r 4`), by
 heaviest bundling or majority vote (`-a 1`), with up to 10 clustered
-consensus sequences (`-d`, `-q`).
+consensus sequences (`-d`, `-q`), qv weights (`-Q`), incremental alignment
+onto a restored MSA or GFA (`-i`), the graph plot (`-g`) and file lists
+(`-l`, one set after another).
 
     python -m abpoa_tpu_torch reads.fa [--device cuda|cpu] [-o out.fa]
+    python -m abpoa_tpu_torch new.fa -i old.gfa [-r 3]
+    python -m abpoa_tpu_torch -l list.txt
 
-Flags of abPOA outside that subset are accepted and rejected by
-`Params.finalize()` with a NotImplementedError naming the ROADMAP item that
-will bring them. With no card and no `--device cpu`, the run raises
-RuntimeError.
+Flags of abPOA outside that subset (`-S`, `-p`, `-G`, `-b < 0`) are
+accepted and rejected by `Params.finalize()` with a NotImplementedError
+naming the ROADMAP item that will bring them; so are the per-read route's
+configurations outside convex gaps in global mode (`-i` with read-id
+outputs or with `-l`, `-Q` with `-d > 1`). With no card and no `--device cpu`, the run
+raises RuntimeError. A malformed read set ends a one-file run with one
+error line and rc 1; in a `-l` run it is quarantined (one stderr line) and
+the run returns 1 only when every set was.
 """
 from __future__ import annotations
 
@@ -20,8 +28,9 @@ import time
 
 from . import __version__
 from . import constants as C
-from .params import Params
+from .params import Params, per_read_covers, per_read_refusal
 from .pipeline import Abpoa, msa_from_file
+from .quarantine import QUARANTINE_EXCEPTIONS, quarantine_set
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,10 +111,6 @@ def _apply_result_mode(abpt: Params, r: int) -> None:
 
 
 def args_to_params(args: argparse.Namespace) -> Params:
-    if args.in_list:
-        raise NotImplementedError(
-            "file lists (-l) are not ported to abpoa_tpu_torch yet "
-            "(ROADMAP.md queue A, item 6)")
     if not 1 <= args.maxnum_cons <= 10:
         raise ValueError("max number of consensus sequences should be 1~10")
     abpt = Params()
@@ -144,26 +149,67 @@ def args_to_params(args: argparse.Namespace) -> Params:
     return abpt
 
 
+def run_list(list_path: str, abpt: Params, out_fp) -> dict:
+    """`-l`: each file of the list in turn through one Abpoa, its consensus
+    names numbered by `batch_index` (the sequential branch of
+    abpoa_tpu/parallel/runner.py:312-336). A set that fails its input
+    checks or cannot be read is quarantined and the others go on. Returns
+    {"sets", "quarantined"}."""
+    with open(list_path) as lf:
+        files = [ln.strip() for ln in lf if ln.strip()]
+    stats = {"sets": len(files), "quarantined": 0}
+    ab = Abpoa()
+    for i, fn in enumerate(files):
+        abpt.batch_index = i + 1
+        try:
+            msa_from_file(ab, abpt, fn, out_fp)
+        except QUARANTINE_EXCEPTIONS as e:
+            quarantine_set(i, fn, e)
+            stats["quarantined"] += 1
+    return stats
+
+
 def main(argv=None) -> int:
-    """Run the CLI. Configuration errors print one line and return 1; a
-    missing CUDA device raises RuntimeError."""
+    """Run the CLI. Configuration errors and malformed input print one line
+    and return 1; a missing CUDA device raises RuntimeError."""
     args = build_parser().parse_args(argv)
     if args.input is None:
         build_parser().print_help(sys.stderr)
         return 1
     try:
         abpt = args_to_params(args).finalize()
+        if args.in_list and abpt.incr_fn and not per_read_covers(abpt):
+            # a set of the list may hold one read, which only B2 aligns
+            raise per_read_refusal("-i with -l")
     except (ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     t0 = time.time()
+    rc = 0
     out_fp = open(args.output, "w") if args.output and args.output != "-" else sys.stdout
     try:
-        msa_from_file(Abpoa(), abpt, args.input, out_fp)
+        if args.in_list:
+            stats = run_list(args.input, abpt, out_fp)
+            if stats["quarantined"]:
+                print(f"[abpoa_tpu_torch::main] {stats['quarantined']} of "
+                      f"{stats['sets']} read sets quarantined",
+                      file=sys.stderr)
+                if stats["quarantined"] >= stats["sets"]:
+                    rc = 1  # nothing succeeded
+        else:
+            try:
+                msa_from_file(Abpoa(), abpt, args.input, out_fp)
+            except QUARANTINE_EXCEPTIONS as e:
+                print(f"Error: {args.input}: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+                rc = 1
+    except NotImplementedError as e:  # known only once a set is read
+        print(f"Error: {e}", file=sys.stderr)
+        rc = 1
     finally:
         if out_fp is not sys.stdout:
             out_fp.close()
     if abpt.verbose >= C.VERBOSE_INFO:
         print(f"[abpoa_tpu_torch::main] device {abpt.torch_device}, "
               f"{time.time() - t0:.3f} s", file=sys.stderr)
-    return 0
+    return rc

@@ -3,10 +3,9 @@ or the read clusters of `cluster.py` (abPOA src/abpoa_output.c: heaviest
 bundling :478-548, max-path walk :376-392, majority vote :394-452,550-587,
 phred :297-303, coverage :347-374, driver :1184-1215).
 
-With clusters, an edge weighs the number of the cluster's reads on it. The
-reference weighs it by the reads' quality weights instead when `-Q` is set
-with `-d > 1`; `Params.finalize()` refuses that configuration in this port
-(ROADMAP.md queue A, item 3, step 2), so that weighting is not here.
+With clusters, an edge weighs the number of the cluster's reads on it, or,
+with `-Q` and `-d > 1`, the sum of those reads' qv weights kept on its node
+(`Node.read_weight`, as the JAX package keeps them).
 """
 from __future__ import annotations
 
@@ -37,6 +36,10 @@ class ConsensusResult:
     msa_len: int = 0
     msa_base: List[np.ndarray] = field(default_factory=list)  # n_seq + n_cons rows
 
+    @property
+    def cons_len(self) -> List[int]:
+        return [len(x) for x in self.cons_base]
+
 
 def phred_score(n_cov: int, n_seq: int) -> int:
     """Sigmoid-mapped phred+33 (src/abpoa_output.c:297-303)."""
@@ -52,10 +55,20 @@ def _edge_inclu_read_count(node: Node, edge_i: int, clu_bits: int) -> int:
 
 
 def _edge_weight(node: Node, edge_i: int, clu_bits: Optional[int],
-                 n_clu: int) -> int:
+                 use_qv: bool, n_clu: int) -> int:
+    """An out edge's weight for one cluster: its weight with one cluster,
+    else its cluster's read count, or with `-Q` the sum of the qv weights
+    the node keeps for those reads (abpoa_tpu/cons/consensus.py:71-83)."""
     if n_clu == 1:
         return node.out_w[edge_i]
-    return _edge_inclu_read_count(node, edge_i, clu_bits)
+    if not use_qv:
+        return _edge_inclu_read_count(node, edge_i, clu_bits)
+    w = 0
+    bits = node.read_ids[edge_i] & clu_bits
+    for rid, rw in node.read_weight.items():
+        if rw > 0 and (bits >> rid) & 1:
+            w += rw
+    return w
 
 
 def _node_out_cov(node: Node, clu_bits: Optional[int], n_cons: int) -> int:
@@ -122,7 +135,7 @@ def heaviest_bundling(g: POAGraph, abpt: Params, n_clu: int,
             elif cur == src:
                 path_score, path_max_w, max_id = -1, -1, -1
                 for i, out_id in enumerate(node.out_ids):
-                    out_w = _edge_weight(node, i, clu_bits, n_clu)
+                    out_w = _edge_weight(node, i, clu_bits, abpt.use_qv, n_clu)
                     if out_w > path_max_w or (out_w == path_max_w and score[out_id] > path_score):
                         max_id = out_id
                         path_score = score[out_id]
@@ -132,7 +145,7 @@ def heaviest_bundling(g: POAGraph, abpt: Params, n_clu: int,
             else:
                 max_w, max_id = -(1 << 31), -1
                 for i, out_id in enumerate(node.out_ids):
-                    out_w = _edge_weight(node, i, clu_bits, n_clu)
+                    out_w = _edge_weight(node, i, clu_bits, abpt.use_qv, n_clu)
                     if max_w < out_w:
                         max_w, max_id = out_w, out_id
                     elif max_w == out_w and score[max_id] <= score[out_id]:

@@ -13,6 +13,8 @@ Arrays (N nodes; edge lists in CSR form, in each node's edge order):
   out_read_ids (E_out, words) uint64: read-id bitset of each out edge,
       64 read ids per word, least significant first
   aligned_ptr (N+1,), aligned_ids int64
+  read_weight_ptr (N+1,), read_weight_ids, read_weight_w int64: each node's
+      per-read qv weights (`-Q -d > 1`) in insertion order
   index_to_node_id, node_id_to_index, remain, mpl, mpr (N,) int32
   is_topological_sorted () bool
 
@@ -56,6 +58,8 @@ def graph_to_numpy(g) -> dict:
     out_ptr, out_ids = _csr([nd.out_ids for nd in nodes])
     _, out_w = _csr([nd.out_w for nd in nodes])
     aligned_ptr, aligned_ids = _csr([nd.aligned_ids for nd in nodes])
+    rw_ptr, rw_ids = _csr([list(nd.read_weight) for nd in nodes])
+    _, rw_w = _csr([list(nd.read_weight.values()) for nd in nodes])
     bitsets = [b for nd in nodes for b in nd.read_ids]
     words = max(1, max((b.bit_length() for b in bitsets), default=0) + 63 >> 6)
     out_read_ids = np.zeros((len(bitsets), words), dtype=np.uint64)
@@ -71,6 +75,8 @@ def graph_to_numpy(g) -> dict:
         "out_ptr": out_ptr, "out_ids": out_ids, "out_w": out_w,
         "out_read_ids": out_read_ids,
         "aligned_ptr": aligned_ptr, "aligned_ids": aligned_ids,
+        "read_weight_ptr": rw_ptr, "read_weight_ids": rw_ids,
+        "read_weight_w": rw_w,
         "index_to_node_id": arr(g.index_to_node_id),
         "node_id_to_index": arr(g.node_id_to_index),
         "remain": arr(g.node_id_to_max_remain),
@@ -93,6 +99,8 @@ def graph_from_numpy(a: dict) -> POAGraph:
     in_ids, in_w = rows(a["in_ptr"], a["in_ids"]), rows(a["in_ptr"], a["in_w"])
     out_ids, out_w = rows(a["out_ptr"], a["out_ids"]), rows(a["out_ptr"], a["out_w"])
     aligned = rows(a["aligned_ptr"], a["aligned_ids"])
+    rw_ids = rows(a["read_weight_ptr"], a["read_weight_ids"])
+    rw_w = rows(a["read_weight_ptr"], a["read_weight_w"])
     words = a["out_read_ids"].tolist()
     bitsets = [sum(int(v) << (64 * k) for k, v in enumerate(row)) for row in words]
     out_ptr = a["out_ptr"].tolist()
@@ -103,6 +111,7 @@ def graph_from_numpy(a: dict) -> POAGraph:
         nd.read_ids = bitsets[out_ptr[i]: out_ptr[i + 1]]
         nd.aligned_ids = aligned[i]
         nd.n_read, nd.n_span_read = n_read[i], n_span[i]
+        nd.read_weight = dict(zip(rw_ids[i], rw_w[i]))
     i32 = lambda k: np.asarray(a[k], dtype=np.int32).copy()  # noqa: E731
     g.index_to_node_id = i32("index_to_node_id")
     g.node_id_to_index = i32("node_id_to_index")

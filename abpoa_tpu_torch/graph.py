@@ -4,7 +4,9 @@ The mutable graph that the DP kernel reads a snapshot of: cigar fusion,
 topological sort with aligned-group atomicity and adaptive-band metadata
 (abPOA src/abpoa_graph.c), and the read-id bitset of each out edge, set
 when `Params.use_read_ids` is (a Python int per edge, so any read count fits
-without the reference's `tot_read_n` words).
+without the reference's `tot_read_n` words), and with `-Q -d > 1` each
+node's qv weight per read (`Node.read_weight`, which the clustered
+consensus sums).
 - topo sort keeps mismatch-aligned node groups adjacent (:221-266)
 - in/out edges are sorted by weight descending with abPOA's exact
   (unstable) exchange sort (:192-219); edge order feeds the DP tie-breaks
@@ -24,9 +26,16 @@ from . import constants as C
 from .params import Params
 
 
+def _add_read_weight(abpt: Params) -> bool:
+    """Per-read qv weights are kept for the clustered consensus of `-Q`
+    with `-d > 1` (abpoa_tpu/graph.py:380)."""
+    return abpt.use_qv and abpt.max_n_cons > 1
+
+
 class Node:
     __slots__ = ("node_id", "base", "in_ids", "in_w", "out_ids", "out_w",
-                 "read_ids", "aligned_ids", "n_read", "n_span_read")
+                 "read_ids", "aligned_ids", "n_read", "n_span_read",
+                 "read_weight")
 
     def __init__(self, node_id: int, base: int = 0):
         self.node_id = node_id
@@ -39,6 +48,9 @@ class Node:
         self.aligned_ids: List[int] = []
         self.n_read = 0
         self.n_span_read = 0
+        # read id -> the qv weight of that read's last edge out of this
+        # node (per node, not per edge, as abpoa_tpu/graph.py keeps it)
+        self.read_weight: dict = {}
 
 
 class POAGraph:
@@ -69,10 +81,12 @@ class POAGraph:
         return node_id
 
     def add_edge(self, from_id: int, to_id: int, check_edge: bool, w: int,
-                 add_read_id: bool = False, read_id: int = 0) -> None:
+                 add_read_id: bool = False, read_id: int = 0,
+                 add_read_weight: bool = False) -> None:
         """Add or reweight an edge (src/abpoa_graph.c:480-556), setting bit
-        `read_id` of its read-id bitset when `add_read_id`. `n_read` of the
-        source node is incremented unconditionally, as in abPOA."""
+        `read_id` of its read-id bitset when `add_read_id`, and the source
+        node's weight of `read_id` to `w` when `add_read_weight`. `n_read`
+        of the source node is incremented unconditionally, as in abPOA."""
         fr, to = self.nodes[from_id], self.nodes[to_id]
         out_edge_i = -1
         if check_edge:
@@ -95,6 +109,8 @@ class POAGraph:
         if add_read_id:
             fr.read_ids[out_edge_i] |= 1 << read_id
         fr.n_read += 1
+        if add_read_weight:
+            fr.read_weight[read_id] = w
 
     def get_aligned_id(self, node_id: int, base: int) -> int:
         for aln_id in self.nodes[node_id].aligned_ids:
@@ -266,15 +282,15 @@ class POAGraph:
         seq_l = len(seq)
         if seq_l <= 0:
             return
-        rid = abpt.use_read_ids
+        rid, rw = abpt.use_read_ids, _add_read_weight(abpt)
         last_id = C.SRC_NODE_ID
         for i in range(seq_l):
             cur = self.add_node(int(seq[i]))
-            self.add_edge(last_id, cur, False, int(weight[i]), rid, read_id)
+            self.add_edge(last_id, cur, False, int(weight[i]), rid, read_id, rw)
             self.nodes[cur].n_span_read = self.nodes[last_id].n_span_read
             last_id = cur
         self.add_edge(last_id, C.SINK_NODE_ID, False, int(weight[seq_l - 1]),
-                      rid, read_id)
+                      rid, read_id, rw)
         self.is_called_cons = self.is_set_msa_rank = False
         self.is_topological_sorted = False
         self.topological_sort(abpt)
@@ -293,7 +309,7 @@ class POAGraph:
         if self.node_n == 2:  # empty graph
             self.add_sequence(abpt, seq, weight, read_id)
             return
-        rid = abpt.use_read_ids
+        rid, rw = abpt.use_read_ids, _add_read_weight(abpt)
         if not cigar:
             return
         query_id = -1
@@ -310,14 +326,14 @@ class POAGraph:
                     aligned_id = self.get_aligned_id(node_id, base)
                     if aligned_id != -1:
                         self.add_edge(last_id, aligned_id, not last_new, int(weight[query_id]),
-                                      rid and add, read_id)
+                                      rid and add, read_id, rw)
                         if not add:
                             self.nodes[last_id].n_read -= 1
                         last_id, last_new = aligned_id, False
                     else:
                         new_id = self.add_node(base)
                         self.add_edge(last_id, new_id, False, int(weight[query_id]),
-                                      rid and add, read_id)
+                                      rid and add, read_id, rw)
                         self.nodes[new_id].n_span_read = self.nodes[last_id].n_span_read
                         if not add:
                             self.nodes[last_id].n_read -= 1
@@ -325,7 +341,7 @@ class POAGraph:
                         self.add_aligned_node(node_id, new_id)
                 else:  # match
                     self.add_edge(last_id, node_id, not last_new, int(weight[query_id]),
-                                  rid and add, read_id)
+                                  rid and add, read_id, rw)
                     if not add:
                         self.nodes[last_id].n_read -= 1
                     last_id, last_new = node_id, False
@@ -336,7 +352,7 @@ class POAGraph:
                     new_id = self.add_node(int(seq[query_id - j]))
                     add = bool(last_id != beg_node_id or inc_both_ends)
                     self.add_edge(last_id, new_id, False, int(weight[query_id - j]),
-                                  rid and add, read_id)
+                                  rid and add, read_id, rw)
                     self.nodes[new_id].n_span_read = self.nodes[last_id].n_span_read
                     if not add:
                         self.nodes[last_id].n_read -= 1
@@ -344,7 +360,7 @@ class POAGraph:
             elif op == C.CDEL:
                 continue
         self.add_edge(last_id, end_node_id, not last_new, int(weight[seq_l - 1]),
-                      rid, read_id)
+                      rid, read_id, rw)
         self.is_called_cons = self.is_set_msa_rank = False
         self.is_topological_sorted = False
         self.topological_sort(abpt)

@@ -5,10 +5,13 @@ mutation, `abpoa_post_set_para` derivation in src/abpoa_align.c): construct
 `Params()`, mutate fields, call `finalize()`.
 
 `finalize()` raises NotImplementedError for every configuration the port
-does not cover yet (it covers progressive POA with linear, affine or convex
-gaps in global, local and extend mode, with consensus, MSA and GFA output,
-majority-vote consensus and up to 10 clustered consensus sequences), naming
-the ROADMAP item that will bring it. Nothing is rerouted.
+does not cover yet, naming the ROADMAP item that will bring it. It covers
+progressive POA with linear, affine or convex gaps in global, local and
+extend mode, with consensus, MSA and GFA output, majority-vote consensus, up
+to 10 clustered consensus sequences, incremental `-i` and graph plots `-g`.
+The configurations that take the per-read route (`-i` with read-id outputs,
+`-Q` with `-d > 1`) need convex gaps in global mode (queue B, item 2).
+Nothing is rerouted.
 """
 from __future__ import annotations
 
@@ -61,10 +64,22 @@ def parse_mat_file(path: str, m: int) -> np.ndarray:
     return mat
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
+def _not_in_slice(what: str, item: str, queue: str = "A") -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to abpoa_tpu_torch yet (ROADMAP.md queue A, "
-        f"item {item}); use the JAX package abpoa_tpu for it")
+        f"{what} is not ported to abpoa_tpu_torch yet (ROADMAP.md queue "
+        f"{queue}, item {item}); use the JAX package abpoa_tpu for it")
+
+
+def per_read_covers(abpt: "Params") -> bool:
+    """The per-read route (kernel B2) aligns with convex gaps in global mode
+    only; the B2 variants for the other modes are queue B, item 2."""
+    return abpt.gap_mode == C.CONVEX_GAP and abpt.align_mode == C.GLOBAL_MODE
+
+
+def per_read_refusal(what: str) -> NotImplementedError:
+    return _not_in_slice(
+        f"{what} outside convex gaps in global mode (the per-read route)",
+        "2", queue="B")
 
 
 @dataclass
@@ -188,13 +203,15 @@ class Params:
             raise _not_in_slice("path-score mode (-G)", "8")
         if not self.disable_seeding or self.progressive_poa:
             raise _not_in_slice("seeding and guide-tree order (-S/-p)", "8")
-        if self.use_qv and self.max_n_cons > 1:
-            raise _not_in_slice("quality-weighted clustering (-Q with -d > 1)",
-                                "3, step 2")
-        if self.incr_fn:
-            raise _not_in_slice("incremental alignment (-i)", "3, step 2")
-        if self.out_pog:
-            raise _not_in_slice("graph plots (-g)", "3, step 3")
+        # the configurations the JAX package sends to its host engine take
+        # the per-read route here
+        if not per_read_covers(self):
+            if self.use_qv and self.max_n_cons > 1:
+                raise per_read_refusal(
+                    "quality-weighted clustering (-Q with -d > 1)")
+            if self.incr_fn and self.use_read_ids:
+                raise per_read_refusal(
+                    "incremental alignment (-i) with read-id outputs")
 
     @property
     def is_aa(self) -> bool:

@@ -2,20 +2,25 @@
 
 Counterpart of `abpoa_tpu/pipeline.py` (abPOA src/abpoa_align.c: abpoa_poa
 :313-353, abpoa_msa1 :474-540, abpoa_output :355-371): consensus, row-column
-MSA and GFA. Two routes, as in the JAX package:
+MSA, GFA and the `-g` graph plot. With `-i` the graph of an earlier MSA or
+GFA is restored first (`io/restore.py`) and the new reads are aligned onto
+it. Two routes, chosen as the JAX package chooses them:
 
-- the fused route (`_run_fused_device`, the default whenever
-  `fused_eligible` holds): the whole progressive loop runs on the Params'
-  device (`align/fused_loop.py`) and the graph is downloaded once;
+- the fused route (`_run_fused_device`, whenever `fused_eligible` holds):
+  the whole progressive loop runs on the Params' device
+  (`align/fused_loop.py`, kernels B1/B3, X1, S1, K1), from the empty graph
+  or from the restored one (`-i` without read-id outputs), and the graph is
+  downloaded once;
 - the per-read route (`poa`): each read is aligned by the banded DP kernel
-  (B2) on the device and fused into the graph on the host. It covers
-  convex gaps in global mode only. From the CLI it takes what the fused
-  route does not, a set of one read, and that read launches no kernel:
-  `poa` aligns only once the graph has nodes (`g.node_n > 2`), so the first
-  read of a set becomes the graph as it is. So no CLI run launches B2
-  today; chip_smoke.py (phase C2) and the tests call `poa` directly.
+  (B2) on the device and fused into the graph on the host. It takes what
+  the JAX package sends to its host engine: `-i` with read-id outputs
+  (MSA, GFA, `-a 1`, `-d > 1`), `-Q` with `-d > 1` (per-read qv weights),
+  and a set of one read, which launches B2 only when `-i` restored a graph
+  (the first read of an empty graph becomes the graph as it is). B2
+  covers convex gaps in global mode; other configurations that would reach
+  it are refused before any output (queue B, item 2).
 
-A failure of the fused route raises; nothing falls back to the other route.
+A failure on the card raises; nothing falls back to the other route.
 The outputs are read out of the host graph at the end.
 """
 from __future__ import annotations
@@ -34,7 +39,8 @@ from .cons.msa import generate_rc_msa
 from .graph import POAGraph
 from .io.fastx import read_fastx
 from .io.output import generate_gfa, output_fx_consensus, output_rc_msa
-from .params import Params
+from .params import Params, per_read_covers, per_read_refusal
+from .quarantine import validate_records
 
 
 @dataclass
@@ -98,15 +104,18 @@ def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
 
 
 def _run_fused_device(ab: Abpoa, abpt: Params, seqs: List[np.ndarray],
-                      weights: List[np.ndarray]) -> None:
+                      weights: List[np.ndarray], exist_n_seq: int = 0) -> None:
     """The fused route (abpoa_tpu/pipeline.py:116-190 without the probe,
-    breaker and admission): progressive POA on the device, then the graph
-    and the per-read strand flags come back to `ab`."""
+    breaker, admission and fallback): progressive POA on the device, from
+    the graph `-i` restored when it has nodes, then the graph and the new
+    reads' strand flags come back to `ab`."""
     from .align.fused_loop import progressive_poa_fused
-    pg, _, is_rc = progressive_poa_fused(seqs, weights, abpt)
+    init_graph = ab.graph if exist_n_seq and ab.graph.node_n > 2 else None
+    pg, _, is_rc = progressive_poa_fused(seqs, weights, abpt,
+                                         init_graph=init_graph)
     ab.graph = pg
     if abpt.amb_strand:
-        ab.is_rc[:len(is_rc)] = is_rc
+        ab.is_rc[exist_n_seq: exist_n_seq + len(is_rc)] = is_rc
 
 
 def _ingest_records(ab: Abpoa, abpt: Params, records):
@@ -154,18 +163,30 @@ def output(ab: Abpoa, abpt: Params, out_fp: IO[str]) -> None:
         if not g.is_called_cons:
             print("Warning: no consensus sequence generated.", file=sys.stderr)
         output_fx_consensus(ab.cons, abpt, out_fp)
+    if abpt.out_pog:
+        from .io.plot import dump_pog
+        dump_pog(ab, abpt)
 
 
 def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
-    """One read set (abpoa_msa1): progressive POA, then the outputs."""
+    """One read set (abpoa_msa1): the restore of `-i`, progressive POA, then
+    the outputs. A malformed set raises PoisonedSetError before any work."""
     if not abpt._finalized:
         raise ValueError("call Params.finalize() first")
+    validate_records(records)
     ab.reset()
+    if abpt.incr_fn:
+        from .io.restore import restore_graph
+        restore_graph(ab, abpt)
+    exist_n_seq = ab.n_seq
     seqs, weights = _ingest_records(ab, abpt, records)
     if fused_eligible(abpt, len(seqs)):
-        _run_fused_device(ab, abpt, seqs, weights)
+        _run_fused_device(ab, abpt, seqs, weights, exist_n_seq)
     else:
-        poa(ab, abpt, seqs, weights, 0)
+        if ab.graph.node_n > 2 and not per_read_covers(abpt):
+            # one new read onto a restored graph: B2 would align it
+            raise per_read_refusal("incremental alignment (-i) of one read")
+        poa(ab, abpt, seqs, weights, exist_n_seq)
     output(ab, abpt, out_fp)
 
 

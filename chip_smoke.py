@@ -2,6 +2,7 @@
 """On-card smoke run of abpoa_tpu_torch, the PyTorch/CUDA port of abpoa-tpu.
 
     python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
+                          [--c5-reads I] [--c6-reads Q]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -34,7 +35,14 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          heter.fa -d 2, -d 2 -r 2; 3alleles.fa -d 3); seq.fa -r 1, -r 3 and
          rcmix.fa -s -r 1 on cuda equal the port's CPU runs; then sim2k -m 1
          on cuda (the B3 width) equals the port's CPU result on its first 4
-         reads
+         reads. Incremental, qv-weighted and list runs on cuda reproduce
+         their goldens: seq4.fa -i seq10.gfa and -i seq10.msa (the fused
+         loop from the restored state: B1, no B2), heter.fq -d 2 -Q (the
+         per-read route: B2, no B1) and -l tests/data/list.txt (run from
+         the repository root); seq4.fa -i seq10.gfa with -r 1, -r 3 and
+         -d 2 (B2, no B1), seq4.fa -i seq10.msa -m 1 (B3 from a restored
+         state), seq.fa -g's .dot file and pyapi.msa_aligner().msa on
+         seq.fa's reads (B2) equal the port's CPU runs
   C      the main path at full width: N ONT-like 10 kb reads at 10 % error
          (made here from a fixed seed) through the CLI on cuda, the fused
          route; the kernel counts are set to 0 before and read after (S1 at
@@ -57,6 +65,26 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          lines spell the reads; each consensus's identity to both
          haplotypes and its reads by haplotype are printed (C4 is 200 reads,
          not 500, to keep the script within its time)
+  C5     incremental at full width: phase C3's MSA without its consensus
+         row (the reads' rows) restored and I new reads (100) of the same
+         reference, from another seed: (a) -i through the CLI, the fused
+         loop from the restored state (the restored graph's node count ==
+         the uploaded node_n, consensus identity >= 99 %, the kernel counts
+         read as in phase C); (b) the first 20 of those reads through
+         pipeline.poa (B2) and through the fused loop from the same restored
+         graph give byte-identical consensus; (c) -i -r 1 through the CLI
+         with those 20 reads, the per-read route (B2 from the CLI): each
+         new row without gaps is its read, each restored row without gaps
+         is its restored row; the walls split into the restore's parse,
+         the state upload, the loop and the download, and per read into
+         B2, the planes' copy and the host
+  C6     qv-weighted diploid: phase C4's two haplotypes, Q reads (100, half
+         of each, cut from C4's 200 as this route runs per read) written as
+         FASTQ whose erroneous bases carry lower phred values, -d 2 -Q -r 4
+         (the per-read route): the read lists partition the reads, every P
+         line spells its read, B2 launches >= Q - 1 and B1 none; purity
+         and identity to each haplotype printed; the wall split into B2,
+         the copy, the host and the clustering
   D      at the graph phase C left and one more read: B1, X1, S1 and K1
          against their plain versions with times and bounds (B1 also per
          computed row, X1 per step, K1 per pass, in both degree variants
@@ -66,7 +94,12 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          to the plain version, and the time of the sequential fusion a
          collision read takes (held equal to the vectorised fusion); B2 the
          same at the graph of C2's per-read run (time, per computed row,
-         bound, ring share, warp sweep)
+         bound, ring share, warp sweep) and at C5 (b)'s per-read graph (C3's
+         restored MSA and 20 new reads, the largest graph the CLI launches
+         B2 on, in C5 (c)); the kernel table's B2 row takes its time, plain
+         time and bound from the latter
+Quick form (~3 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
+--c5-reads 6 --c6-reads 10.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero with no result when there is no
 CUDA device or no checkout of the repository beside this script.
@@ -151,6 +184,30 @@ def haplotypes(ref_len: int, rate: float, seed: int):
             last = p + k
     out.append(h1[last:])
     return h1, np.concatenate([np.asarray(x, dtype=h1.dtype) for x in out])
+
+
+def sim_reads_qual(ref, n_reads: int, err: float, rng) -> list:
+    """`sim_reads` with a phred quality per base: (codes, phreds) a read.
+    A substituted or inserted base gets phred 3..14, a true one 20..40,
+    both drawn from rng."""
+    import numpy as np
+    n = len(ref)
+    sub, ins = err * 0.4, err * 0.3
+    out = []
+    for _ in range(n_reads):
+        x = rng.random(n)
+        is_sub = x < sub
+        is_ins = (x >= sub) & (x < sub + ins)
+        is_del = (x >= sub + ins) & (x < err)
+        first = np.where(is_sub, (ref + rng.integers(1, 4, n)) % 4, ref)
+        second = rng.integers(0, 4, n)
+        keep = np.stack([~is_del, is_ins], 1)
+        codes = np.stack([first, second], 1)[keep]
+        bad = np.stack([is_sub, np.ones(n, bool)], 1)[keep]
+        phred = np.where(bad, rng.integers(3, 15, len(codes)),
+                         rng.integers(20, 41, len(codes)))
+        out.append((codes, phred))
+    return out
 
 
 def read_fasta_rows(path: str) -> list:
@@ -760,12 +817,264 @@ def run_cli(argv):
         raise AssertionError(f"cli {argv} returned {rc}")
 
 
+def phase_c5(args, ref: str, rows: list, msa_len: int):
+    """Phase C5: `rows` are phase C3's MSA rows of the reads. Returns the
+    CLI's B2 launches and (b)'s per-read graph (the restored MSA and the
+    new reads), the largest graph C5 (c) launches B2 on."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch import pipeline as pl
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort
+    from abpoa_tpu_torch.io import restore as restore_mod
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.pipeline import Abpoa, _ingest_records, output, poa
+    n = len(rows)
+    m5 = args.c5_reads
+    m5b = min(20, m5)
+    ref_codes = np.searchsorted(np.frombuffer(b"ACGT", dtype=np.uint8),
+                                np.frombuffer(ref.encode(), dtype=np.uint8))
+    reads5 = [acgt(x) for x in sim_reads(ref_codes, m5, 0.10,
+                                         np.random.default_rng(args.seed + 5))]
+    msa5 = os.path.join(OUT, "restore_msa.fa")
+    with open(msa5, "w") as fp:
+        fp.write("".join(f">{nm}\n{row}\n" for nm, row in rows))
+    fa5, fa5b = os.path.join(OUT, "new_reads.fa"), os.path.join(OUT, "new_reads_b.fa")
+    for path, k in ((fa5, m5), (fa5b, m5b)):
+        with open(path, "w") as fp:
+            fp.write("".join(f">new_{i}\n{r}\n" for i, r in enumerate(reads5[:k])))
+    # (a) -i through the CLI: the fused loop from the restored state
+    split5 = {}
+    undo = [timed(restore_mod, "restore_graph", split5, "restore")]
+    uploads = []
+    real_upload = fl.state_from_host_graph
+
+    def upload(pg, *a, **k):
+        st_u = real_upload(pg, *a, **k)
+        uploads.append((pg.node_n, int(st_u.g.node_n)))
+        return st_u
+
+    fl.state_from_host_graph = upload
+    undo.append(lambda: setattr(fl, "state_from_host_graph", real_upload))
+    out5 = os.path.join(OUT, "incr_cons.fa")
+    fl.reset_stats()
+    fl.timing = True
+    fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+    backtrack.launches = topo_sort.launches = edge_sort.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli([fa5, "-i", msa5, "-o", out5])
+    wall5 = time.perf_counter() - t0
+    fl.timing = False
+    for u in undo:
+        u()
+    launches5 = {"fused_dp": fused_dp.launches, "backtrack": backtrack.launches,
+                 "edge_sort": edge_sort.launches, "topo_sort": topo_sort.launches}
+    s5 = dict(fl.stats)
+    if len(uploads) != 1 or uploads[0][0] != uploads[0][1] or uploads[0][0] <= 2:
+        raise AssertionError(f"restored graph and uploaded node_n: {uploads}")
+    if banded_dp.launches or fused_dp.local_launches:
+        raise AssertionError("-i on the fused route launched another route's kernel")
+    if min(launches5["fused_dp"], launches5["backtrack"],
+           launches5["edge_sort"]) < m5:
+        raise AssertionError(f"-i launches {launches5} for {m5} new reads")
+    if s5["reads"] < m5:
+        raise AssertionError(f"-i: {s5['reads']} read attempts for {m5} new reads")
+    cons5 = read_fastx(out5)
+    if len(cons5) != 1 or not set(cons5[0].seq) <= set("ACGT"):
+        raise AssertionError("-i: expected one ACGT consensus")
+    ident5 = 1 - edit_distance(cons5[0].seq, ref) / len(ref)
+    loop5 = s5["wall_s"] - s5["upload_s"] - s5["download_s"]
+    dev5 = s5["device_s"]
+    per5 = lambda x: f"{x / m5 * 1e3:.2f}"  # noqa: E731
+    log(f"[C5] (a) {m5} new reads onto the restored MSA of phase C3 ({n} rows, "
+        f"{msa_len} columns; graph {uploads[0][0]} nodes == uploaded node_n "
+        f"{uploads[0][1]}), -i through the CLI, fused route: wall {wall5:.2f} s; "
+        f"consensus identity to reference {ident5:.5f}")
+    log(f"[C5] (a) wall split (s): restore (parse) {split5['restore']:.2f}, state "
+        f"upload {s5['upload_s']:.2f}, loop {loop5:.2f}, download "
+        f"{s5['download_s']:.2f}, the rest (topological sort of the restored "
+        f"graph, reading, consensus, writing) "
+        f"{wall5 - split5['restore'] - s5['wall_s']:.2f}")
+    log(f"[C5] (a) per new read (ms): loop {per5(loop5)}; on the stream B1 "
+        f"{per5(dev5['fused_dp'])}, X1 {per5(dev5['backtrack'])}, K1 "
+        f"{per5(dev5['topo_sort'])}; launches {launches5}; read attempts "
+        f"{s5['reads']}, host syncs {s5['syncs']}, Kahn repairs {s5['kahn']}, "
+        f"collisions {s5['collisions']}, growths {s5['grow']}, final caps "
+        f"{s5['caps']}")
+    if ident5 < 0.99:
+        raise AssertionError(f"-i consensus identity {ident5:.5f} < 0.99")
+    # (b) the first m5b new reads, per-read route and fused route, from one
+    # restored graph (the fused run sorts it and leaves it as it was)
+    abpt5 = Params(device="cuda", incr_fn=msa5).finalize()
+    ab_r = Abpoa()
+    t0 = time.perf_counter()
+    restore_mod.restore_graph(ab_r, abpt5)
+    t_restore5 = time.perf_counter() - t0
+    exist5 = ab_r.n_seq
+    recs5 = read_fastx(fa5b)
+    ab_f = Abpoa(graph=ab_r.graph, names=list(ab_r.names),
+                 comments=list(ab_r.comments), quals=list(ab_r.quals),
+                 seqs=list(ab_r.seqs), is_rc=list(ab_r.is_rc))
+    outs5 = []
+    for route, ab in (("fused", ab_f), ("per-read", ab_r)):
+        seqs, weights = _ingest_records(ab, abpt5, recs5)
+        banded_dp.launches = fused_dp.launches = 0
+        banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
+        t0 = time.perf_counter()
+        if route == "fused":
+            pl._run_fused_device(ab, abpt5, seqs, weights, exist5)
+            b1_5b = fused_dp.launches
+        else:
+            poa(ab, abpt5, seqs, weights, exist5)
+            pr5_wall, pr5 = time.perf_counter() - t0, dict(banded.stats)
+            b2_5b = banded_dp.launches
+        buf = io.StringIO()
+        output(ab, abpt5, buf)
+        outs5.append(buf.getvalue())
+        log(f"[C5] (b) {route} route, {m5b} new reads from the restored graph: "
+            f"{time.perf_counter() - t0:.2f} s")
+    if outs5[0] != outs5[1]:
+        raise AssertionError("-i: per-read and fused routes give different consensus")
+    if b2_5b < m5b or b1_5b < m5b:
+        raise AssertionError(f"-i (b): B2 launches {b2_5b}, B1 launches {b1_5b}")
+    n5 = max(1, pr5["reads"])
+    log(f"[C5] (b) per-read (B2 launches {b2_5b}) == fused (B1 launches {b1_5b}) "
+        f"consensus, byte for byte; restore {t_restore5:.2f} s; per-read route "
+        f"per read {pr5_wall * 1e3 / n5:.1f} ms = B2 {pr5['kernel_s'] * 1e3 / n5:.1f} "
+        f"+ planes D2H {pr5['d2h_s'] * 1e3 / n5:.1f} + host rest "
+        f"{(pr5_wall - pr5['kernel_s'] - pr5['d2h_s']) * 1e3 / n5:.1f} "
+        f"({pr5['rows']} DP rows launched)")
+    graph5 = ab_r.graph
+    del ab_r, ab_f
+    # (c) -i -r 1 through the CLI: the per-read route, B2 launched by the CLI
+    out5c = os.path.join(OUT, "incr_msa.fa")
+    split5c = {}
+    undo = [timed(restore_mod, "restore_graph", split5c, "restore"),
+            timed(pl, "poa", split5c, "poa")]
+    banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
+    fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+    t0 = time.perf_counter()
+    run_cli([fa5b, "-i", msa5, "-r", "1", "-o", out5c])
+    wall5c = time.perf_counter() - t0
+    for u in undo:
+        u()
+    b2_c5 = banded_dp.launches
+    pr5c = dict(banded.stats)
+    if pr5c["reads"] < m5b or b2_c5 < m5b or fused_dp.launches \
+            or fused_dp.local_launches:
+        raise AssertionError(f"-i -r 1: B2 launches {b2_c5}, B1 launches "
+                             f"{fused_dp.launches}")
+    rows5 = read_fasta_rows(out5c)
+    if [nm for nm, _ in rows5] != [nm for nm, _ in rows] + \
+            [f"new_{i}" for i in range(m5b)]:
+        raise AssertionError("-i -r 1: the MSA's rows are not the restored and new reads")
+    for i, (_, row) in enumerate(rows5[:n]):
+        if row.replace("-", "") != rows[i][1].replace("-", ""):
+            raise AssertionError(f"-i -r 1: restored row {i} changed")
+    for i, (_, row) in enumerate(rows5[n:]):
+        if row.replace("-", "") != reads5[i]:
+            raise AssertionError(f"-i -r 1: new row {i} without gaps is not its read")
+    n5c = max(1, pr5c["reads"])
+    host5c = split5c["poa"] - pr5c["kernel_s"] - pr5c["d2h_s"]
+    log(f"[C5] (c) {m5b} new reads, -i -r 1 through the CLI, per-read route: wall "
+        f"{wall5c:.2f} s, B2 launches {b2_c5} ({pr5c['rows']} DP rows), B1 none; "
+        f"MSA {len(rows5[0][1])} columns, each restored row without gaps == its "
+        f"restored row, each new row == its read")
+    log(f"[C5] (c) wall split (s): restore (parse, with read ids) "
+        f"{split5c['restore']:.2f}, per-read loop {split5c['poa']:.2f}, the rest "
+        f"(MSA ranks, rows, writing) {wall5c - split5c['restore'] - split5c['poa']:.2f}; "
+        f"per read (ms): B2 {pr5c['kernel_s'] * 1e3 / n5c:.1f}, planes D2H "
+        f"{pr5c['d2h_s'] * 1e3 / n5c:.1f}, host {host5c * 1e3 / n5c:.1f}; pinned "
+        f"planes buffer {banded._pinned[0].numel() * 4 / 2**20:.1f} MiB")
+    return b2_c5, graph5
+
+
+def phase_c6(args, h1, h2) -> int:
+    """Phase C6: h1, h2 are phase C4's haplotypes. Returns the CLI's B2
+    launches."""
+    import numpy as np
+    from abpoa_tpu_torch import pipeline as pl
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.cons import cluster as cluster_mod
+    from abpoa_tpu_torch.params import Params
+    abpt = Params(device="cpu").finalize()
+    hs = (acgt(h1), acgt(h2))
+    m6 = args.c6_reads
+    rng6 = np.random.default_rng(args.seed + 6)
+    q1, q2 = (sim_reads_qual(h, m6 // 2, 0.10, rng6) for h in (h1, h2))
+    reads6 = [x for pair in zip(q1, q2) for x in pair]
+    m6 = len(reads6)
+    names6 = [f"read_{i}_h{i % 2 + 1}" for i in range(m6)]
+    fq6 = os.path.join(OUT, "diploid.fq")
+    with open(fq6, "w") as fp:
+        fp.write("".join(f"@{nm}\n{acgt(c)}\n+\n{(q + 33).astype(np.uint8).tobytes().decode()}\n"
+                         for nm, (c, q) in zip(names6, reads6)))
+    out6 = os.path.join(OUT, "diploid_q.gfa")
+    split6 = {}
+    undo = [timed(cluster_mod, "multip_read_clu_kmedoids", split6, "cluster"),
+            timed(pl, "poa", split6, "poa"),
+            timed(pl, "generate_gfa", split6, "gfa")]
+    banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
+    fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+    t0 = time.perf_counter()
+    ab6 = run_pipeline([fq6, "-d", "2", "-Q", "-r", "4"], out6)
+    wall6 = time.perf_counter() - t0
+    for u in undo:
+        u()
+    b2_c6, pr6 = banded_dp.launches, dict(banded.stats)
+    if pr6["reads"] < m6 - 1 or b2_c6 < m6 - 1 or fused_dp.launches \
+            or fused_dp.local_launches:
+        raise AssertionError(f"-d 2 -Q: B2 launches {b2_c6}, B1 launches "
+                             f"{fused_dp.launches} for {m6} reads")
+    abc6 = ab6.cons
+    if sorted(r for ids in abc6.clu_read_ids for r in ids) != list(range(m6)):
+        raise AssertionError("-d 2 -Q: the clusters' read lists do not partition the reads")
+    spells6 = gfa_spells(out6)
+    for nm, (c, _) in zip(names6, reads6):
+        if spells6.get(nm) != acgt(c):
+            raise AssertionError(f"-d 2 -Q -r 4: the GFA path of {nm} does not spell it")
+    n6 = max(1, pr6["reads"])
+    host6 = split6["poa"] - pr6["kernel_s"] - pr6["d2h_s"]
+    gfa6 = split6["gfa"] - split6.get("cluster", 0.0)
+    log(f"[C6] {m6} reads ({m6 // 2} a haplotype, interleaved) x {args.ref_len} bp "
+        f"at 10% error as FASTQ (erroneous bases phred 3-14, the rest 20-40), "
+        f"-d 2 -Q -r 4, per-read route: wall {wall6:.2f} s; B2 launches {b2_c6}, "
+        f"B1 none; final graph {ab6.graph.node_n} nodes, {pr6['rows'] / n6:.0f} "
+        f"DP rows a read; {abc6.n_cons} consensus sequences; the read lists "
+        f"partition the reads; every P line spells its read")
+    log(f"[C6] wall split (s): per-read loop {split6['poa']:.2f} (per read, ms: B2 "
+        f"{pr6['kernel_s'] * 1e3 / n6:.1f}, planes D2H {pr6['d2h_s'] * 1e3 / n6:.1f}, "
+        f"host {host6 * 1e3 / n6:.1f}), clustering (MSA, het columns, k-medoids) "
+        f"{split6.get('cluster', 0.0):.2f}, the rest of the GFA (bundling, walk, "
+        f"writing) {gfa6:.2f}, the rest {wall6 - split6['poa'] - split6['gfa']:.2f}")
+    for k in range(abc6.n_cons):
+        seq6 = "".join(chr(c) for c in abpt.code_to_char[abc6.cons_base[k]])
+        idents = [1 - edit_distance(seq6, h) / len(h) for h in hs]
+        hap_n = [sum(1 for r in abc6.clu_read_ids[k] if r % 2 == j) for j in (0, 1)]
+        log(f"[C6] consensus {k + 1}: {len(seq6)} bp, identity {idents[0]:.5f} "
+            f"to haplotype 1, {idents[1]:.5f} to haplotype 2; its "
+            f"{len(abc6.clu_read_ids[k])} reads: {hap_n[0]} of haplotype 1, "
+            f"{hap_n[1]} of haplotype 2")
+    return b2_c6
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=500)
     ap.add_argument("--ref-len", type=int, default=10000)
     ap.add_argument("--c2-reads", type=int, default=50)
     ap.add_argument("--c4-reads", type=int, default=200)
+    ap.add_argument("--c5-reads", type=int, default=100)
+    ap.add_argument("--c6-reads", type=int, default=100)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -1079,6 +1388,86 @@ def main() -> int:
     if b3_launches < 3:
         raise AssertionError("the -m 1 run did not launch the local kernel")
 
+    # incremental, qv-weighted and list runs: goldens on cuda, B1 and B2
+    # each on its own route
+    def launches_of(fn):
+        fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+        fn()
+        return fused_dp.launches + fused_dp.local_launches, banded_dp.launches
+
+    def same_files(a, b, what):
+        with open(a) as x, open(b) as y:
+            if x.read() != y.read():
+                raise AssertionError(f"{what} differ")
+
+    def check_route(tag, b1, b2, route):
+        if (b1 > 0, b2 > 0) != (route == "B1", route == "B2"):
+            raise AssertionError(f"{tag}: B1 launches {b1}, B2 launches {b2}, "
+                                 f"expected {route} only")
+        log(f"[B] {tag}: B1 launches {b1}, B2 launches {b2}")
+
+    for args_b, name, route in (
+            (["seq4.fa", "-i", "seq10.gfa"], "incr_gfa", "B1"),
+            (["seq4.fa", "-i", "seq10.msa"], "incr_msa", "B1"),
+            (["heter.fq", "-d", "2", "-Q"], "heterq_d2Q", "B2")):
+        out_b = os.path.join(OUT, f"{name}.fa")
+        argv = [data(a) if "." in a else a for a in args_b] + ["-o", out_b]
+        b1, b2 = launches_of(lambda: run_cli(argv))
+        same_files(out_b, os.path.join(ROOT, "tests", "golden", f"{name}.txt"),
+                   f"{' '.join(args_b)} on cuda and {name}.txt")
+        check_route(f"{' '.join(args_b)} on cuda == tests/golden/{name}.txt",
+                    b1, b2, route)
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # list.txt names its files from the repository root
+    try:
+        out_l = os.path.join(OUT, "list_mode.fa")
+        run_cli(["-l", os.path.join("tests", "data", "list.txt"), "-o", out_l])
+    finally:
+        os.chdir(cwd)
+    same_files(out_l, os.path.join(ROOT, "tests", "golden", "list_mode.txt"),
+               "-l list.txt on cuda and list_mode.txt")
+    log("[B] -l tests/data/list.txt on cuda == tests/golden/list_mode.txt")
+    for args_b, route in ((["-r", "1"], "B2"), (["-r", "3"], "B2"),
+                          (["-d", "2"], "B2")):
+        argv = [data("seq4.fa"), "-i", data("seq10.gfa"), *args_b]
+        outs_b = [os.path.join(OUT, f"incr{''.join(args_b)}.{d}")
+                  for d in ("cuda", "cpu")]
+        b1, b2 = launches_of(lambda: run_cli(argv + ["-o", outs_b[0]]))
+        run_cli(argv + ["--device", "cpu", "-o", outs_b[1]])
+        same_files(*outs_b, f"seq4.fa -i seq10.gfa {' '.join(args_b)} cuda and cpu")
+        check_route(f"seq4.fa -i seq10.gfa {' '.join(args_b)} on cuda == on cpu",
+                    b1, b2, route)
+    argv = [data("seq4.fa"), "-i", data("seq10.msa"), "-m", "1"]
+    outs_b = [os.path.join(OUT, f"incr_m1.{d}") for d in ("cuda", "cpu")]
+    fused_dp.local_launches = 0
+    b1, b2 = launches_of(lambda: run_cli(argv + ["-o", outs_b[0]]))
+    local_b = fused_dp.local_launches
+    run_cli(argv + ["--device", "cpu", "-o", outs_b[1]])
+    same_files(*outs_b, "seq4.fa -i seq10.msa -m 1 cuda and cpu")
+    check_route("seq4.fa -i seq10.msa -m 1 on cuda == on cpu (B3 launches "
+                f"{local_b})", b1, b2, "B1")
+    if local_b < 2:
+        raise AssertionError("-i -m 1 did not launch B3 for both new reads")
+    dots = []
+    for d in ("cuda", "cpu"):
+        png = os.path.join(OUT, f"plot_{d}.png")
+        run_cli([data("seq.fa"), "--device", d, "-g", png,
+                 "-o", os.path.join(OUT, f"plot_{d}.fa")])
+        dots.append(png + ".dot")
+    same_files(*dots, "seq.fa -g .dot files of cuda and cpu")
+    log("[B] seq.fa -g: the .dot file on cuda == on cpu")
+    from abpoa_tpu_torch import pyapi
+    seqs_b = [r.seq for r in read_fastx(data("seq.fa"))]
+    res_b = []
+    b1, b2 = launches_of(lambda: res_b.append(pyapi.msa_aligner().msa(
+        seqs_b, out_cons=True, out_msa=True)))
+    res_b.append(pyapi.msa_aligner(device="cpu").msa(seqs_b, out_cons=True,
+                                                      out_msa=True))
+    if vars(res_b[0]) != vars(res_b[1]):
+        raise AssertionError("pyapi msa on cuda differs from cpu")
+    check_route("pyapi.msa_aligner().msa(seq.fa, out_cons, out_msa) on cuda == "
+                "on cpu", b1, b2, "B2")
+
     # ---- C: the main path at full width, the fused route
     ref, reads = simulate(args.ref_len, args.reads + 1, 0.10, args.seed)
     held_out = reads.pop()
@@ -1290,6 +1679,9 @@ def main() -> int:
             f"{len(abc4.clu_read_ids[k])} reads: {hap_n[0]} of haplotype 1, "
             f"{hap_n[1]} of haplotype 2")
 
+    b2_c5, graph5 = phase_c5(args, ref, rows[:n], msa_len)
+    b2_c6 = phase_c6(args, h1, h2)
+
     # ---- D: kernels vs plain at the main path's shape
     qd = encode(cpu, held_out)
     W, plane16 = caps_c["W"], caps_c["plane16"]
@@ -1412,39 +1804,51 @@ def main() -> int:
     log(f"[D] K1 with int32 degrees in device memory (g32, cache of "
         f"{launch_shape_k1(*g.caps, 'g32')['cache']}): kernel == plain; "
         f"{time_cuda(lambda: topo_sort(*ka, variant='g32'), 3):.3f} ms")
-    gp = ab_pr.graph
-    gp.topological_sort(abpt)
     W2 = initial_band_width(abpt, len(qd))
-    t = build_row_tables(gp, 0, 1)
-    qt = query_tables(abpt, t, qd, W2)
-    a2 = [qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx, t.out_cnt,
-          t.remain, t.mpl0, t.mpr0, qt["qp_pad"], qt["row0"]]
-    ts = to_dev(a2, dev)
-    got = banded_dp(*ts)
-    torch.cuda.synchronize()
-    b2_plain_ms, want = time_host(lambda: banded_dp_torch(*ts))
-    err, rows_b2 = compare_dp("banded_dp D", got, want, ts)
-    max_err["banded_dp"] = max(max_err["banded_dp"], err)
-    b2_ms = time_cuda(lambda: banded_dp(*ts), 3)
-    b2_bnd = dp_bound(rates, ts, got)
-    P2 = t.pre_idx.shape[1]
-    shape_b2 = launch_shape(W2, P2, abpt.gap_mode, seeded=True)
-    log(f"[D] B2 at the {m}-read per-read graph (R={t.R}, gn={t.gn}, W={W2}, "
-        f"P={P2}; {shape_b2['block_warps']} warps, cpt {shape_b2['cpt']}, ring "
-        f"D={shape_b2['depth']}, {shape_b2['smem']} B shared): kernel == plain "
-        f"on rows 0..{rows_b2 - 1}, begend, mplr, ok; kernel {b2_ms:.3f} ms "
-        f"({b2_ms * 1e3 / max(1, rows_b2 - 1):.3f} us a computed row), plain "
-        f"{b2_plain_ms:.1f} ms, bound {b2_bnd[0]:.4f} ms ({b2_bnd[1]}; "
-        f"all R rows and every output: {rates.bound(nbytes(ts) + nbytes(got), 0)[0]:.4f} ms)")
-    rr = np.arange(t.gn - 1)[:, None]
-    live = (np.arange(P2)[None, :] < t.pre_cnt[:t.gn - 1, None]) & (rr >= 1)
-    dist = (rr - t.pre_idx[:t.gn - 1].astype(np.int64))[live]
-    log(f"[D] B2 predecessor reads: {dist.size}; rows back p50 "
-        f"{np.percentile(dist, 50):.0f}, p99 {np.percentile(dist, 99):.0f}, max "
-        f"{dist.max()}; served by the plane ring (D={shape_b2['depth']}) "
-        f"{(dist < shape_b2['depth']).mean() * 100:.3f} %, by the band ring "
-        f"(256 rows) {(dist < 256).mean() * 100:.3f} %")
+
+    def b2_at(tag, gp):
+        """B2 against its plain version on the held-out read at graph gp
+        (its error goes into max_err): (ms, plain_ms, bound, inputs, plain
+        outputs)."""
+        gp.topological_sort(abpt)
+        t = build_row_tables(gp, 0, 1)
+        qt = query_tables(abpt, t, qd, W2)
+        a2 = [qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
+              t.out_cnt, t.remain, t.mpl0, t.mpr0, qt["qp_pad"], qt["row0"]]
+        ts = to_dev(a2, dev)
+        got = banded_dp(*ts)
+        torch.cuda.synchronize()
+        plain_ms, want = time_host(lambda: banded_dp_torch(*ts))
+        err, rows_b2 = compare_dp(f"banded_dp D {tag}", got, want, ts)
+        ms = time_cuda(lambda: banded_dp(*ts), 3)
+        bnd = dp_bound(rates, ts, got)
+        P2 = t.pre_idx.shape[1]
+        shape_b2 = launch_shape(W2, P2, abpt.gap_mode, seeded=True)
+        log(f"[D] B2 at {tag} (R={t.R}, gn={t.gn}, W={W2}, P={P2}; "
+            f"{shape_b2['block_warps']} warps, cpt {shape_b2['cpt']}, ring "
+            f"D={shape_b2['depth']}, {shape_b2['smem']} B shared): kernel == "
+            f"plain on rows 0..{rows_b2 - 1}, begend, mplr, ok; kernel "
+            f"{ms:.3f} ms ({ms * 1e3 / max(1, rows_b2 - 1):.3f} us a computed "
+            f"row), plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"all R rows and every output: "
+            f"{rates.bound(nbytes(ts) + nbytes(got), 0)[0]:.4f} ms)")
+        rr = np.arange(t.gn - 1)[:, None]
+        live = (np.arange(P2)[None, :] < t.pre_cnt[:t.gn - 1, None]) & (rr >= 1)
+        dist = (rr - t.pre_idx[:t.gn - 1].astype(np.int64))[live]
+        log(f"[D] B2 predecessor reads at {tag}: {dist.size}; rows back p50 "
+            f"{np.percentile(dist, 50):.0f}, p99 {np.percentile(dist, 99):.0f}, "
+            f"max {dist.max()}; served by the plane ring (D={shape_b2['depth']}) "
+            f"{(dist < shape_b2['depth']).mean() * 100:.3f} %, by the band ring "
+            f"(256 rows) {(dist < 256).mean() * 100:.3f} %")
+        max_err["banded_dp"] = max(max_err["banded_dp"], err)
+        return ms, plain_ms, bnd, ts, want
+
+    _, _, _, ts, want = b2_at(f"the {m}-read per-read graph of C2", ab_pr.graph)
     sweep_warps("D B2", ts, None, want)
+    # the row's numbers: the largest graph the CLI launches B2 on (C5 (c))
+    del ts, want
+    b2_ms, b2_plain_ms, b2_bnd, _, _ = b2_at(
+        "C5's per-read graph (C3's restored MSA and the new reads)", graph5)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launched, ms, plain_ms, bnd):
@@ -1455,7 +1859,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("banded_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
-              "abpoa_tpu/align/pallas_kernel.py:215", b2_launches, b2_ms,
+              "abpoa_tpu/align/pallas_kernel.py:215",
+              b2_launches + b2_c5 + b2_c6, b2_ms,
               b2_plain_ms, b2_bnd),
         entry("fused_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/pallas_fused.py:696", launches["fused_dp"],

@@ -12,7 +12,11 @@ The cases are the ones the CPU test files hold against the JAX package:
   graph with 64 predecessor slots (`_wide_case`; test_torch_kernel_shapes.py);
 - K1 (`topo_sort`) on graphs of the fused loop (`topo_graph_cases`; against
   JAX in test_torch_fused_steps.py). S1 and K1 on the graphs made for their
-  traps are in test_torch_sort_twins.py.
+  traps are in test_torch_sort_twins.py;
+- the routes from a restored graph (`-i`; against JAX in
+  test_torch_incremental.py): the per-read route, B2 from the restored
+  graph, and the fused loop from the restored state, each equal to its CPU
+  run, with B1 and B2 launched on their own routes only.
 Every comparison is exact; B1/B3 are compared on the plane rows they compute.
 Without a card every test here skips before its cases are built.
 
@@ -365,3 +369,34 @@ def test_wide_kernels_match_plain_on_card(gap):
     wops, wres = backtrack_torch(*bta, **kw)
     np.testing.assert_array_equal(ops.cpu().numpy(), wops.numpy())
     np.testing.assert_array_equal(res.cpu().numpy(), wres.numpy())
+
+
+# ---- the routes from a restored graph (`-i`) -------------------------------------
+
+def _cli_output(args, device):
+    from abpoa_tpu_torch import cli
+    from abpoa_tpu_torch.pipeline import Abpoa, msa_from_file
+    import io
+    buf = io.StringIO()
+    ns = cli.build_parser().parse_args(args + ["--device", device])
+    msa_from_file(Abpoa(), cli.args_to_params(ns).finalize(), ns.input, buf)
+    return buf.getvalue()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,route", [(["-r", "1"], "per-read"),
+                                         (["-r", "3"], "per-read"),
+                                         ([], "fused")])
+def test_restored_graph_routes_on_card_match_cpu(flags, route):
+    """seq4.fa onto seq10.gfa's graph: with read-id outputs each new read is
+    aligned by B2 (the per-read route), else the fused loop starts from the
+    restored state; cuda gives the CPU's bytes."""
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    args = [os.path.join(DATA_DIR, "seq4.fa"), "-i",
+            os.path.join(DATA_DIR, "seq10.gfa"), *flags]
+    banded_dp.launches = fused_dp.launches = 0
+    got = _cli_output(args, "cuda")
+    b2, b1 = banded_dp.launches, fused_dp.launches
+    assert got == _cli_output(args, "cpu")
+    assert (b2 >= 2, b1 >= 2) == (route == "per-read", route == "fused")
+    assert (b2 == 0) == (route == "fused") and (b1 == 0) == (route == "per-read")

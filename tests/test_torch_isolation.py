@@ -4,9 +4,10 @@
     `abpoa_tpu` module (checked in a fresh interpreter).
 (e) with no CUDA device, the default `Params()` and the CLI raise instead of
     running on the CPU, and `device="cpu"` runs.
-Configurations outside the ported slice raise NotImplementedError; those
-with read-id outputs (MSA, GFA, `-a 1`, `-d > 1`) finalize with
-`use_read_ids` set.
+Configurations outside the ported slice raise NotImplementedError, among
+them the per-read route's outside convex gaps in global mode (queue B, item
+2); those with read-id outputs (MSA, GFA, `-a 1`, `-d > 1`) finalize with
+`use_read_ids` set, and `-i`, `-Q -d 2`, `-g` and `-l` finalize and run.
 """
 import os
 import subprocess
@@ -101,9 +102,10 @@ def test_unknown_device_rejected(name):
     ({"inc_path_score": True}, "8"),             # -G
     ({"disable_seeding": False}, "8"),           # -S
     ({"progressive_poa": True}, "8"),            # -p
-    ({"use_qv": True, "max_n_cons": 2}, "3"),    # -Q -d 2
-    ({"incr_fn": "g.gfa"}, "3"),                 # -i
-    ({"out_pog": "g.png"}, "3"),                 # -g
+    # the per-read route outside convex + global (queue B, item 2)
+    ({"use_qv": True, "max_n_cons": 2, "gap_open2": 0}, "2"),   # -Q -d 2 -O 4
+    ({"incr_fn": "g.gfa", "out_msa": True, "align_mode": 1}, "2"),  # -i -r 1 -m 1
+    ({"incr_fn": "g.gfa", "out_gfa": True, "gap_open1": 0}, "2"),   # -i -r 3 -O 0
 ])
 def test_configs_outside_the_slice_raise(fields, item):
     abpt = Params(device="cpu")
@@ -111,6 +113,19 @@ def test_configs_outside_the_slice_raise(fields, item):
         setattr(abpt, k, v)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         abpt.finalize()
+
+
+@pytest.mark.parametrize("fields", [
+    {"use_qv": True, "max_n_cons": 2},           # -Q -d 2
+    {"incr_fn": "g.gfa", "out_msa": True},       # -i -r 1
+    {"incr_fn": "g.gfa", "align_mode": 1},       # -i -m 1: the fused route
+    {"out_pog": "g.png"},                        # -g
+])
+def test_lifted_configs_finalize(fields):
+    abpt = Params(device="cpu")
+    for k, v in fields.items():
+        setattr(abpt, k, v)
+    assert abpt.finalize()._finalized
 
 
 @pytest.mark.parametrize("fields", [
@@ -141,11 +156,24 @@ def test_configs_of_the_fused_route_finalize(fields, gap_mode, wb):
     assert (abpt.gap_mode, abpt.wb) == (gap_mode, wb)
 
 
-@pytest.mark.parametrize("flags", [["-l"], ["-i", "x.gfa"], ["-S"], ["-G"]])
+@pytest.mark.parametrize("flags", [["-Q", "-d", "2", "-m", "1"],
+                                   ["-i", "x.gfa", "-r", "1", "-O", "0"],
+                                   ["-S"], ["-G"]])
 def test_cli_rejects_flags_outside_the_slice(flags, capsys):
     assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
                      *flags]) == 1
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args", [
+    ["-l", os.path.join("tests", "data", "list.txt")],
+    [os.path.join("tests", "data", "seq4.fa"), "-i",
+     os.path.join("tests", "data", "seq10.gfa")],
+])
+def test_cli_runs_the_lifted_flags(args, capsys, monkeypatch):
+    monkeypatch.chdir(ROOT)  # list.txt names its files from the root
+    assert cli.main([*args, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith(">Consensus_sequence")
 
 
 @pytest.mark.parametrize("flag,value,field,want", [
