@@ -1,35 +1,48 @@
-"""Kernel B2, the per-read route's banded DP: wrapper and plain version.
+"""Kernel B2, the per-read and seeded routes' banded DP: wrapper and plain
+version.
 
 Counterpart of the Pallas kernel `abpoa_tpu/align/pallas_kernel.py`
-`pallas_banded_dp`: the adaptive-banded forward DP of one read against a
-topologically ordered graph, convex gaps, global mode, int32 scores.
+`pallas_banded_dp` (one read against the whole graph) and of
+`abpoa_tpu/align/jax_backend.py` `_dp_full_batch` (the XLA vmap over the
+windows of one seeded read): the adaptive-banded forward DP of a batch of
+independent windows, each a query against a subgraph in topological order,
+global mode, linear, affine or convex gaps, int32 scores.
 
 `banded_dp(...)` checks its inputs and, for CUDA tensors, launches kernel
-B1's seeded instantiation in `csrc/fused_dp.cu` (entry `abpoa_banded_dp`;
-or raises); for CPU tensors it runs `banded_dp_torch`, the same row loop in
-torch ops, which is also the kernel's yardstick on the card. The kernel
-takes B1's design (shared-memory ring, control warp, cp.async table
-prefetch, three barriers a row; the launch from
-`fused_dp_kernel.launch_shape(..., seeded=True)`) and pulls each row's band
-from its predecessors; the plain version pushes it to the successors, as
-Pallas does. The two agree because `tables.build_row_tables` gives pre and
-out tables that are transposes over rows 1..gn-2, and row 0 pushes nothing
-(its successors' 1 comes with mpl0/mpr0).
+B1's seeded instantiation in `csrc/fused_dp.cu` (entry `abpoa_banded_dp`,
+one block a window; or raises); for CPU tensors it runs `banded_dp_torch`,
+the same row loop in torch ops, window by window, which is also the
+kernel's yardstick on the card. The kernel takes B1's design (shared-memory
+ring, control warp, cp.async table prefetch, three barriers a row; the
+launch from `fused_dp_kernel.launch_shape(..., seeded=True)`) and pulls each
+row's band from its predecessors; the plain version pushes it to the
+successors, as Pallas does. The two agree because `tables.build_row_tables`
+gives pre and out tables that are transposes over rows 1..gn-2, and row 0
+pushes nothing (its successors' 1 comes with mpl0/mpr0).
+
+A batch of B windows is ragged: window b owns rows roff[b]..roff[b+1]-1 of
+the concatenated tables and planes (R_b rows; every per-row table and plane
+row is window-local, predecessor indices too), and row b of the per-window
+inputs. With `roff` omitted the inputs are one window's (B = 1, the
+per-read route's shapes below without the leading B).
 
 Inputs (all int32, contiguous, one device):
-  scalars (16,)   [qlen, w, remain_end, inf, o1, e1, oe1, o2, e2, oe2, gn,
+  scalars (B, 16) [qlen, w, remain_end, inf, o1, e1, oe1, o2, e2, oe2, gn,
                    dp_end0, 0...]
-  base, pre_cnt, out_cnt, remain, mpl0, mpr0 (R,); pre_idx (R, P);
-  out_idx (R, O); qp_pad (m, Qp + W); row0 (5, W) = row 0 of H/E1/E2/F1/F2.
-Outputs: H, E1, E2, F1, F2 (R, W) banded planes (band lane k of row i is
-column dp_beg[i] + k), begend (2R,) = [dp_beg, dp_end], mplr (2R,) = the
-final [mpl, mpr], ok (1,) = 0 when some row's band was wider than W.
-Only plane rows 0..last computed are defined on the card: gn - 2, or on
-ok = 0 the row whose band overflowed (`fused_dp_kernel.computed_rows`);
-the kernel leaves the later rows as allocated, the plain version fills
-them with -inf (as Pallas pads them). The per-read backtrack reads rows
-below gn - 1 only (align/banded.py). begend, mplr and ok are defined on
-every row in both, and equal Pallas's.
+  base, pre_cnt, out_cnt, remain, mpl0, mpr0 (Rtot,); pre_idx (Rtot, P);
+  out_idx (Rtot, O); qp_pad (B, m, Qp + W); row0 (B, 5, W) = row 0 of
+  H/E1/E2/F1/F2 in the gap mode's form (`tables.query_tables`);
+  roff (B + 1,) row offsets, roff[0] = 0, roff[B] = Rtot.
+Outputs: H, E1, E2, F1, F2 (Rtot, W) banded planes (band lane k of a row is
+column dp_beg + k; linear gaps leave E1..F2 at -inf, affine E2 and F2),
+begend (2 Rtot,) = window b's [dp_beg, dp_end] at 2 roff[b], mplr (2 Rtot,)
+= its final [mpl, mpr] there, ok (B,) = 0 where some row's band was wider
+than W. Only plane rows 0..last computed of each window are defined on the
+card: gn - 2, or on ok = 0 the row whose band overflowed
+(`fused_dp_kernel.computed_rows`); the kernel leaves the later rows as
+allocated, the plain version fills them with -inf (as Pallas pads them).
+The backtrack reads rows below gn - 1 only (align/banded.py). begend, mplr
+and ok are defined on every row in both, and equal Pallas's.
 """
 from __future__ import annotations
 
@@ -42,11 +55,12 @@ from ..kernels import build
 from .fused_dp_kernel import launch_shape
 
 _NAMES = ("scalars", "base", "pre_idx", "pre_cnt", "out_idx", "out_cnt",
-          "remain", "mpl0", "mpr0", "qp_pad", "row0")
+          "remain", "mpl0", "mpr0", "qp_pad", "row0", "roff")
 
 
 def _check_inputs(args) -> tuple:
-    """(R, W, P, O) after checking device, dtype, shape and contiguity."""
+    """(B, Rtot, W, P) after checking device, dtype, shape and contiguity
+    (args in batch form, roff included)."""
     dev = args[0].device
     for name, t in zip(_NAMES, args):
         if not isinstance(t, torch.Tensor):
@@ -59,59 +73,80 @@ def _check_inputs(args) -> tuple:
         if not t.is_contiguous():
             raise ValueError(f"banded_dp: {name} must be contiguous")
     (scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0, mpr0,
-     qp_pad, row0) = args
+     qp_pad, row0, roff) = args
     R = base.shape[0]
-    if scalars.shape != (16,):
-        raise ValueError("banded_dp: scalars must have shape (16,)")
-    if row0.dim() != 2 or row0.shape[0] != 5:
-        raise ValueError("banded_dp: row0 must have shape (5, W)")
-    W = row0.shape[1]
+    if scalars.dim() != 2 or scalars.shape[1] != 16:
+        raise ValueError("banded_dp: scalars must have shape (B, 16)")
+    B = scalars.shape[0]
+    if row0.dim() != 3 or row0.shape[:2] != (B, 5):
+        raise ValueError("banded_dp: row0 must have shape (B, 5, W)")
+    W = row0.shape[2]
+    if roff.shape != (B + 1,):
+        raise ValueError("banded_dp: roff must have shape (B + 1,)")
     if pre_idx.dim() != 2 or pre_idx.shape[0] != R:
-        raise ValueError("banded_dp: pre_idx must have shape (R, P)")
+        raise ValueError("banded_dp: pre_idx must have shape (Rtot, P)")
     if out_idx.dim() != 2 or out_idx.shape[0] != R:
-        raise ValueError("banded_dp: out_idx must have shape (R, O)")
+        raise ValueError("banded_dp: out_idx must have shape (Rtot, O)")
     for name, t in (("pre_cnt", pre_cnt), ("out_cnt", out_cnt),
                     ("remain", remain), ("mpl0", mpl0), ("mpr0", mpr0)):
         if t.shape != (R,):
             raise ValueError(f"banded_dp: {name} must have shape ({R},)")
-    if qp_pad.dim() != 2 or qp_pad.shape[1] < W:
-        raise ValueError("banded_dp: qp_pad must have shape (m, Qp + W)")
-    if R < 1 or W < 1:
+    if qp_pad.dim() != 3 or qp_pad.shape[0] != B or qp_pad.shape[2] < W:
+        raise ValueError("banded_dp: qp_pad must have shape (B, m, Qp + W)")
+    if B < 1 or R < 1 or W < 1:
         raise ValueError("banded_dp: empty problem")
-    return R, W, pre_idx.shape[1], out_idx.shape[1]
+    return B, R, W, pre_idx.shape[1]
+
+
+def _batch_form(args, roff):
+    """The inputs in batch form: one window's gain a leading B = 1 and
+    roff = [0, R]."""
+    if roff is not None:
+        return (*args, roff)
+    scalars, qp_pad, row0 = args[0], args[9], args[10]
+    if scalars.dim() != 1:
+        raise ValueError("banded_dp: batched scalars need roff")
+    R = args[1].shape[0]
+    one = torch.tensor([0, R], dtype=torch.int32, device=scalars.device)
+    return (scalars[None], *args[1:9], qp_pad[None], row0[None], one)
 
 
 def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
-              mpl0, mpr0, qp_pad, row0, *, warps=None):
-    """Banded forward DP; see the module docstring. Returns
-    (H, E1, E2, F1, F2, begend, mplr, ok). `warps` overrides the launch
-    table's column warps (chip_smoke.py's sweep)."""
-    args = (scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0,
-            mpr0, qp_pad, row0)
-    R, W, P, O = _check_inputs(args)
+              mpl0, mpr0, qp_pad, row0, roff=None, *,
+              gap_mode: int = C.CONVEX_GAP, warps=None):
+    """Banded forward DP of a batch of windows; see the module docstring.
+    Returns (H, E1, E2, F1, F2, begend, mplr, ok). `warps` overrides the
+    launch table's column warps (chip_smoke.py's sweep)."""
+    args = _batch_form((scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
+                        remain, mpl0, mpr0, qp_pad, row0), roff)
+    B, R, W, P = _check_inputs(args)
     dev = scalars.device
     if dev.type == "cpu":
-        return banded_dp_torch(*args)
+        return banded_dp_torch(*args, gap_mode=gap_mode)
     if dev.type != "cuda":
         raise ValueError(f"banded_dp: unsupported device {dev}")
-    ls = launch_shape(W, P, C.CONVEX_GAP, warps, seeded=True)
+    ls = launch_shape(W, P, gap_mode, warps, seeded=True)
     lib = build.load()
-    kernel_in = (scalars, base, pre_idx, pre_cnt, remain, mpl0, mpr0, row0,
-                 qp_pad)
+    (scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0, mpr0,
+     qp_pad, row0, roff) = args
+    kernel_in = (scalars, roff, base, pre_idx, pre_cnt, remain, mpl0, mpr0,
+                 row0, qp_pad)
     with torch.cuda.device(dev):
         planes = torch.empty((5, R, W), dtype=torch.int32, device=dev)
         begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
         mplr = torch.empty(2 * R, dtype=torch.int32, device=dev)
-        ok = torch.empty(1, dtype=torch.int32, device=dev)
-        ext = torch.empty(4, dtype=torch.int32, device=dev)     # scratch
-        lr = torch.empty(2 * R, dtype=torch.int32, device=dev)  # scratch
+        ok = torch.empty(B, dtype=torch.int32, device=dev)
+        ext = torch.empty(4 * B, dtype=torch.int32, device=dev)  # scratch
+        lr = torch.empty(2 * R, dtype=torch.int32, device=dev)   # scratch
         outs = (*planes.unbind(0), begend, mplr, ok)
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_banded_dp(
             *(ptr(t) for t in kernel_in), *(ptr(t) for t in outs),
-            ptr(ext), ptr(lr), R, W, P, qp_pad.shape[1], ls["block_warps"],
-            ls["depth"], ls["smem"], ctypes.c_void_p(stream))
+            ptr(ext), ptr(lr), B, W, P, qp_pad.shape[2],
+            qp_pad.shape[1] * qp_pad.shape[2], int(gap_mode),
+            ls["block_warps"], ls["depth"], ls["smem"],
+            ctypes.c_void_p(stream))
     build.check(err, "banded_dp launch")
     banded_dp.launches += 1
     return outs
@@ -129,9 +164,38 @@ def _f_chain(A: torch.Tensor, ext: int, lane_ext: torch.Tensor,
 
 
 def banded_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
-                    mpl0, mpr0, qp_pad, row0):
-    """The plain PyTorch version of `banded_dp`: the row loop of
-    pallas_kernel.py `_make_kernel`, step by step, on the inputs' device."""
+                    mpl0, mpr0, qp_pad, row0, roff=None, *,
+                    gap_mode: int = C.CONVEX_GAP):
+    """The plain PyTorch version of `banded_dp`: window by window, the row
+    loop of pallas_kernel.py `_make_kernel` (and of jax_backend.py `_dp_scan`
+    for linear and affine gaps), step by step, on the inputs' device."""
+    args = _batch_form((scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
+                        remain, mpl0, mpr0, qp_pad, row0), roff)
+    scalars, qp_pad, row0, roff = args[0], args[9], args[10], args[11]
+    dev = scalars.device
+    R, W = args[1].shape[0], row0.shape[2]
+    planes = torch.empty((5, R, W), dtype=torch.int32, device=dev)
+    begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
+    mplr = torch.empty(2 * R, dtype=torch.int32, device=dev)
+    oks = []
+    offs = roff.tolist()
+    for b in range(scalars.shape[0]):
+        r0, r1 = offs[b], offs[b + 1]
+        rows = [t[r0:r1] for t in args[1:9]]
+        H, E1, E2, F1, F2, be, lr, ok = _window_dp_torch(
+            scalars[b], *rows, qp_pad[b], row0[b], gap_mode)
+        planes[:, r0:r1] = torch.stack([H, E1, E2, F1, F2])
+        begend[2 * r0: 2 * r1] = be
+        mplr[2 * r0: 2 * r1] = lr
+        oks.append(ok)
+    ok = torch.tensor(oks, dtype=torch.int32, device=dev)
+    return (*planes.unbind(0), begend, mplr, ok)
+
+
+def _window_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
+                     remain, mpl0, mpr0, qp_pad, row0, gap_mode: int):
+    """One window of `banded_dp_torch`: (H, E1, E2, F1, F2, begend, mplr,
+    ok) with ok an int."""
     dev = scalars.device
     R = base.shape[0]
     W = row0.shape[1]
@@ -139,6 +203,8 @@ def banded_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
     qlen, w, remain_end, inf = sc[0], sc[1], sc[2], sc[3]
     e1, oe1, e2, oe2 = sc[5], sc[6], sc[8], sc[9]
     gn, end0 = sc[10], sc[11]
+    linear = gap_mode == C.LINEAR_GAP
+    convex = gap_mode == C.CONVEX_GAP
     base_l = base.tolist()
     pre_l, pre_cnt_l = pre_idx.tolist(), pre_cnt.tolist()
     out_l, out_cnt_l = out_idx.tolist(), out_cnt.tolist()
@@ -182,29 +248,43 @@ def banded_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
             eidx = cols - pbeg
             eok = (eidx >= 0) & (cols <= pend) & (eidx < W)
             eidx = eidx.clamp(0, W - 1)
+            if linear:  # the E row comes from the predecessors' H
+                E1r = torch.maximum(E1r, torch.where(eok, H[p].gather(0, eidx), inf))
+                continue
             E1r = torch.maximum(E1r, torch.where(eok, E1[p].gather(0, eidx), inf))
-            E2r = torch.maximum(E2r, torch.where(eok, E2[p].gather(0, eidx), inf))
+            if convex:
+                E2r = torch.maximum(E2r, torch.where(eok, E2[p].gather(0, eidx), inf))
 
-        qprow = qp_pad[base_l[row], beg: beg + W]
+        # a row no predecessor reaches (a window's subgraph may hold some)
+        # has beg = 2^30 > end: an empty band, every lane masked
+        qb = min(beg, qp_pad.shape[1] - W)
+        qprow = qp_pad[base_l[row], qb: qb + W]
         Mq = torch.where(in_band, Mq + qprow, inf)
-        E1r = torch.where(in_band, E1r, inf)
-        E2r = torch.where(in_band, E2r, inf)
-        Hhat = torch.maximum(torch.maximum(Mq, E1r), E2r)
-
-        Hm1 = torch.cat([inf_row[:1], Hhat[:-1]])
-        src = torch.where(first, Mq, Hm1)
-        A1 = torch.where(in_band, src - oe1, inf)
-        A2 = torch.where(in_band, src - oe2, inf)
-        f1 = _f_chain(A1, e1, lane_e1, inf)
-        f2 = _f_chain(A2, e2, lane_e2, inf)
-        Hrow = torch.maximum(Hhat, torch.maximum(f1, f2))
-        E1n = torch.maximum(E1r - e1, Hrow - oe1)
-        E2n = torch.maximum(E2r - e2, Hrow - oe2)
-        H[row] = torch.where(in_band, Hrow, inf)
-        E1[row] = torch.where(in_band, E1n, inf)
-        E2[row] = torch.where(in_band, E2n, inf)
-        F1[row] = torch.where(in_band, f1, inf)
-        F2[row] = torch.where(in_band, f2, inf)
+        if linear:  # _dp_scan's linear branch (jax_backend.py:171-175)
+            Erow = torch.where(in_band, E1r - e1, inf)
+            Hrow = _f_chain(torch.maximum(Mq, Erow), e1, lane_e1, inf)
+            H[row] = torch.where(in_band, Hrow, inf)
+        else:
+            E1r = torch.where(in_band, E1r, inf)
+            Hhat = torch.maximum(Mq, E1r)
+            if convex:
+                E2r = torch.where(in_band, E2r, inf)
+                Hhat = torch.maximum(Hhat, E2r)
+            Hm1 = torch.cat([inf_row[:1], Hhat[:-1]])
+            src = torch.where(first, Mq, Hm1)
+            f1 = _f_chain(torch.where(in_band, src - oe1, inf), e1, lane_e1, inf)
+            Hrow = torch.maximum(Hhat, f1)
+            if convex:
+                f2 = _f_chain(torch.where(in_band, src - oe2, inf), e2, lane_e2, inf)
+                Hrow = torch.maximum(Hrow, f2)
+                E2[row] = torch.where(in_band, torch.maximum(E2r - e2, Hrow - oe2), inf)
+                F2[row] = torch.where(in_band, f2, inf)
+            E1n = torch.maximum(E1r - e1, Hrow - oe1)
+            if not convex:  # affine: E1 only where H is H-hat (jax_backend.py:204)
+                E1n = torch.where(Hrow == Hhat, E1n, inf)
+            H[row] = torch.where(in_band, Hrow, inf)
+            E1[row] = torch.where(in_band, E1n, inf)
+            F1[row] = torch.where(in_band, f1, inf)
 
         # band_extents (pallas_common.py:39) and the successor scatter
         Hm = H[row]
@@ -223,4 +303,4 @@ def banded_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
     i32 = dict(dtype=torch.int32, device=dev)
     begend = torch.tensor(dp_beg + dp_end, **i32)
     mplr = torch.tensor(mpl + mpr, **i32)
-    return H, E1, E2, F1, F2, begend, mplr, torch.tensor([ok], **i32)
+    return H, E1, E2, F1, F2, begend, mplr, ok

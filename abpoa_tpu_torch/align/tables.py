@@ -13,6 +13,7 @@ from itertools import chain
 
 import numpy as np
 
+from .. import constants as C
 from ..graph import POAGraph
 from ..params import Params
 from .buckets import bucket, bucket_pow2
@@ -94,7 +95,8 @@ def build_row_tables(g: POAGraph, beg_node_id: int, end_node_id: int) -> RowTabl
     keep = row_reach[in_row] & index_map[in_idx].astype(bool)
     pre_idx, pre_cnt = _pack(in_row[keep], in_idx[keep] - beg_index, gn, R)
     out_row = _row_of(out_cnt)
-    keep = row_reach[out_row] & (out_row < gn - 1)
+    # a window's rows may lead past its end node: those edges leave the table
+    keep = row_reach[out_row] & (out_row < gn - 1) & (out_idx - beg_index < gn)
     out_tab, out_n = _pack(out_row[keep], out_idx[keep] - beg_index, gn, R)
 
     # band seed (abpoa_align_simd.c first-row init)
@@ -119,7 +121,8 @@ def build_row_tables(g: POAGraph, beg_node_id: int, end_node_id: int) -> RowTabl
 
 def query_tables(abpt: Params, t: RowTables, query: np.ndarray, W: int) -> dict:
     """scalars (16,), qp_pad (m, Qp + W) and row0 (5, W) for one band width
-    (pallas_backend.py:156-183)."""
+    (pallas_backend.py:156-183); row 0 takes the gap mode's form, with -inf
+    in the planes the mode leaves unused (jax_backend.py:79-101)."""
     qlen = len(query)
     w = abpt.wb + int(abpt.wf * qlen)
     inf_min = dp_inf_min(abpt)
@@ -130,13 +133,20 @@ def query_tables(abpt: Params, t: RowTables, query: np.ndarray, W: int) -> dict:
 
     cols = np.arange(W, dtype=np.int64)
     live = (cols >= 1) & (cols <= dp_end0)
-    f1 = np.where(live, -o1 - e1 * cols, inf_min)
-    f2 = np.where(live, -o2 - e2 * cols, inf_min)
     row0 = np.full((5, W), inf_min, dtype=np.int64)
-    row0[0] = np.maximum(f1, f2)
-    row0[0, 0] = 0
-    row0[1, 0], row0[2, 0] = -oe1, -oe2
-    row0[3, 1:], row0[4, 1:] = f1[1:], f2[1:]
+    if abpt.gap_mode == C.LINEAR_GAP:
+        row0[0] = np.where(cols <= dp_end0, -e1 * cols, inf_min)
+    else:
+        f1 = np.where(live, -o1 - e1 * cols, inf_min)
+        row0[0] = f1
+        row0[1, 0] = -oe1
+        row0[3, 1:] = f1[1:]
+        if abpt.gap_mode == C.CONVEX_GAP:
+            f2 = np.where(live, -o2 - e2 * cols, inf_min)
+            row0[0] = np.maximum(f1, f2)
+            row0[2, 0] = -oe2
+            row0[4, 1:] = f2[1:]
+        row0[0, 0] = 0
 
     Qp = bucket(qlen + 1, 128)
     qp_pad = np.zeros((abpt.m, Qp + W), dtype=np.int32)

@@ -5,17 +5,19 @@ local (`-m 1`) or extend (`-m 2`, Z-drop `-z`) mode, writing consensus
 heaviest bundling or majority vote (`-a 1`), with up to 10 clustered
 consensus sequences (`-d`, `-q`), qv weights (`-Q`), incremental alignment
 onto a restored MSA or GFA (`-i`), the graph plot (`-g`) and file lists
-(`-l`, one set after another).
+(`-l`, one set after another), minimizer-seeded windows (`-S`, `-k`, `-w`,
+`-n`) and the guide-tree order (`-p`).
 
     python -m abpoa_tpu_torch reads.fa [--device cuda|cpu] [-o out.fa]
     python -m abpoa_tpu_torch new.fa -i old.gfa [-r 3]
+    python -m abpoa_tpu_torch long_reads.fa -S [-p]
     python -m abpoa_tpu_torch -l list.txt
 
-Flags of abPOA outside that subset (`-S`, `-p`, `-G`, `-b < 0`) are
-accepted and rejected by `Params.finalize()` with a NotImplementedError
-naming the ROADMAP item that will bring them; so are the per-read route's
-configurations outside convex gaps in global mode (`-i` with read-id
-outputs or with `-l`, `-Q` with `-d > 1`). With no card and no `--device cpu`, the run
+Flags of abPOA outside that subset (`-G`, `-b < 0`) are accepted and
+rejected by `Params.finalize()` with a NotImplementedError naming the
+ROADMAP item that will bring them; so are the per-read route's
+configurations outside global mode (`-i` with read-id outputs or with
+`-l`, `-Q` with `-d > 1`). With no card and no `--device cpu`, the run
 raises RuntimeError. A malformed read set ends a one-file run with one
 error line and rc 1; in a `-l` run it is quarantined (one stderr line) and
 the run returns 1 only when every set was.

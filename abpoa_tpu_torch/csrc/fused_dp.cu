@@ -14,15 +14,21 @@
 // align/banded_kernel.py; each must agree with its instantiation bit for
 // bit on every output, over the rows it computes.
 //
-// B2 (template SEEDED, entry `abpoa_banded_dp`) is convex, global, int32.
-// It reads B2's tables: the scalars in pallas_kernel.py's layout, `base`
-// with no source bit, and per-row seeds mpl0/mpr0, which start each row's
-// band state in place of B1's neutral pair (the source's successors get
-// their 1 from the seeds, and with `-s` the seeds are the last launch's
-// mpl/mpr). It also writes `mplr`, every row's final mpl/mpr: the computed
-// rows from the loop, the rows it did not reach (the sink, or every row
-// after a band overflow) from one pull after it, and rows past gn keep
-// their seed. It takes up to 32 columns a thread (W <= 32768).
+// B2 (template SEEDED, entry `abpoa_banded_dp`) is global and int32, with
+// linear, affine or convex gaps; it also replaces the XLA vmap over a seeded
+// read's windows (abpoa_tpu/align/jax_backend.py `_dp_full_batch`): a grid
+// of B blocks, block b aligning window b of a ragged batch, whose rows are
+// roff[b]..roff[b+1]-1 of the concatenated tables, planes, begend, mplr and
+// scratch (each at its own stride), and whose scalars, row 0, query profile,
+// ok and ext are row b of theirs. The windows are independent, so the
+// blocks share nothing. B2 reads B2's tables: the scalars in
+// pallas_kernel.py's layout, `base` with no source bit, and per-row seeds
+// mpl0/mpr0, which start each row's band state in place of B1's neutral
+// pair (the first row's successors get their 1 from the seeds, and with `-s`
+// the seeds are the last launch's mpl/mpr). It also writes `mplr`, every
+// row's final mpl/mpr: the computed rows from the loop, the rows it did not
+// reach (the end node, or every row after a band overflow) from one pull
+// after it. It takes up to 32 columns a thread (W <= 32768).
 //
 // What bounds it: the rows form a serial chain (each row reads its
 // predecessors' rows, and its band comes from their argmax), so a read's
@@ -170,9 +176,25 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
                 void* F1, void* F2, int* begend, int* ok_out, int* ext_out,
                 int* lr, int R, int W, int P, int QW, int D, int mode,
                 int zdrop_on, int plane16, const int* __restrict__ mpl0,
-                const int* __restrict__ mpr0, int* mplr) {
+                const int* __restrict__ mpr0, int* mplr,
+                const int* __restrict__ roff, int qstride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_beg, s_end, s_ovf, s_npre, s_qb, s_allring;
+
+  // This block's window of a ragged batch (B2): its first row r0 in the
+  // per-row inputs and outputs (its pairs start at e0 = 2 r0 in begend, mplr
+  // and lr; its plane rows at pl0) and its entry b of the per-window ones.
+  // B1's one problem is window 0. Offsets, not moved pointers, so that the
+  // pointer parameters stay out of registers.
+  int b = 0, r0 = 0;
+  if constexpr (SEEDED) {
+    b = blockIdx.x;
+    r0 = roff[b];
+    R = roff[b + 1] - r0;
+  }
+  const int e0 = 2 * r0;
+  const size_t pl0 = (size_t)r0 * W;
+  const int q0 = qstride * b;
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -194,11 +216,12 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   int* s_ring = s_part + 8 * nwarps;                   // planes x D x W
 
   // the scalars in B1's layout, or in B2's (pallas_kernel.py) when seeded
-  const int qlen = sc[0], w = sc[1], remain_end = sc[2], inf = sc[3];
-  const int e1 = sc[SEEDED ? 5 : 4], oe1 = sc[SEEDED ? 6 : 5];
-  const int e2 = sc[SEEDED ? 8 : 6], oe2 = sc[SEEDED ? 9 : 7];
-  const int gn = sc[SEEDED ? 10 : 8], end0 = sc[SEEDED ? 11 : 9];
-  const int zdrop = SEEDED ? 0 : sc[10];
+  const int* scw = sc + 16 * b;
+  const int qlen = scw[0], w = scw[1], remain_end = scw[2], inf = scw[3];
+  const int e1 = scw[SEEDED ? 5 : 4], oe1 = scw[SEEDED ? 6 : 5];
+  const int e2 = scw[SEEDED ? 8 : 6], oe2 = scw[SEEDED ? 9 : 7];
+  const int gn = scw[SEEDED ? 10 : 8], end0 = scw[SEEDED ? 11 : 9];
+  const int zdrop = SEEDED ? 0 : scw[10];
 
   // table row q into its stage, by the control warp (one group per call,
   // maybe empty)
@@ -206,14 +229,14 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
     if (q < R && q < gn - 1) {
       int* dst = s_tab + (q % kStages) * (P + kTab);
       for (int k = lane_id; k < P; k += 32)
-        cp_async4(dst + k, pre_idx + (size_t)q * P + k);
+        cp_async4(dst + k, pre_idx + (size_t)(r0 + q) * P + k);
       if (lane_id == 0) {
-        cp_async4(dst + P, base + q);
-        cp_async4(dst + P + 1, remain + q);
-        cp_async4(dst + P + 2, pre_cnt + q);
+        cp_async4(dst + P, base + r0 + q);
+        cp_async4(dst + P + 1, remain + r0 + q);
+        cp_async4(dst + P + 2, pre_cnt + r0 + q);
         if constexpr (SEEDED) {
-          cp_async4(dst + P + 3, mpl0 + q);
-          cp_async4(dst + P + 4, mpr0 + q);
+          cp_async4(dst + P + 3, mpl0 + r0 + q);
+          cp_async4(dst + P + 4, mpr0 + r0 + q);
         }
       }
     }
@@ -221,22 +244,23 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   };
 
   for (int k = tid; k < R; k += nthreads) {
-    begend[k] = 0;
-    begend[R + k] = k == 0 ? end0 : 0;
+    begend[e0 + k] = 0;
+    begend[e0 + R + k] = k == 0 ? end0 : 0;
     if constexpr (SEEDED) {  // row 0 and the rows past gn keep their seed;
-      mplr[k] = mpl0[k];    // lr's -1 marks a row the loop does not reach
-      mplr[R + k] = mpr0[k];
-      lr[R + k] = -1;
+      mplr[e0 + k] = mpl0[r0 + k];  // lr's -1: a row the loop does not reach
+      mplr[e0 + R + k] = mpr0[r0 + k];
+      lr[e0 + R + k] = -1;
     }
   }
+  const int* r0w = row0 + (size_t)5 * W * b;
   for (int k = tid; k < W; k += nthreads) {
-    const int v[5] = {row0[k], row0[W + k], row0[2 * W + k], row0[3 * W + k],
-                      row0[4 * W + k]};
-    st(H, k, v[0], p16);
-    st(E1, k, v[1], p16);
-    st(E2, k, v[2], p16);
-    st(F1, k, v[3], p16);
-    st(F2, k, v[4], p16);
+    const int v[5] = {r0w[k], r0w[W + k], r0w[2 * W + k], r0w[3 * W + k],
+                      r0w[4 * W + k]};
+    st(H, pl0 + k, v[0], p16);
+    st(E1, pl0 + k, v[1], p16);
+    st(E2, pl0 + k, v[2], p16);
+    st(F1, pl0 + k, v[3], p16);
+    st(F2, pl0 + k, v[4], p16);
     if (D > 0)
       for (int q = 0; q < ring_planes<GAP>(); ++q)
         s_ring[(size_t)q * D * W + k] = as_plane(v[q], p16);
@@ -281,9 +305,9 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
         v = s_sring[p & (kScalarRing - 1)];
       } else {
         const bool back = p < q;
-        v = make_int4(begend[p], begend[R + p],
-                      back ? lr[p] : quiet_l<SEEDED>(gn),
-                      back ? lr[R + p] : quiet_r<SEEDED>());
+        v = make_int4(begend[e0 + p], begend[e0 + R + p],
+                      back ? lr[e0 + p] : quiet_l<SEEDED>(gn),
+                      back ? lr[e0 + R + p] : quiet_r<SEEDED>());
       }
       mn_beg = min(mn_beg, v.x);
       mn_l = min(mn_l, v.z);
@@ -322,11 +346,11 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
     }
     cur_rem = nx_rem;
     if (lane_id == 0) {
-      begend[q] = cur_beg;
-      begend[R + q] = cur_end;
+      begend[e0 + q] = cur_beg;
+      begend[e0 + R + q] = cur_end;
       if constexpr (SEEDED) {  // the row's final mpl/mpr: all pushes came
-        mplr[q] = mn_l;
-        mplr[R + q] = mx_r;
+        mplr[e0 + q] = mn_l;
+        mplr[e0 + R + q] = mx_r;
       }
       s_beg = cur_beg;
       s_end = cur_end;
@@ -339,8 +363,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
 
   if (warp == ctl) {
     if (lane_id == 0) {
-      lr[0] = quiet_l<SEEDED>(gn);
-      lr[R] = quiet_r<SEEDED>();
+      lr[e0] = quiet_l<SEEDED>(gn);
+      lr[e0 + R] = quiet_r<SEEDED>();
       s_sring[0] = make_int4(0, end0, quiet_l<SEEDED>(gn), quiet_r<SEEDED>());
     }
     for (int q = 1; q < kStages; ++q) issue(q);
@@ -366,7 +390,7 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
     int own1[CPT], own2[CPT];
     int run1 = kIntMin, run2 = kIntMin;
     if (has_cols) {
-      const int* qrow = qp + (size_t)s_qb * QW + beg;
+      const int* qrow = qp + q0 + (size_t)s_qb * QW + beg;
       int qv[CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
@@ -409,7 +433,7 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
         for (int k = 0; k < npre; ++k) {
           const int4 pr = pred[k];
           const int p = pr.x, pbeg = pr.y, pend = pr.z, slot = pr.w;
-          const size_t grow = (size_t)p * W;
+          const size_t grow = pl0 + (size_t)p * W;
           const int* rh = s_ring + (size_t)max(slot, 0) * W;
           const int* re1 = rh + (size_t)D * W;
           const int* re2 = re1 + (size_t)D * W;
@@ -536,7 +560,7 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
           }
         }
         if (!in_band) h = en1 = en2 = g1 = g2 = inf;
-        const size_t at = (size_t)row * W + lane;
+        const size_t at = pl0 + (size_t)row * W + lane;
         st(H, at, h, p16);
         st(E1, at, en1, p16);
         st(E2, at, en2, p16);
@@ -607,8 +631,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       const int pl = push ? left + 1 : gn, pr = push ? right + 1 : 0;
       if (lane_id == 0) {
         s_sring[row & (kScalarRing - 1)] = make_int4(cur_beg, cur_end, pl, pr);
-        lr[row] = pl;
-        lr[R + row] = pr;
+        lr[e0 + row] = pl;
+        lr[e0 + R + row] = pr;
       }
       if (ok && row + 1 < gn - 1 && row + 1 < R) finish(row + 1, pl, pr);
       __syncwarp();
@@ -622,28 +646,28 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
     // Pallas's pushes leave them
     __syncthreads();
     for (int t = 1 + tid; t < gn; t += nthreads) {
-      if (lr[R + t] != -1) continue;
-      int mn_l = mpl0[t], mx_r = mpr0[t];
-      const int npre = pre_cnt[t];
+      if (lr[e0 + R + t] != -1) continue;
+      int mn_l = mpl0[r0 + t], mx_r = mpr0[r0 + t];
+      const int npre = pre_cnt[r0 + t];
       for (int k = 0; k < npre; ++k) {
-        const int p = pre_idx[(size_t)t * P + k];
-        if (p >= 1 && lr[R + p] != -1) {
-          mn_l = min(mn_l, lr[p]);
-          mx_r = max(mx_r, lr[R + p]);
+        const int p = pre_idx[(size_t)(r0 + t) * P + k];
+        if (p >= 1 && lr[e0 + R + p] != -1) {
+          mn_l = min(mn_l, lr[e0 + p]);
+          mx_r = max(mx_r, lr[e0 + R + p]);
         }
       }
-      mplr[t] = mn_l;
-      mplr[R + t] = mx_r;
+      mplr[e0 + t] = mn_l;
+      mplr[e0 + R + t] = mx_r;
     }
   }
   if (warp == ctl) cp_async_wait<0>();
   if (warp == ctl && lane_id == 0) {
-    ok_out[0] = ok;
+    ok_out[b] = ok;
     const bool track = local || extend;
-    ext_out[0] = track ? bs : inf;
-    ext_out[1] = track ? bi : 0;
-    ext_out[2] = track ? bj : 0;
-    ext_out[3] = track ? zdropped : 0;
+    ext_out[4 * b] = track ? bs : inf;
+    ext_out[4 * b + 1] = track ? bi : 0;
+    ext_out[4 * b + 2] = track ? bj : 0;
+    ext_out[4 * b + 3] = track ? zdropped : 0;
   }
 }
 
@@ -654,6 +678,8 @@ struct Args {
   int R, W, P, QW, D, mode, zdrop_on, plane16;
   const int *mpl0, *mpr0;  // B2 only
   int* mplr;
+  const int* roff;
+  int qstride, grid;
 };
 
 template <int CPT, int GAP, bool SEEDED>
@@ -662,21 +688,21 @@ cudaError_t launch(const Args& a, int threads, size_t smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<1, threads, smem, s>>>(a.sc, a.base, a.pre_idx, a.pre_cnt, a.remain,
-                                a.row0, a.qp, a.H, a.E1, a.E2, a.F1, a.F2,
-                                a.begend, a.ok, a.ext, a.lr, a.R, a.W, a.P,
-                                a.QW, a.D, a.mode, a.zdrop_on, a.plane16,
-                                a.mpl0, a.mpr0, a.mplr);
+  kern<<<a.grid, threads, smem, s>>>(
+      a.sc, a.base, a.pre_idx, a.pre_cnt, a.remain, a.row0, a.qp, a.H, a.E1,
+      a.E2, a.F1, a.F2, a.begend, a.ok, a.ext, a.lr, a.R, a.W, a.P, a.QW, a.D,
+      a.mode, a.zdrop_on, a.plane16, a.mpl0, a.mpr0, a.mplr, a.roff,
+      a.qstride);
   return cudaGetLastError();
 }
 
-template <int CPT>
+template <int CPT, bool SEEDED>
 cudaError_t launch_gap(int gap, const Args& a, int threads, size_t smem,
                        cudaStream_t s) {
   switch (gap) {
-    case kLinear: return launch<CPT, kLinear, false>(a, threads, smem, s);
-    case kAffine: return launch<CPT, kAffine, false>(a, threads, smem, s);
-    case kConvex: return launch<CPT, kConvex, false>(a, threads, smem, s);
+    case kLinear: return launch<CPT, kLinear, SEEDED>(a, threads, smem, s);
+    case kAffine: return launch<CPT, kAffine, SEEDED>(a, threads, smem, s);
+    case kConvex: return launch<CPT, kConvex, SEEDED>(a, threads, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -720,53 +746,61 @@ extern "C" int abpoa_fused_dp(const void* sc, const void* base,
          (const int*)pre_cnt, (const int*)remain, (const int*)row0,
          (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
          (int*)ext,           (int*)lr, R, W, P, QW, D, mode, zdrop_on,
-         plane16,             nullptr, nullptr, nullptr};
+         plane16,             nullptr, nullptr, nullptr, nullptr, 0, 1};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (cpt) {
-    case 1: err = launch_gap<1>(gap_mode, a, threads, smem, s); break;
-    case 2: err = launch_gap<2>(gap_mode, a, threads, smem, s); break;
-    case 4: err = launch_gap<4>(gap_mode, a, threads, smem, s); break;
-    case 8: err = launch_gap<8>(gap_mode, a, threads, smem, s); break;
-    default: err = launch_gap<16>(gap_mode, a, threads, smem, s); break;
+    case 1: err = launch_gap<1, false>(gap_mode, a, threads, smem, s); break;
+    case 2: err = launch_gap<2, false>(gap_mode, a, threads, smem, s); break;
+    case 4: err = launch_gap<4, false>(gap_mode, a, threads, smem, s); break;
+    case 8: err = launch_gap<8, false>(gap_mode, a, threads, smem, s); break;
+    default: err = launch_gap<16, false>(gap_mode, a, threads, smem, s); break;
   }
   return (int)err;
 }
 
-// Kernel B2: the seeded instantiation (convex gaps, global mode, int32
-// planes) on B2's tables; see the header. Up to 32 columns a thread. `lr`
-// (2R) is scratch, `ext` (4) is written and carries nothing; the other
-// arguments are as for abpoa_fused_dp.
-extern "C" int abpoa_banded_dp(const void* sc, const void* base,
-                               const void* pre_idx, const void* pre_cnt,
-                               const void* remain, const void* mpl0,
-                               const void* mpr0, const void* row0,
-                               const void* qp, void* H, void* E1, void* E2,
-                               void* F1, void* F2, void* begend, void* mplr,
-                               void* ok, void* ext, void* lr, int R, int W,
-                               int P, int QW, int warps, int D, int smem,
-                               void* stream) {
+// Kernel B2: the seeded instantiation (global mode, int32 planes, gap_mode
+// 0/1/2 = linear/affine/convex) on B2's tables, one block for each of the B
+// windows of a ragged batch; see the header. `roff` (B + 1) gives each
+// window's first row in the concatenated per-row inputs and outputs (rows
+// of the planes, pairs of begend, mplr and lr); sc (B x 16), row0 (B x 5 x
+// W), qp (B x qstride ints, QW columns a base), ok (B) and ext (B x 4) hold
+// one entry a window. Up to 32 columns a thread. `lr` is scratch, `ext` is
+// written and carries nothing; the other arguments are as for
+// abpoa_fused_dp.
+extern "C" int abpoa_banded_dp(const void* sc, const void* roff,
+                               const void* base, const void* pre_idx,
+                               const void* pre_cnt, const void* remain,
+                               const void* mpl0, const void* mpr0,
+                               const void* row0, const void* qp, void* H,
+                               void* E1, void* E2, void* F1, void* F2,
+                               void* begend, void* mplr, void* ok, void* ext,
+                               void* lr, int B, int W, int P, int QW,
+                               int qstride, int gap_mode, int warps, int D,
+                               int smem, void* stream) {
   const int threads = warps * 32;
-  if (warps < 1 || threads > kMaxThreads || W < 1 || R < 1 || P < 1 ||
-      D < 0 || (D & (D - 1)) != 0)
+  if (B < 1 || warps < 1 || threads > kMaxThreads || W < 1 || P < 1 ||
+      gap_mode < 0 || gap_mode > 2 || D < 0 || (D & (D - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const int cpt = cols_per_thread(W, threads);
-  if (cpt > 32 ||
-      (size_t)smem != smem_bytes(W, P, warps, D, 3, tab_extra<true>()))
+  const int nplanes = gap_mode == kLinear ? 1 : gap_mode == kAffine ? 2 : 3;
+  if (cpt > 32 || (size_t)smem != smem_bytes(W, P, warps, D, nplanes,
+                                             tab_extra<true>()))
     return (int)cudaErrorInvalidValue;
   Args a{(const int*)sc,      (const int*)base, (const int*)pre_idx,
          (const int*)pre_cnt, (const int*)remain, (const int*)row0,
          (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
-         (int*)ext,           (int*)lr, R, W, P, QW, D, 0, 0, 0,
-         (const int*)mpl0,    (const int*)mpr0, (int*)mplr};
+         (int*)ext,           (int*)lr, 0, W, P, QW, D, 0, 0, 0,
+         (const int*)mpl0,    (const int*)mpr0, (int*)mplr,
+         (const int*)roff,    qstride, B};
   cudaStream_t s = (cudaStream_t)stream;
   switch (cpt) {
-    case 1: return (int)launch<1, kConvex, true>(a, threads, smem, s);
-    case 2: return (int)launch<2, kConvex, true>(a, threads, smem, s);
-    case 4: return (int)launch<4, kConvex, true>(a, threads, smem, s);
-    case 8: return (int)launch<8, kConvex, true>(a, threads, smem, s);
-    case 16: return (int)launch<16, kConvex, true>(a, threads, smem, s);
-    default: return (int)launch<32, kConvex, true>(a, threads, smem, s);
+    case 1: return (int)launch_gap<1, true>(gap_mode, a, threads, smem, s);
+    case 2: return (int)launch_gap<2, true>(gap_mode, a, threads, smem, s);
+    case 4: return (int)launch_gap<4, true>(gap_mode, a, threads, smem, s);
+    case 8: return (int)launch_gap<8, true>(gap_mode, a, threads, smem, s);
+    case 16: return (int)launch_gap<16, true>(gap_mode, a, threads, smem, s);
+    default: return (int)launch_gap<32, true>(gap_mode, a, threads, smem, s);
   }
 }
 

@@ -277,8 +277,10 @@ class POAGraph:
             self.nodes[end_node_id].n_span_read += 1
 
     def add_sequence(self, abpt: Params, seq: np.ndarray, weight: np.ndarray,
-                     read_id: int = 0) -> None:
-        """Seed an empty graph with a chain of nodes (src/abpoa_graph.c:573-593)."""
+                     read_id: int = 0,
+                     qpos_to_node_id: Optional[np.ndarray] = None) -> None:
+        """Seed an empty graph with a chain of nodes (src/abpoa_graph.c:573-593);
+        `qpos_to_node_id`, when given, receives each base's node."""
         seq_l = len(seq)
         if seq_l <= 0:
             return
@@ -286,6 +288,8 @@ class POAGraph:
         last_id = C.SRC_NODE_ID
         for i in range(seq_l):
             cur = self.add_node(int(seq[i]))
+            if qpos_to_node_id is not None:
+                qpos_to_node_id[i] = cur
             self.add_edge(last_id, cur, False, int(weight[i]), rid, read_id, rw)
             self.nodes[cur].n_span_read = self.nodes[last_id].n_span_read
             last_id = cur
@@ -299,15 +303,18 @@ class POAGraph:
     def add_subgraph_alignment(self, abpt: Params, beg_node_id: int, end_node_id: int,
                                seq: np.ndarray, weight: Optional[np.ndarray],
                                cigar: list, inc_both_ends: bool,
-                               read_id: int = 0) -> None:
+                               read_id: int = 0,
+                               qpos_to_node_id: Optional[np.ndarray] = None
+                               ) -> None:
         """Fuse read `read_id`'s alignment into the graph
         (src/abpoa_graph.c:689-774). cigar is a list of packed 64-bit ops
-        (see cigar.py)."""
+        (see cigar.py). `qpos_to_node_id`, when given, receives the node
+        each aligned or inserted base lands on (the seeded route reads it)."""
         seq_l = len(seq)
         if weight is None:
             weight = np.ones(seq_l, dtype=np.int64)
         if self.node_n == 2:  # empty graph
-            self.add_sequence(abpt, seq, weight, read_id)
+            self.add_sequence(abpt, seq, weight, read_id, qpos_to_node_id)
             return
         rid, rw = abpt.use_read_ids, _add_read_weight(abpt)
         if not cigar:
@@ -345,6 +352,8 @@ class POAGraph:
                     if not add:
                         self.nodes[last_id].n_read -= 1
                     last_id, last_new = node_id, False
+                if qpos_to_node_id is not None:
+                    qpos_to_node_id[query_id] = last_id
             elif op in (C.CINS, C.CSOFT_CLIP, C.CHARD_CLIP):
                 length = (op_pack >> 4) & 0x3FFFFFFF
                 query_id += length
@@ -357,6 +366,8 @@ class POAGraph:
                     if not add:
                         self.nodes[last_id].n_read -= 1
                     last_id, last_new = new_id, True
+                    if qpos_to_node_id is not None:
+                        qpos_to_node_id[query_id - j] = last_id
             elif op == C.CDEL:
                 continue
         self.add_edge(last_id, end_node_id, not last_new, int(weight[seq_l - 1]),

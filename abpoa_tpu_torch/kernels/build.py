@@ -103,7 +103,7 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.abpoa_banded_dp.argtypes = [vp] * 19 + [ci] * 7 + [vp]
+    lib.abpoa_banded_dp.argtypes = [vp] * 20 + [ci] * 9 + [vp]
     lib.abpoa_banded_dp.restype = ci
     lib.abpoa_fused_dp.argtypes = [vp] * 16 + [ci] * 11 + [vp]
     lib.abpoa_fused_dp.restype = ci

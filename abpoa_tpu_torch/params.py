@@ -8,10 +8,11 @@ mutation, `abpoa_post_set_para` derivation in src/abpoa_align.c): construct
 does not cover yet, naming the ROADMAP item that will bring it. It covers
 progressive POA with linear, affine or convex gaps in global, local and
 extend mode, with consensus, MSA and GFA output, majority-vote consensus, up
-to 10 clustered consensus sequences, incremental `-i` and graph plots `-g`.
-The configurations that take the per-read route (`-i` with read-id outputs,
-`-Q` with `-d > 1`) need convex gaps in global mode (queue B, item 2).
-Nothing is rerouted.
+to 10 clustered consensus sequences, incremental `-i`, graph plots `-g`,
+minimizer-seeded windows `-S` and the guide-tree order `-p`. The
+configurations that take the per-read route (`-i` with read-id outputs,
+`-Q` with `-d > 1`) need global mode (queue B, item 2); `-b < 0` and `-G`
+are item 8, step 2. Nothing is rerouted.
 """
 from __future__ import annotations
 
@@ -71,15 +72,23 @@ def _not_in_slice(what: str, item: str, queue: str = "A") -> NotImplementedError
 
 
 def per_read_covers(abpt: "Params") -> bool:
-    """The per-read route (kernel B2) aligns with convex gaps in global mode
-    only; the B2 variants for the other modes are queue B, item 2."""
-    return abpt.gap_mode == C.CONVEX_GAP and abpt.align_mode == C.GLOBAL_MODE
+    """The per-read route (kernel B2) aligns in global mode, with any gaps;
+    its local and extend variants are queue B, item 2."""
+    return abpt.align_mode == C.GLOBAL_MODE
 
 
 def per_read_refusal(what: str) -> NotImplementedError:
-    return _not_in_slice(
-        f"{what} outside convex gaps in global mode (the per-read route)",
-        "2", queue="B")
+    return _not_in_slice(f"{what} outside global mode (the per-read route)",
+                         "2", queue="B")
+
+
+def plain_route(abpt: "Params") -> bool:
+    """True when the progressive loop runs in input order with no seeding
+    (abpoa_tpu/pipeline.py:234): the fused route or `pipeline.poa`. `-S`
+    and `-p` take the seeded route in global mode only; in local and extend
+    mode they are ignored, as in the JAX package."""
+    return ((abpt.disable_seeding and not abpt.progressive_poa)
+            or abpt.align_mode != C.GLOBAL_MODE)
 
 
 @dataclass
@@ -198,11 +207,9 @@ class Params:
         if self.align_mode not in (C.GLOBAL_MODE, C.LOCAL_MODE, C.EXTEND_MODE):
             raise ValueError(f"unknown alignment mode {self.align_mode}")
         if self.wb < 0 and self.align_mode != C.LOCAL_MODE:
-            raise _not_in_slice("unbanded alignment (-b < 0)", "8")
+            raise _not_in_slice("unbanded alignment (-b < 0)", "8, step 2")
         if self.inc_path_score:
-            raise _not_in_slice("path-score mode (-G)", "8")
-        if not self.disable_seeding or self.progressive_poa:
-            raise _not_in_slice("seeding and guide-tree order (-S/-p)", "8")
+            raise _not_in_slice("path-score mode (-G)", "8, step 2")
         # the configurations the JAX package sends to its host engine take
         # the per-read route here
         if not per_read_covers(self):

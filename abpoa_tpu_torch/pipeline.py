@@ -4,9 +4,10 @@ Counterpart of `abpoa_tpu/pipeline.py` (abPOA src/abpoa_align.c: abpoa_poa
 :313-353, abpoa_msa1 :474-540, abpoa_output :355-371): consensus, row-column
 MSA, GFA and the `-g` graph plot. With `-i` the graph of an earlier MSA or
 GFA is restored first (`io/restore.py`) and the new reads are aligned onto
-it. Two routes, chosen as the JAX package chooses them:
+it. Three routes, chosen as the JAX package chooses them:
 
-- the fused route (`_run_fused_device`, whenever `fused_eligible` holds):
+- the fused route (`_run_fused_device`, whenever `plain_route` and
+  `fused_eligible` hold):
   the whole progressive loop runs on the Params' device
   (`align/fused_loop.py`, kernels B1/B3, X1, S1, K1), from the empty graph
   or from the restored one (`-i` without read-id outputs), and the graph is
@@ -17,10 +18,14 @@ it. Two routes, chosen as the JAX package chooses them:
   (MSA, GFA, `-a 1`, `-d > 1`), `-Q` with `-d > 1` (per-read qv weights),
   and a set of one read, which launches B2 only when `-i` restored a graph
   (the first read of an empty graph becomes the graph as it is). B2
-  covers convex gaps in global mode; other configurations that would reach
-  it are refused before any output (queue B, item 2).
+  covers global mode; local and extend mode that would reach it are
+  refused before any output (queue B, item 2);
+- the seeded route (`-S` or `-p` in global mode, `seed.anchor_poa_pipeline`):
+  the reads in input or guide-tree order, each cut at its minimizer anchors
+  into windows that one batched B2 launch aligns, fused into the host graph
+  read by read, from the graph `-i` restored when there is one.
 
-A failure on the card raises; nothing falls back to the other route.
+A failure on the card raises; nothing falls back to another route.
 The outputs are read out of the host graph at the end.
 """
 from __future__ import annotations
@@ -39,7 +44,7 @@ from .cons.msa import generate_rc_msa
 from .graph import POAGraph
 from .io.fastx import read_fastx
 from .io.output import generate_gfa, output_fx_consensus, output_rc_msa
-from .params import Params, per_read_covers, per_read_refusal
+from .params import Params, per_read_covers, per_read_refusal, plain_route
 from .quarantine import validate_records
 
 
@@ -180,7 +185,10 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
         restore_graph(ab, abpt)
     exist_n_seq = ab.n_seq
     seqs, weights = _ingest_records(ab, abpt, records)
-    if fused_eligible(abpt, len(seqs)):
+    if not plain_route(abpt):
+        from .seed import anchor_poa_pipeline
+        anchor_poa_pipeline(ab, abpt, seqs, weights, exist_n_seq)
+    elif fused_eligible(abpt, len(seqs)):
         _run_fused_device(ab, abpt, seqs, weights, exist_n_seq)
     else:
         if ab.graph.node_n > 2 and not per_read_covers(abpt):

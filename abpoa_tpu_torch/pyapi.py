@@ -6,9 +6,9 @@ Counterpart of `abpoa_tpu/pyapi.py` (abPOA python/pyabpoa.pyx):
 objects. Like the binding, it aligns one read, fuses it, and goes on to the
 next: each read is aligned by kernel B2 on the aligner's device (the
 per-read route, `align/banded.py`) and fused into the host graph. B2 covers
-convex gaps in global mode; an aligner in local or extend mode, or with
-other gaps, raises NotImplementedError before it aligns anything (ROADMAP.md
-queue B, item 2).
+global mode with linear, affine or convex gaps; an aligner in local or
+extend mode raises NotImplementedError before it aligns anything
+(ROADMAP.md queue B, item 2).
 
 Two choices differ from the JAX package: `device` defaults to "cuda" (the
 port's rule: the card unless the caller asks for the CPU), and `lockstep`

@@ -2,7 +2,7 @@
 """On-card smoke run of abpoa_tpu_torch, the PyTorch/CUDA port of abpoa-tpu.
 
     python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
-                          [--c5-reads I] [--c6-reads Q]
+                          [--c5-reads I] [--c6-reads Q] [--c7-reads S]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -13,7 +13,16 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          of tests/data/sim2k.fa, including a forced band overflow relaunched
          up to W > 1024; the `-s` retry's re-seeded launch on rcmix.fa; a
          simulated 20 kb read relaunched up to W > 16384 (32 columns a
-         thread); a sweep of B2's column warps at W = 512
+         thread); a sweep of B2's column warps at W = 512; B2's affine and
+         linear instantiations on the sim2k tables. B2 batched over a read's
+         windows (one block a window), in each gap mode: the windows of
+         sim2k's 4th read (-S -k 11 -w 5 -n 50: at abPOA's k = 19 sim2k's
+         reads get one window each) with a window 100 rows back past the
+         ring, one of only its two ends and an empty query (a forced
+         adjacent-anchor spec) in one launch, against the plain version
+         window by window, at the first W and at W = 64 (some windows
+         overflow); those 4 reads on cuda == on cpu; the read's windows from
+         W = 32 end to end, the overflowed part relaunched, cuda == cpu
   A2     on sim2k tables: kernel B1 (fused_dp) against its plain version in
          every variant (linear/affine/convex x global/extend+Z-drop/local x
          int16/int32), B3 as B1's local instantiation at sim2k's local width
@@ -42,7 +51,11 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          the repository root); seq4.fa -i seq10.gfa with -r 1, -r 3 and
          -d 2 (B2, no B1), seq4.fa -i seq10.msa -m 1 (B3 from a restored
          state), seq.fa -g's .dot file and pyapi.msa_aligner().msa on
-         seq.fa's reads (B2) equal the port's CPU runs
+         seq.fa's reads (B2) equal the port's CPU runs. The seeded route
+         (B2 batched, no B1): seq.fa -S -p, rcmix.fa -s -S [-p] -n 200
+         reproduce their goldens; sim2k's first 6 reads with -S -n 200
+         (and -O 0, -O 4) and -S -p -n 200 -r 1, seq4.fa -i seq10.gfa -S
+         -r 1 and seq.fa -p -O 0 equal the port's CPU runs
   C      the main path at full width: N ONT-like 10 kb reads at 10 % error
          (made here from a fixed seed) through the CLI on cuda, the fused
          route; the kernel counts are set to 0 before and read after (S1 at
@@ -85,6 +98,15 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          line spells its read, B2 launches >= Q - 1 and B1 none; purity
          and identity to each haplotype printed; the wall split into B2,
          the copy, the host and the clustering
+  C7     the seeded user at full width: S reads (200) of phase C's set with
+         -S at abPOA's k = 19, w = 10, n = 500 (a), half of them with -S -p
+         (b), through the CLI: windows a read, B2 launches (one a read plus
+         relaunches, no B1), the per-read split (tables, B2, the planes'
+         copy, backtrack, fusion and sort), the guide tree's seconds, the
+         identity to the reference (>= 0.99) and to phase C's consensus.
+         When fewer than half the reads get two windows at 10 % error
+         (anchors rarely survive it), C7 runs on reads of the same
+         reference at 5 % error, and says so
   D      at the graph phase C left and one more read: B1, X1, S1 and K1
          against their plain versions with times and bounds (B1 also per
          computed row, X1 per step, K1 per pass, in both degree variants
@@ -97,9 +119,11 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          bound, ring share, warp sweep) and at C5 (b)'s per-read graph (C3's
          restored MSA and 20 new reads, the largest graph the CLI launches
          B2 on, in C5 (c)); the kernel table's B2 row takes its time, plain
-         time and bound from the latter
-Quick form (~3 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
---c5-reads 6 --c6-reads 10.
+         time and bound from the latter; B2 batched (the banded_dp[windows]
+         row) on the first launch of C7 (a)'s last read: its windows at the
+         graph the reads before it built, with the longest window alone
+Quick form (~4 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
+--c5-reads 6 --c6-reads 10 --c7-reads 12.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero with no result when there is no
 CUDA device or no checkout of the repository beside this script.
@@ -279,12 +303,34 @@ def compare(name: str, kernel_out, plain_out) -> int:
     return worst
 
 
+def b2_windows(args, out):
+    """Per window of a batched B2 launch (args: banded_dp's 12 tensors):
+    (first row, rows, gn, its beg, its end, its ok (1,))."""
+    roff = args[11].tolist()
+    for b in range(len(roff) - 1):
+        r0, R = roff[b], roff[b + 1] - roff[b]
+        be = out[5][2 * r0: 2 * (r0 + R)]
+        yield r0, R, int(args[0][b][10]), be[:R], be[R:], out[7][b:b + 1]
+
+
 def compare_dp(name: str, got, want, args) -> tuple:
-    """compare() for B1/B3 outputs, or B2's (args of banded_dp: 11 tensors),
-    over the plane rows the kernel defines (0..last computed; the kernel
-    leaves later rows as allocated). Returns (max abs difference, rows
-    compared)."""
+    """compare() for B1/B3 outputs, or B2's (args of banded_dp: 11 tensors,
+    one window, or 12, a batch), over the plane rows the kernel defines
+    (0..last computed of each window; the kernel leaves later rows as
+    allocated). Returns (max abs difference, rows compared)."""
     from abpoa_tpu_torch.align.fused_dp_kernel import computed_rows
+    if len(args) == 12:  # a batch of windows: each window's computed rows
+        import torch
+        keep, total = [], 0
+        for r0, R, gn, beg, end, ok in b2_windows(args, want):
+            rows = computed_rows(beg.cpu(), end.cpu(), ok.cpu(), gn,
+                                 want[0].shape[1])
+            keep.append(torch.arange(r0, r0 + rows))
+            total += rows
+        idx = torch.cat(keep)
+        cut = lambda out: [t[idx.to(t.device)] if k < 5 else t  # noqa: E731
+                           for k, t in enumerate(out)]
+        return compare(name, cut(got), cut(want)), total
     if len(args) == 11:  # B2: begend (2R,), gn at scalars[10]
         R = want[5].shape[0] // 2
         beg, end, gn = want[5][:R], want[5][R:], int(args[0][10])
@@ -371,6 +417,25 @@ def dp_bound(rates, args, out):
     argmax (22)."""
     import numpy as np
     planes = out[:5]
+    if len(args) == 12:  # a batch: each window's computed rows, summed
+        W = planes[0].shape[1]
+        row_bytes = (sum(t[0].numel() * t.element_size() for t in args[1:9])
+                     + sum(W * p.element_size() for p in planes) + 2 * 4)
+        rows_all = ops = 0
+        for r0, R, gn, beg, end, ok in b2_windows(args, out):
+            b, e = [x.cpu().numpy().astype(np.int64) for x in (beg, end)]
+            rows = gn - 1
+            wide = np.nonzero(e[1:rows] - b[1:rows] + 1 > W)[0]
+            if wide.size:
+                rows = int(wide[0]) + 2
+            cells = np.clip(e[:rows] - b[:rows] + 1, 0, W)
+            cells[0] = 0
+            npre = args[3][r0: r0 + rows].cpu().numpy().astype(np.int64)
+            ops += float((cells * (3 * npre + 22)).sum())
+            rows_all += rows
+        # scalars, row 0, the query profiles, roff, ok and every row's mplr
+        fixed = nbytes((args[0], args[9], args[10], args[11], out[7], out[6]))
+        return rates.bound(fixed + rows_all * row_bytes, ops)
     if len(args) == 11:  # B2: begend (2R,), gn at scalars[10]
         R = out[5].shape[0] // 2
         beg, end, gn = out[5][:R], out[5][R:], int(args[0][10])
@@ -926,7 +991,7 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
     for route, ab in (("fused", ab_f), ("per-read", ab_r)):
         seqs, weights = _ingest_records(ab, abpt5, recs5)
         banded_dp.launches = fused_dp.launches = 0
-        banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
+        banded.reset_stats()
         t0 = time.perf_counter()
         if route == "fused":
             pl._run_fused_device(ab, abpt5, seqs, weights, exist5)
@@ -958,7 +1023,7 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
     split5c = {}
     undo = [timed(restore_mod, "restore_graph", split5c, "restore"),
             timed(pl, "poa", split5c, "poa")]
-    banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
+    banded.reset_stats()
     fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
     t0 = time.perf_counter()
     run_cli([fa5b, "-i", msa5, "-r", "1", "-o", out5c])
@@ -1023,7 +1088,7 @@ def phase_c6(args, h1, h2) -> int:
     undo = [timed(cluster_mod, "multip_read_clu_kmedoids", split6, "cluster"),
             timed(pl, "poa", split6, "poa"),
             timed(pl, "generate_gfa", split6, "gfa")]
-    banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
+    banded.reset_stats()
     fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
     t0 = time.perf_counter()
     ab6 = run_pipeline([fq6, "-d", "2", "-Q", "-r", "4"], out6)
@@ -1067,6 +1132,276 @@ def phase_c6(args, h1, h2) -> int:
     return b2_c6
 
 
+# flags of the seeded runs on sim2k's 2 kb reads that give each read several
+# windows: at abPOA's k = 19, w = 10 its reads share no chained anchor, so
+# -S -n 200 gives one window a read
+SIM2K_WINDOWS = ["-S", "-k", "11", "-w", "5", "-n", "50"]
+
+
+def record_windows():
+    """Wrap `dispatch.align_windows` and `banded.run_windows`: returns (calls,
+    undo); calls gets, per aligned read, {"windows": [(beg, end, query)],
+    "launches": [(tables, queries, W) of each B2 launch]}."""
+    from abpoa_tpu_torch.align import banded, dispatch
+    calls = []
+    real_aw, real_rw = dispatch.align_windows, banded.run_windows
+
+    def aw(g, abpt, windows):
+        calls.append({"windows": list(windows), "launches": []})
+        return real_aw(g, abpt, windows)
+
+    def rw(abpt, tabs, queries, W):
+        if calls:
+            calls[-1]["launches"].append((list(tabs), list(queries), W))
+        return real_rw(abpt, tabs, queries, W)
+
+    dispatch.align_windows, banded.run_windows = aw, rw
+
+    def undo():
+        dispatch.align_windows, banded.run_windows = real_aw, real_rw
+    return calls, undo
+
+
+def far_window(cpu):
+    """Row tables and query of a window whose predecessor lies 100 rows
+    back, past B2's shared-memory ring: a 400-base chain and a copy of it
+    without bases 150..249 fused onto it."""
+    import numpy as np
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.tables import build_row_tables
+    from abpoa_tpu_torch.graph import POAGraph
+    rng = np.random.default_rng(3)
+    s1 = rng.integers(0, 4, 400).astype(np.uint8)
+    s2 = np.concatenate([s1[:150], s1[250:]])
+    g = POAGraph()
+    g.add_alignment(cpu, s1, None, [], True)
+    g.add_alignment(cpu, s2, None,
+                    banded.align_sequence_to_subgraph(g, cpu, 0, 1, s2).cigar, True)
+    t = build_row_tables(g, 0, 1)
+    rr = np.arange(t.gn)[:, None]
+    live = np.arange(t.pre_idx.shape[1])[None, :] < t.pre_cnt[:t.gn, None]
+    back = int(((rr - t.pre_idx[:t.gn]) * live).max())
+    if back < 100:
+        raise AssertionError(f"far window: predecessors {back} rows back")
+    return t, s1, back
+
+
+def two_node_window(g):
+    """Row tables of a window with only its two ends (gn = 2): a node and
+    its successor next in the topological order."""
+    from abpoa_tpu_torch.align.tables import build_row_tables
+    i2n, n2i = g.index_to_node_id, g.node_id_to_index
+    for i in range(1, g.node_n - 2):
+        a, b = int(i2n[i]), int(i2n[i + 1])
+        if b in g.nodes[a].out_ids:
+            t = build_row_tables(g, a, b)
+            if t.gn == 2:
+                return t
+    raise AssertionError("no two-node window in the graph")
+
+
+def phase_a_windows(dev, data_dir, max_err) -> None:
+    """Phase A, batched B2: the windows of sim2k's 4th read (SIM2K_WINDOWS)
+    in each gap mode, with a window of only its two ends, a window whose
+    predecessor is past the ring and an empty query (the forced
+    adjacent-anchor spec: the first window's subgraph, no bases), one launch
+    held against the plain version window by window; a narrower launch in
+    which only some windows overflow; the seeded route on cuda == on cpu;
+    the relaunch of the overflowed part of a batch, end to end."""
+    import copy
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
+    from abpoa_tpu_torch.align.fused_dp_kernel import launch_shape
+    from abpoa_tpu_torch.align.tables import initial_band_width
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.params import Params
+    sim2k = read_fastx(os.path.join(data_dir, "sim2k.fa"))
+    fa = os.path.join(OUT, "sim2k_4w.fa")
+    with open(fa, "w") as fp:
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in sim2k[:4]))
+    cpu = Params(device="cpu").finalize()
+    far_t, far_q, back = far_window(cpu)
+    gaps = {"convex": ([], {}), "affine": (["-O", "4"], {"gap_open2": 0}),
+            "linear": (["-O", "0"], {"gap_open1": 0, "gap_open2": 0})}
+    for gname, (flags, kw) in gaps.items():
+        outs = {}
+        for device in ("cuda", "cpu"):
+            calls, undo = record_windows()
+            try:
+                ab = run_pipeline([fa, *SIM2K_WINDOWS, *flags, "--device", device],
+                                  os.path.join(OUT, f"sim2k_4w_{gname}.{device}"))
+            finally:
+                undo()
+            with open(os.path.join(OUT, f"sim2k_4w_{gname}.{device}")) as fp:
+                outs[device] = fp.read()
+            if device == "cuda":
+                last, g = calls[-1], ab.graph
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"sim2k {SIM2K_WINDOWS} {flags} on cuda differs from cpu")
+        p = Params(device="cuda", **kw).finalize()
+        tabs, queries, _ = last["launches"][0]
+        tabs = [tabs[0], far_t, *tabs[1:], two_node_window(g), tabs[0]]
+        queries = [queries[0], far_q, *queries[1:], queries[0][:7], queries[0][:0]]
+        W0 = max(initial_band_width(p, len(q)) for q in queries)
+        for W in (W0, 64):
+            ts = to_dev(banded.pack_windows(p, tabs, queries, W), dev)
+            got = banded_dp(*ts, gap_mode=p.gap_mode)
+            torch.cuda.synchronize()
+            plain_ms, want = time_host(lambda: banded_dp_torch(*ts, gap_mode=p.gap_mode))
+            err, rows = compare_dp(f"banded_dp windows {gname} W={W}", got, want, ts)
+            max_err["banded_dp[windows]"] = max(max_err["banded_dp[windows]"], err)
+            ok = got[7].tolist()
+            if W == W0 and not all(ok):
+                raise AssertionError(f"windows {gname} W={W}: ok {ok}")
+            if W != W0 and (all(ok) or not any(ok)):
+                raise AssertionError(f"windows {gname} W={W}: ok {ok}, want some overflow")
+            ls = launch_shape(W, ts[2].shape[1], p.gap_mode, seeded=True)
+            log(f"[A] B2 batched, {gname}: {len(tabs)} windows of sim2k read 4 "
+                f"({' '.join(SIM2K_WINDOWS)}; one {back} rows back past the ring "
+                f"D={ls['depth']}, one of gn = 2, one empty query), W={W}, "
+                f"{ls['block_warps']} warps: kernel == plain on {rows} computed "
+                f"rows, begend, mplr, ok {ok} (plain {plain_ms:.1f} ms)")
+        # the relaunch of the windows that overflowed, end to end, from
+        # copies of the final graph, cuda against cpu
+        res, mp = [], []
+        for p_dev in (p, Params(device="cpu", **kw).finalize()):
+            gc = copy.deepcopy(g)
+            before = banded.retries
+            calls_r, undo = record_windows()
+            try:
+                calls_r.append({"windows": last["windows"], "launches": []})
+                res.append(banded.align_windows_banded(gc, p_dev, last["windows"], 32))
+            finally:
+                undo()
+            sizes = [len(tb) for tb, _, _ in calls_r[-1]["launches"]]
+            if banded.retries == before or len(sizes) < 2 or sizes[1] >= sizes[0]:
+                raise AssertionError(f"relaunch at W=32: launch sizes {sizes}")
+            mp.append((gc.node_id_to_max_pos_left.copy(), gc.node_id_to_max_pos_right.copy()))
+        if [(r.cigar, r.best_score) for r in res[0]] != [(r.cigar, r.best_score) for r in res[1]] \
+                or not all(np.array_equal(a, b) for a, b in zip(*mp)):
+            raise AssertionError(f"relaunch at W=32, {gname}: cuda differs from cpu")
+        log(f"[A] seeded route, {gname}: sim2k 4 reads {' '.join(SIM2K_WINDOWS)} "
+            f"{' '.join(flags)} on cuda == on cpu; read 4's "
+            f"{len(last['windows'])} windows from W=32: launches of {sizes} "
+            f"windows (the overflowed part relaunched), results and mpl/mpr on "
+            f"cuda == on cpu")
+
+
+def phase_c7(args, ref: str, reads: list, fused_cons: str):
+    """Phase C7: the seeded user at full width. (a) the first --c7-reads of
+    phase C's set with -S at abPOA's k, w and n; (b) half of them with
+    -S -p. Returns (B2 launches of both, (row tables, queries, W) of the
+    first launch of (a)'s last read, Params of the run)."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch import seed as seed_mod
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.graph import POAGraph
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.params import Params
+    n7 = args.c7_reads
+    p7 = Params(device="cuda", disable_seeding=False).finalize()
+    # windows a read at 10 % error, from the seeding alone
+    t0 = time.perf_counter()
+    _, _, par_c = seed_mod.build_guide_tree_partition(
+        [encode(p7, r) for r in reads[:n7]], p7)
+    multi = sum(par_c[i] > par_c[i - 1] for i in range(1, n7))
+    err = 0.10
+    log(f"[C7] at 10 % error (phase C's reads), k={p7.k} w={p7.w} n={p7.min_w}: "
+        f"{multi} of {n7 - 1} reads get >= 2 windows (seeding "
+        f"{time.perf_counter() - t0:.2f} s)")
+    if multi < (n7 - 1) / 2:
+        # too few anchors survive 10 % error in both reads of a pair to
+        # chain: the batch would not be exercised. A newer ONT chemistry's
+        # 5 % error, same reference (same seed), same k, w and n
+        err = 0.05
+        ref, reads = simulate(args.ref_len, n7, err, args.seed)
+        log("[C7] fewer than half the reads get >= 2 windows at 10 % error: "
+            "C7 runs on reads of the same reference at 5 % error")
+    fa7 = os.path.join(OUT, "seeded.fa")
+    with open(fa7, "w") as fp:
+        fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads[:n7])))
+    total_b2, last = 0, None
+    for tag, n, flags in (("(a)", n7, ["-S"]), ("(b)", n7 // 2, ["-S", "-p"])):
+        fa = fa7
+        if n != n7:
+            fa = os.path.join(OUT, f"seeded_{n}.fa")
+            with open(fa, "w") as fp:
+                fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads[:n])))
+        split = {}
+        calls, undo_w = record_windows()
+        undo = [undo_w, timed(seed_mod, "build_guide_tree", split, "tree"),
+                timed(seed_mod, "build_guide_tree_partition", split, "seeding"),
+                timed(POAGraph, "add_subgraph_alignment", split, "fusion")]
+        banded.reset_stats()
+        retries = banded.retries
+        fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+        out7 = os.path.join(OUT, f"seeded_cons{tag[1]}.fa")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            run_cli([fa, *flags, "-o", out7])
+        finally:
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        st = dict(banded.stats)
+        b2 = banded_dp.launches
+        total_b2 += b2
+        wins = [len(c["windows"]) for c in calls if c["windows"]]
+        relaunches = banded.retries - retries
+        if fused_dp.launches or fused_dp.local_launches:
+            raise AssertionError(f"C7 {tag}: B1 launched on the seeded route")
+        if b2 != len(wins) + relaunches or len(wins) < n - 1:
+            raise AssertionError(f"C7 {tag}: {b2} B2 launches for {len(wins)} "
+                                 f"aligned reads and {relaunches} relaunches")
+        cons = read_fastx(out7)
+        if len(cons) != 1 or not set(cons[0].seq) <= set("ACGT"):
+            raise AssertionError(f"C7 {tag}: expected one ACGT consensus")
+        ident = 1 - edit_distance(cons[0].seq, ref) / len(ref)
+        ident_c = 1 - edit_distance(cons[0].seq, fused_cons) / len(fused_cons)
+        nr = max(1, st["reads"])
+        per = lambda x: f"{x * 1e3 / nr:.1f}"  # noqa: E731
+        host = st["tables_s"] + st["d2h_s"] + st["backtrack_s"]
+        log(f"[C7] {tag} {n} reads x {args.ref_len} bp at {err * 100:.0f} % error, "
+            f"{' '.join(flags)} (k={p7.k} w={p7.w} n={p7.min_w}) through the CLI "
+            f"on cuda: wall {wall:.2f} s ({n / wall:.3f} reads/s); windows a read "
+            f"min {min(wins)} / median {int(np.median(wins))} / max {max(wins)} "
+            f"({sum(wins)} in {len(wins)} aligned reads); B2 launches {b2} = "
+            f"{len(wins)} reads + {relaunches} relaunches, B1 none; "
+            f"{st['rows']} DP rows launched")
+        log(f"[C7] {tag} per aligned read (ms): tables {per(st['tables_s'])}, B2 "
+            f"{per(st['kernel_s'])} (CUDA events), planes' copy "
+            f"{per(st['d2h_s'])}, best cell + backtrack {per(st['backtrack_s'])}, "
+            f"fusion + sort {per(split.get('fusion', 0.0))}; the rest of the loop "
+            f"{per(wall - split.get('seeding', 0.0) - st['kernel_s'] - host - split.get('fusion', 0.0))}"
+            f"; seeding {split.get('seeding', 0.0):.2f} s of which the guide tree "
+            f"{split.get('tree', 0.0):.2f} s; pinned planes buffer "
+            f"{banded._pinned[0].numel() * 4 / 2**20:.1f} MiB")
+        log(f"[C7] {tag} consensus length {len(cons[0].seq)}, identity to the "
+            f"reference {ident:.5f}, to phase C's fused consensus {ident_c:.5f}")
+        if ident < 0.99:
+            raise AssertionError(f"C7 {tag}: consensus identity {ident:.5f} < 0.99")
+        if tag == "(a)":
+            last = calls[-1]["launches"][0]
+    return total_b2, last, p7
+
+
+def longest_window(args):
+    """banded_dp's inputs for the window with the most rows of a batch."""
+    import torch
+    roff = args[11].tolist()
+    b = max(range(len(roff) - 1), key=lambda k: roff[k + 1] - roff[k])
+    r0, r1 = roff[b], roff[b + 1]
+    one = torch.tensor([0, r1 - r0], dtype=torch.int32, device=args[0].device)
+    return (args[0][b:b + 1].contiguous(), *(t[r0:r1].contiguous() for t in args[1:9]),
+            args[9][b:b + 1].contiguous(), args[10][b:b + 1].contiguous(), one)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=500)
@@ -1075,6 +1410,7 @@ def main() -> int:
     ap.add_argument("--c4-reads", type=int, default=200)
     ap.add_argument("--c5-reads", type=int, default=100)
     ap.add_argument("--c6-reads", type=int, default=100)
+    ap.add_argument("--c7-reads", type=int, default=200)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -1131,8 +1467,9 @@ def main() -> int:
     dev = torch.device("cuda")
     abpt = Params(device="cuda").finalize()
     cpu = Params(device="cpu").finalize()
-    max_err = {k: 0 for k in ("banded_dp", "fused_dp", "fused_dp[local]",
-                              "backtrack", "edge_sort", "topo_sort")}
+    max_err = {k: 0 for k in ("banded_dp", "banded_dp[windows]", "fused_dp",
+                              "fused_dp[local]", "backtrack", "edge_sort",
+                              "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
 
     # ---- A: B2 vs plain (the per-read route's kernel, B1's seeded
@@ -1144,15 +1481,15 @@ def main() -> int:
         ts = to_dev([qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
                      t.out_cnt, t.remain, t.mpl0, t.mpr0, qt["qp_pad"],
                      qt["row0"]], dev)
-        got = banded_dp(*ts)
+        got = banded_dp(*ts, gap_mode=p.gap_mode)
         torch.cuda.synchronize()
-        plain_ms, want = time_host(lambda: banded_dp_torch(*ts))
+        plain_ms, want = time_host(lambda: banded_dp_torch(*ts, gap_mode=p.gap_mode))
         err, rows = compare_dp(f"banded_dp {tag}", got, want, ts)
         max_err["banded_dp"] = max(max_err["banded_dp"], err)
         ok = int(got[7].item())
         if want_ok is not None and ok != want_ok:
             raise AssertionError(f"B2 {tag} W={W}: ok={ok}, expected {want_ok}")
-        ls = launch_shape(W, t.pre_idx.shape[1], abpt.gap_mode, seeded=True)
+        ls = launch_shape(W, t.pre_idx.shape[1], p.gap_mode, seeded=True)
         log(f"[A] B2 {tag} R={t.R} gn={t.gn} W={W} P={t.pre_idx.shape[1]} "
             f"({ls['block_warps']} warps, cpt {ls['cpt']}, ring D={ls['depth']}) "
             f"ok={ok}: kernel == plain on rows 0..{rows - 1}, begend, mplr, ok"
@@ -1168,6 +1505,10 @@ def main() -> int:
     g.topological_sort(abpt)
     query = encode(cpu, sim2k[3])
     b2_case("sim2k", abpt, g, query, initial_band_width(abpt, len(query)), 1)
+    for gname, gkw in (("affine", {"gap_open2": 0}),
+                       ("linear", {"gap_open1": 0, "gap_open2": 0})):
+        p = Params(device="cuda", **gkw).finalize()
+        b2_case(f"sim2k {gname}", p, g, query, initial_band_width(p, len(query)), 1)
     ts512, _, want512, _, _ = b2_case("sim2k", abpt, g, query, 512, 1)
     wide = Params(device="cuda", wb=600).finalize()
     W = 512
@@ -1215,6 +1556,7 @@ def main() -> int:
     del ts20
     torch.cuda.empty_cache()
     sweep_warps("A B2 sim2k", ts512, None, want512)
+    phase_a_windows(dev, os.path.join(ROOT, "tests", "data"), max_err)
 
     # ---- A2: B1 (every variant), B3, X1, K1 vs plain on sim2k tables
     sim2k_enc = [encode(cpu, s) for s in sim2k]
@@ -1467,6 +1809,32 @@ def main() -> int:
         raise AssertionError("pyapi msa on cuda differs from cpu")
     check_route("pyapi.msa_aligner().msa(seq.fa, out_cons, out_msa) on cuda == "
                 "on cpu", b1, b2, "B2")
+    # the seeded route (-S, -p): B2 batched over each read's windows
+    for fa_b, flags, name in (
+            ("seq.fa", ["-S", "-p"], "seq_Sp"),
+            ("rcmix.fa", ["-s", "-S", "-n", "200"], "rcmix_sS"),
+            ("rcmix.fa", ["-s", "-S", "-p", "-n", "200"], "rcmix_sSp")):
+        out_b = os.path.join(OUT, f"{name}.fa")
+        b1, b2 = launches_of(lambda: run_cli([data(fa_b), "-o", out_b, *flags]))
+        same_files(out_b, os.path.join(ROOT, "tests", "golden", f"{name}.txt"),
+                   f"{fa_b} {' '.join(flags)} on cuda and {name}.txt")
+        check_route(f"{fa_b} {' '.join(flags)} on cuda == tests/golden/{name}.txt",
+                    b1, b2, "B2")
+    fa6 = os.path.join(OUT, "sim2k_6.fa")
+    with open(fa6, "w") as fp:
+        fp.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(sim2k[:6])))
+    for k_b, argv in enumerate((
+            [fa6, "-S", "-n", "200"], [fa6, "-S", "-n", "200", "-O", "0"],
+            [fa6, "-S", "-n", "200", "-O", "4"],
+            [fa6, "-S", "-p", "-n", "200", "-r", "1"],
+            [data("seq4.fa"), "-i", data("seq10.gfa"), "-S", "-r", "1"],
+            [data("seq.fa"), "-p", "-O", "0"])):
+        what = " ".join(os.path.basename(a) for a in argv)
+        outs_b = [os.path.join(OUT, f"seeded_{k_b}.{d}") for d in ("cuda", "cpu")]
+        b1, b2 = launches_of(lambda: run_cli(argv + ["-o", outs_b[0]]))
+        run_cli(argv + ["--device", "cpu", "-o", outs_b[1]])
+        same_files(*outs_b, f"{what} on cuda and cpu")
+        check_route(f"{what} on cuda == on cpu", b1, b2, "B2")
 
     # ---- C: the main path at full width, the fused route
     ref, reads = simulate(args.ref_len, args.reads + 1, 0.10, args.seed)
@@ -1534,7 +1902,7 @@ def main() -> int:
         ab = Abpoa()
         seqs, weights = _ingest_records(ab, abpt, recs)
         banded_dp.launches = 0
-        banded.stats.update(reads=0, rows=0, kernel_s=0.0, d2h_s=0.0)
+        banded.reset_stats()
         t0 = time.perf_counter()
         if route == "per-read":
             poa(ab, abpt, seqs, weights, 0)
@@ -1681,6 +2049,7 @@ def main() -> int:
 
     b2_c5, graph5 = phase_c5(args, ref, rows[:n], msa_len)
     b2_c6 = phase_c6(args, h1, h2)
+    b2_c7, c7_last, p7 = phase_c7(args, ref, reads, cons[0].seq)
 
     # ---- D: kernels vs plain at the main path's shape
     qd = encode(cpu, held_out)
@@ -1849,6 +2218,29 @@ def main() -> int:
     del ts, want
     b2_ms, b2_plain_ms, b2_bnd, _, _ = b2_at(
         "C5's per-read graph (C3's restored MSA and the new reads)", graph5)
+    # B2 batched over a read's windows: the first launch of C7 (a)'s last
+    # read, at the graph the reads before it built
+    tabs7, q7, W7 = c7_last
+    ts = to_dev(banded.pack_windows(p7, tabs7, q7, W7), dev)
+    got = banded_dp(*ts, gap_mode=p7.gap_mode)
+    torch.cuda.synchronize()
+    b2w_plain_ms, want = time_host(lambda: banded_dp_torch(*ts, gap_mode=p7.gap_mode))
+    err, rows_w = compare_dp("banded_dp D windows", got, want, ts)
+    max_err["banded_dp[windows]"] = max(max_err["banded_dp[windows]"], err)
+    b2w_ms = time_cuda(lambda: banded_dp(*ts, gap_mode=p7.gap_mode), 3)
+    b2w_bnd = dp_bound(rates, ts, got)
+    gns = [t.gn for t in tabs7]
+    shape_w = launch_shape(W7, ts[2].shape[1], p7.gap_mode, seeded=True)
+    log(f"[D] B2 batched at C7 (a)'s graph (its last read's {len(tabs7)} "
+        f"windows, {len(tabs7)} blocks; gn min {min(gns)} / max {max(gns)} / "
+        f"sum {sum(gns)}, W={W7}, P={ts[2].shape[1]}; {shape_w['block_warps']} "
+        f"warps, cpt {shape_w['cpt']}, ring D={shape_w['depth']}): kernel == "
+        f"plain on {rows_w} computed rows, begend, mplr, ok; kernel "
+        f"{b2w_ms:.3f} ms ({b2w_ms * 1e3 / max(1, rows_w - len(tabs7)):.3f} us a "
+        f"computed row), plain {b2w_plain_ms:.1f} ms, bound {b2w_bnd[0]:.4f} ms "
+        f"({b2w_bnd[1]}); the longest window alone "
+        f"{time_cuda(lambda: banded_dp(*longest_window(ts), gap_mode=p7.gap_mode), 3):.3f} ms")
+    del ts, want, got
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launched, ms, plain_ms, bnd):
@@ -1862,6 +2254,9 @@ def main() -> int:
               "abpoa_tpu/align/pallas_kernel.py:215",
               b2_launches + b2_c5 + b2_c6, b2_ms,
               b2_plain_ms, b2_bnd),
+        entry("banded_dp[windows]", "abpoa_tpu_torch/csrc/fused_dp.cu",
+              "abpoa_tpu/align/jax_backend.py:512", b2_c7, b2w_ms,
+              b2w_plain_ms, b2w_bnd),
         entry("fused_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/pallas_fused.py:696", launches["fused_dp"],
               b1_ms, b1_plain_ms, b1_bound),

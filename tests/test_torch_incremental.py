@@ -91,7 +91,7 @@ def test_one_read_onto_a_restored_graph_matches_jax_cli(tmp_path, flags):
 
 
 @pytest.mark.parametrize("args", [
-    ["seq4.fa", "-i", "seq10.gfa", "-r", "1", "-O", "0"],
+    ["seq4.fa", "-i", "seq10.gfa", "-r", "1", "-m", "1"],
     ["seq4.fa", "-i", "seq10.msa", "-d", "2", "-m", "2"],
     ["heter.fq", "-Q", "-d", "2", "-m", "1"],
 ])
@@ -107,7 +107,7 @@ def test_per_read_configs_outside_b2_raise(args, capsys):
 def test_one_read_outside_b2_raises_before_output(tmp_path, capsys):
     path = tmp_path / "one.fa"
     path.write_text(">r\nCGTCAATCTATCGAAGCATACGCGGCAGAGCCGAAGACC\n")
-    argv = [str(path), "-i", _path("seq10.gfa"), "-O", "0", "--device", "cpu"]
+    argv = [str(path), "-i", _path("seq10.gfa"), "-m", "2", "--device", "cpu"]
     assert cli.main(argv) == 1
     out = capsys.readouterr()
     assert out.out == "" and "queue B, item 2" in out.err
@@ -123,11 +123,11 @@ def test_list_with_incremental_outside_b2_raises_before_output(tmp_path, capsys)
     one.write_text(">r\nCGTCAATCTATCGAAGCATACGCGGCAGAGCCGAAGACC\n")
     lst = tmp_path / "list.txt"
     lst.write_text(f"{_path('seq4.fa')}\n{one}\n")
-    argv = [str(lst), "-l", "-i", _path("seq10.gfa"), "-O", "0", "--device", "cpu"]
+    argv = [str(lst), "-l", "-i", _path("seq10.gfa"), "-m", "2", "--device", "cpu"]
     assert cli.main(argv) == 1
     out = capsys.readouterr()
     assert out.out == "" and "queue B, item 2" in out.err
-    # with read ids in convex + global the same list runs, set by set
+    # with read ids in global mode the same list runs, set by set
     argv = [str(lst), "-l", "-i", _path("seq10.gfa"), "-r", "1", "--device", "cpu"]
     assert cli.main(argv) == 0
     assert capsys.readouterr().out.count(">") > 0

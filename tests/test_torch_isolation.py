@@ -4,10 +4,11 @@
     `abpoa_tpu` module (checked in a fresh interpreter).
 (e) with no CUDA device, the default `Params()` and the CLI raise instead of
     running on the CPU, and `device="cpu"` runs.
-Configurations outside the ported slice raise NotImplementedError, among
-them the per-read route's outside convex gaps in global mode (queue B, item
-2); those with read-id outputs (MSA, GFA, `-a 1`, `-d > 1`) finalize with
-`use_read_ids` set, and `-i`, `-Q -d 2`, `-g` and `-l` finalize and run.
+Configurations outside the ported slice raise NotImplementedError: `-b < 0`
+and `-G` (queue A item 8, step 2) and the per-read route's outside global
+mode (queue B, item 2); those with read-id outputs (MSA, GFA, `-a 1`,
+`-d > 1`) finalize with `use_read_ids` set, and `-i`, `-Q -d 2`, `-g`, `-l`,
+`-S` and `-p` (with any gaps in global mode) finalize and run.
 """
 import os
 import subprocess
@@ -98,14 +99,17 @@ def test_unknown_device_rejected(name):
 
 
 @pytest.mark.parametrize("fields,item", [
-    ({"wb": -1}, "8"),                           # unbanded
-    ({"inc_path_score": True}, "8"),             # -G
-    ({"disable_seeding": False}, "8"),           # -S
-    ({"progressive_poa": True}, "8"),            # -p
-    # the per-read route outside convex + global (queue B, item 2)
-    ({"use_qv": True, "max_n_cons": 2, "gap_open2": 0}, "2"),   # -Q -d 2 -O 4
+    ({"wb": -1}, "8, step 2"),                   # unbanded
+    ({"inc_path_score": True}, "8, step 2"),     # -G
+    ({"wb": -1, "disable_seeding": False}, "8, step 2"),   # -S -b -1
+    ({"inc_path_score": True, "disable_seeding": False}, "8, step 2"),  # -S -G
+    # the per-read route outside global mode (queue B, item 2)
+    ({"use_qv": True, "max_n_cons": 2, "align_mode": 2}, "2"),  # -Q -d 2 -m 2
     ({"incr_fn": "g.gfa", "out_msa": True, "align_mode": 1}, "2"),  # -i -r 1 -m 1
-    ({"incr_fn": "g.gfa", "out_gfa": True, "gap_open1": 0}, "2"),   # -i -r 3 -O 0
+    # -p -i x.gfa -r 1 -m 2: outside global mode -p is ignored (the JAX
+    # package's plain_route), and -i with read ids is per read
+    ({"progressive_poa": True, "incr_fn": "g.gfa", "out_msa": True,
+      "align_mode": 2}, "2"),
 ])
 def test_configs_outside_the_slice_raise(fields, item):
     abpt = Params(device="cpu")
@@ -120,6 +124,11 @@ def test_configs_outside_the_slice_raise(fields, item):
     {"incr_fn": "g.gfa", "out_msa": True},       # -i -r 1
     {"incr_fn": "g.gfa", "align_mode": 1},       # -i -m 1: the fused route
     {"out_pog": "g.png"},                        # -g
+    {"disable_seeding": False},                  # -S
+    {"progressive_poa": True},                   # -p
+    {"use_qv": True, "max_n_cons": 2, "gap_open2": 0},       # -Q -d 2 -O 4
+    {"incr_fn": "g.gfa", "out_gfa": True, "gap_open1": 0},   # -i -r 3 -O 0
+    {"disable_seeding": False, "align_mode": 1},  # -S -m 1: the fused route
 ])
 def test_lifted_configs_finalize(fields):
     abpt = Params(device="cpu")
@@ -157,23 +166,28 @@ def test_configs_of_the_fused_route_finalize(fields, gap_mode, wb):
 
 
 @pytest.mark.parametrize("flags", [["-Q", "-d", "2", "-m", "1"],
-                                   ["-i", "x.gfa", "-r", "1", "-O", "0"],
-                                   ["-S"], ["-G"]])
+                                   ["-i", "x.gfa", "-r", "1", "-m", "2"],
+                                   ["-S", "-b", "-1"], ["-G"], ["-S", "-G"],
+                                   ["-p", "-i", "x.gfa", "-r", "1", "-m", "2"]])
 def test_cli_rejects_flags_outside_the_slice(flags, capsys):
     assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
                      *flags]) == 1
     assert "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args", [
-    ["-l", os.path.join("tests", "data", "list.txt")],
-    [os.path.join("tests", "data", "seq4.fa"), "-i",
-     os.path.join("tests", "data", "seq10.gfa")],
+@pytest.mark.parametrize("args,head", [
+    (["-l", os.path.join("tests", "data", "list.txt")], ">Consensus_sequence"),
+    ([os.path.join("tests", "data", "seq4.fa"), "-i",
+      os.path.join("tests", "data", "seq10.gfa")], ">Consensus_sequence"),
+    ([os.path.join("tests", "data", "seq.fa"), "-S"], ">Consensus_sequence"),
+    ([os.path.join("tests", "data", "seq4.fa"), "-i",
+      os.path.join("tests", "data", "seq10.gfa"), "-r", "1", "-O", "0"],
+     ">1\n"),
 ])
-def test_cli_runs_the_lifted_flags(args, capsys, monkeypatch):
+def test_cli_runs_the_lifted_flags(args, head, capsys, monkeypatch):
     monkeypatch.chdir(ROOT)  # list.txt names its files from the root
     assert cli.main([*args, "--device", "cpu"]) == 0
-    assert capsys.readouterr().out.startswith(">Consensus_sequence")
+    assert capsys.readouterr().out.startswith(head)
 
 
 @pytest.mark.parametrize("flag,value,field,want", [
@@ -188,9 +202,9 @@ def test_cli_stores_the_flags_of_the_jax_cli(flag, value, field, want):
     assert getattr(cli.args_to_params(ns), field) == want
 
 
-def test_cli_seeding_with_k_names_its_item(capsys):
+def test_cli_noband_names_its_item(capsys):
     assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
-                     "-S", "-k", "15"]) == 1
+                     "-b", "-1"]) == 1
     assert "item 8" in capsys.readouterr().err
 
 

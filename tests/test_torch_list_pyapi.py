@@ -185,7 +185,7 @@ def test_pyapi_msa_batch_equals_msa_set_by_set():
 
 
 @pytest.mark.parametrize("kw", [{"aln_mode": "l"}, {"aln_mode": "e"},
-                                {"gap_open2": 0}])
+                                {"aln_mode": "e", "gap_open1": 0}])
 def test_pyapi_outside_b2_raises_before_aligning(kw):
     a = tpa.msa_aligner(device="cpu", **kw)
     b2 = banded.stats["reads"]
