@@ -1,4 +1,5 @@
-"""Kernel X1, the backtrack over windowed planes: wrapper and plain version.
+"""Kernels X1 (the fused loop's backtrack over windowed planes) and X1w (the
+same walk over the windows of one B2 launch): wrappers and plain versions.
 
 Counterpart of the XLA function `abpoa_tpu/align/fused_loop.py`
 `_backtrack_w`: from the best cell back to row 0 (or, in local mode, to a
@@ -21,6 +22,13 @@ inf, max_ops], all int32 on one device.
 Outputs: ops (max_ops, 2) [op, row] with op 0 match, 1 deletion, 2 insertion,
 in walk order (zero past n_ops), and res (6,) = [n_ops, fin_i, fin_j, n_aln,
 n_match, err]; err is 1 on a dead end or when the stream reaches max_ops.
+
+X1w (`backtrack_windows`) is the counterpart of
+`abpoa_tpu/align/jax_backtrack.py` `device_backtrack` as
+`jax_backend.py` `_dp_full_batch` vmaps it over a seeded read's windows,
+with `_dp_full`'s best-cell pick: one warp a window of a B2 launch, reading
+B2's ragged planes in place; its plain version `backtrack_windows_torch`
+runs the pick and `backtrack_torch` window by window.
 """
 from __future__ import annotations
 
@@ -226,3 +234,141 @@ def backtrack_torch(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
     res = torch.tensor([len(ops), i, j, n_aln, n_match, err], dtype=torch.int32,
                        device="cpu")
     return out.to(dev), res.to(dev)
+
+
+# ----------------------------------------------------------------- X1w
+HEADER = 11  # [n_ops, fin_i, fin_j, n_aln, n_match, start_i, start_j, err,
+#               best_score, best_i, best_j]
+_WNAMES = ("planes", "begend", "mplr", "pre_idx", "pre_cnt", "base",
+           "scalars", "roff", "mat", "query", "plan")
+
+
+def _check_windows(args) -> tuple:
+    dev = args[0].device
+    for name, t in zip(_WNAMES, args):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"backtrack_windows: {name} must be a tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"backtrack_windows: {name} must be int32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"backtrack_windows: {name} is on {t.device}, "
+                             f"planes on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"backtrack_windows: {name} must be contiguous")
+    planes, begend, mplr, pre_idx, pre_cnt, base, scalars, roff, mat, _, plan = args
+    if planes.dim() != 3 or planes.shape[0] != 5:
+        raise ValueError("backtrack_windows: planes must have shape (5, Rtot, W)")
+    R = planes.shape[1]
+    if pre_idx.dim() != 2 or pre_idx.shape[0] != R:
+        raise ValueError("backtrack_windows: pre_idx must have shape (Rtot, P)")
+    for name, t, n in (("begend", begend, 2 * R), ("mplr", mplr, 2 * R),
+                       ("pre_cnt", pre_cnt, R), ("base", base, R)):
+        if t.shape != (n,):
+            raise ValueError(f"backtrack_windows: {name} must have shape ({n},)")
+    if scalars.dim() != 2 or scalars.shape[1] != 16:
+        raise ValueError("backtrack_windows: scalars must have shape (B, 16)")
+    if roff.shape != (scalars.shape[0] + 1,) or mat.dim() != 2:
+        raise ValueError("backtrack_windows: roff must be (B + 1,), mat (m, m)")
+    if plan.dim() != 2 or plan.shape[1] != 6 or plan.shape[0] < 1:
+        raise ValueError("backtrack_windows: plan must have shape (n >= 1, 6)")
+    return R, planes.shape[2], pre_idx.shape[1]
+
+
+def backtrack_windows(planes, begend, mplr, pre_idx, pre_cnt, base, scalars,
+                      roff, mat, query, plan, *, size: int, gap_mode: int,
+                      gap_on_right: bool, put_gap_at_end: bool):
+    """Kernel X1w: the best cell and the walk of each planned window of one
+    B2 launch (global mode), into one packed int32 buffer of `size`.
+
+    The inputs are B2's launch as it stands on the device: `planes` its
+    (5, Rtot, W) output, `begend`/`mplr` its bands, `pre_idx`, `pre_cnt`,
+    `base`, `scalars` and `roff` its inputs; `mat` (m, m); `query` the
+    walked windows' queries one after another; `plan` (n, 6), one row a
+    walk: [slot in the launch, query offset, header offset, band offset,
+    op offset, max_ops]. The walk writes at those offsets of the output the
+    header (`HEADER` ints), the window's final [mpl..., mpr...] (2 gn) and
+    its ops (max_ops, 2) [op, row] in walk order (op 0 match, 1 deletion,
+    2 insertion; rows past n_ops undefined). For CUDA tensors one warp a
+    walk runs it on the card (`csrc/backtrack.cu`), for CPU tensors
+    `backtrack_windows_torch`."""
+    args = (planes, begend, mplr, pre_idx, pre_cnt, base, scalars, roff, mat,
+            query, plan)
+    R, W, P = _check_windows(args)
+    kw = dict(size=size, gap_mode=gap_mode, gap_on_right=gap_on_right,
+              put_gap_at_end=put_gap_at_end)
+    dev = planes.device
+    if dev.type == "cpu":
+        return backtrack_windows_torch(*args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"backtrack_windows: unsupported device {dev}")
+    lib = build.load()
+    flags = (1 if gap_on_right else 0) | (2 if put_gap_at_end else 0)
+    with torch.cuda.device(dev):
+        packed = torch.empty(size, dtype=torch.int32, device=dev)
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.abpoa_backtrack_windows(
+            *(ptr(t) for t in args), ptr(packed), plan.shape[0], R, W, P,
+            mat.shape[1], int(gap_mode), flags, ctypes.c_void_p(stream))
+    build.check(err, "backtrack_windows launch")
+    backtrack_windows.launches += 1
+    return packed
+
+
+backtrack_windows.launches = 0
+
+
+def backtrack_windows_torch(planes, begend, mplr, pre_idx, pre_cnt, base,
+                            scalars, roff, mat, query, plan, *, size: int,
+                            gap_mode: int, gap_on_right: bool,
+                            put_gap_at_end: bool):
+    """The plain version of `backtrack_windows`: window by window, the best
+    cell (`_dp_full`'s argmax over the end row's predecessors,
+    jax_backend.py:664-670) and `backtrack_torch`'s walk, whose start cell
+    follows from its last op; returns the packed output on the inputs'
+    device (unwritten ints are 0)."""
+    dev = planes.device
+    cpu = lambda t: t.cpu()  # noqa: E731
+    planes, begend, mplr, pre_idx, pre_cnt, base, mat, query = map(
+        cpu, (planes, begend, mplr, pre_idx, pre_cnt, base, mat, query))
+    sc_l, roff_l = scalars.tolist(), roff.tolist()
+    W = planes.shape[2]
+    out = torch.zeros(size, dtype=torch.int32)
+    for slot, qoff, h_at, b_at, o_at, max_ops in plan.tolist():
+        qlen, _, _, inf, _, e1, oe1, _, e2, oe2, gn = sc_l[slot][:11]
+        r0 = roff_l[slot]
+        beg = begend[2 * r0: 2 * r0 + gn]
+        end = begend[2 * r0 + gn: 2 * r0 + 2 * gn]
+        out[b_at: b_at + 2 * gn] = mplr[2 * r0: 2 * r0 + 2 * gn]
+        H = planes[0, r0: r0 + gn]
+        n_sink = int(pre_cnt[r0 + gn - 1])
+        rows = pre_idx[r0 + gn - 1, :n_sink].tolist() if n_sink else [0]
+        best = None
+        for p in rows:
+            e = min(qlen, int(end[p]))
+            k = e - int(beg[p])
+            v = int(H[p, k]) if 0 <= k < W else inf
+            if best is None or v > best[0]:
+                best = (v, p, e)
+        score, bi, bj = best
+        sc = torch.tensor([bi, bj, e1, oe1, e2, oe2, inf, max_ops],
+                          dtype=torch.int32)
+        ops, res = backtrack_torch(
+            *(planes[c, r0: r0 + gn] for c in range(5)), beg, end,
+            pre_idx[r0: r0 + gn], pre_cnt[r0: r0 + gn], base[r0: r0 + gn],
+            query[qoff: qoff + max(qlen, 1)], mat, sc, max_ops=max_ops,
+            gap_mode=gap_mode, gap_on_right=gap_on_right,
+            put_gap_at_end=put_gap_at_end, local=False)
+        n_ops, fi, fj, n_aln, n_match, err = res.tolist()
+        si, sj = bi, bj
+        if n_ops and (not err or n_ops >= max_ops):
+            # the last step emitted its op from the cell it started at
+            last_op, si = ops[n_ops - 1].tolist()
+            sj = fj + (1 if last_op != 1 else 0)
+        elif err:  # a dead end: the step that found no op started here
+            si, sj = fi, fj
+        out[h_at: h_at + HEADER] = torch.tensor(
+            [n_ops, fi, fj, n_aln, n_match, si, sj, err, score, bi, bj],
+            dtype=torch.int32)
+        out[o_at: o_at + 2 * n_ops] = ops[:n_ops].reshape(-1)
+    return out.to(dev)

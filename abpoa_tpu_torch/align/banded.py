@@ -1,23 +1,27 @@
-"""Banded alignment of one read's windows: host tables -> DP kernel B2 ->
-host backtrack.
+"""Banded alignment of one read's windows: tables -> DP kernel B2 ->
+backtrack kernel X1w, on the device.
 
 Counterpart of `abpoa_tpu/align/jax_backend.py` `align_windows_jax` (the
-windows of one seeded read, `_build_snapshot` :275, `_result_from_packed`
-:443) and of `abpoa_tpu/align/pallas_backend.py`
+windows of one seeded read, `_build_snapshot` :275, `_dp_full_batch` :512,
+`_result_from_packed` :443) and of `abpoa_tpu/align/pallas_backend.py`
 `align_sequence_to_subgraph_pallas` (one window: the whole graph), in global
 mode with linear, affine or convex gaps and the adaptive band.
 
 Every window's tables are built first, in window order (building them seeds
 the graph's mpl/mpr of each window's first row and its successors, as the
-JAX package does), and packed ragged: the windows' rows one after another
+JAX package does), from the native graph's C++ tables or a Python graph's
+nodes, and packed ragged: the windows' rows one after another
 (`pack_windows`). One B2 launch covers them all, one block a window, at the
 band width W of the widest window's first launch. A window whose band
 outgrows W (`ok == 0`) is launched again, with the other such windows, at W
 doubled (rounded to 128, capped at the longest of their queries + 1, where
-the band cannot overflow); `retries` counts those relaunches. The planes of
-each launch come to the host in one copy into a page-locked buffer; then,
-window by window, the final mpl/mpr are written back into the graph, the
-best cell is picked over the end node's predecessors and the backtrack runs.
+the band cannot overflow); `retries` counts those relaunches. Then X1w runs
+once a launch, over that launch's ok windows, on that launch's planes: the
+best cell and the walk of each window, packed with its final mpl/mpr into
+one small buffer. Those buffers come to the host, one copy a launch into a
+page-locked buffer before one wait; the planes never leave the device. Then,
+window by window, the band is written back into the graph (`write_band`)
+and the cigar is rebuilt from the op stream.
 """
 from __future__ import annotations
 
@@ -27,10 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import constants as C
 from ..graph import POAGraph
 from ..params import Params, per_read_covers, per_read_refusal
+from .backtrack_kernel import HEADER, backtrack_windows
 from .banded_kernel import banded_dp
-from .oracle import _backtrack, _DPState, dp_inf_min
+from .buckets import bucket
 from .result import AlignResult
 from .tables import build_row_tables, initial_band_width, query_tables
 
@@ -40,14 +46,15 @@ retries = 0
 
 def _zero_stats() -> dict:
     return {"reads": 0, "windows": 0, "launches": 0, "rows": 0,
-            "tables_s": 0.0, "kernel_s": 0.0, "d2h_s": 0.0,
-            "backtrack_s": 0.0}
+            "tables_s": 0.0, "kernel_s": 0.0, "backtrack_s": 0.0,
+            "d2h_s": 0.0, "d2h_bytes": 0, "planes_bytes": 0, "cigar_s": 0.0}
 
 
 # over the life of the process: calls (reads), windows, B2 launches, DP rows
-# launched, and seconds in the tables (build, pack, upload), in the kernel
-# (CUDA events, cuda only), in copying its planes to the host and in the
-# write-back, best cell and backtrack
+# launched, and seconds in the tables (build, pack, upload), in B2 and in
+# X1w (CUDA events, cuda only), in copying X1w's results to the host (and
+# their bytes, beside the bytes of the walked launches' planes, which stay
+# on the device) and in the band write-back and cigar rebuild
 stats = _zero_stats()
 
 
@@ -55,10 +62,9 @@ def reset_stats() -> None:
     stats.update(_zero_stats())
 
 
-# page-locked host buffer the planes are copied into, grown as graphs grow
-# and reused by every read (a pageable copy of the ~0.5 GB of planes of a
-# 10 kb read runs several times slower). The planes handed to the backtrack
-# are views of it, valid until the next read's copy.
+# page-locked host buffer X1w's results are copied into, grown as graphs
+# grow and reused by every read; the arrays handed back are views of it,
+# valid until the next read's copy
 _pinned = [torch.empty(0, dtype=torch.int32)]
 
 
@@ -102,49 +108,92 @@ def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
             roff]
 
 
+def _timed(dev: torch.device, key: str, fn):
+    """fn(), with its CUDA-event time on `dev` added to stats[key]."""
+    if dev.type != "cuda":
+        return fn()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out = fn()
+    ev1.record()
+    ev1.synchronize()
+    stats[key] += ev0.elapsed_time(ev1) / 1e3
+    return out
+
+
 def run_windows(abpt: Params, tabs: list, queries: list, W: int):
-    """One launch over the windows at band width W: the kernel outputs, on
-    the device."""
+    """One launch over the windows at band width W: (the kernel's inputs,
+    its outputs), on the device."""
     dev = abpt.torch_device
     t0 = time.perf_counter()
     args = [torch.from_numpy(a).to(dev)
             for a in pack_windows(abpt, tabs, queries, W)]
     stats["tables_s"] += time.perf_counter() - t0
-    if dev.type != "cuda":
-        return banded_dp(*args, gap_mode=abpt.gap_mode)
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    out = banded_dp(*args, gap_mode=abpt.gap_mode)
-    ev1.record()
-    ev1.synchronize()
-    stats["kernel_s"] += ev0.elapsed_time(ev1) / 1e3
-    return out
+    return args, _timed(dev, "kernel_s",
+                        lambda: banded_dp(*args, gap_mode=abpt.gap_mode))
 
 
-def _to_host(launches: list) -> list:
-    """Per launch (window ids, outputs): (planes (5, Rtot, W) as
-    numpy, begend, mplr), the planes of every launch copied with one copy
-    each into the page-locked buffer before one wait."""
-    outs = [out for _, out in launches]
-    if not outs[0][0].is_cuda:
-        return [(np.stack([p.numpy() for p in out[:5]]), out[5].numpy(),
-                 out[6].numpy()) for out in outs]
-    sizes = [5 * out[0].numel() for out in outs]
-    host = _staging(sum(sizes))
+def walk_inputs(abpt: Params, args: list, out, tabs: list, queries: list,
+                slots: list) -> tuple:
+    """X1w's inputs for the windows `slots` of one launch (inputs `args`,
+    outputs `out`; `tabs`/`queries` are the launch's): (the positional
+    tensors, the keywords, and per walked window its (header, band, op)
+    offsets in the packed output and max_ops)."""
+    dev = abpt.torch_device
+    R, W = out[0].shape
+    planes = out[0].as_strided((5, R, W), (R * W, W, 1))
+    if planes[4].data_ptr() != out[4].data_ptr():
+        raise RuntimeError("banded_dp's planes are not one tensor")
+    n = len(slots)
+    plan = np.zeros((n, 6), dtype=np.int32)
+    layout = []
+    q_at, b_at = 0, HEADER * n
+    o_at = b_at + 2 * sum(tabs[k].gn for k in slots)
+    for w, k in enumerate(slots):
+        qlen = len(queries[k])
+        max_ops = tabs[k].R + bucket(qlen + 1, 128) + 8
+        plan[w] = (k, q_at, HEADER * w, b_at, o_at, max_ops)
+        layout.append((HEADER * w, b_at, o_at, max_ops))
+        q_at += qlen
+        b_at += 2 * tabs[k].gn
+        o_at += 2 * max_ops
+    up = np.concatenate([plan.ravel()] + [queries[k] for k in slots]
+                        ).astype(np.int32)
+    up = torch.from_numpy(up).to(dev)
+    mat = torch.from_numpy(abpt.mat.astype(np.int32)).to(dev)
+    inputs = (planes, out[5], out[6], args[2], args[3], args[1], args[0],
+              args[11], mat, up[6 * n:], up[: 6 * n].view(n, 6))
+    kw = dict(size=o_at, gap_mode=abpt.gap_mode,
+              gap_on_right=bool(abpt.put_gap_on_right),
+              put_gap_at_end=bool(abpt.put_gap_at_end))
+    return inputs, kw, layout
+
+
+def walk_windows(abpt: Params, args: list, out, tabs: list, queries: list,
+                 slots: list) -> tuple:
+    """X1w over the windows `slots` of one launch (see `walk_inputs`): the
+    packed output on the device and its layout."""
+    inputs, kw, layout = walk_inputs(abpt, args, out, tabs, queries, slots)
+    stats["planes_bytes"] += out[0].numel() * 5 * 4
+    return _timed(abpt.torch_device, "backtrack_s",
+                  lambda: backtrack_windows(*inputs, **kw)), layout
+
+
+def _to_host(bufs: list) -> list:
+    """The launches' packed X1w outputs as numpy, one copy each into the
+    page-locked buffer before one wait."""
+    if not bufs[0].is_cuda:
+        return [b.numpy() for b in bufs]
+    host = _staging(sum(b.numel() for b in bufs))
     views, at = [], 0
-    for out, n in zip(outs, sizes):
-        R, W = out[0].shape
-        dst = host[at: at + n].view(5, R, W)
-        # the kernel's five planes are the rows of one (5, R, W) tensor
-        src = out[0].as_strided((5, R, W), (R * W, W, 1))
-        if src[4].data_ptr() != out[4].data_ptr():
-            raise RuntimeError("banded_dp's planes are not one tensor")
-        dst.copy_(src, non_blocking=True)
+    for b in bufs:
+        dst = host[at: at + b.numel()]
+        dst.copy_(b, non_blocking=True)
         views.append(dst)
-        at += n
-    small = [(out[5].cpu(), out[6].cpu()) for out in outs]
-    torch.cuda.current_stream(outs[0][0].device).synchronize()
-    return [(v.numpy(), be.numpy(), lr.numpy()) for v, (be, lr) in zip(views, small)]
+        at += b.numel()
+    torch.cuda.current_stream(bufs[0].device).synchronize()
+    stats["d2h_bytes"] += 4 * at
+    return [v.numpy() for v in views]
 
 
 def align_windows_banded(g: POAGraph, abpt: Params, windows,
@@ -156,7 +205,6 @@ def align_windows_banded(g: POAGraph, abpt: Params, windows,
     global retries
     if not per_read_covers(abpt):
         raise per_read_refusal("a per-read alignment")
-    inf_min = dp_inf_min(abpt)
     t0 = time.perf_counter()
     tabs = [build_row_tables(g, b, e) for b, e, _ in windows]
     queries = [q for _, _, q in windows]
@@ -164,16 +212,19 @@ def align_windows_banded(g: POAGraph, abpt: Params, windows,
 
     W = band_width or max(initial_band_width(abpt, len(q)) for q in queries)
     todo = list(range(len(windows)))
-    launches = []      # (window ids, kernel outputs)
-    where = {}         # window -> (launch, its slot in the launch)
+    walks = []   # per launch: (its window ids, X1w's packed output, layout)
+    n_launch = 0
     while True:
-        out = run_windows(abpt, [tabs[i] for i in todo],
-                          [queries[i] for i in todo], W)
+        n_launch += 1
+        args, out = run_windows(abpt, [tabs[i] for i in todo],
+                                [queries[i] for i in todo], W)
         ok = out[7].tolist()
-        launches.append((todo, out))
-        for k, i in enumerate(todo):
-            if ok[k]:
-                where[i] = (len(launches) - 1, k)
+        slots = [k for k in range(len(todo)) if ok[k]]
+        if slots:
+            packed, layout = walk_windows(abpt, args, out,
+                                          [tabs[i] for i in todo],
+                                          [queries[i] for i in todo], slots)
+            walks.append(([todo[k] for k in slots], packed, layout))
         failed = [i for k, i in enumerate(todo) if not ok[k]]
         if not failed:
             break
@@ -185,52 +236,72 @@ def align_windows_banded(g: POAGraph, abpt: Params, windows,
         todo = failed
     stats["reads"] += 1
     stats["windows"] += len(windows)
-    stats["launches"] += len(launches)
+    stats["launches"] += n_launch
     stats["rows"] += sum(t.gn for t in tabs)
 
     t0 = time.perf_counter()
-    host = _to_host(launches)
+    host = _to_host([packed for _, packed, _ in walks])
     stats["d2h_s"] += time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    roffs = [np.cumsum([0] + [tabs[j].gn for j in ids]).tolist()
-             for ids, _ in launches]
+    where = {i: (buf, *at) for (ids, _, layout), buf in zip(walks, host)
+             for i, at in zip(ids, layout)}
     results = []
-    for i, (t, query) in enumerate(zip(tabs, queries)):
-        li, k = where[i]
-        planes, begend, mplr = host[li]
-        r0, gn = roffs[li][k], t.gn
-        # the kernel defines plane rows 0..gn-2, all the backtrack reads
-        # (the end node's predecessors and back)
-        win = [p[r0: r0 + gn - 1] for p in planes]
-        be = begend[2 * r0: 2 * (r0 + gn)]
-        lr = mplr[2 * r0: 2 * (r0 + gn)]
-        g.node_id_to_max_pos_left[t.nids] = lr[:gn]
-        g.node_id_to_max_pos_right[t.nids] = lr[gn:]
-        results.append(_result(g, abpt, t, win, be[:gn].tolist(),
-                               be[gn:].tolist(), query, inf_min))
-    stats["backtrack_s"] += time.perf_counter() - t0
+    i2n = g.index_to_node_id
+    for i, (t, query) in enumerate(zip(tabs, queries)):  # window order
+        buf, h_at, b_at, o_at, max_ops = where[i]
+        g.write_band(t.beg_index, t.gn, buf[b_at: b_at + t.gn],
+                     buf[b_at + t.gn: b_at + 2 * t.gn])
+        results.append(_result(abpt, buf[h_at: h_at + HEADER],
+                               buf[o_at: o_at + 2 * max_ops], t.beg_index,
+                               len(query), i2n))
+    stats["cigar_s"] += time.perf_counter() - t0
     return results
 
 
-def _result(g: POAGraph, abpt: Params, t, planes, dp_beg: list, dp_end: list,
-            query: np.ndarray, inf_min: int) -> AlignResult:
-    """The best cell over the end node's predecessors, then the backtrack
-    (jax_backend.py:443 `_result_from_packed`, oracle.py's host form)."""
-    qlen, gn = len(query), t.gn
-    st = _DPState(planes, dp_beg, dp_end, inf_min)
-    pre_index = t.pre_index()
-    res = AlignResult()
-    best_score = inf_min
-    best_i = best_j = 0
-    for dp_i in pre_index[gn - 1]:
-        end = min(qlen, dp_end[dp_i])
-        v = st.H[dp_i, end]
-        if v > best_score:
-            best_score, best_i, best_j = v, dp_i, end
-    res.best_score = best_score
-    _backtrack(g, abpt, st, pre_index, t.beg_index, best_i, best_j,
-               qlen, query, res, abpt.gap_mode)
+def _result(abpt: Params, head: np.ndarray, ops: np.ndarray, beg_index: int,
+            qlen: int, i2n: np.ndarray) -> AlignResult:
+    """One window's AlignResult from X1w's header and op stream: the cigar
+    rebuilt as `jax_backend.py:443` `_result_from_packed` rebuilds it (one
+    push_cigar a op, in walk order, then reversed), in numpy."""
+    (n_ops, _, fin_j, n_aln, n_match, si, sj, err, best_score, best_i,
+     best_j) = head.tolist()
+    if err:
+        raise RuntimeError(f"backtrack failed at {n_ops} ops (gap_mode="
+                           f"{abpt.gap_mode})")
+    res = AlignResult(best_score=best_score, n_aln_bases=n_aln,
+                      n_matched_bases=n_match)
+    ops = ops[: 2 * n_ops].reshape(n_ops, 2)
+    # the walk's entries: the unaligned query end, the ops, the unaligned
+    # query start; each op at the column it leaves (j - 1 before the op)
+    op = np.concatenate([[2], ops[:, 0], [2]]).astype(np.int64)
+    nid = np.concatenate([[0], i2n[beg_index + ops[:, 1]], [0]]).astype(np.uint64)
+    step = (op != 1).astype(np.int64)
+    step[0] = step[-1] = 0
+    qid = best_j - 1 - (np.cumsum(step) - step)
+    length = np.ones(n_ops + 2, dtype=np.int64)
+    length[0], length[-1] = qlen - best_j, fin_j
+    qid[0], qid[-1] = qlen - 1, fin_j - 1
+    keep = length > 0
+    op, nid, qid, length = op[keep], nid[keep], qid[keep], length[keep]
+    # consecutive insertions merge into the first one's entry
+    ins = op == 2
+    first = ~(ins & np.concatenate([[False], ins[:-1]]))
+    run = np.cumsum(first) - 1
+    length = np.bincount(run, weights=length).astype(np.uint64)
+    op, nid, qid = op[first], nid[first], qid[first].astype(np.uint64)
+    m30 = np.uint64(0x3FFFFFFF)
+    packed = np.where(
+        op == 0, (nid & m30) << np.uint64(34) | (qid & m30) << np.uint64(4),
+        np.where(op == 1,
+                 (nid & m30) << np.uint64(34) | np.uint64(1 << 4) | np.uint64(C.CDEL),
+                 (qid & m30) << np.uint64(34) | (length & m30) << np.uint64(4)
+                 | np.uint64(C.CINS)))
+    res.cigar = packed[::-1].tolist()
+    res.node_e = int(i2n[best_i + beg_index])
+    res.query_e = best_j - 1
+    res.node_s = int(i2n[si + beg_index])
+    res.query_s = sj - 1
     return res
 
 

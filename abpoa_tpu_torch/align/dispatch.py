@@ -1,6 +1,7 @@
-"""Entry points of the DP: one backend, the banded kernel B2 on the Params'
-device (counterpart of `abpoa_tpu/align/dispatch.py`
-`align_sequence_to_graph` and `align_windows`)."""
+"""Entry points of the DP: one backend, the banded kernel B2 and its
+backtrack X1w on the Params' device (counterpart of
+`abpoa_tpu/align/dispatch.py` `align_sequence_to_graph` and
+`align_windows`)."""
 from __future__ import annotations
 
 import numpy as np

@@ -1,7 +1,8 @@
 """Host tables for the banded DP kernel.
 
 The snapshot `abpoa_tpu/align/pallas_backend.py` builds for its Pallas
-kernel (Python-graph branch, :82-183), vectorised with numpy: per-row base,
+kernel (:82-183), vectorised with numpy, from a Python graph's nodes or from
+the native graph's C++ tables (`native_row_tables`): per-row base,
 predecessor and successor tables, remain and the seeded mpl/mpr (`RowTables`,
 independent of the band width), then the query profile, row 0 and the
 scalars for one band width W (`query_tables`).
@@ -43,11 +44,6 @@ class RowTables:
     mpl0: np.ndarray      # (R,) int32
     mpr0: np.ndarray      # (R,) int32
 
-    def pre_index(self) -> list:
-        """Per-row predecessor lists (in-edge order) for the backtrack."""
-        rows, cnt = self.pre_idx[: self.gn].tolist(), self.pre_cnt.tolist()
-        return [r[:c] for r, c in zip(rows, cnt)]
-
 
 def _row_of(counts: np.ndarray) -> np.ndarray:
     return np.repeat(np.arange(len(counts)), counts)
@@ -65,9 +61,55 @@ def _pack(rows: np.ndarray, vals: np.ndarray, n_rows: int, R: int):
     return table, counts
 
 
+def _row_major(idx: np.ndarray, keep: np.ndarray, R: int):
+    """(R, width) table + (R,) counts of the entries `keep` marks in each
+    row of `idx`, in their order (rows whose kept entries are not a prefix
+    are compacted)."""
+    gn = idx.shape[0]
+    cnt = keep.sum(axis=1).astype(np.int32)
+    width = bucket_pow2(max(1, int(cnt.max(initial=0))))
+    vals = np.where(keep, idx, 0)
+    gaps = np.nonzero((keep != (np.arange(keep.shape[1]) < cnt[:, None])).any(axis=1))[0]
+    if gaps.size:
+        order = np.argsort(~keep[gaps], axis=1, kind="stable")
+        vals[gaps] = np.take_along_axis(vals[gaps], order, 1)
+    table = np.zeros((R, width), dtype=np.int32)
+    w = min(width, vals.shape[1])
+    table[:gn, :w] = vals[:, :w]
+    counts = np.zeros(R, dtype=np.int32)
+    counts[:gn] = cnt
+    return table, counts
+
+
+def native_row_tables(g, beg_node_id: int, end_node_id: int) -> RowTables:
+    """`build_row_tables` of a native graph, from the arrays C++ builds
+    (apg_build_tables; numpy only): the masks become counts, and out edges
+    that leave the window are dropped."""
+    t = g.build_tables(beg_node_id, end_node_id)
+    gn, R = t["gn"], bucket(t["gn"], 64)
+    pre_idx, pre_cnt = _row_major(t["pre_idx"], t["pre_msk"], R)
+    out_idx, out_cnt = _row_major(t["out_idx"],
+                                  t["out_msk"] & (t["out_idx"] < gn), R)
+
+    def rows(a):
+        out = np.zeros(R, dtype=np.int32)
+        out[:gn] = a
+        return out
+
+    beg = t["beg_index"]
+    return RowTables(
+        gn=gn, R=R, beg_index=beg, remain_end=t["remain_end"],
+        nids=g.index_to_node_id[beg: beg + gn].astype(np.int64),
+        base=rows(t["base"]), pre_idx=pre_idx, pre_cnt=pre_cnt,
+        out_idx=out_idx, out_cnt=out_cnt, remain=rows(t["remain"]),
+        mpl0=rows(t["mpl0"]), mpr0=rows(t["mpr0"]))
+
+
 def build_row_tables(g: POAGraph, beg_node_id: int, end_node_id: int) -> RowTables:
     """Row tables of the subgraph [beg_node_id, end_node_id]; also seeds the
     graph's mpl/mpr of the first row and its successors, as abPOA does."""
+    if getattr(g, "is_native", False):
+        return native_row_tables(g, beg_node_id, end_node_id)
     n2i = g.node_id_to_index
     beg_index = int(n2i[beg_node_id])
     end_index = int(n2i[end_node_id])

@@ -224,6 +224,33 @@ def most_frequent(g: POAGraph, abpt: Params, n_clu: int,
         abc.cons_phred.append(phreds)
 
 
+def native_hb_eligible(g, abpt: Params) -> bool:
+    """True when the native graph's C++ heaviest bundling covers the
+    configuration (abpoa_tpu/cons/consensus.py:245): a native graph, one
+    cluster, heaviest bundling, consensus without MSA. Callers add their
+    own output exclusions (GFA, `-g`)."""
+    return (getattr(g, "is_native", False) and abpt.out_cons
+            and not abpt.out_msa and abpt.cons_algrm == C.CONS_HB
+            and abpt.max_n_cons == 1)
+
+
+def native_consensus_hb(g, n_seq: int) -> ConsensusResult:
+    """The consensus of `native_hb_eligible` configurations straight from
+    the native graph (apg_cons_hb), with no export of the graph."""
+    abc = ConsensusResult(n_seq=n_seq)
+    if g.node_n <= 2:
+        return abc
+    ids, bases, covs = g.consensus_hb()
+    abc.n_cons = 1
+    abc.clu_n_seq = [n_seq]
+    abc.clu_read_ids = [list(range(n_seq))]
+    abc.cons_node_ids = [ids.tolist()]
+    abc.cons_base = [bases.tolist()]
+    abc.cons_cov = [covs.tolist()]
+    abc.cons_phred = [[phred_score(c, n_seq) for c in abc.cons_cov[0]]]
+    return abc
+
+
 def generate_consensus(g: POAGraph, abpt: Params, n_seq: int) -> ConsensusResult:
     """Consensus entry point (src/abpoa_output.c:1184-1215): the read
     clusters when `-d > 1`, then heaviest bundling or majority vote."""

@@ -1,10 +1,12 @@
 """Graph state carried across as plain numpy arrays.
 
 abPOA has no weights; its state is the graph. `graph_to_numpy` exports a
-graph (this package's `POAGraph`, or any object with the same node and
-array attributes, such as `abpoa_tpu`'s) to a dict of arrays, and
-`graph_from_numpy` builds this package's `POAGraph` from it, so a run can be
-continued here from a graph built elsewhere.
+graph (this package's `POAGraph` or native graph, or any object with the
+same node and array attributes, such as `abpoa_tpu`'s `POAGraph` and what
+its `NativePOAGraph.to_python` returns) to a dict of arrays, and
+`graph_from_numpy` / `native_graph_from_numpy` build this package's
+`POAGraph` / native graph from it, so a run can be continued here from a
+graph built elsewhere.
 
 Arrays (N nodes; edge lists in CSR form, in each node's edge order):
   base, n_read, n_span_read (N,) int64
@@ -51,6 +53,8 @@ def _csr(lists):
 
 
 def graph_to_numpy(g) -> dict:
+    if getattr(g, "is_native", False):
+        g = g.to_python()
     nodes = g.nodes
     n = len(nodes)
     in_ptr, in_ids = _csr([nd.in_ids for nd in nodes])
@@ -119,6 +123,14 @@ def graph_from_numpy(a: dict) -> POAGraph:
     g.node_id_to_max_pos_left = i32("mpl")
     g.node_id_to_max_pos_right = i32("mpr")
     g.is_topological_sorted = bool(a["is_topological_sorted"])
+    return g
+
+
+def native_graph_from_numpy(a: dict):
+    """This package's native graph from `graph_to_numpy`'s dict."""
+    from .native.graph import NativePOAGraph
+    g = NativePOAGraph()
+    g.load_arrays(a)
     return g
 
 

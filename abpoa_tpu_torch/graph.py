@@ -112,6 +112,13 @@ class POAGraph:
         if add_read_weight:
             fr.read_weight[read_id] = w
 
+    def write_band(self, beg_index: int, gn: int, mpl: np.ndarray,
+                   mpr: np.ndarray) -> None:
+        """Set the mpl/mpr of rows beg_index..beg_index + gn - 1."""
+        nids = self.index_to_node_id[beg_index: beg_index + gn]
+        self.node_id_to_max_pos_left[nids] = mpl
+        self.node_id_to_max_pos_right[nids] = mpr
+
     def get_aligned_id(self, node_id: int, base: int) -> int:
         for aln_id in self.nodes[node_id].aligned_ids:
             if self.nodes[aln_id].base == base:

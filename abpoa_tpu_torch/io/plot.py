@@ -22,6 +22,8 @@ FONT_SIZE = 24
 def dump_pog(ab, abpt: Params) -> None:
     """Write `abpt.out_pog`.dot for `ab`'s graph, then render it."""
     g = ab.graph
+    if getattr(g, "is_native", False):
+        g = g.to_python()
     if not g.is_topological_sorted:
         g.topological_sort(abpt)
     out = abpt.out_pog

@@ -2,7 +2,10 @@
 FASTA (with '-' gaps), so new reads can be aligned onto it.
 
 Counterpart of `abpoa_tpu/io/restore.py` (abPOA src/abpoa_seq.c:385-673),
-for this package's `POAGraph`. Each restored path or row becomes a read of
+for this package's `POAGraph`; a native graph (`native/`) is loaded with
+the parsed graph in one call, since a call through ctypes an edge costs
+more than the Python graph's method (PERF.md §6). Each restored path or
+row becomes a read of
 `ab` (name, empty sequence) with its strand flag; its edges carry its read
 id when `Params.use_read_ids` is set.
 """
@@ -11,6 +14,8 @@ from __future__ import annotations
 from typing import Dict, List
 
 from .. import constants as C
+from ..convert import graph_to_numpy
+from ..graph import POAGraph
 from ..params import Params
 from .fastx import _open
 
@@ -127,6 +132,9 @@ def restore_graph(ab, abpt: Params) -> None:
     fn = abpt.incr_fn
     if not fn:
         return
+    target = ab.graph
+    if getattr(target, "is_native", False):
+        ab.graph = POAGraph()
     with _open(fn) as fp:
         lines = [ln.rstrip("\n") for ln in fp]
     if any(ln.startswith(">") for ln in lines if ln):
@@ -151,3 +159,6 @@ def restore_graph(ab, abpt: Params) -> None:
         print(f"Warning: no graph/sequence restored from '{fn}'.")
     g = ab.graph
     g.is_called_cons = g.is_set_msa_rank = g.is_topological_sorted = False
+    if target is not g:
+        target.load_arrays(graph_to_numpy(g))
+        ab.graph = target

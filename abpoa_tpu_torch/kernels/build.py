@@ -109,6 +109,8 @@ def load() -> ctypes.CDLL:
     lib.abpoa_fused_dp.restype = ci
     lib.abpoa_backtrack.argtypes = [vp] * 15 + [ci] * 8 + [vp]
     lib.abpoa_backtrack.restype = ci
+    lib.abpoa_backtrack_windows.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+    lib.abpoa_backtrack_windows.restype = ci
     lib.abpoa_topo_sort.argtypes = [vp] * 19 + [ci] * 6 + [vp]
     lib.abpoa_topo_sort.restype = ci
     lib.abpoa_edge_sort.argtypes = [vp] * 10 + [ci] * 2 + [vp]

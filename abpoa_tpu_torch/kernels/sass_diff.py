@@ -1,15 +1,21 @@
-"""Compare the machine code (SASS) of kernel B1's instantiations between two
-versions of `csrc/fused_dp.cu`, for example the parent commit's and the
-working tree's:
+"""Compare the machine code (SASS) of a kernel source's functions between two
+versions, for example the parent commit's and the working tree's:
 
     git show HEAD~1:abpoa_tpu_torch/csrc/fused_dp.cu > build/old_fused_dp.cu
     python -m abpoa_tpu_torch.kernels.sass_diff build/old_fused_dp.cu
+    git show HEAD~1:abpoa_tpu_torch/csrc/backtrack.cu > build/old_backtrack.cu
+    python -m abpoa_tpu_torch.kernels.sass_diff build/old_backtrack.cu \
+        abpoa_tpu_torch/csrc/backtrack.cu
 
-Needs the CUDA toolkit (nvcc, cuobjdump). Each source is compiled to a
-cubin with the build's flags; every `fused_dp_kernel<CPT, GAP>` of the old
-source is held against the new source's `<CPT, GAP>` (with B2's seeded flag
-off where the source has one), with addresses and encodings stripped. One
-line per instantiation; exits 1 if any differs or is missing.
+Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt). Each source is compiled
+to a cubin with the build's flags, and the instructions are compared with
+addresses and encodings stripped. For `fused_dp.cu` (the default new
+source) every `fused_dp_kernel<CPT, GAP>` of the old source is held against
+the new source's `<CPT, GAP>` (with B2's seeded flag off where the source
+has one); for any other source every function of the old source is held
+against the new source's function of the same demangled name (functions
+only the new source has are not compared). One line per function; exits 1
+if any differs or is missing.
 """
 from __future__ import annotations
 
@@ -26,13 +32,37 @@ _NAME = re.compile(r"fused_dp_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?E")
 
 def b1_sass(src: str, workdir: str) -> dict:
     """{(CPT, GAP): SASS lines} of the B1 instantiations in `src`."""
+    return parse_b1(_cubin_sass(src, workdir))
+
+
+def _cubin_sass(src: str, workdir: str) -> str:
     nvcc = build.find_nvcc()
     cubin = os.path.join(workdir, os.path.basename(src) + ".cubin")
     subprocess.run([nvcc, *build.NVCC_FLAGS, "-cubin", "-o", cubin, src],
                    check=True)
-    return parse_b1(subprocess.run(
+    return subprocess.run(
         [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
-        capture_output=True, text=True, check=True).stdout)
+        capture_output=True, text=True, check=True).stdout
+
+
+def _strip(body: str) -> list:
+    lines = []
+    for line in body.splitlines():
+        line = re.sub(r"/\*[0-9a-fx ]+\*/", "", line).strip()
+        if line and not line.startswith("."):
+            lines.append(line)
+    return lines
+
+
+def all_sass(src: str, workdir: str) -> dict:
+    """{demangled name: SASS lines} of every function in `src` (the
+    anonymous namespace's per-file tag dropped)."""
+    blocks = [b.split("\n", 1) for b in _cubin_sass(src, workdir).split("Function : ")[1:]]
+    filt = os.path.join(os.path.dirname(build.find_nvcc()), "cu++filt")
+    names = subprocess.run([filt], input="\n".join(n.strip() for n, _ in blocks),
+                           capture_output=True, text=True, check=True).stdout
+    return {name: _strip(body)
+            for name, (_, body) in zip(names.splitlines(), blocks)}
 
 
 def parse_b1(sass: str) -> dict:
@@ -44,12 +74,7 @@ def parse_b1(sass: str) -> dict:
         m = _NAME.search(name)
         if not m or m.group(3) == "1":
             continue
-        lines = []
-        for line in body.splitlines():
-            line = re.sub(r"/\*[0-9a-fx ]+\*/", "", line).strip()
-            if line and not line.startswith("."):
-                lines.append(line)
-        out[(int(m.group(1)), int(m.group(2)))] = lines
+        out[(int(m.group(1)), int(m.group(2)))] = _strip(body)
     return out
 
 
@@ -60,16 +85,32 @@ def main(argv=None) -> int:
         return 2
     new_src = argv[1] if len(argv) == 2 else os.path.join(build.CSRC_DIR,
                                                           "fused_dp.cu")
+    b1 = os.path.basename(new_src) == "fused_dp.cu"
     with tempfile.TemporaryDirectory() as tmp:
-        old, new = b1_sass(argv[0], tmp), b1_sass(new_src, tmp)
+        get = b1_sass if b1 else all_sass
+        # the two sources compile from one directory under one file name,
+        # so nothing but their code tells them apart
+        old, new = [get(_as(src, tmp, k), os.path.join(tmp, k))
+                    for k, src in (("old", argv[0]), ("new", new_src))]
     differ = 0
     for key in sorted(old):
         same = new.get(key) == old[key]
         differ += not same
-        print(f"B1 <CPT {key[0]}, GAP {key[1]}>: "
-              f"{'identical' if same else 'DIFFERS'} ({len(old[key])} lines)")
-    print(f"{len(old) - differ} of {len(old)} B1 instantiations identical")
+        what = f"B1 <CPT {key[0]}, GAP {key[1]}>" if b1 else key
+        print(f"{what}: {'identical' if same else 'DIFFERS'} ({len(old[key])} lines)")
+    print(f"{len(old) - differ} of {len(old)} "
+          f"{'B1 instantiations' if b1 else 'functions'} identical")
     return 1 if differ or not old else 0
+
+
+def _as(src: str, tmp: str, tag: str) -> str:
+    """`src` copied to tmp/tag/kernel.cu."""
+    d = os.path.join(tmp, tag)
+    os.makedirs(d, exist_ok=True)
+    dst = os.path.join(d, "kernel.cu")
+    with open(src) as a, open(dst, "w") as b:
+        b.write(a.read())
+    return dst
 
 
 if __name__ == "__main__":

@@ -25,8 +25,16 @@ it. Three routes, chosen as the JAX package chooses them:
   into windows that one batched B2 launch aligns, fused into the host graph
   read by read, from the graph `-i` restored when there is one.
 
-A failure on the card raises; nothing falls back to another route.
-The outputs are read out of the host graph at the end.
+The per-read and seeded routes keep the graph in the native host graph
+(`native/`, C++: fusion, sort, the DP's tables, the default consensus)
+unless Z-drop is on, as the JAX package chooses it for its device routes
+(`want_native`); the restore of `-i` loads into it. Their backtrack runs on
+the device too (X1w), so only the walks' results come back to the host. The
+fused route keeps a Python graph.
+
+A failure on the card or in the native build raises; nothing falls back to
+another route or graph. The outputs are read out of the host graph at the
+end.
 """
 from __future__ import annotations
 
@@ -108,6 +116,26 @@ def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
         g.add_alignment(abpt, qseq, weight, res.cigar, True, read_id)
 
 
+def want_native(abpt: Params, fused: bool = False) -> bool:
+    """The twin of `abpoa_tpu/pipeline.py:193` `_want_native`, applied to
+    the route instead of the device name, so it is the same on every
+    device: the native host graph for the per-read and seeded routes,
+    except with Z-drop (and `-G`, refused by `Params`), which keep the
+    Python graph as the JAX package keeps it for them. The fused route
+    keeps its Python graph (it comes back from the card as one)."""
+    return not fused and not abpt.inc_path_score and abpt.zdrop <= 0
+
+
+def _select_graph(ab: Abpoa, native: bool) -> None:
+    """Give `ab` the native or the Python graph engine (JAX
+    `pipeline.py:309-324`, without its fallback: a failed build raises)."""
+    if native and not getattr(ab.graph, "is_native", False):
+        from .native.graph import NativePOAGraph
+        ab.graph = NativePOAGraph()
+    elif not native and getattr(ab.graph, "is_native", False):
+        ab.graph = POAGraph()
+
+
 def _run_fused_device(ab: Abpoa, abpt: Params, seqs: List[np.ndarray],
                       weights: List[np.ndarray], exist_n_seq: int = 0) -> None:
     """The fused route (abpoa_tpu/pipeline.py:116-190 without the probe,
@@ -151,10 +179,29 @@ def _ingest_records(ab: Abpoa, abpt: Params, records):
     return seqs, weights
 
 
+def _native_cons_fast_path(ab: Abpoa, abpt: Params, out_fp: IO[str]) -> bool:
+    """The default consensus straight from the native graph's C++ heaviest
+    bundling (abpoa_tpu/pipeline.py:346), without exporting the graph; False
+    where the configuration needs the Python graph."""
+    from .cons.consensus import native_consensus_hb, native_hb_eligible
+    if not native_hb_eligible(ab.graph, abpt) or abpt.out_gfa or abpt.out_pog:
+        return False
+    ab.cons = native_consensus_hb(ab.graph, ab.n_seq)
+    if ab.cons.n_cons == 0:
+        print("Warning: no consensus sequence generated.", file=sys.stderr)
+    output_fx_consensus(ab.cons, abpt, out_fp)
+    return True
+
+
 def output(ab: Abpoa, abpt: Params, out_fp: IO[str]) -> None:
     """GFA, MSA or consensus output (src/abpoa_align.c:355-371); the
-    consensus, where one is made, is kept in `ab.cons`."""
+    consensus, where one is made, is kept in `ab.cons`. A native graph gives
+    the default consensus itself, and a Python copy to the rest."""
+    if _native_cons_fast_path(ab, abpt, out_fp):
+        return
     g = ab.graph
+    if getattr(g, "is_native", False):
+        g = g.to_python()
     if abpt.out_gfa:
         def consensus() -> ConsensusResult:
             ab.cons = generate_consensus(g, abpt, ab.n_seq)
@@ -179,16 +226,19 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
     if not abpt._finalized:
         raise ValueError("call Params.finalize() first")
     validate_records(records)
+    seeded = not plain_route(abpt)
+    fused = not seeded and fused_eligible(abpt, len(records))
+    _select_graph(ab, want_native(abpt, fused))
     ab.reset()
     if abpt.incr_fn:
         from .io.restore import restore_graph
         restore_graph(ab, abpt)
     exist_n_seq = ab.n_seq
     seqs, weights = _ingest_records(ab, abpt, records)
-    if not plain_route(abpt):
+    if seeded:
         from .seed import anchor_poa_pipeline
         anchor_poa_pipeline(ab, abpt, seqs, weights, exist_n_seq)
-    elif fused_eligible(abpt, len(seqs)):
+    elif fused:
         _run_fused_device(ab, abpt, seqs, weights, exist_n_seq)
     else:
         if ab.graph.node_n > 2 and not per_read_covers(abpt):

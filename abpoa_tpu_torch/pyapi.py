@@ -5,7 +5,8 @@ Counterpart of `abpoa_tpu/pyapi.py` (abPOA python/pyabpoa.pyx):
 `msa_add()` / `msa_output()` and `msa_batch()`, returning `msa_result`
 objects. Like the binding, it aligns one read, fuses it, and goes on to the
 next: each read is aligned by kernel B2 on the aligner's device (the
-per-read route, `align/banded.py`) and fused into the host graph. B2 covers
+per-read route, `align/banded.py`, with its backtrack X1w) and fused into
+the native host graph (`native/`), as the CLI's per-read route does. B2 covers
 global mode with linear, affine or convex gaps; an aligner in local or
 extend mode raises NotImplementedError before it aligns anything
 (ROADMAP.md queue B, item 2).
@@ -24,10 +25,11 @@ import numpy as np
 
 from . import constants as C
 from .align.dispatch import align_sequence_to_graph
-from .cons.consensus import ConsensusResult, generate_consensus
+from .cons.consensus import (ConsensusResult, generate_consensus,
+                             native_consensus_hb, native_hb_eligible)
 from .cons.msa import generate_rc_msa
 from .params import Params, per_read_covers, per_read_refusal
-from .pipeline import Abpoa
+from .pipeline import Abpoa, _select_graph, want_native
 from .quarantine import QUARANTINE_EXCEPTIONS, PoisonedSetError, quarantine_set
 
 
@@ -122,12 +124,17 @@ class msa_aligner:
     def _collect(self, n_seq: int) -> msa_result:
         abpt = self.abpt
         g = self.ab.graph
-        if abpt.out_msa:
-            abc = generate_rc_msa(g, abpt, n_seq)
-        elif abpt.out_cons:
-            abc = generate_consensus(g, abpt, n_seq)
+        if native_hb_eligible(g, abpt):
+            abc = native_consensus_hb(g, n_seq)
         else:
-            abc = ConsensusResult(n_seq=n_seq)
+            if getattr(g, "is_native", False):
+                g = g.to_python()
+            if abpt.out_msa:
+                abc = generate_rc_msa(g, abpt, n_seq)
+            elif abpt.out_cons:
+                abc = generate_consensus(g, abpt, n_seq)
+            else:
+                abc = ConsensusResult(n_seq=n_seq)
         decode = abpt.code_to_char
         cons_seq = ["".join(chr(decode[b]) for b in row) for row in abc.cons_base]
         cons_qv = ["".join(chr(q) for q in row) for row in abc.cons_phred]
@@ -157,6 +164,7 @@ class msa_aligner:
         abpt.finalize()
         if not per_read_covers(abpt):
             raise per_read_refusal("the Python API")
+        _select_graph(self.ab, want_native(abpt))
         self.ab.reset()
         if abpt.incr_fn:
             from .io.restore import restore_graph

@@ -7,9 +7,13 @@ chaining :500-591; the anchored POA loop src/abpoa_align.c:209-310),
 copied function by function. Each read after the first is cut at the chained
 minimizer anchors it shares with the read before it into windows, subgraph
 alignments against the graph as the reads before it left it; the windows of
-one read go to the device as one batched launch of kernel B2
-(`align/dispatch.py` `align_windows`), the k-mer match runs between them are
-pushed as matches, and the whole read is fused once.
+one read go to the device as one batched launch of kernel B2 and one of
+its backtrack X1w (`align/dispatch.py` `align_windows`), the k-mer match
+runs between them are pushed as matches, and the whole read is fused once,
+into the native host graph (`native/`) through the surface it shares with
+`graph.POAGraph` (`add_subgraph_alignment`; the windows' bands come back
+through `write_band`). The windows keep the JAX package's order, as they
+seed and write back the graph's mpl/mpr.
 """
 from __future__ import annotations
 

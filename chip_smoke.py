@@ -6,7 +6,9 @@
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
-         one nvcc per source, all started together
+         one nvcc per source, and the native host graph
+         (abpoa_tpu_torch/native/host_core.cpp) with g++, all started
+         together
   A      kernel B2 (banded_dp, the per-read route; B1's seeded
          instantiation) against its plain PyTorch version on the plane rows
          it computes and on begend, mplr and ok: tables of a mid-run graph
@@ -21,8 +23,10 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          ring, one of only its two ends and an empty query (a forced
          adjacent-anchor spec) in one launch, against the plain version
          window by window, at the first W and at W = 64 (some windows
-         overflow); those 4 reads on cuda == on cpu; the read's windows from
-         W = 32 end to end, the overflowed part relaunched, cuda == cpu
+         overflow), and X1w (backtrack_windows) over each launch's ok
+         windows against its plain version (headers, bands, ops); those 4
+         reads on cuda == on cpu; the read's windows from W = 32 end to
+         end, the overflowed part relaunched, cuda == cpu
   A2     on sim2k tables: kernel B1 (fused_dp) against its plain version in
          every variant (linear/affine/convex x global/extend+Z-drop/local x
          int16/int32), B3 as B1's local instantiation at sim2k's local width
@@ -61,9 +65,13 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          route; the kernel counts are set to 0 before and read after (S1 at
          most once per read attempt and collision); the consensus must
          match the simulated reference at >= 99 % identity
-  C2     the per-read route (pipeline.poa, kernel B2) and the fused route on
-         the first M reads of that set give byte-identical consensus; the
-         per-read route's wall split into B2, the planes' copy and the host
+  C2     the per-read route (pipeline.poa on the native graph, kernels B2
+         and X1w) and the fused route on the first M reads of that set give
+         byte-identical consensus; the per-read route's time a read split
+         into the tables (C++), B2, X1w, the copy of the small results, the
+         cigar rebuild and the fusion and sort (C++); X1w launched once a
+         B2 launch, and the bytes copied to the host, beside the planes'
+         bytes that stay on the card (check_walks; the same in C5-C7)
   C3     phase C's set again with -r 2 (MSA and consensus; the loop records
          each read's path, the read-id bitsets are replayed on the host): the
          consensus equals phase C's, each MSA row without gaps is its read,
@@ -89,20 +97,19 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          with those 20 reads, the per-read route (B2 from the CLI): each
          new row without gaps is its read, each restored row without gaps
          is its restored row; the walls split into the restore's parse,
-         the state upload, the loop and the download, and per read into
-         B2, the planes' copy and the host
+         the state upload, the loop and the download, and per read as C2
   C6     qv-weighted diploid: phase C4's two haplotypes, Q reads (100, half
          of each, cut from C4's 200 as this route runs per read) written as
          FASTQ whose erroneous bases carry lower phred values, -d 2 -Q -r 4
          (the per-read route): the read lists partition the reads, every P
          line spells its read, B2 launches >= Q - 1 and B1 none; purity
-         and identity to each haplotype printed; the wall split into B2,
-         the copy, the host and the clustering
+         and identity to each haplotype printed; the wall split into the
+         per-read loop (as C2) and the clustering
   C7     the seeded user at full width: S reads (200) of phase C's set with
          -S at abPOA's k = 19, w = 10, n = 500 (a), half of them with -S -p
          (b), through the CLI: windows a read, B2 launches (one a read plus
-         relaunches, no B1), the per-read split (tables, B2, the planes'
-         copy, backtrack, fusion and sort), the guide tree's seconds, the
+         relaunches, no B1), the per-read split as C2, the guide tree's
+         seconds, the
          identity to the reference (>= 0.99) and to phase C's consensus.
          When fewer than half the reads get two windows at 10 % error
          (anchors rarely survive it), C7 runs on reads of the same
@@ -121,7 +128,9 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          B2 on, in C5 (c)); the kernel table's B2 row takes its time, plain
          time and bound from the latter; B2 batched (the banded_dp[windows]
          row) on the first launch of C7 (a)'s last read: its windows at the
-         graph the reads before it built, with the longest window alone
+         graph the reads before it built, with the longest window alone;
+         X1w (the backtrack[windows] row) on that launch's planes, and on
+         one window of C5's per-read graph and the held-out read
 Quick form (~4 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
 --c5-reads 6 --c6-reads 10 --c7-reads 12.
 The line before the last is the kernel table as JSON; the last line is
@@ -768,6 +777,77 @@ def synthetic_inputs(abpt, preds, bases, query, W, plane16, local, P=None,
             t(out_cnt), t(remain), row0, t(qp)), inf
 
 
+def x1w_check(p, ts, out, tabs, queries, tag: str):
+    """Kernel X1w (backtrack_windows) over the ok windows of one batched B2
+    launch (its inputs ts, its outputs out, the windows' row tables and
+    queries) on the card, against its plain version on the same inputs, on
+    what the walk defines: each window's header, band and n_ops ops.
+    Returns (max abs diff, X1w's inputs and keywords, the plain output on
+    the host)."""
+    import torch
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.backtrack_kernel import (
+        HEADER, backtrack_windows, backtrack_windows_torch)
+    ok = out[7].tolist()
+    slots = [k for k, o in enumerate(ok) if o]
+    inputs, kw, layout = banded.walk_inputs(p, ts, out, tabs, queries, slots)
+    got = backtrack_windows(*inputs, **kw)
+    torch.cuda.synchronize()
+    want = backtrack_windows_torch(*inputs, **kw).cpu()
+    sel = []
+    for k, (h, b, o, _) in zip(slots, layout):
+        gn, n_ops = tabs[k].gn, int(want[h])
+        sel += [torch.arange(h, h + HEADER), torch.arange(b, b + 2 * gn),
+                torch.arange(o, o + 2 * n_ops)]
+    sel = torch.cat(sel)
+    err = compare(f"backtrack_windows {tag}", [got.cpu()[sel]], [want[sel]])
+    return err, inputs, kw, want
+
+
+def x1w_bound(rates, inputs, want):
+    """X1w (inputs of backtrack_windows, its plain output): for each walked
+    window, X1's walk of its path (`bt_bound`'s bytes and operations a
+    step, with int32 planes), its header and ops written and its band (2 gn
+    ints) read and written once."""
+    import numpy as np
+    from abpoa_tpu_torch.align.backtrack_kernel import HEADER
+    pre_cnt = inputs[4].cpu().numpy().astype(np.int64)
+    scalars, roff = inputs[6].tolist(), inputs[7].tolist()
+    nb = ops = 0.0
+    for slot, _, h, _, o, _ in inputs[10].tolist():
+        n_ops, gn = int(want[h]), scalars[slot][10]
+        rows = want[o: o + 2 * n_ops].view(n_ops, 2)[:, 1].numpy().astype(np.int64)
+        npre = pre_cnt[roff[slot] + rows]
+        nb += float((10 * 4 + npre * (4 * 4 + 12) + 12 + 8).sum())
+        nb += 4 * (HEADER + 4 * gn)
+        ops += float((30 + 12 * npre).sum())
+    return rates.bound(nb, ops)
+
+
+def per_read_split(st: dict, fusion_s: float, n: int) -> str:
+    """The per-read and seeded routes' time a read (ms) from `banded.stats`
+    and the fusion's timer."""
+    per = lambda x: f"{x * 1e3 / max(1, n):.1f}"  # noqa: E731
+    return (f"tables (C++, pack, upload) {per(st['tables_s'])}, B2 "
+            f"{per(st['kernel_s'])}, X1w {per(st['backtrack_s'])} (CUDA events), "
+            f"copy of the small results {per(st['d2h_s'])} "
+            f"({st['d2h_bytes'] / max(1, n) / 1024:.1f} KiB a read; the planes, "
+            f"{st['planes_bytes'] / max(1, n) / 2**20:.1f} MiB a read, stay on "
+            f"the card), band write-back + cigar rebuild {per(st['cigar_s'])}, "
+            f"fusion + sort (C++) {per(fusion_s)}")
+
+
+def check_walks(tag: str, st: dict, b2: int, x1w: int) -> None:
+    """X1w ran once a B2 launch with an ok window (at least once a read),
+    and what came back to the host is no copy of the planes."""
+    if not st["reads"] <= x1w <= b2:
+        raise AssertionError(f"{tag}: {x1w} X1w launches for {b2} B2 launches "
+                             f"and {st['reads']} aligned reads")
+    if st["d2h_bytes"] * 20 > st["planes_bytes"]:
+        raise AssertionError(f"{tag}: {st['d2h_bytes']} bytes copied to the "
+                             f"host for {st['planes_bytes']} bytes of planes")
+
+
 def bt_inputs(abpt, args, out, query, inf, tracked):
     """X1's inputs for B1's outputs `out`, as the fused loop builds them."""
     import numpy as np
@@ -884,8 +964,8 @@ def run_cli(argv):
 
 def phase_c5(args, ref: str, rows: list, msa_len: int):
     """Phase C5: `rows` are phase C3's MSA rows of the reads. Returns the
-    CLI's B2 launches and (b)'s per-read graph (the restored MSA and the
-    new reads), the largest graph C5 (c) launches B2 on."""
+    CLI's B2 and X1w launches and (b)'s per-read graph (the restored MSA
+    and the new reads), the largest graph C5 (c) launches B2 on."""
     import numpy as np
     import torch
     from abpoa_tpu_torch import pipeline as pl
@@ -896,10 +976,13 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
     from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort
     from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
     from abpoa_tpu_torch.align.topo_kernel import topo_sort
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
     from abpoa_tpu_torch.io import restore as restore_mod
     from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.native.graph import NativePOAGraph
     from abpoa_tpu_torch.params import Params
-    from abpoa_tpu_torch.pipeline import Abpoa, _ingest_records, output, poa
+    from abpoa_tpu_torch.pipeline import (Abpoa, _ingest_records, _select_graph,
+                                          output, poa, want_native)
     n = len(rows)
     m5 = args.c5_reads
     m5b = min(20, m5)
@@ -976,30 +1059,35 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
     if ident5 < 0.99:
         raise AssertionError(f"-i consensus identity {ident5:.5f} < 0.99")
     # (b) the first m5b new reads, per-read route and fused route, from one
-    # restored graph (the fused run sorts it and leaves it as it was)
+    # restored graph (the fused run takes a Python copy of it)
     abpt5 = Params(device="cuda", incr_fn=msa5).finalize()
     ab_r = Abpoa()
+    _select_graph(ab_r, want_native(abpt5))  # as pipeline.msa gives it
     t0 = time.perf_counter()
     restore_mod.restore_graph(ab_r, abpt5)
     t_restore5 = time.perf_counter() - t0
     exist5 = ab_r.n_seq
     recs5 = read_fastx(fa5b)
-    ab_f = Abpoa(graph=ab_r.graph, names=list(ab_r.names),
+    ab_f = Abpoa(graph=ab_r.graph.to_python(), names=list(ab_r.names),
                  comments=list(ab_r.comments), quals=list(ab_r.quals),
                  seqs=list(ab_r.seqs), is_rc=list(ab_r.is_rc))
-    outs5 = []
+    outs5, split5b = [], {}
     for route, ab in (("fused", ab_f), ("per-read", ab_r)):
         seqs, weights = _ingest_records(ab, abpt5, recs5)
-        banded_dp.launches = fused_dp.launches = 0
+        banded_dp.launches = fused_dp.launches = backtrack_windows.launches = 0
         banded.reset_stats()
         t0 = time.perf_counter()
         if route == "fused":
             pl._run_fused_device(ab, abpt5, seqs, weights, exist5)
             b1_5b = fused_dp.launches
         else:
-            poa(ab, abpt5, seqs, weights, exist5)
+            undo = timed(NativePOAGraph, "add_subgraph_alignment", split5b, "fusion")
+            try:
+                poa(ab, abpt5, seqs, weights, exist5)
+            finally:
+                undo()
             pr5_wall, pr5 = time.perf_counter() - t0, dict(banded.stats)
-            b2_5b = banded_dp.launches
+            b2_5b, x1w_5b = banded_dp.launches, backtrack_windows.launches
         buf = io.StringIO()
         output(ab, abpt5, buf)
         outs5.append(buf.getvalue())
@@ -1009,12 +1097,12 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
         raise AssertionError("-i: per-read and fused routes give different consensus")
     if b2_5b < m5b or b1_5b < m5b:
         raise AssertionError(f"-i (b): B2 launches {b2_5b}, B1 launches {b1_5b}")
+    check_walks("C5 (b)", pr5, b2_5b, x1w_5b)
     n5 = max(1, pr5["reads"])
-    log(f"[C5] (b) per-read (B2 launches {b2_5b}) == fused (B1 launches {b1_5b}) "
-        f"consensus, byte for byte; restore {t_restore5:.2f} s; per-read route "
-        f"per read {pr5_wall * 1e3 / n5:.1f} ms = B2 {pr5['kernel_s'] * 1e3 / n5:.1f} "
-        f"+ planes D2H {pr5['d2h_s'] * 1e3 / n5:.1f} + host rest "
-        f"{(pr5_wall - pr5['kernel_s'] - pr5['d2h_s']) * 1e3 / n5:.1f} "
+    log(f"[C5] (b) per-read (B2 launches {b2_5b}, X1w {x1w_5b}) == fused (B1 "
+        f"launches {b1_5b}) consensus, byte for byte; restore (native graph) "
+        f"{t_restore5:.2f} s; per-read route per read {pr5_wall * 1e3 / n5:.1f} "
+        f"ms = {per_read_split(pr5, split5b.get('fusion', 0.0), n5)} "
         f"({pr5['rows']} DP rows launched)")
     graph5 = ab_r.graph
     del ab_r, ab_f
@@ -1022,16 +1110,19 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
     out5c = os.path.join(OUT, "incr_msa.fa")
     split5c = {}
     undo = [timed(restore_mod, "restore_graph", split5c, "restore"),
-            timed(pl, "poa", split5c, "poa")]
+            timed(pl, "poa", split5c, "poa"),
+            timed(NativePOAGraph, "add_subgraph_alignment", split5c, "fusion")]
     banded.reset_stats()
     fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+    backtrack_windows.launches = 0
     t0 = time.perf_counter()
     run_cli([fa5b, "-i", msa5, "-r", "1", "-o", out5c])
     wall5c = time.perf_counter() - t0
     for u in undo:
         u()
-    b2_c5 = banded_dp.launches
+    b2_c5, x1w_c5 = banded_dp.launches, backtrack_windows.launches
     pr5c = dict(banded.stats)
+    check_walks("C5 (c)", pr5c, b2_c5, x1w_c5)
     if pr5c["reads"] < m5b or b2_c5 < m5b or fused_dp.launches \
             or fused_dp.local_launches:
         raise AssertionError(f"-i -r 1: B2 launches {b2_c5}, B1 launches "
@@ -1047,26 +1138,28 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
         if row.replace("-", "") != reads5[i]:
             raise AssertionError(f"-i -r 1: new row {i} without gaps is not its read")
     n5c = max(1, pr5c["reads"])
-    host5c = split5c["poa"] - pr5c["kernel_s"] - pr5c["d2h_s"]
     log(f"[C5] (c) {m5b} new reads, -i -r 1 through the CLI, per-read route: wall "
         f"{wall5c:.2f} s, B2 launches {b2_c5} ({pr5c['rows']} DP rows), B1 none; "
         f"MSA {len(rows5[0][1])} columns, each restored row without gaps == its "
         f"restored row, each new row == its read")
     log(f"[C5] (c) wall split (s): restore (parse, with read ids) "
         f"{split5c['restore']:.2f}, per-read loop {split5c['poa']:.2f}, the rest "
-        f"(MSA ranks, rows, writing) {wall5c - split5c['restore'] - split5c['poa']:.2f}; "
-        f"per read (ms): B2 {pr5c['kernel_s'] * 1e3 / n5c:.1f}, planes D2H "
-        f"{pr5c['d2h_s'] * 1e3 / n5c:.1f}, host {host5c * 1e3 / n5c:.1f}; pinned "
-        f"planes buffer {banded._pinned[0].numel() * 4 / 2**20:.1f} MiB")
-    return b2_c5, graph5
+        f"(graph export, MSA ranks, rows, writing) "
+        f"{wall5c - split5c['restore'] - split5c['poa']:.2f}; per read (ms): "
+        f"{split5c['poa'] * 1e3 / n5c:.1f} = "
+        f"{per_read_split(pr5c, split5c.get('fusion', 0.0), n5c)}; X1w launches "
+        f"{x1w_c5}; pinned buffer {banded._pinned[0].numel() * 4 / 2**20:.2f} MiB")
+    return b2_c5, x1w_c5, graph5
 
 
 def phase_c6(args, h1, h2) -> int:
     """Phase C6: h1, h2 are phase C4's haplotypes. Returns the CLI's B2
-    launches."""
+    and X1w launches."""
     import numpy as np
     from abpoa_tpu_torch import pipeline as pl
     from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
+    from abpoa_tpu_torch.native.graph import NativePOAGraph
     from abpoa_tpu_torch.align.banded_kernel import banded_dp
     from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
     from abpoa_tpu_torch.cons import cluster as cluster_mod
@@ -1087,15 +1180,19 @@ def phase_c6(args, h1, h2) -> int:
     split6 = {}
     undo = [timed(cluster_mod, "multip_read_clu_kmedoids", split6, "cluster"),
             timed(pl, "poa", split6, "poa"),
-            timed(pl, "generate_gfa", split6, "gfa")]
+            timed(pl, "generate_gfa", split6, "gfa"),
+            timed(NativePOAGraph, "add_subgraph_alignment", split6, "fusion")]
     banded.reset_stats()
     fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+    backtrack_windows.launches = 0
     t0 = time.perf_counter()
     ab6 = run_pipeline([fq6, "-d", "2", "-Q", "-r", "4"], out6)
     wall6 = time.perf_counter() - t0
     for u in undo:
         u()
     b2_c6, pr6 = banded_dp.launches, dict(banded.stats)
+    x1w_c6 = backtrack_windows.launches
+    check_walks("C6", pr6, b2_c6, x1w_c6)
     if pr6["reads"] < m6 - 1 or b2_c6 < m6 - 1 or fused_dp.launches \
             or fused_dp.local_launches:
         raise AssertionError(f"-d 2 -Q: B2 launches {b2_c6}, B1 launches "
@@ -1108,7 +1205,6 @@ def phase_c6(args, h1, h2) -> int:
         if spells6.get(nm) != acgt(c):
             raise AssertionError(f"-d 2 -Q -r 4: the GFA path of {nm} does not spell it")
     n6 = max(1, pr6["reads"])
-    host6 = split6["poa"] - pr6["kernel_s"] - pr6["d2h_s"]
     gfa6 = split6["gfa"] - split6.get("cluster", 0.0)
     log(f"[C6] {m6} reads ({m6 // 2} a haplotype, interleaved) x {args.ref_len} bp "
         f"at 10% error as FASTQ (erroneous bases phred 3-14, the rest 20-40), "
@@ -1116,9 +1212,10 @@ def phase_c6(args, h1, h2) -> int:
         f"B1 none; final graph {ab6.graph.node_n} nodes, {pr6['rows'] / n6:.0f} "
         f"DP rows a read; {abc6.n_cons} consensus sequences; the read lists "
         f"partition the reads; every P line spells its read")
-    log(f"[C6] wall split (s): per-read loop {split6['poa']:.2f} (per read, ms: B2 "
-        f"{pr6['kernel_s'] * 1e3 / n6:.1f}, planes D2H {pr6['d2h_s'] * 1e3 / n6:.1f}, "
-        f"host {host6 * 1e3 / n6:.1f}), clustering (MSA, het columns, k-medoids) "
+    log(f"[C6] wall split (s): per-read loop {split6['poa']:.2f} (per read, ms: "
+        f"{split6['poa'] * 1e3 / n6:.1f} = "
+        f"{per_read_split(pr6, split6.get('fusion', 0.0), n6)}; X1w launches "
+        f"{x1w_c6}), clustering (MSA, het columns, k-medoids) "
         f"{split6.get('cluster', 0.0):.2f}, the rest of the GFA (bundling, walk, "
         f"writing) {gfa6:.2f}, the rest {wall6 - split6['poa'] - split6['gfa']:.2f}")
     for k in range(abc6.n_cons):
@@ -1129,7 +1226,7 @@ def phase_c6(args, h1, h2) -> int:
             f"to haplotype 1, {idents[1]:.5f} to haplotype 2; its "
             f"{len(abc6.clu_read_ids[k])} reads: {hap_n[0]} of haplotype 1, "
             f"{hap_n[1]} of haplotype 2")
-    return b2_c6
+    return b2_c6, x1w_c6
 
 
 # flags of the seeded runs on sim2k's 2 kb reads that give each read several
@@ -1190,10 +1287,11 @@ def two_node_window(g):
     """Row tables of a window with only its two ends (gn = 2): a node and
     its successor next in the topological order."""
     from abpoa_tpu_torch.align.tables import build_row_tables
-    i2n, n2i = g.index_to_node_id, g.node_id_to_index
+    i2n = g.index_to_node_id
+    nodes = g.to_python().nodes if getattr(g, "is_native", False) else g.nodes
     for i in range(1, g.node_n - 2):
         a, b = int(i2n[i]), int(i2n[i + 1])
-        if b in g.nodes[a].out_ids:
+        if b in nodes[a].out_ids:
             t = build_row_tables(g, a, b)
             if t.gn == 2:
                 return t
@@ -1211,6 +1309,7 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
     import copy
     import numpy as np
     import torch
+    from abpoa_tpu_torch import convert
     from abpoa_tpu_torch.align import banded
     from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
     from abpoa_tpu_torch.align.fused_dp_kernel import launch_shape
@@ -1252,6 +1351,8 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
             plain_ms, want = time_host(lambda: banded_dp_torch(*ts, gap_mode=p.gap_mode))
             err, rows = compare_dp(f"banded_dp windows {gname} W={W}", got, want, ts)
             max_err["banded_dp[windows]"] = max(max_err["banded_dp[windows]"], err)
+            err_w = x1w_check(p, ts, got, tabs, queries, f"{gname} W={W}")[0]
+            max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err_w)
             ok = got[7].tolist()
             if W == W0 and not all(ok):
                 raise AssertionError(f"windows {gname} W={W}: ok {ok}")
@@ -1262,7 +1363,8 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
                 f"({' '.join(SIM2K_WINDOWS)}; one {back} rows back past the ring "
                 f"D={ls['depth']}, one of gn = 2, one empty query), W={W}, "
                 f"{ls['block_warps']} warps: kernel == plain on {rows} computed "
-                f"rows, begend, mplr, ok {ok} (plain {plain_ms:.1f} ms)")
+                f"rows, begend, mplr, ok {ok} (plain {plain_ms:.1f} ms); X1w "
+                f"over its {sum(ok)} ok windows == plain (headers, bands, ops)")
         # the relaunch of the windows that overflowed, end to end, from
         # copies of the final graph, cuda against cpu
         res, mp = [], []
@@ -1278,7 +1380,8 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
             sizes = [len(tb) for tb, _, _ in calls_r[-1]["launches"]]
             if banded.retries == before or len(sizes) < 2 or sizes[1] >= sizes[0]:
                 raise AssertionError(f"relaunch at W=32: launch sizes {sizes}")
-            mp.append((gc.node_id_to_max_pos_left.copy(), gc.node_id_to_max_pos_right.copy()))
+            a_gc = convert.graph_to_numpy(gc)
+            mp.append((a_gc["mpl"], a_gc["mpr"]))
         if [(r.cigar, r.best_score) for r in res[0]] != [(r.cigar, r.best_score) for r in res[1]] \
                 or not all(np.array_equal(a, b) for a, b in zip(*mp)):
             raise AssertionError(f"relaunch at W=32, {gname}: cuda differs from cpu")
@@ -1292,15 +1395,17 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
 def phase_c7(args, ref: str, reads: list, fused_cons: str):
     """Phase C7: the seeded user at full width. (a) the first --c7-reads of
     phase C's set with -S at abPOA's k, w and n; (b) half of them with
-    -S -p. Returns (B2 launches of both, (row tables, queries, W) of the
-    first launch of (a)'s last read, Params of the run)."""
+    -S -p. Returns (B2 launches of both, X1w launches of both, (row tables,
+    queries, W) of the first launch of (a)'s last read, Params of the
+    run)."""
     import numpy as np
     import torch
     from abpoa_tpu_torch import seed as seed_mod
     from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
     from abpoa_tpu_torch.align.banded_kernel import banded_dp
     from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
-    from abpoa_tpu_torch.graph import POAGraph
+    from abpoa_tpu_torch.native.graph import NativePOAGraph
     from abpoa_tpu_torch.io.fastx import read_fastx
     from abpoa_tpu_torch.params import Params
     n7 = args.c7_reads
@@ -1325,7 +1430,8 @@ def phase_c7(args, ref: str, reads: list, fused_cons: str):
     fa7 = os.path.join(OUT, "seeded.fa")
     with open(fa7, "w") as fp:
         fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads[:n7])))
-    total_b2, last = 0, None
+    total_b2 = total_x1w = 0
+    last = None
     for tag, n, flags in (("(a)", n7, ["-S"]), ("(b)", n7 // 2, ["-S", "-p"])):
         fa = fa7
         if n != n7:
@@ -1336,10 +1442,11 @@ def phase_c7(args, ref: str, reads: list, fused_cons: str):
         calls, undo_w = record_windows()
         undo = [undo_w, timed(seed_mod, "build_guide_tree", split, "tree"),
                 timed(seed_mod, "build_guide_tree_partition", split, "seeding"),
-                timed(POAGraph, "add_subgraph_alignment", split, "fusion")]
+                timed(NativePOAGraph, "add_subgraph_alignment", split, "fusion")]
         banded.reset_stats()
         retries = banded.retries
         fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+        backtrack_windows.launches = 0
         out7 = os.path.join(OUT, f"seeded_cons{tag[1]}.fa")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1350,8 +1457,10 @@ def phase_c7(args, ref: str, reads: list, fused_cons: str):
                 u()
         wall = time.perf_counter() - t0
         st = dict(banded.stats)
-        b2 = banded_dp.launches
+        b2, x1w = banded_dp.launches, backtrack_windows.launches
         total_b2 += b2
+        total_x1w += x1w
+        check_walks(f"C7 {tag}", st, b2, x1w)
         wins = [len(c["windows"]) for c in calls if c["windows"]]
         relaunches = banded.retries - retries
         if fused_dp.launches or fused_dp.local_launches:
@@ -1366,29 +1475,28 @@ def phase_c7(args, ref: str, reads: list, fused_cons: str):
         ident_c = 1 - edit_distance(cons[0].seq, fused_cons) / len(fused_cons)
         nr = max(1, st["reads"])
         per = lambda x: f"{x * 1e3 / nr:.1f}"  # noqa: E731
-        host = st["tables_s"] + st["d2h_s"] + st["backtrack_s"]
+        known = (split.get("seeding", 0.0) + split.get("fusion", 0.0)
+                 + sum(st[k] for k in ("tables_s", "kernel_s", "backtrack_s",
+                                       "d2h_s", "cigar_s")))
         log(f"[C7] {tag} {n} reads x {args.ref_len} bp at {err * 100:.0f} % error, "
             f"{' '.join(flags)} (k={p7.k} w={p7.w} n={p7.min_w}) through the CLI "
             f"on cuda: wall {wall:.2f} s ({n / wall:.3f} reads/s); windows a read "
             f"min {min(wins)} / median {int(np.median(wins))} / max {max(wins)} "
             f"({sum(wins)} in {len(wins)} aligned reads); B2 launches {b2} = "
-            f"{len(wins)} reads + {relaunches} relaunches, B1 none; "
-            f"{st['rows']} DP rows launched")
-        log(f"[C7] {tag} per aligned read (ms): tables {per(st['tables_s'])}, B2 "
-            f"{per(st['kernel_s'])} (CUDA events), planes' copy "
-            f"{per(st['d2h_s'])}, best cell + backtrack {per(st['backtrack_s'])}, "
-            f"fusion + sort {per(split.get('fusion', 0.0))}; the rest of the loop "
-            f"{per(wall - split.get('seeding', 0.0) - st['kernel_s'] - host - split.get('fusion', 0.0))}"
-            f"; seeding {split.get('seeding', 0.0):.2f} s of which the guide tree "
-            f"{split.get('tree', 0.0):.2f} s; pinned planes buffer "
-            f"{banded._pinned[0].numel() * 4 / 2**20:.1f} MiB")
+            f"{len(wins)} reads + {relaunches} relaunches, X1w launches {x1w}, "
+            f"B1 none; {st['rows']} DP rows launched")
+        log(f"[C7] {tag} per aligned read (ms): "
+            f"{per_read_split(st, split.get('fusion', 0.0), nr)}; the rest of "
+            f"the run {per(wall - known)}; seeding {split.get('seeding', 0.0):.2f} "
+            f"s of which the guide tree {split.get('tree', 0.0):.2f} s; pinned "
+            f"buffer {banded._pinned[0].numel() * 4 / 2**20:.2f} MiB")
         log(f"[C7] {tag} consensus length {len(cons[0].seq)}, identity to the "
             f"reference {ident:.5f}, to phase C's fused consensus {ident_c:.5f}")
         if ident < 0.99:
             raise AssertionError(f"C7 {tag}: consensus identity {ident:.5f} < 0.99")
         if tag == "(a)":
             last = calls[-1]["launches"][0]
-    return total_b2, last, p7
+    return total_b2, total_x1w, last, p7
 
 
 def longest_window(args):
@@ -1426,7 +1534,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from abpoa_tpu_torch.align import banded
     from abpoa_tpu_torch.align import fused_loop as fl
-    from abpoa_tpu_torch.align.backtrack_kernel import backtrack, backtrack_torch
+    from abpoa_tpu_torch.align.backtrack_kernel import (
+        backtrack, backtrack_torch, backtrack_windows, backtrack_windows_torch)
     from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
     from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
     from abpoa_tpu_torch.align.device_graph import fuse_alignment
@@ -1443,8 +1552,11 @@ def main() -> int:
     from abpoa_tpu_torch.io.fastx import read_fastx
     from abpoa_tpu_torch.kernels import build
     from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.native import build as build_native
+    from abpoa_tpu_torch.native.graph import NativePOAGraph
     from abpoa_tpu_torch.pipeline import (Abpoa, _ingest_records, _rc_encode,
-                                          output, poa)
+                                          _select_graph, output, poa,
+                                          want_native)
 
     card = smi("name,power.limit") or "nvidia-smi failed"
     log(f"card: {card}")
@@ -1457,19 +1569,37 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     t_start = time.perf_counter()
 
-    # ---- build
+    # ---- build: the kernels (one nvcc a source) and the native host graph
+    # (g++), all at once
+    import threading
     t0 = time.perf_counter()
+    native_done = {}
+
+    def native_build():
+        try:
+            native_done["path"] = build_native()
+        except Exception as e:  # raised below, in this thread
+            native_done["error"] = e
+        native_done["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=native_build)
+    th.start()
     build.build(verbose=True)
     log(f"[build] nvcc sm_90a, {len(build.sources())} sources in parallel: "
         f"{time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(build.library_path(), ROOT)}")
+    th.join()
+    if "error" in native_done:
+        raise native_done["error"]
+    log(f"[build] g++ native host graph: {native_done['s']:.2f} s -> "
+        f"{os.path.relpath(native_done['path'], ROOT)}")
 
     dev = torch.device("cuda")
     abpt = Params(device="cuda").finalize()
     cpu = Params(device="cpu").finalize()
     max_err = {k: 0 for k in ("banded_dp", "banded_dp[windows]", "fused_dp",
-                              "fused_dp[local]", "backtrack", "edge_sort",
-                              "topo_sort")}
+                              "fused_dp[local]", "backtrack",
+                              "backtrack[windows]", "edge_sort", "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
 
     # ---- A: B2 vs plain (the per-read route's kernel, B1's seeded
@@ -1898,15 +2028,22 @@ def main() -> int:
     m = args.c2_reads
     recs = read_fastx(fa)[:m]
     outs, ab_pr = [], None
+    split2 = {}
     for route in ("per-read", "fused"):
         ab = Abpoa()
         seqs, weights = _ingest_records(ab, abpt, recs)
-        banded_dp.launches = 0
+        banded_dp.launches = backtrack_windows.launches = 0
         banded.reset_stats()
         t0 = time.perf_counter()
         if route == "per-read":
-            poa(ab, abpt, seqs, weights, 0)
+            _select_graph(ab, want_native(abpt))  # as pipeline.msa gives it
+            undo = timed(NativePOAGraph, "add_subgraph_alignment", split2, "fusion")
+            try:
+                poa(ab, abpt, seqs, weights, 0)
+            finally:
+                undo()
             b2_launches, ab_pr = banded_dp.launches, ab
+            x1w_c2 = backtrack_windows.launches
             pr_wall, pr_stats = time.perf_counter() - t0, dict(banded.stats)
         else:
             from abpoa_tpu_torch.pipeline import _run_fused_device
@@ -1916,15 +2053,14 @@ def main() -> int:
         outs.append(buf.getvalue())
         log(f"[C2] {route} route, {m} reads: {time.perf_counter() - t0:.2f} s")
     n_pr = max(1, pr_stats["reads"])
-    k_ms, d_ms = pr_stats["kernel_s"] * 1e3, pr_stats["d2h_s"] * 1e3
     log(f"[C2] per-read route, per aligned read ({pr_stats['reads']} reads, "
-        f"{pr_stats['rows']} DP rows launched, {b2_launches} B2 launches): "
-        f"wall {pr_wall * 1e3 / n_pr:.1f} ms = B2 kernel {k_ms / n_pr:.1f} "
-        f"(CUDA events) + planes D2H {d_ms / n_pr:.1f} + host rest "
-        f"{(pr_wall * 1e3 - k_ms - d_ms) / n_pr:.1f} (tables, backtrack, "
-        f"fusion, sort); the POA loop {pr_wall:.2f} s")
+        f"{pr_stats['rows']} DP rows launched, {b2_launches} B2 launches, "
+        f"{x1w_c2} X1w launches): wall {pr_wall * 1e3 / n_pr:.1f} ms = "
+        f"{per_read_split(pr_stats, split2.get('fusion', 0.0), n_pr)}; the POA "
+        f"loop {pr_wall:.2f} s")
     if b2_launches < m - 1:
         raise AssertionError(f"per-read route: {b2_launches} B2 launches for {m} reads")
+    check_walks("C2", pr_stats, b2_launches, x1w_c2)
     if outs[0] != outs[1]:
         raise AssertionError("per-read and fused routes give different consensus")
     log(f"[C2] per-read (B2 launches {b2_launches}) == fused consensus, byte for byte")
@@ -2047,9 +2183,9 @@ def main() -> int:
             f"{len(abc4.clu_read_ids[k])} reads: {hap_n[0]} of haplotype 1, "
             f"{hap_n[1]} of haplotype 2")
 
-    b2_c5, graph5 = phase_c5(args, ref, rows[:n], msa_len)
-    b2_c6 = phase_c6(args, h1, h2)
-    b2_c7, c7_last, p7 = phase_c7(args, ref, reads, cons[0].seq)
+    b2_c5, x1w_c5, graph5 = phase_c5(args, ref, rows[:n], msa_len)
+    b2_c6, x1w_c6 = phase_c6(args, h1, h2)
+    b2_c7, x1w_c7, c7_last, p7 = phase_c7(args, ref, reads, cons[0].seq)
 
     # ---- D: kernels vs plain at the main path's shape
     qd = encode(cpu, held_out)
@@ -2240,7 +2376,32 @@ def main() -> int:
         f"computed row), plain {b2w_plain_ms:.1f} ms, bound {b2w_bnd[0]:.4f} ms "
         f"({b2w_bnd[1]}); the longest window alone "
         f"{time_cuda(lambda: banded_dp(*longest_window(ts), gap_mode=p7.gap_mode), 3):.3f} ms")
+
+    # X1w on those planes (the row's numbers), then on one window of C5's
+    # per-read graph and the held-out read
+    def x1w_at(tag, p, ts, got, tabs, queries):
+        err, xin, xkw, xwant = x1w_check(p, ts, got, tabs, queries, f"D {tag}")
+        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err)
+        ms = time_cuda(lambda: backtrack_windows(*xin, **xkw), 5)
+        plain_ms, _ = time_host(lambda: backtrack_windows_torch(*xin, **xkw))
+        bnd = x1w_bound(rates, xin, xwant)
+        steps = [int(xwant[h]) for _, _, h, _, _, _ in xin[10].tolist()]
+        log(f"[D] X1w at {tag} ({len(steps)} windows, one warp each; steps "
+            f"min {min(steps)} / max {max(steps)} / sum {sum(steps)}): kernel == "
+            f"plain (headers, bands, ops); kernel {ms:.3f} ms "
+            f"({ms * 1e3 / max(1, max(steps)):.3f} us a step of the longest "
+            f"walk), plain {plain_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+        return ms, plain_ms, bnd
+
+    x1w_ms, x1w_plain_ms, x1w_bnd = x1w_at(
+        "C7 (a)'s last read (the batched B2 above)", p7, ts, got, tabs7, q7)
     del ts, want, got
+    t5 = build_row_tables(graph5, 0, 1)
+    ts = to_dev(banded.pack_windows(abpt, [t5], [qd], W2), dev)
+    got = banded_dp(*ts, gap_mode=abpt.gap_mode)
+    x1w_at("C5's per-read graph (one window, the held-out read)", abpt, ts,
+           got, [t5], [qd])
+    del ts, got
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launched, ms, plain_ms, bnd):
@@ -2266,6 +2427,10 @@ def main() -> int:
         entry("backtrack", "abpoa_tpu_torch/csrc/backtrack.cu",
               "abpoa_tpu/align/fused_loop.py:601", launches["backtrack"],
               x1_ms, x1_plain_ms, x1_bound),
+        entry("backtrack[windows]", "abpoa_tpu_torch/csrc/backtrack.cu",
+              "abpoa_tpu/align/jax_backtrack.py:29",
+              x1w_c2 + x1w_c5 + x1w_c6 + x1w_c7, x1w_ms, x1w_plain_ms,
+              x1w_bnd),
         entry("edge_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
               "abpoa_tpu/align/fused_loop.py:145", launches["edge_sort"],
               s1_ms, s1_plain_ms, s1_bound_d),

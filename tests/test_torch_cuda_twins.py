@@ -1,4 +1,4 @@
-"""The CUDA kernels B1/B3, X1, S1 and K1 against their plain PyTorch
+"""The CUDA kernels B1/B3, X1, X1w, S1 and K1 against their plain PyTorch
 versions on the card, and the cases they share with the CPU tests.
 
 This file imports no JAX, so the card machine, which has none, collects it.
@@ -10,6 +10,9 @@ The cases are the ones the CPU test files hold against the JAX package:
 - X1 (`backtrack`): the planes of those cases, with the gap-placement flags
   (`BT_CASES`; against JAX in test_torch_fused_steps.py), and a synthetic
   graph with 64 predecessor slots (`_wide_case`; test_torch_kernel_shapes.py);
+- X1w (`backtrack_windows`): the windows of a seeded read of sim2k.fa in
+  the three gap modes, some overflowed, and one whole-read window
+  (against JAX in test_torch_windows_backtrack.py);
 - K1 (`topo_sort`) on graphs of the fused loop (`topo_graph_cases`; against
   JAX in test_torch_fused_steps.py). S1 and K1 on the graphs made for their
   traps are in test_torch_sort_twins.py;
@@ -400,3 +403,41 @@ def test_restored_graph_routes_on_card_match_cpu(flags, route):
     assert got == _cli_output(args, "cpu")
     assert (b2 >= 2, b1 >= 2) == (route == "per-read", route == "fused")
     assert (b2 == 0) == (route == "fused") and (b1 == 0) == (route == "per-read")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gap,flags", [("convex", []), ("affine", ["-O", "4"]),
+                                       ("linear", ["-O", "0"])])
+def test_backtrack_windows_kernel_matches_plain_on_card(gap, flags, tmp_path):
+    """X1w on the card == its plain version (headers, bands, ops) over the
+    windows of sim2k's 4th read at -S -k 11 -w 5 -n 50, at the first W
+    and at W = 64 (where some windows overflow and are not walked), and
+    over the 5th read aligned whole (one window)."""
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.tables import build_row_tables, initial_band_width
+    reads = read_fastx(os.path.join(DATA_DIR, "sim2k.fa"))
+    fa = str(tmp_path / "sim2k_4.fa")
+    with open(fa, "w") as fp:
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in reads[:4]))
+    calls, undo = chip_smoke.record_windows()
+    try:
+        ab = chip_smoke.run_pipeline(
+            [fa, *chip_smoke.SIM2K_WINDOWS, *flags, "--device", "cpu"],
+            str(tmp_path / "out.fa"))
+    finally:
+        undo()
+    p = make_params(**GAPS[gap])
+    p.device = "cuda"
+    p.finalize()
+    tabs, queries, _ = calls[-1]["launches"][0]
+    t5 = build_row_tables(ab.graph, 0, 1)
+    cases = [(tabs, queries, max(initial_band_width(p, len(q)) for q in queries)),
+             (tabs, queries, 64), ([t5], [encode(p, reads[4].seq)], None)]
+    for tb, qs, W in cases:
+        W = W or initial_band_width(p, len(qs[0]))
+        ts = chip_smoke.to_dev(banded.pack_windows(p, tb, qs, W), _card())
+        out = banded_dp(*ts, gap_mode=p.gap_mode)
+        torch.cuda.synchronize()
+        assert any(out[7].tolist())
+        assert chip_smoke.x1w_check(p, ts, out, tb, qs, f"{gap} W={W}")[0] == 0

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone and never falls back silently.
 
-(d) importing every `abpoa_tpu_torch` module pulls in neither `jax` nor any
-    `abpoa_tpu` module (checked in a fresh interpreter).
+(d) importing every `abpoa_tpu_torch` module, the native host graph's
+    included, pulls in neither `jax` nor any `abpoa_tpu` module (checked in
+    a fresh interpreter); the kernels' and the native graph's sources ship
+    as package data.
 (e) with no CUDA device, the default `Params()` and the CLI raise instead of
     running on the CPU, and `device="cpu"` runs.
 Configurations outside the ported slice raise NotImplementedError: `-b < 0`
@@ -42,6 +44,10 @@ print(",".join(names), ",".join(bad))
 FUSED_ROUTE = {"abpoa_tpu_torch.align." + m for m in (
     "buckets", "eligibility", "device_graph", "fused_dp_kernel",
     "backtrack_kernel", "edge_sort_kernel", "topo_kernel", "fused_loop")}
+# the per-read and seeded routes' host graph and tables
+NATIVE_GRAPH = {"abpoa_tpu_torch.native", "abpoa_tpu_torch.native.graph",
+                "abpoa_tpu_torch.align.tables", "abpoa_tpu_torch.align.banded",
+                "abpoa_tpu_torch.seed", "abpoa_tpu_torch.convert"}
 
 
 def test_port_imports_neither_jax_nor_abpoa_tpu():
@@ -51,7 +57,7 @@ def test_port_imports_neither_jax_nor_abpoa_tpu():
     assert proc.returncode == 0, proc.stderr[-2000:]
     names, _, bad = proc.stdout.strip().partition(" ")
     names = set(names.split(","))
-    assert len(names) >= 27 and FUSED_ROUTE <= names
+    assert len(names) >= 29 and FUSED_ROUTE | NATIVE_GRAPH <= names
     assert bad == ""
 
 
@@ -218,5 +224,7 @@ def test_kernel_sources_ship_as_package_data():
     patterns = cfg["package-data"]["abpoa_tpu_torch"]
     csrc = os.path.join(ROOT, "abpoa_tpu_torch", "csrc")
     sources = [f"csrc/{f}" for f in os.listdir(csrc) if f.endswith(".cu")]
+    sources.append("native/host_core.cpp")
+    assert os.path.isfile(os.path.join(ROOT, "abpoa_tpu_torch", sources[-1]))
     assert sources and all(any(fnmatch.fnmatch(s, p) for p in patterns)
                            for s in sources)
