@@ -26,9 +26,10 @@ n_match, err]; err is 1 on a dead end or when the stream reaches max_ops.
 X1w (`backtrack_windows`) is the counterpart of
 `abpoa_tpu/align/jax_backtrack.py` `device_backtrack` as
 `jax_backend.py` `_dp_full_batch` vmaps it over a seeded read's windows,
-with `_dp_full`'s best-cell pick: one warp a window of a B2 launch, reading
-B2's ragged planes in place; its plain version `backtrack_windows_torch`
-runs the pick and `backtrack_torch` window by window.
+with `_dp_full`'s best cell of each mode (:662-681), the local stop and
+`-G`'s path scores: one warp a window of a B2 launch, reading B2's ragged
+planes in place; its plain version `backtrack_windows_torch` runs the pick
+and `backtrack_torch` window by window.
 """
 from __future__ import annotations
 
@@ -109,16 +110,20 @@ backtrack.launches = 0
 
 def backtrack_torch(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
                     query, mat, sc, *, max_ops: int, gap_mode: int,
-                    gap_on_right: bool, put_gap_at_end: bool, local: bool):
+                    gap_on_right: bool, put_gap_at_end: bool, local: bool,
+                    pre_score=None):
     """The plain version of `backtrack`: `_backtrack_w`'s loop body
     (fused_loop.py:643-777) one step at a time, over host copies of the
-    planes; returns (ops, res) on the inputs' device."""
+    planes; returns (ops, res) on the inputs' device. `pre_score` (R, P),
+    `-G`'s path score of each predecessor slot, enters every
+    predecessor-crossing equality (jax_backtrack.py:73-110)."""
     dev = H.device
     R, W = H.shape
     planes = [p.cpu().numpy() for p in (H, E1, E2, F1, F2)]
     Hn, E1n, E2n, F1n, F2n = planes
     beg_l, end_l = beg.tolist(), end.tolist()
     pre_l, pre_cnt_l = pre_idx.tolist(), pre_cnt.tolist()
+    ps_l = pre_score.tolist() if pre_score is not None else None
     base_l = [b & 0xFF for b in base.tolist()]
     q = query.tolist()
     mat_l = mat.tolist()
@@ -145,11 +150,13 @@ def backtrack_torch(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
         bi, qb = base_l[i], q[j - 1]
         s = mat_l[bi][qb]
         preds = pre_l[i][:pre_cnt_l[i]]
+        pss = ps_l[i] if ps_l is not None else [0] * len(preds)
         has_M = cur_op & M != 0
 
         first_m = -1
         for k, p in enumerate(preds):
-            if beg_l[p] <= j - 1 <= end_l[p] and gat_row(Hn, p, j - 1) + s == H_ij:
+            if (beg_l[p] <= j - 1 <= end_l[p]
+                    and gat_row(Hn, p, j - 1) + s + pss[k] == H_ij):
                 first_m = k
                 break
         any_m = first_m >= 0
@@ -160,19 +167,20 @@ def backtrack_torch(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
         for k, p in enumerate(preds):
             if not beg_l[p] <= j <= end_l[p]:
                 continue
+            ps = pss[k]
             if linear:
-                if gat_row(Hn, p, j) - e1 == H_ij:
+                if gat_row(Hn, p, j) - e1 + ps == H_ij:
                     first_d = k
                     break
                 continue
             ph, pe1 = gat_row(Hn, p, j), gat_row(E1n, p, j)
             hit1 = cur_op & C.E1_OP != 0 and (
-                H_ij == pe1 if has_M else gat(E1n, i, j) == pe1 - e1)
+                H_ij == pe1 + ps if has_M else gat(E1n, i, j) == pe1 - e1 + ps)
             hit2 = False
             if convex:
                 pe2 = gat_row(E2n, p, j)
                 hit2 = cur_op & C.E2_OP != 0 and (
-                    H_ij == pe2 if has_M else gat(E2n, i, j) == pe2 - e2)
+                    H_ij == pe2 + ps if has_M else gat(E2n, i, j) == pe2 - e2 + ps)
             if hit1 or hit2:
                 first_d = k
                 if hit1:
@@ -239,7 +247,7 @@ def backtrack_torch(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
 # ----------------------------------------------------------------- X1w
 HEADER = 11  # [n_ops, fin_i, fin_j, n_aln, n_match, start_i, start_j, err,
 #               best_score, best_i, best_j]
-_WNAMES = ("planes", "begend", "mplr", "pre_idx", "pre_cnt", "base",
+_WNAMES = ("planes", "begend", "mplr", "ext", "pre_idx", "pre_cnt", "base",
            "scalars", "roff", "mat", "query", "plan")
 
 
@@ -255,7 +263,8 @@ def _check_windows(args) -> tuple:
                              f"planes on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"backtrack_windows: {name} must be contiguous")
-    planes, begend, mplr, pre_idx, pre_cnt, base, scalars, roff, mat, _, plan = args
+    (planes, begend, mplr, ext, pre_idx, pre_cnt, base, scalars, roff, mat, _,
+     plan) = args
     if planes.dim() != 3 or planes.shape[0] != 5:
         raise ValueError("backtrack_windows: planes must have shape (5, Rtot, W)")
     R = planes.shape[1]
@@ -267,6 +276,8 @@ def _check_windows(args) -> tuple:
             raise ValueError(f"backtrack_windows: {name} must have shape ({n},)")
     if scalars.dim() != 2 or scalars.shape[1] != 16:
         raise ValueError("backtrack_windows: scalars must have shape (B, 16)")
+    if ext.shape != (scalars.shape[0], 4):
+        raise ValueError("backtrack_windows: ext must have shape (B, 4)")
     if roff.shape != (scalars.shape[0] + 1,) or mat.dim() != 2:
         raise ValueError("backtrack_windows: roff must be (B + 1,), mat (m, m)")
     if plan.dim() != 2 or plan.shape[1] != 6 or plan.shape[0] < 1:
@@ -274,28 +285,40 @@ def _check_windows(args) -> tuple:
     return R, planes.shape[2], pre_idx.shape[1]
 
 
-def backtrack_windows(planes, begend, mplr, pre_idx, pre_cnt, base, scalars,
-                      roff, mat, query, plan, *, size: int, gap_mode: int,
-                      gap_on_right: bool, put_gap_at_end: bool):
+def backtrack_windows(planes, begend, mplr, ext, pre_idx, pre_cnt, base,
+                      scalars, roff, mat, query, plan, *, size: int,
+                      gap_mode: int, gap_on_right: bool, put_gap_at_end: bool,
+                      pre_score=None):
     """Kernel X1w: the best cell and the walk of each planned window of one
-    B2 launch (global mode), into one packed int32 buffer of `size`.
+    B2 launch, into one packed int32 buffer of `size`.
 
     The inputs are B2's launch as it stands on the device: `planes` its
-    (5, Rtot, W) output, `begend`/`mplr` its bands, `pre_idx`, `pre_cnt`,
-    `base`, `scalars` and `roff` its inputs; `mat` (m, m); `query` the
+    (5, Rtot, W) output, `begend`/`mplr` its bands, `ext` (B, 4) its best
+    cells, `pre_idx`, `pre_cnt`, `base`, `scalars` and `roff` its inputs
+    (scalars[12] is a window's mode: 0 global, 1 extend, 2 local), and
+    `pre_score` its path scores (`-G`) or None; `mat` (m, m); `query` the
     walked windows' queries one after another; `plan` (n, 6), one row a
     walk: [slot in the launch, query offset, header offset, band offset,
-    op offset, max_ops]. The walk writes at those offsets of the output the
-    header (`HEADER` ints), the window's final [mpl..., mpr...] (2 gn) and
-    its ops (max_ops, 2) [op, row] in walk order (op 0 match, 1 deletion,
-    2 insertion; rows past n_ops undefined). For CUDA tensors one warp a
-    walk runs it on the card (`csrc/backtrack.cu`), for CPU tensors
+    op offset, max_ops]. The best cell is, in global mode, the end row's
+    predecessor with the largest H at its band's end (`_dp_full`'s argmax,
+    jax_backend.py:664-670), in extend and local mode B2's `ext`; a local
+    walk stops before a zero cell. The walk writes at those offsets of the
+    output the header (`HEADER` ints), the window's final [mpl..., mpr...]
+    (2 gn) and its ops (max_ops, 2) [op, row] in walk order (op 0 match, 1
+    deletion, 2 insertion; rows past n_ops undefined). For CUDA tensors one
+    warp a walk runs it on the card (`csrc/backtrack.cu`), for CPU tensors
     `backtrack_windows_torch`."""
-    args = (planes, begend, mplr, pre_idx, pre_cnt, base, scalars, roff, mat,
-            query, plan)
+    args = (planes, begend, mplr, ext, pre_idx, pre_cnt, base, scalars, roff,
+            mat, query, plan)
     R, W, P = _check_windows(args)
+    if pre_score is not None and (pre_score.shape != pre_idx.shape
+                                  or pre_score.dtype != torch.int32
+                                  or pre_score.device != planes.device
+                                  or not pre_score.is_contiguous()):
+        raise ValueError("backtrack_windows: pre_score must be a contiguous "
+                         "int32 tensor shaped and placed as pre_idx")
     kw = dict(size=size, gap_mode=gap_mode, gap_on_right=gap_on_right,
-              put_gap_at_end=put_gap_at_end)
+              put_gap_at_end=put_gap_at_end, pre_score=pre_score)
     dev = planes.device
     if dev.type == "cpu":
         return backtrack_windows_torch(*args, **kw)
@@ -308,8 +331,10 @@ def backtrack_windows(planes, begend, mplr, pre_idx, pre_cnt, base, scalars,
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_backtrack_windows(
-            *(ptr(t) for t in args), ptr(packed), plan.shape[0], R, W, P,
-            mat.shape[1], int(gap_mode), flags, ctypes.c_void_p(stream))
+            *(ptr(t) for t in args),
+            ptr(pre_score) if pre_score is not None else None, ptr(packed),
+            plan.shape[0], R, W, P, mat.shape[1], int(gap_mode), flags,
+            ctypes.c_void_p(stream))
     build.check(err, "backtrack_windows launch")
     backtrack_windows.launches += 1
     return packed
@@ -318,39 +343,44 @@ def backtrack_windows(planes, begend, mplr, pre_idx, pre_cnt, base, scalars,
 backtrack_windows.launches = 0
 
 
-def backtrack_windows_torch(planes, begend, mplr, pre_idx, pre_cnt, base,
-                            scalars, roff, mat, query, plan, *, size: int,
-                            gap_mode: int, gap_on_right: bool,
-                            put_gap_at_end: bool):
+def backtrack_windows_torch(planes, begend, mplr, ext, pre_idx, pre_cnt,
+                            base, scalars, roff, mat, query, plan, *,
+                            size: int, gap_mode: int, gap_on_right: bool,
+                            put_gap_at_end: bool, pre_score=None):
     """The plain version of `backtrack_windows`: window by window, the best
-    cell (`_dp_full`'s argmax over the end row's predecessors,
-    jax_backend.py:664-670) and `backtrack_torch`'s walk, whose start cell
-    follows from its last op; returns the packed output on the inputs'
-    device (unwritten ints are 0)."""
+    cell (global: `_dp_full`'s argmax over the end row's predecessors,
+    jax_backend.py:664-670; extend and local: B2's `ext`) and
+    `backtrack_torch`'s walk, whose start cell follows from its last op;
+    returns the packed output on the inputs' device (unwritten ints are 0)."""
     dev = planes.device
     cpu = lambda t: t.cpu()  # noqa: E731
     planes, begend, mplr, pre_idx, pre_cnt, base, mat, query = map(
         cpu, (planes, begend, mplr, pre_idx, pre_cnt, base, mat, query))
-    sc_l, roff_l = scalars.tolist(), roff.tolist()
+    if pre_score is not None:
+        pre_score = pre_score.cpu()
+    sc_l, roff_l, ext_l = scalars.tolist(), roff.tolist(), ext.tolist()
     W = planes.shape[2]
     out = torch.zeros(size, dtype=torch.int32)
     for slot, qoff, h_at, b_at, o_at, max_ops in plan.tolist():
-        qlen, _, _, inf, _, e1, oe1, _, e2, oe2, gn = sc_l[slot][:11]
+        qlen, _, _, inf, _, e1, oe1, _, e2, oe2, gn, _, mode = sc_l[slot][:13]
         r0 = roff_l[slot]
         beg = begend[2 * r0: 2 * r0 + gn]
         end = begend[2 * r0 + gn: 2 * r0 + 2 * gn]
         out[b_at: b_at + 2 * gn] = mplr[2 * r0: 2 * r0 + 2 * gn]
         H = planes[0, r0: r0 + gn]
-        n_sink = int(pre_cnt[r0 + gn - 1])
-        rows = pre_idx[r0 + gn - 1, :n_sink].tolist() if n_sink else [0]
-        best = None
-        for p in rows:
-            e = min(qlen, int(end[p]))
-            k = e - int(beg[p])
-            v = int(H[p, k]) if 0 <= k < W else inf
-            if best is None or v > best[0]:
-                best = (v, p, e)
-        score, bi, bj = best
+        if mode != 0:
+            score, bi, bj = ext_l[slot][:3]
+        else:
+            n_sink = int(pre_cnt[r0 + gn - 1])
+            rows = pre_idx[r0 + gn - 1, :n_sink].tolist() if n_sink else [0]
+            best = None
+            for p in rows:
+                e = min(qlen, int(end[p]))
+                k = e - int(beg[p])
+                v = int(H[p, k]) if 0 <= k < W else inf
+                if best is None or v > best[0]:
+                    best = (v, p, e)
+            score, bi, bj = best
         sc = torch.tensor([bi, bj, e1, oe1, e2, oe2, inf, max_ops],
                           dtype=torch.int32)
         ops, res = backtrack_torch(
@@ -358,7 +388,9 @@ def backtrack_windows_torch(planes, begend, mplr, pre_idx, pre_cnt, base,
             pre_idx[r0: r0 + gn], pre_cnt[r0: r0 + gn], base[r0: r0 + gn],
             query[qoff: qoff + max(qlen, 1)], mat, sc, max_ops=max_ops,
             gap_mode=gap_mode, gap_on_right=gap_on_right,
-            put_gap_at_end=put_gap_at_end, local=False)
+            put_gap_at_end=put_gap_at_end, local=mode == 2,
+            pre_score=(pre_score[r0: r0 + gn] if pre_score is not None
+                       else None))
         n_ops, fi, fj, n_aln, n_match, err = res.tolist()
         si, sj = bi, bj
         if n_ops and (not err or n_ops >= max_ops):

@@ -1,27 +1,31 @@
-"""Banded alignment of one read's windows: tables -> DP kernel B2 ->
-backtrack kernel X1w, on the device.
+"""Alignment of one read's windows: tables -> DP kernel B2 -> backtrack
+kernel X1w, on the device.
 
 Counterpart of `abpoa_tpu/align/jax_backend.py` `align_windows_jax` (the
 windows of one seeded read, `_build_snapshot` :275, `_dp_full_batch` :512,
-`_result_from_packed` :443) and of `abpoa_tpu/align/pallas_backend.py`
-`align_sequence_to_subgraph_pallas` (one window: the whole graph), in global
-mode with linear, affine or convex gaps and the adaptive band.
+`_result_from_packed` :443), of `align_sequence_to_subgraph_jax` (one
+window: the whole graph) and of `abpoa_tpu/align/pallas_backend.py`
+`align_sequence_to_subgraph_pallas`, in every mode `_dp_full` runs: global,
+extend (with Z-drop) and local, with linear, affine or convex gaps, the
+adaptive band or none (`-b < 0`, local mode), with or without `-G`'s path
+scores.
 
 Every window's tables are built first, in window order (building them seeds
 the graph's mpl/mpr of each window's first row and its successors, as the
 JAX package does), from the native graph's C++ tables or a Python graph's
 nodes, and packed ragged: the windows' rows one after another
 (`pack_windows`). One B2 launch covers them all, one block a window, at the
-band width W of the widest window's first launch. A window whose band
+band width W of the widest window's first launch (unbanded: the longest
+query + 1, rounded to 128, where no band overflows). A window whose band
 outgrows W (`ok == 0`) is launched again, with the other such windows, at W
 doubled (rounded to 128, capped at the longest of their queries + 1, where
 the band cannot overflow); `retries` counts those relaunches. Then X1w runs
 once a launch, over that launch's ok windows, on that launch's planes: the
-best cell and the walk of each window, packed with its final mpl/mpr into
-one small buffer. Those buffers come to the host, one copy a launch into a
-page-locked buffer before one wait; the planes never leave the device. Then,
-window by window, the band is written back into the graph (`write_band`)
-and the cigar is rebuilt from the op stream.
+best cell of the window's mode and its walk, packed with its final mpl/mpr
+into one small buffer. Those buffers come to the host, one copy a launch
+into a page-locked buffer before one wait; the planes never leave the
+device. Then, window by window, a banded alignment's band is written back
+into the graph (`write_band`) and the cigar is rebuilt from the op stream.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 
 from .. import constants as C
 from ..graph import POAGraph
-from ..params import Params, per_read_covers, per_read_refusal
+from ..params import Params
 from .backtrack_kernel import HEADER, backtrack_windows
 from .banded_kernel import banded_dp
 from .buckets import bucket
@@ -82,7 +86,8 @@ def next_band_width(W: int, qlen: int) -> int:
 def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
     """banded_dp's batch-form inputs (numpy int32) for windows with row
     tables `tabs` and queries `queries` at band width W: each window's gn
-    rows, one after another, and its row of the per-window inputs."""
+    rows, one after another, and its row of the per-window inputs; with
+    `-G` the path scores last (banded_dp's `pre_score`)."""
     B = len(tabs)
     gns = [t.gn for t in tabs]
     roff = np.zeros(B + 1, dtype=np.int32)
@@ -92,9 +97,13 @@ def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
     O = max(t.out_idx.shape[1] for t in tabs)
     pre_idx = np.zeros((Rtot, P), dtype=np.int32)
     out_idx = np.zeros((Rtot, O), dtype=np.int32)
+    path_score = tabs[0].pre_score is not None
+    pre_score = np.zeros((Rtot, P), dtype=np.int32) if path_score else None
     for t, r0, gn in zip(tabs, roff.tolist(), gns):
         pre_idx[r0: r0 + gn, : t.pre_idx.shape[1]] = t.pre_idx[:gn]
         out_idx[r0: r0 + gn, : t.out_idx.shape[1]] = t.out_idx[:gn]
+        if path_score:
+            pre_score[r0: r0 + gn, : t.pre_idx.shape[1]] = t.pre_score[:gn]
     cat = lambda name: np.concatenate(  # noqa: E731
         [getattr(t, name)[:t.gn] for t in tabs]).astype(np.int32)
     qs = [query_tables(abpt, t, q, W) for t, q in zip(tabs, queries)]
@@ -102,10 +111,11 @@ def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
     qp = np.zeros((B, abpt.m, QW), dtype=np.int32)
     for b, q in enumerate(qs):
         qp[b, :, : q["qp_pad"].shape[1]] = q["qp_pad"]
-    return [np.stack([q["scalars"] for q in qs]), cat("base"), pre_idx,
-            cat("pre_cnt"), out_idx, cat("out_cnt"), cat("remain"),
-            cat("mpl0"), cat("mpr0"), qp, np.stack([q["row0"] for q in qs]),
-            roff]
+    packed = [np.stack([q["scalars"] for q in qs]), cat("base"), pre_idx,
+              cat("pre_cnt"), out_idx, cat("out_cnt"), cat("remain"),
+              cat("mpl0"), cat("mpr0"), qp, np.stack([q["row0"] for q in qs]),
+              roff]
+    return packed + [pre_score] if path_score else packed
 
 
 def _timed(dev: torch.device, key: str, fn):
@@ -138,7 +148,8 @@ def walk_inputs(abpt: Params, args: list, out, tabs: list, queries: list,
     """X1w's inputs for the windows `slots` of one launch (inputs `args`,
     outputs `out`; `tabs`/`queries` are the launch's): (the positional
     tensors, the keywords, and per walked window its (header, band, op)
-    offsets in the packed output and max_ops)."""
+    offsets in the packed output and max_ops). B2's scalars carry each
+    window's mode, its `ext` output the extend and local best cells."""
     dev = abpt.torch_device
     R, W = out[0].shape
     planes = out[0].as_strided((5, R, W), (R * W, W, 1))
@@ -161,11 +172,12 @@ def walk_inputs(abpt: Params, args: list, out, tabs: list, queries: list,
                         ).astype(np.int32)
     up = torch.from_numpy(up).to(dev)
     mat = torch.from_numpy(abpt.mat.astype(np.int32)).to(dev)
-    inputs = (planes, out[5], out[6], args[2], args[3], args[1], args[0],
-              args[11], mat, up[6 * n:], up[: 6 * n].view(n, 6))
+    inputs = (planes, out[5], out[6], out[8], args[2], args[3], args[1],
+              args[0], args[11], mat, up[6 * n:], up[: 6 * n].view(n, 6))
     kw = dict(size=o_at, gap_mode=abpt.gap_mode,
               gap_on_right=bool(abpt.put_gap_on_right),
-              put_gap_at_end=bool(abpt.put_gap_at_end))
+              put_gap_at_end=bool(abpt.put_gap_at_end),
+              pre_score=args[12] if len(args) > 12 else None)
     return inputs, kw, layout
 
 
@@ -203,10 +215,8 @@ def align_windows_banded(g: POAGraph, abpt: Params, windows,
     overrides the first launch's W (the relaunch path is taken for the
     windows it is too narrow for)."""
     global retries
-    if not per_read_covers(abpt):
-        raise per_read_refusal("a per-read alignment")
     t0 = time.perf_counter()
-    tabs = [build_row_tables(g, b, e) for b, e, _ in windows]
+    tabs = [build_row_tables(g, b, e, abpt) for b, e, _ in windows]
     queries = [q for _, _, q in windows]
     stats["tables_s"] += time.perf_counter() - t0
 
@@ -250,8 +260,9 @@ def align_windows_banded(g: POAGraph, abpt: Params, windows,
     i2n = g.index_to_node_id
     for i, (t, query) in enumerate(zip(tabs, queries)):  # window order
         buf, h_at, b_at, o_at, max_ops = where[i]
-        g.write_band(t.beg_index, t.gn, buf[b_at: b_at + t.gn],
-                     buf[b_at + t.gn: b_at + 2 * t.gn])
+        if abpt.wb >= 0:
+            g.write_band(t.beg_index, t.gn, buf[b_at: b_at + t.gn],
+                         buf[b_at + t.gn: b_at + 2 * t.gn])
         results.append(_result(abpt, buf[h_at: h_at + HEADER],
                                buf[o_at: o_at + 2 * max_ops], t.beg_index,
                                len(query), i2n))

@@ -4,9 +4,11 @@ version.
 Counterpart of the Pallas kernel `abpoa_tpu/align/pallas_kernel.py`
 `pallas_banded_dp` (one read against the whole graph) and of
 `abpoa_tpu/align/jax_backend.py` `_dp_full_batch` (the XLA vmap over the
-windows of one seeded read): the adaptive-banded forward DP of a batch of
-independent windows, each a query against a subgraph in topological order,
-global mode, linear, affine or convex gaps, int32 scores.
+windows of one seeded read): the forward DP of a batch of independent
+windows, each a query against a subgraph in topological order, in every
+mode of `_dp_scan` (jax_backend.py:54): global, extend (with Z-drop) or
+local, adaptive-banded or unbanded, with or without `-G`'s path scores;
+linear, affine or convex gaps, int32 scores.
 
 `banded_dp(...)` checks its inputs and, for CUDA tensors, launches kernel
 B1's seeded instantiation in `csrc/fused_dp.cu` (entry `abpoa_banded_dp`,
@@ -28,16 +30,25 @@ per-read route's shapes below without the leading B).
 
 Inputs (all int32, contiguous, one device):
   scalars (B, 16) [qlen, w, remain_end, inf, o1, e1, oe1, o2, e2, oe2, gn,
-                   dp_end0, 0...]
+                   dp_end0, mode, banded, zdrop, 0]; mode 0/1/2 = global/
+                   extend/local (local is unbanded: banded = 0), zdrop > 0
+                   turns extend mode's Z-drop on
   base, pre_cnt, out_cnt, remain, mpl0, mpr0 (Rtot,); pre_idx (Rtot, P);
   out_idx (Rtot, O); qp_pad (B, m, Qp + W); row0 (B, 5, W) = row 0 of
   H/E1/E2/F1/F2 in the gap mode's form (`tables.query_tables`);
-  roff (B + 1,) row offsets, roff[0] = 0, roff[B] = Rtot.
+  roff (B + 1,) row offsets, roff[0] = 0, roff[B] = Rtot;
+  pre_score (Rtot, P), optional: `-G`'s score of each predecessor slot,
+  added to that predecessor's H, E1 and E2 (_dp_scan:141-170).
 Outputs: H, E1, E2, F1, F2 (Rtot, W) banded planes (band lane k of a row is
 column dp_beg + k; linear gaps leave E1..F2 at -inf, affine E2 and F2),
 begend (2 Rtot,) = window b's [dp_beg, dp_end] at 2 roff[b], mplr (2 Rtot,)
-= its final [mpl, mpr] there, ok (B,) = 0 where some row's band was wider
-than W. Only plane rows 0..last computed of each window are defined on the
+= its final [mpl, mpr] there (the seeds unbanded: no row pushes), ok (B,) =
+0 where some row's band was wider than W, ext (B, 4) = [best score, row,
+column, zdropped] of extend and local mode ([inf, 0, 0, 0] in global):
+extend's best-so-far with its Z-drop stop, local's first row of the
+largest row max at its leftmost column (_dp_full:662-681). An unbanded
+row spans [0, qlen]; a row no predecessor reaches has an empty band in
+every mode. Only plane rows 0..last computed of each window are defined on the
 card: gn - 2, or on ok = 0 the row whose band overflowed
 (`fused_dp_kernel.computed_rows`); the kernel leaves the later rows as
 allocated, the plain version fills them with -inf (as Pallas pads them).
@@ -111,21 +122,33 @@ def _batch_form(args, roff):
     return (scalars[None], *args[1:9], qp_pad[None], row0[None], one)
 
 
+def _check_pre_score(pre_score, pre_idx) -> None:
+    if pre_score is None:
+        return
+    if (not isinstance(pre_score, torch.Tensor) or pre_score.dtype != torch.int32
+            or pre_score.device != pre_idx.device
+            or pre_score.shape != pre_idx.shape or not pre_score.is_contiguous()):
+        raise ValueError("banded_dp: pre_score must be a contiguous int32 "
+                         "tensor shaped and placed as pre_idx")
+
+
 def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
-              mpl0, mpr0, qp_pad, row0, roff=None, *,
+              mpl0, mpr0, qp_pad, row0, roff=None, pre_score=None, *,
               gap_mode: int = C.CONVEX_GAP, warps=None):
-    """Banded forward DP of a batch of windows; see the module docstring.
-    Returns (H, E1, E2, F1, F2, begend, mplr, ok). `warps` overrides the
+    """Forward DP of a batch of windows; see the module docstring. Returns
+    (H, E1, E2, F1, F2, begend, mplr, ok, ext). `warps` overrides the
     launch table's column warps (chip_smoke.py's sweep)."""
     args = _batch_form((scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
                         remain, mpl0, mpr0, qp_pad, row0), roff)
     B, R, W, P = _check_inputs(args)
+    _check_pre_score(pre_score, pre_idx)
     dev = scalars.device
     if dev.type == "cpu":
-        return banded_dp_torch(*args, gap_mode=gap_mode)
+        return banded_dp_torch(*args, pre_score=pre_score, gap_mode=gap_mode)
     if dev.type != "cuda":
         raise ValueError(f"banded_dp: unsupported device {dev}")
-    ls = launch_shape(W, P, gap_mode, warps, seeded=True)
+    ps = pre_score is not None
+    ls = launch_shape(W, P, gap_mode, warps, seeded=True, path_score=ps)
     lib = build.load()
     (scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0, mpr0,
      qp_pad, row0, roff) = args
@@ -136,14 +159,15 @@ def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
         begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
         mplr = torch.empty(2 * R, dtype=torch.int32, device=dev)
         ok = torch.empty(B, dtype=torch.int32, device=dev)
-        ext = torch.empty(4 * B, dtype=torch.int32, device=dev)  # scratch
+        ext = torch.empty((B, 4), dtype=torch.int32, device=dev)
         lr = torch.empty(2 * R, dtype=torch.int32, device=dev)   # scratch
-        outs = (*planes.unbind(0), begend, mplr, ok)
+        outs = (*planes.unbind(0), begend, mplr, ok, ext)
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_banded_dp(
-            *(ptr(t) for t in kernel_in), *(ptr(t) for t in outs),
-            ptr(ext), ptr(lr), B, W, P, qp_pad.shape[2],
+            *(ptr(t) for t in kernel_in),
+            ptr(pre_score) if ps else None, *(ptr(t) for t in outs),
+            ptr(lr), B, W, P, qp_pad.shape[2],
             qp_pad.shape[1] * qp_pad.shape[2], int(gap_mode),
             ls["block_warps"], ls["depth"], ls["smem"],
             ctypes.c_void_p(stream))
@@ -164,55 +188,65 @@ def _f_chain(A: torch.Tensor, ext: int, lane_ext: torch.Tensor,
 
 
 def banded_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
-                    mpl0, mpr0, qp_pad, row0, roff=None, *,
+                    mpl0, mpr0, qp_pad, row0, roff=None, pre_score=None, *,
                     gap_mode: int = C.CONVEX_GAP):
     """The plain PyTorch version of `banded_dp`: window by window, the row
-    loop of pallas_kernel.py `_make_kernel` (and of jax_backend.py `_dp_scan`
-    for linear and affine gaps), step by step, on the inputs' device."""
+    loop of pallas_kernel.py `_make_kernel` and jax_backend.py `_dp_scan`,
+    step by step, on the inputs' device."""
     args = _batch_form((scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
                         remain, mpl0, mpr0, qp_pad, row0), roff)
     scalars, qp_pad, row0, roff = args[0], args[9], args[10], args[11]
     dev = scalars.device
     R, W = args[1].shape[0], row0.shape[2]
+    if pre_score is None:
+        pre_score = torch.zeros_like(args[2])
     planes = torch.empty((5, R, W), dtype=torch.int32, device=dev)
     begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
     mplr = torch.empty(2 * R, dtype=torch.int32, device=dev)
-    oks = []
+    oks, exts = [], []
     offs = roff.tolist()
     for b in range(scalars.shape[0]):
         r0, r1 = offs[b], offs[b + 1]
-        rows = [t[r0:r1] for t in args[1:9]]
-        H, E1, E2, F1, F2, be, lr, ok = _window_dp_torch(
+        rows = [t[r0:r1] for t in (*args[1:9], pre_score)]
+        H, E1, E2, F1, F2, be, lr, ok, ext = _window_dp_torch(
             scalars[b], *rows, qp_pad[b], row0[b], gap_mode)
         planes[:, r0:r1] = torch.stack([H, E1, E2, F1, F2])
         begend[2 * r0: 2 * r1] = be
         mplr[2 * r0: 2 * r1] = lr
         oks.append(ok)
-    ok = torch.tensor(oks, dtype=torch.int32, device=dev)
-    return (*planes.unbind(0), begend, mplr, ok)
+        exts.append(ext)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (*planes.unbind(0), begend, mplr, torch.tensor(oks, **i32),
+            torch.tensor(exts, **i32))
 
 
 def _window_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
-                     remain, mpl0, mpr0, qp_pad, row0, gap_mode: int):
+                     remain, mpl0, mpr0, pre_score, qp_pad, row0,
+                     gap_mode: int):
     """One window of `banded_dp_torch`: (H, E1, E2, F1, F2, begend, mplr,
-    ok) with ok an int."""
+    ok, ext) with ok an int and ext a list."""
     dev = scalars.device
     R = base.shape[0]
     W = row0.shape[1]
     sc = scalars.tolist()
     qlen, w, remain_end, inf = sc[0], sc[1], sc[2], sc[3]
     e1, oe1, e2, oe2 = sc[5], sc[6], sc[8], sc[9]
-    gn, end0 = sc[10], sc[11]
+    gn, end0, mode, banded, zdrop = sc[10], sc[11], sc[12], sc[13], sc[14]
+    extend, local = mode == 1, mode == 2
+    banded = banded != 0 and not local
+    zdrop_on = extend and zdrop > 0
     linear = gap_mode == C.LINEAR_GAP
     convex = gap_mode == C.CONVEX_GAP
     base_l = base.tolist()
     pre_l, pre_cnt_l = pre_idx.tolist(), pre_cnt.tolist()
+    ps_l = pre_score.tolist()
     out_l, out_cnt_l = out_idx.tolist(), out_cnt.tolist()
     remain_l = remain.tolist()
     mpl, mpr = mpl0.tolist(), mpr0.tolist()
     dp_beg, dp_end = [0] * R, [0] * R
     dp_end[0] = end0
     ok = 0 if end0 + 1 > W else 1
+    bs, bi, bj, brem, zdropped = inf, 0, 0, 0, 0
 
     planes = torch.full((5, R, W), inf, dtype=torch.int32, device=dev)
     planes[:, 0] = row0
@@ -221,39 +255,47 @@ def _window_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
     lane_e1, lane_e2 = lane * e1, lane * e2
     first = lane == 0
     inf_row = torch.full((W,), inf, dtype=torch.int32, device=dev)
+    dead = torch.zeros(W, dtype=torch.int32, device=dev) if local else inf_row
 
     for row in range(1, R):
         if row >= gn - 1 or not ok:
             break
-        # band of this row (pallas_kernel.py:89-108); no ring, so a band
-        # wider than W is the only overflow
-        r = qlen - (remain_l[row] - remain_end - 1)
-        beg = max(0, min(mpl[row], r) - w)
-        end = min(qlen, max(mpr[row], r) + w)
+        # band of this row (pallas_kernel.py:89-108; unbanded, _dp_scan's
+        # [0, qlen]); no ring, so a band wider than W is the only overflow
         preds = pre_l[row][:pre_cnt_l[row]]
-        beg = max(beg, min((dp_beg[p] for p in preds), default=1 << 30))
+        pss = ps_l[row][:pre_cnt_l[row]]
+        min_pre_beg = min((dp_beg[p] for p in preds), default=1 << 30)
+        if banded:
+            r = qlen - (remain_l[row] - remain_end - 1)
+            beg = max(0, min(mpl[row], r) - w)
+            end = min(qlen, max(mpr[row], r) + w)
+            beg = max(beg, min_pre_beg)
+        else:
+            beg, end = min_pre_beg, qlen
         if end - beg + 1 > W:
             ok = 0
         dp_beg[row], dp_end[row] = beg, end
 
         cols = beg + lane
         in_band = cols <= end
+        # column 0's lead cell: 0 in local mode (_dp_scan:128)
+        lead = torch.where(cols == 0, dead, inf_row)
         Mq, E1r, E2r = inf_row, inf_row, inf_row
-        for p in preds:
+        for p, ps in zip(preds, pss):
             pbeg, pend = dp_beg[p], dp_end[p]
             hidx = cols - 1 - pbeg
             hok = (hidx >= 0) & (cols - 1 <= pend) & (hidx < W)
-            hs = torch.where(hok, H[p].gather(0, hidx.clamp(0, W - 1)), inf)
-            Mq = torch.maximum(Mq, hs)
+            hs = torch.where(hok, H[p].gather(0, hidx.clamp(0, W - 1)), lead)
+            Mq = torch.maximum(Mq, hs + ps)
             eidx = cols - pbeg
             eok = (eidx >= 0) & (cols <= pend) & (eidx < W)
             eidx = eidx.clamp(0, W - 1)
             if linear:  # the E row comes from the predecessors' H
-                E1r = torch.maximum(E1r, torch.where(eok, H[p].gather(0, eidx), inf))
+                E1r = torch.maximum(E1r, torch.where(eok, H[p].gather(0, eidx), inf) + ps)
                 continue
-            E1r = torch.maximum(E1r, torch.where(eok, E1[p].gather(0, eidx), inf))
+            E1r = torch.maximum(E1r, torch.where(eok, E1[p].gather(0, eidx), inf) + ps)
             if convex:
-                E2r = torch.maximum(E2r, torch.where(eok, E2[p].gather(0, eidx), inf))
+                E2r = torch.maximum(E2r, torch.where(eok, E2[p].gather(0, eidx), inf) + ps)
 
         # a row no predecessor reaches (a window's subgraph may hold some)
         # has beg = 2^30 > end: an empty band, every lane masked
@@ -263,6 +305,8 @@ def _window_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
         if linear:  # _dp_scan's linear branch (jax_backend.py:171-175)
             Erow = torch.where(in_band, E1r - e1, inf)
             Hrow = _f_chain(torch.maximum(Mq, Erow), e1, lane_e1, inf)
+            if local:
+                Hrow = torch.clamp(Hrow, min=0)
             H[row] = torch.where(in_band, Hrow, inf)
         else:
             E1r = torch.where(in_band, E1r, inf)
@@ -277,16 +321,23 @@ def _window_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
             if convex:
                 f2 = _f_chain(torch.where(in_band, src - oe2, inf), e2, lane_e2, inf)
                 Hrow = torch.maximum(Hrow, f2)
-                E2[row] = torch.where(in_band, torch.maximum(E2r - e2, Hrow - oe2), inf)
-                F2[row] = torch.where(in_band, f2, inf)
+            if local:
+                Hrow = torch.clamp(Hrow, min=0)
             E1n = torch.maximum(E1r - e1, Hrow - oe1)
-            if not convex:  # affine: E1 only where H is H-hat (jax_backend.py:204)
-                E1n = torch.where(Hrow == Hhat, E1n, inf)
+            if convex:
+                E2n = torch.maximum(E2r - e2, Hrow - oe2)
+                if local:
+                    E1n, E2n = torch.clamp(E1n, min=0), torch.clamp(E2n, min=0)
+                E2[row] = torch.where(in_band, E2n, inf)
+                F2[row] = torch.where(in_band, f2, inf)
+            else:  # affine: E1 only where H is H-hat (jax_backend.py:204)
+                E1n = torch.where(Hrow == Hhat, E1n, dead)
             H[row] = torch.where(in_band, Hrow, inf)
             E1[row] = torch.where(in_band, E1n, inf)
             F1[row] = torch.where(in_band, f1, inf)
 
-        # band_extents (pallas_common.py:39) and the successor scatter
+        # band_extents (pallas_common.py:39), the best cell of local and
+        # extend mode (_dp_scan:219-261) and the successor scatter
         Hm = H[row]
         mx = Hm.max()
         eq = (Hm == mx) & in_band
@@ -294,13 +345,28 @@ def _window_dp_torch(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
             mx.to(torch.int64),
             torch.where(eq, cols, 1 << 30).min(),
             torch.where(eq, cols, -1).max()]).tolist()
-        if not mx > inf:
+        has_row = mx > inf
+        if not has_row:
             left = right = -1
-        for t in out_l[row][:out_cnt_l[row]]:
-            mpr[t] = max(mpr[t], right + 1)
-            mpl[t] = min(mpl[t], left + 1)
+        if local and mx > bs:
+            bs, bi, bj = mx, row, left
+        if extend:
+            better = not zdropped and mx > bs
+            if zdrop_on and not zdropped and not better:
+                if has_row:
+                    zd = bs - mx > zdrop + e1 * abs((brem - remain_l[row]) - (right - bj))
+                else:
+                    zd = bs > inf
+                zdropped = int(zd)
+            if better:
+                bs, bi, bj, brem = mx, row, right, remain_l[row]
+        if banded and not (zdrop_on and zdropped):
+            for t in out_l[row][:out_cnt_l[row]]:
+                mpr[t] = max(mpr[t], right + 1)
+                mpl[t] = min(mpl[t], left + 1)
 
     i32 = dict(dtype=torch.int32, device=dev)
     begend = torch.tensor(dp_beg + dp_end, **i32)
     mplr = torch.tensor(mpl + mpr, **i32)
-    return H, E1, E2, F1, F2, begend, mplr, ok
+    ext = [bs, bi, bj, zdropped] if (extend or local) else [inf, 0, 0, 0]
+    return H, E1, E2, F1, F2, begend, mplr, ok, ext

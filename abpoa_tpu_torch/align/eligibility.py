@@ -3,13 +3,13 @@
 Counterpart of `abpoa_tpu/align/eligibility.py`. The fused route covers
 progressive POA in all three align modes (global and extend banded, local
 unbanded) and all three gap regimes, from the empty graph or from the graph
-`-i` restored. Outside it stay `-G` path scores (refused by
-`Params.finalize()` in this port), qv-weighted multi-consensus (`-Q` with
-`-d > 1`) and incremental `-i` with read-id outputs (the bitsets of the
-restored reads cannot be replayed from the loop's paths): those two take
-the per-read route (`pipeline.poa`, kernel B2), as the JAX package sends
-them to its host engine. A single read is never aligned by the loop, and
-takes the per-read route too.
+`-i` restored. Outside it stay `-G` path scores, `-b < 0` in global and
+extend mode, qv-weighted multi-consensus (`-Q` with `-d > 1`) and
+incremental `-i` with read-id outputs (the bitsets of the restored reads
+cannot be replayed from the loop's paths): those take the per-read route
+(`pipeline.poa`, kernels B2 and X1w), as the JAX package sends them to its
+host engine. A single read is never aligned by the loop, and takes the
+per-read route too.
 """
 from __future__ import annotations
 

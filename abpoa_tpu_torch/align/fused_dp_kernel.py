@@ -55,7 +55,8 @@ _MODES = {"global": 0, "extend": 1, "local": 2}
 
 # the kernel's shared-memory layout (csrc/fused_dp.cu): a ring of
 # _SCALAR_RING rows of beg/end/left/right (16 B each), _STAGES table rows of
-# P + 4 ints (P + 5 for B2, the seeded instantiation), two rows of P
+# P + 4 ints (P + 5 for B2, the seeded instantiation, and P more for its
+# path scores), two rows of P
 # predecessor records (16 B), 8 ints per warp, and the ring of D rows of the
 # planes the gap regime reads (int32)
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on Hopper
@@ -78,8 +79,10 @@ def ring_planes(gap_mode: int) -> int:
 
 
 def smem_bytes(W: int, P: int, block_warps: int, depth: int,
-               gap_mode: int, seeded: bool = False) -> int:
-    return (_SCALAR_RING * 16 + _STAGES * (P + (5 if seeded else 4)) * 4
+               gap_mode: int, seeded: bool = False,
+               path_score: bool = False) -> int:
+    extra = (5 + (P if path_score else 0)) if seeded else 4
+    return (_SCALAR_RING * 16 + _STAGES * (P + extra) * 4
             + 2 * P * 16 + block_warps * 32
             + ring_planes(gap_mode) * depth * W * 4)
 
@@ -93,14 +96,15 @@ def table_warps(W: int) -> int:
 
 
 def launch_shape(W: int, P: int, gap_mode: int, warps=None,
-                 seeded: bool = False) -> dict:
+                 seeded: bool = False, path_score: bool = False) -> dict:
     """The kernel's launch: `warps` warps that take the columns (from the
     table unless given; chip_smoke.py's sweep gives them) plus the control
     warp (the block's last; at 32 warps it takes columns too), columns per
     thread (cpt, a power of two up to 16, or 32 for B2's `seeded`
     instantiation), ring depth D (0 or a power of two, the deepest up to
-    _MAX_DEPTH that fits) and the dynamic shared-memory bytes. Raises when
-    W or P does not fit."""
+    _MAX_DEPTH that fits) and the dynamic shared-memory bytes (B2 with
+    `path_score` stages each row's scores too). Raises when W or P does not
+    fit."""
     max_w = MAX_W_SEEDED if seeded else MAX_W
     if W < 1 or W > max_w:
         raise ValueError(f"fused_dp: band width {W} outside the kernel's "
@@ -117,11 +121,11 @@ def launch_shape(W: int, P: int, gap_mode: int, warps=None,
         raise ValueError(f"fused_dp: {warps} warps cannot cover W = {W}")
     depth = _MAX_DEPTH
     while depth >= 2 and smem_bytes(W, P, block_warps, depth, gap_mode,
-                                    seeded) > SMEM_LIMIT:
+                                    seeded, path_score) > SMEM_LIMIT:
         depth //= 2
     if depth < 2:  # a ring of one row serves no predecessor
         depth = 0
-    smem = smem_bytes(W, P, block_warps, depth, gap_mode, seeded)
+    smem = smem_bytes(W, P, block_warps, depth, gap_mode, seeded, path_score)
     if smem > SMEM_LIMIT:
         raise ValueError(f"fused_dp: {smem} bytes of shared memory for W = {W},"
                          f" P = {P} pass the block's {SMEM_LIMIT}")

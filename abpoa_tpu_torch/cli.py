@@ -6,19 +6,15 @@ heaviest bundling or majority vote (`-a 1`), with up to 10 clustered
 consensus sequences (`-d`, `-q`), qv weights (`-Q`), incremental alignment
 onto a restored MSA or GFA (`-i`), the graph plot (`-g`) and file lists
 (`-l`, one set after another), minimizer-seeded windows (`-S`, `-k`, `-w`,
-`-n`) and the guide-tree order (`-p`).
+`-n`), the guide-tree order (`-p`), path scores (`-G`) and unbanded
+alignment (`-b < 0`).
 
     python -m abpoa_tpu_torch reads.fa [--device cuda|cpu] [-o out.fa]
     python -m abpoa_tpu_torch new.fa -i old.gfa [-r 3]
     python -m abpoa_tpu_torch long_reads.fa -S [-p]
     python -m abpoa_tpu_torch -l list.txt
 
-Flags of abPOA outside that subset (`-G`, `-b < 0`) are accepted and
-rejected by `Params.finalize()` with a NotImplementedError naming the
-ROADMAP item that will bring them; so are the per-read route's
-configurations outside global mode (`-i` with read-id outputs or with
-`-l`, `-Q` with `-d > 1`). With no card and no `--device cpu`, the run
-raises RuntimeError. A malformed read set ends a one-file run with one
+With no card and no `--device cpu`, the run raises RuntimeError. A malformed read set ends a one-file run with one
 error line and rc 1; in a `-l` run it is quarantined (one stderr line) and
 the run returns 1 only when every set was.
 """
@@ -30,7 +26,7 @@ import time
 
 from . import __version__
 from . import constants as C
-from .params import Params, per_read_covers, per_read_refusal
+from .params import Params
 from .pipeline import Abpoa, msa_from_file
 from .quarantine import QUARANTINE_EXCEPTIONS, quarantine_set
 
@@ -180,10 +176,7 @@ def main(argv=None) -> int:
         return 1
     try:
         abpt = args_to_params(args).finalize()
-        if args.in_list and abpt.incr_fn and not per_read_covers(abpt):
-            # a set of the list may hold one read, which only B2 aligns
-            raise per_read_refusal("-i with -l")
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     t0 = time.time()
@@ -205,9 +198,6 @@ def main(argv=None) -> int:
                 print(f"Error: {args.input}: {type(e).__name__}: {e}",
                       file=sys.stderr)
                 rc = 1
-    except NotImplementedError as e:  # known only once a set is read
-        print(f"Error: {e}", file=sys.stderr)
-        rc = 1
     finally:
         if out_fp is not sys.stdout:
             out_fp.close()

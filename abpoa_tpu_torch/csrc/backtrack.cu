@@ -68,17 +68,21 @@ struct Planes {
 
 // The walk of X1 and X1w from cell (i, j) back to row 0 (or, in local
 // mode, to a zero cell): ops written by lane 0, the end cell, the counts,
-// err, and the cell the last step started from.
+// err, and the cell the last step started from. With PS (X1w with `-G`)
+// each predecessor slot's path score pre_score[i * P + k] enters every
+// equality that crosses to that predecessor (jax_backtrack.py:73-110).
 struct Walk {
   int i, j, n_ops, n_aln, n_match, err, si, sj;
 };
 
+template <bool PS>
 __device__ __forceinline__ Walk walk(
     const Planes& pl, const int* __restrict__ pre_idx,
     const int* __restrict__ pre_cnt, const int* __restrict__ base,
     const int* __restrict__ query, const int* __restrict__ mat, int* ops,
     int i, int j, int e1, int oe1, int e2, int oe2, int inf, int max_ops,
-    int P, int m, int gap_mode, int flags, int lane) {
+    int P, int m, int gap_mode, int flags, int lane,
+    const int* __restrict__ pre_score) {
   const bool gap_on_right = flags & 1, local = flags & 4;
   const bool linear = gap_mode == kLinear, convex = gap_mode == kConvex;
   int cur_op = kAll, look_gap = (flags & 2) ? 1 : 0;
@@ -122,22 +126,24 @@ __device__ __forceinline__ Walk walk(
       const int k = c0 + lane;
       const bool has = k < npre;
       const int p = c0 == 0 ? p0 : (has ? preds[k] : 0);
+      const int ps = PS && has ? pre_score[(size_t)i * P + k] : 0;
       const int pb = pl.beg[p], pe = pl.end[p];
       const int ph_m = pl.cell(pl.H, p, pb, j - 1, true, inf);
       const int ph = pl.cell(pl.H, p, pb, j, true, inf);
       const int pe1 = linear ? inf : pl.cell(pl.E1, p, pb, j, true, inf);
       const int pe2 = convex ? pl.cell(pl.E2, p, pb, j, true, inf) : inf;
-      const bool m_hit = has && j - 1 >= pb && j - 1 <= pe && ph_m + s == H_ij;
+      const bool m_hit =
+          has && j - 1 >= pb && j - 1 <= pe && ph_m + s + ps == H_ij;
       bool d_hit = false;
       int op = kAll;
       if (has && j >= pb && j <= pe) {
         if (linear) {
-          d_hit = ph - e1 == H_ij;
+          d_hit = ph - e1 + ps == H_ij;
         } else {
           const bool hit1 = (cur_op & kE1) != 0 &&
-                            (has_M ? H_ij == pe1 : E1_ij == pe1 - e1);
+                            (has_M ? H_ij == pe1 + ps : E1_ij == pe1 - e1 + ps);
           const bool hit2 = convex && (cur_op & kE2) != 0 &&
-                            (has_M ? H_ij == pe2 : E2_ij == pe2 - e2);
+                            (has_M ? H_ij == pe2 + ps : E2_ij == pe2 - e2 + ps);
           d_hit = hit1 || hit2;
           if (hit1)
             op = ph - oe1 == pe1 ? (kM | kF) : kE1;
@@ -239,8 +245,9 @@ backtrack_kernel(Planes pl, const int* __restrict__ pre_idx,
   const int i = sc[0], j = sc[1];
   const int e1 = sc[2], oe1 = sc[3], e2 = sc[4], oe2 = sc[5];
   const int max_ops = sc[7];
-  const Walk w = walk(pl, pre_idx, pre_cnt, base, query, mat, ops, i, j, e1,
-                      oe1, e2, oe2, inf, max_ops, P, m, gap_mode, flags, lane);
+  const Walk w = walk<false>(pl, pre_idx, pre_cnt, base, query, mat, ops, i,
+                             j, e1, oe1, e2, oe2, inf, max_ops, P, m,
+                             gap_mode, flags, lane, nullptr);
   if (lane == 0) {
     res[0] = w.n_ops;
     res[1] = w.i;
@@ -256,28 +263,34 @@ backtrack_kernel(Planes pl, const int* __restrict__ pre_idx,
 //
 // Replaces: abpoa_tpu/align/jax_backtrack.py `device_backtrack` as
 // jax_backend.py `_dp_full_batch` vmaps it over a seeded read's windows,
-// with `_dp_full`'s pick of the best cell in global mode
-// (jax_backend.py:664-670). The plain PyTorch version is
-// `backtrack_windows_torch` in align/backtrack_kernel.py.
+// with `_dp_full`'s best cell of each mode (jax_backend.py:662-681). The
+// plain PyTorch version is `backtrack_windows_torch` in
+// align/backtrack_kernel.py.
 //
 // Walk k takes window plan[k][0] of the launch: its rows start at
 // roff[slot] in B2's ragged planes, tables and band (read in place, no
-// copy), and its scalars are B2's. The warp copies the window's final
-// mpl/mpr into the packed output, picks the best cell over the end row's
+// copy), and its scalars are B2's (scalars[12] its mode: 0 global, 1
+// extend, 2 local). The warp copies the window's final mpl/mpr into the
+// packed output and takes the best cell: in global mode over the end row's
 // predecessors in in-edge order (lane k takes slot k; the first strict
 // maximum wins, as jnp.argmax; an end row without predecessors picks row
-// 0), and walks as X1 does, recording the cell each step starts from. Lane
-// 0 writes the header [n_ops, fin_i, fin_j, n_aln, n_match, start_i,
-// start_j, err, best_score, best_i, best_j] and the op stream.
+// 0), in extend and local mode B2's `ext` (extend's best-so-far, local's
+// first row of the largest row max at its leftmost column). It walks as X1
+// does (a local walk stops before a zero cell; PS adds the path scores),
+// recording the cell each step starts from. Lane 0 writes the header
+// [n_ops, fin_i, fin_j, n_aln, n_match, start_i, start_j, err, best_score,
+// best_i, best_j] and the op stream.
 //
 // What bounds it: as X1, the walk's chain of dependent loads; the launch
 // lasts as long as its longest window's walk.
 constexpr int kWalkWarps = 4;
 
+template <bool PS>
 __global__ void __launch_bounds__(32 * kWalkWarps)
 backtrack_windows_kernel(const int* __restrict__ planes,
                          const int* __restrict__ begend,
                          const int* __restrict__ mplr,
+                         const int* __restrict__ ext,
                          const int* __restrict__ pre_idx_all,
                          const int* __restrict__ pre_cnt_all,
                          const int* __restrict__ base_all,
@@ -285,8 +298,9 @@ backtrack_windows_kernel(const int* __restrict__ planes,
                          const int* __restrict__ roff,
                          const int* __restrict__ mat,
                          const int* __restrict__ query_all,
-                         const int* __restrict__ plan, int* packed, int n,
-                         int Rtot, int W, int P, int m, int gap_mode,
+                         const int* __restrict__ plan,
+                         const int* __restrict__ pre_score_all, int* packed,
+                         int n, int Rtot, int W, int P, int m, int gap_mode,
                          int flags) {
   const int k = blockIdx.x * kWalkWarps + threadIdx.x / 32;
   if (k >= n) return;
@@ -294,7 +308,7 @@ backtrack_windows_kernel(const int* __restrict__ planes,
   const int* pk = plan + 6 * k;
   const int* sc = scalars + 16 * pk[0];
   const int qlen = sc[0], inf = sc[3], e1 = sc[5], oe1 = sc[6], e2 = sc[8],
-            oe2 = sc[9], gn = sc[10];
+            oe2 = sc[9], gn = sc[10], mode = sc[12];
   const int r0 = roff[pk[0]];
   const size_t plane = (size_t)Rtot * W;
   const int* H0 = planes + (size_t)r0 * W;
@@ -305,13 +319,20 @@ backtrack_windows_kernel(const int* __restrict__ planes,
   const int* pre_cnt = pre_cnt_all + r0;
   const int* base = base_all + r0;
   const int* query = query_all + pk[1];
+  const int* pre_score = PS ? pre_score_all + (size_t)r0 * P : nullptr;
 
   for (int t = lane; t < 2 * gn; t += 32) packed[pk[3] + t] = mplr[2 * r0 + t];
 
-  // the best cell over the end row's predecessors
+  // the best cell: B2's in extend and local mode, else the best over the
+  // end row's predecessors
   const int nsink = pre_cnt[gn - 1];
-  const int ncand = nsink > 0 ? nsink : 1;
+  const int ncand = mode != 0 ? 0 : nsink > 0 ? nsink : 1;
   int best = inf, best_i = 0, best_j = 0;
+  if (mode != 0) {
+    best = ext[4 * pk[0]];
+    best_i = ext[4 * pk[0] + 1];
+    best_j = ext[4 * pk[0] + 2];
+  }
   for (int c0 = 0; c0 < ncand; c0 += 32) {
     const int slot = c0 + lane;
     const bool has = slot < ncand;
@@ -339,9 +360,10 @@ backtrack_windows_kernel(const int* __restrict__ planes,
     }
   }
 
-  const Walk w = walk(pl, pre_idx, pre_cnt, base, query, mat, packed + pk[4],
-                      best_i, best_j, e1, oe1, e2, oe2, inf, pk[5], P, m,
-                      gap_mode, flags & 3, lane);
+  const Walk w = walk<PS>(pl, pre_idx, pre_cnt, base, query, mat,
+                          packed + pk[4], best_i, best_j, e1, oe1, e2, oe2,
+                          inf, pk[5], P, m, gap_mode,
+                          (flags & 3) | (mode == 2 ? 4 : 0), lane, pre_score);
   if (lane == 0) {
     int* hdr = packed + pk[2];
     hdr[0] = w.n_ops;
@@ -387,26 +409,30 @@ extern "C" int abpoa_backtrack(const void* H, const void* E1, const void* E2,
 
 // Launches X1w, one warp a walk (n walks), on `stream`; returns a
 // cudaError_t as an int (0 = launched). `planes` is B2's (5, Rtot, W) int32
-// output, begend/mplr its (2 Rtot,) outputs, pre_idx (Rtot, P), pre_cnt and
-// base (Rtot,), scalars (B, 16) and roff (B + 1,) its inputs; query holds
-// the walked windows' queries one after another, plan (n, 6) each walk's
-// [slot, query offset, header, band and op offsets in packed, max_ops].
-// flags: 1 put_gap_on_right, 2 put_gap_at_end.
+// output, begend/mplr its (2 Rtot,) outputs, ext its (B, 4) best cells,
+// pre_idx (Rtot, P), pre_cnt and base (Rtot,), scalars (B, 16) and roff
+// (B + 1,) its inputs, pre_score its (Rtot, P) path scores or null; query
+// holds the walked windows' queries one after another, plan (n, 6) each
+// walk's [slot, query offset, header, band and op offsets in packed,
+// max_ops]. flags: 1 put_gap_on_right, 2 put_gap_at_end.
 extern "C" int abpoa_backtrack_windows(
     const void* planes, const void* begend, const void* mplr,
-    const void* pre_idx, const void* pre_cnt, const void* base,
-    const void* scalars, const void* roff, const void* mat,
-    const void* query, const void* plan, void* packed, int n, int Rtot,
-    int W, int P, int m, int gap_mode, int flags, void* stream) {
+    const void* ext, const void* pre_idx, const void* pre_cnt,
+    const void* base, const void* scalars, const void* roff, const void* mat,
+    const void* query, const void* plan, const void* pre_score, void* packed,
+    int n, int Rtot, int W, int P, int m, int gap_mode, int flags,
+    void* stream) {
   if (n < 1 || Rtot < 1 || W < 1 || P < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (n + kWalkWarps - 1) / kWalkWarps;
-  backtrack_windows_kernel<<<blocks, 32 * kWalkWarps, 0, s>>>(
+  auto kern = pre_score ? backtrack_windows_kernel<true>
+                        : backtrack_windows_kernel<false>;
+  kern<<<blocks, 32 * kWalkWarps, 0, s>>>(
       (const int*)planes, (const int*)begend, (const int*)mplr,
-      (const int*)pre_idx, (const int*)pre_cnt, (const int*)base,
-      (const int*)scalars, (const int*)roff, (const int*)mat,
-      (const int*)query, (const int*)plan, (int*)packed, n, Rtot, W, P, m,
-      gap_mode, flags);
+      (const int*)ext, (const int*)pre_idx, (const int*)pre_cnt,
+      (const int*)base, (const int*)scalars, (const int*)roff,
+      (const int*)mat, (const int*)query, (const int*)plan,
+      (const int*)pre_score, (int*)packed, n, Rtot, W, P, m, gap_mode, flags);
   return (int)cudaGetLastError();
 }

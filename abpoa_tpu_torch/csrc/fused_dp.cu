@@ -14,10 +14,16 @@
 // align/banded_kernel.py; each must agree with its instantiation bit for
 // bit on every output, over the rows it computes.
 //
-// B2 (template SEEDED, entry `abpoa_banded_dp`) is global and int32, with
-// linear, affine or convex gaps; it also replaces the XLA vmap over a seeded
-// read's windows (abpoa_tpu/align/jax_backend.py `_dp_full_batch`): a grid
-// of B blocks, block b aligning window b of a ragged batch, whose rows are
+// B2 (template SEEDED, entry `abpoa_banded_dp`) is int32, with linear,
+// affine or convex gaps, in every mode of the XLA per-read DP
+// (abpoa_tpu/align/jax_backend.py `_dp_scan`): global, extend (with Z-drop)
+// or local (the window's scalars[12]), banded or not (scalars[13]; local is
+// unbanded: a row spans its predecessors' least begin to qlen, so a row no
+// predecessor reaches has an empty band), and with `-G`'s path scores
+// (when `pre_score` is given: one score a predecessor slot, staged with the
+// table row and added to that predecessor's H, E1 and E2). It also replaces
+// the XLA vmap over a seeded read's windows (`_dp_full_batch`): a grid of B
+// blocks, block b aligning window b of a ragged batch, whose rows are
 // roff[b]..roff[b+1]-1 of the concatenated tables, planes, begend, mplr and
 // scratch (each at its own stride), and whose scalars, row 0, query profile,
 // ok and ext are row b of theirs. The windows are independent, so the
@@ -82,10 +88,20 @@ constexpr int kScalarRing = 256;  // rows of beg/end/left/right kept
 constexpr int kStages = 4;        // table rows in flight (cp.async)
 
 // ints of a staged table row past its P predecessors: base, remain,
-// pre_cnt and a spare (B1), or base, remain, pre_cnt, mpl0, mpr0 (B2)
+// pre_cnt and a spare (B1), or base, remain, pre_cnt, mpl0, mpr0 (B2); B2
+// with path scores stages P more, the predecessors' scores
 template <bool SEEDED>
 __host__ __device__ constexpr int tab_extra() {
   return SEEDED ? 5 : 4;
+}
+
+// A predecessor record's last word: its ring slot (-1: not in the ring),
+// with path scores (ps) the slot's score in the high half
+__device__ __forceinline__ int rec_slot(int w, bool ps) {
+  return ps ? (int)(short)(w & 0xffff) : w;
+}
+__device__ __forceinline__ int rec_score(int w, bool ps) {
+  return ps ? (w >> 16) : 0;
 }
 
 // The pair a row that pushes nothing leaves for its successors to pull (row
@@ -177,7 +193,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
                 int* lr, int R, int W, int P, int QW, int D, int mode,
                 int zdrop_on, int plane16, const int* __restrict__ mpl0,
                 const int* __restrict__ mpr0, int* mplr,
-                const int* __restrict__ roff, int qstride) {
+                const int* __restrict__ roff, int qstride,
+                const int* __restrict__ pre_score) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_beg, s_end, s_ovf, s_npre, s_qb, s_allring;
 
@@ -205,13 +222,18 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   const int ncol_warps = min(nwarps, (W + 32 * CPT - 1) / (32 * CPT));
   const bool has_cols = warp < ncol_warps;
   const bool p16 = !SEEDED && plane16 != 0;
-  const bool local = !SEEDED && mode == kLocal;
-  const bool extend = !SEEDED && mode == kExtend;
+  // B2 takes its window's mode from the scalars
+  const bool local = (SEEDED ? sc[16 * b + 12] : mode) == kLocal;
+  const bool extend = (SEEDED ? sc[16 * b + 12] : mode) == kExtend;
   constexpr int kTab = tab_extra<SEEDED>();
+  // B2 with -G stages P more ints a table row; B1 names none of the
+  // variables B2 adds inside its lambdas, so its code stays as it was
+  const bool has_ps = SEEDED && pre_score != nullptr;
+  const int tab_w = P + kTab + (has_ps ? P : 0);  // ints of a staged table row
 
   int4* s_sring = (int4*)smem;                         // kScalarRing
-  int* s_tab = (int*)(s_sring + kScalarRing);          // kStages x (P + kTab)
-  int4* s_pred = (int4*)(s_tab + kStages * (P + kTab));  // 2 x P
+  int* s_tab = (int*)(s_sring + kScalarRing);          // kStages x tab_w
+  int4* s_pred = (int4*)(s_tab + kStages * (SEEDED ? tab_w : P + kTab));  // 2 x P
   int* s_part = (int*)(s_pred + 2 * P);                // 8 x nwarps
   int* s_ring = s_part + 8 * nwarps;                   // planes x D x W
 
@@ -221,15 +243,25 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   const int e1 = scw[SEEDED ? 5 : 4], oe1 = scw[SEEDED ? 6 : 5];
   const int e2 = scw[SEEDED ? 8 : 6], oe2 = scw[SEEDED ? 9 : 7];
   const int gn = scw[SEEDED ? 10 : 8], end0 = scw[SEEDED ? 11 : 9];
-  const int zdrop = SEEDED ? 0 : scw[10];
+  const int zdrop = SEEDED ? scw[14] : scw[10];
+  if constexpr (SEEDED) zdrop_on = zdrop > 0;
+  const bool unbanded = SEEDED && scw[13] == 0;
 
   // table row q into its stage, by the control warp (one group per call,
   // maybe empty)
   auto issue = [&](int q) {
     if (q < R && q < gn - 1) {
-      int* dst = s_tab + (q % kStages) * (P + kTab);
+      int* dst;
+      if constexpr (SEEDED)
+        dst = s_tab + (q % kStages) * tab_w;
+      else
+        dst = s_tab + (q % kStages) * (P + kTab);
       for (int k = lane_id; k < P; k += 32)
         cp_async4(dst + k, pre_idx + (size_t)(r0 + q) * P + k);
+      if constexpr (SEEDED)
+        if (has_ps)
+          for (int k = lane_id; k < P; k += 32)
+            cp_async4(dst + P + kTab + k, pre_score + (size_t)(r0 + q) * P + k);
       if (lane_id == 0) {
         cp_async4(dst + P, base + r0 + q);
         cp_async4(dst + P + 1, remain + r0 + q);
@@ -283,7 +315,11 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   auto prepare = [&](int q) {
     cp_async_wait<kStages - 2>();
     __syncwarp();
-    const int* tab = s_tab + (q % kStages) * (P + kTab);
+    const int* tab;
+    if constexpr (SEEDED)
+      tab = s_tab + (q % kStages) * tab_w;
+    else
+      tab = s_tab + (q % kStages) * (P + kTab);
     const int npre = tab[P + 2];
     nx_npre = npre;
     nx_bp = tab[P];
@@ -314,7 +350,11 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       mx_r = max(mx_r, v.w);
       const bool in_ring = p < q && q - p < D;
       far = far || !in_ring;
-      pred[k] = make_int4(p, v.x, v.y, in_ring ? (p & (D - 1)) : -1);
+      int slot = in_ring ? (p & (D - 1)) : -1;
+      if constexpr (SEEDED)
+        if (has_ps)
+          slot = (int)((unsigned)tab[P + kTab + k] << 16) | (slot & 0xffff);
+      pred[k] = make_int4(p, v.x, v.y, slot);
     }
     nx_mnbeg = __reduce_min_sync(kFull, mn_beg);
     nx_mnl = __reduce_min_sync(kFull, mn_l);
@@ -332,8 +372,13 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       mn_l = min(mn_l, pl);
       mx_r = max(mx_r, pr);
     }
-    if (local) {
-      cur_beg = 0;
+    bool whole = local;  // the row spans the query
+    if constexpr (SEEDED) whole = whole || unbanded;
+    if (whole) {  // B2: from its predecessors' least begin (none: empty)
+      if constexpr (SEEDED)
+        cur_beg = nx_mnbeg;
+      else
+        cur_beg = 0;
       cur_end = qlen;
     } else {
       if (nx_bp & 0x100) {  // a successor of the source row
@@ -409,7 +454,10 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int pbeg = pr[u].y, pend = pr[u].z;
-            const int* rh = s_ring + (size_t)pr[u].w * W;
+            const int ps = rec_score(pr[u].w, has_ps);
+            // column -1's cell: 0 in B2's local mode (B1 adds it below)
+            const int lead = local && k0 + u < npre ? 0 : inf;
+            const int* rh = s_ring + (size_t)rec_slot(pr[u].w, has_ps) * W;
             const int* re1 = rh + (size_t)D * W;
             const int* re2 = re1 + (size_t)D * W;
 #pragma unroll
@@ -419,12 +467,23 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
               const int xc = min(max(x, 0), W - 1), yc = min(max(y, 0), W - 1);
               const bool hx = col - 1 >= pbeg && col - 1 <= pend && x < W;
               const bool hy = col >= pbeg && col <= pend && y < W;
-              mq[c] = max(mq[c], hx ? rh[xc] : inf);
-              if (GAP == kLinear) {
-                e1r[c] = max(e1r[c], hy ? rh[yc] : inf);
+              if constexpr (SEEDED) {
+                mq[c] = max(mq[c], (hx ? rh[xc] : col == 0 ? lead : inf) + ps);
+                if (GAP == kLinear) {
+                  e1r[c] = max(e1r[c], (hy ? rh[yc] : inf) + ps);
+                } else {
+                  e1r[c] = max(e1r[c], (hy ? re1[yc] : inf) + ps);
+                  if (GAP == kConvex)
+                    e2r[c] = max(e2r[c], (hy ? re2[yc] : inf) + ps);
+                }
               } else {
-                e1r[c] = max(e1r[c], hy ? re1[yc] : inf);
-                if (GAP == kConvex) e2r[c] = max(e2r[c], hy ? re2[yc] : inf);
+                mq[c] = max(mq[c], hx ? rh[xc] : inf);
+                if (GAP == kLinear) {
+                  e1r[c] = max(e1r[c], hy ? rh[yc] : inf);
+                } else {
+                  e1r[c] = max(e1r[c], hy ? re1[yc] : inf);
+                  if (GAP == kConvex) e2r[c] = max(e2r[c], hy ? re2[yc] : inf);
+                }
               }
             }
           }
@@ -432,7 +491,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       } else {
         for (int k = 0; k < npre; ++k) {
           const int4 pr = pred[k];
-          const int p = pr.x, pbeg = pr.y, pend = pr.z, slot = pr.w;
+          const int p = pr.x, pbeg = pr.y, pend = pr.z;
+          const int slot = rec_slot(pr.w, has_ps), ps = rec_score(pr.w, has_ps);
           const size_t grow = pl0 + (size_t)p * W;
           const int* rh = s_ring + (size_t)max(slot, 0) * W;
           const int* re1 = rh + (size_t)D * W;
@@ -443,19 +503,25 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
             if (lane >= W) continue;
             const int col = beg + lane;
             const int x = col - 1 - pbeg;
-            if (col - 1 >= pbeg && col - 1 <= pend && x < W)
+            if constexpr (SEEDED) {
+              if (col - 1 >= pbeg && col - 1 <= pend && x < W)
+                mq[c] = max(mq[c], (slot >= 0 ? rh[x] : ld(H, grow + x, p16)) + ps);
+              else if (local && col == 0)  // column -1's cell: 0
+                mq[c] = max(mq[c], ps);
+            } else if (col - 1 >= pbeg && col - 1 <= pend && x < W) {
               mq[c] = max(mq[c], slot >= 0 ? rh[x] : ld(H, grow + x, p16));
+            }
             const int y = col - pbeg;
             if (col >= pbeg && col <= pend && y < W) {
               if (GAP == kLinear) {
                 e1r[c] =
-                    max(e1r[c], slot >= 0 ? rh[y] : ld(H, grow + y, p16));
+                    max(e1r[c], (slot >= 0 ? rh[y] : ld(H, grow + y, p16)) + ps);
               } else {
                 e1r[c] =
-                    max(e1r[c], slot >= 0 ? re1[y] : ld(E1, grow + y, p16));
+                    max(e1r[c], (slot >= 0 ? re1[y] : ld(E1, grow + y, p16)) + ps);
                 if (GAP == kConvex)
                   e2r[c] = max(e2r[c],
-                               slot >= 0 ? re2[y] : ld(E2, grow + y, p16));
+                               (slot >= 0 ? re2[y] : ld(E2, grow + y, p16)) + ps);
               }
             }
           }
@@ -467,7 +533,7 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       for (int c = 0; c < CPT; ++c) {
         const int lane = tid * CPT + c;
         const bool in_band = lane < W && beg + lane <= end;
-        if (local && beg + lane == 0) mq[c] = max(mq[c], 0);
+        if (!SEEDED && local && beg + lane == 0) mq[c] = max(mq[c], 0);
         mq[c] = in_band ? mq[c] + qv[c] : inf;
         if (GAP == kLinear) {
           e1r[c] = in_band ? e1r[c] - e1 : inf;  // E row from the preds' H
@@ -627,8 +693,17 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
           brem = cur_rem;
         }
       }
-      const bool push = !local && !(extend && zdrop_on && zdropped);
-      const int pl = push ? left + 1 : gn, pr = push ? right + 1 : 0;
+      int pl, pr;
+      if constexpr (SEEDED) {  // an unbanded row pushes nothing either
+        const bool push =
+            !local && !unbanded && !(extend && zdrop_on && zdropped);
+        pl = push ? left + 1 : quiet_l<SEEDED>(gn);
+        pr = push ? right + 1 : quiet_r<SEEDED>();
+      } else {
+        const bool push = !local && !(extend && zdrop_on && zdropped);
+        pl = push ? left + 1 : gn;
+        pr = push ? right + 1 : 0;
+      }
       if (lane_id == 0) {
         s_sring[row & (kScalarRing - 1)] = make_int4(cur_beg, cur_end, pl, pr);
         lr[e0 + row] = pl;
@@ -680,6 +755,7 @@ struct Args {
   int* mplr;
   const int* roff;
   int qstride, grid;
+  const int* pre_score;  // B2 with path scores only
 };
 
 template <int CPT, int GAP, bool SEEDED>
@@ -692,7 +768,7 @@ cudaError_t launch(const Args& a, int threads, size_t smem, cudaStream_t s) {
       a.sc, a.base, a.pre_idx, a.pre_cnt, a.remain, a.row0, a.qp, a.H, a.E1,
       a.E2, a.F1, a.F2, a.begend, a.ok, a.ext, a.lr, a.R, a.W, a.P, a.QW, a.D,
       a.mode, a.zdrop_on, a.plane16, a.mpl0, a.mpr0, a.mplr, a.roff,
-      a.qstride);
+      a.qstride, a.pre_score);
   return cudaGetLastError();
 }
 
@@ -746,7 +822,8 @@ extern "C" int abpoa_fused_dp(const void* sc, const void* base,
          (const int*)pre_cnt, (const int*)remain, (const int*)row0,
          (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
          (int*)ext,           (int*)lr, R, W, P, QW, D, mode, zdrop_on,
-         plane16,             nullptr, nullptr, nullptr, nullptr, 0, 1};
+         plane16,             nullptr, nullptr, nullptr, nullptr, 0, 1,
+         nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (cpt) {
@@ -759,40 +836,43 @@ extern "C" int abpoa_fused_dp(const void* sc, const void* base,
   return (int)err;
 }
 
-// Kernel B2: the seeded instantiation (global mode, int32 planes, gap_mode
-// 0/1/2 = linear/affine/convex) on B2's tables, one block for each of the B
-// windows of a ragged batch; see the header. `roff` (B + 1) gives each
-// window's first row in the concatenated per-row inputs and outputs (rows
-// of the planes, pairs of begend, mplr and lr); sc (B x 16), row0 (B x 5 x
-// W), qp (B x qstride ints, QW columns a base), ok (B) and ext (B x 4) hold
-// one entry a window. Up to 32 columns a thread. `lr` is scratch, `ext` is
-// written and carries nothing; the other arguments are as for
-// abpoa_fused_dp.
+// Kernel B2: the seeded instantiation (int32 planes, gap_mode 0/1/2 =
+// linear/affine/convex; each window's mode, band and Z-drop in its
+// scalars) on B2's tables, one block for each of the B windows of a ragged
+// batch; see the header. `roff` (B + 1) gives each window's first row in
+// the concatenated per-row inputs and outputs (rows of the planes, pairs of
+// begend, mplr and lr); sc (B x 16), row0 (B x 5 x W), qp (B x qstride
+// ints, QW columns a base), ok (B) and ext (B x 4: best score, row,
+// column, zdropped of extend and local mode) hold one entry a window.
+// `pre_score` (rows x P, the rows as pre_idx's) gives the path scores, or
+// is null. Up to 32 columns a thread. `lr` is scratch; the
+// other arguments are as for abpoa_fused_dp.
 extern "C" int abpoa_banded_dp(const void* sc, const void* roff,
                                const void* base, const void* pre_idx,
                                const void* pre_cnt, const void* remain,
                                const void* mpl0, const void* mpr0,
-                               const void* row0, const void* qp, void* H,
-                               void* E1, void* E2, void* F1, void* F2,
-                               void* begend, void* mplr, void* ok, void* ext,
-                               void* lr, int B, int W, int P, int QW,
-                               int qstride, int gap_mode, int warps, int D,
-                               int smem, void* stream) {
+                               const void* row0, const void* qp,
+                               const void* pre_score, void* H, void* E1,
+                               void* E2, void* F1, void* F2, void* begend,
+                               void* mplr, void* ok, void* ext, void* lr,
+                               int B, int W, int P, int QW, int qstride,
+                               int gap_mode, int warps, int D, int smem,
+                               void* stream) {
   const int threads = warps * 32;
   if (B < 1 || warps < 1 || threads > kMaxThreads || W < 1 || P < 1 ||
       gap_mode < 0 || gap_mode > 2 || D < 0 || (D & (D - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const int cpt = cols_per_thread(W, threads);
   const int nplanes = gap_mode == kLinear ? 1 : gap_mode == kAffine ? 2 : 3;
-  if (cpt > 32 || (size_t)smem != smem_bytes(W, P, warps, D, nplanes,
-                                             tab_extra<true>()))
+  const int extra = tab_extra<true>() + (pre_score ? P : 0);
+  if (cpt > 32 || (size_t)smem != smem_bytes(W, P, warps, D, nplanes, extra))
     return (int)cudaErrorInvalidValue;
   Args a{(const int*)sc,      (const int*)base, (const int*)pre_idx,
          (const int*)pre_cnt, (const int*)remain, (const int*)row0,
          (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
          (int*)ext,           (int*)lr, 0, W, P, QW, D, 0, 0, 0,
          (const int*)mpl0,    (const int*)mpr0, (int*)mplr,
-         (const int*)roff,    qstride, B};
+         (const int*)roff,    qstride, B, (const int*)pre_score};
   cudaStream_t s = (cudaStream_t)stream;
   switch (cpt) {
     case 1: return (int)launch_gap<1, true>(gap_mode, a, threads, smem, s);

@@ -14,9 +14,11 @@ consensus sums).
   adaptive band (:268-309)
 - cigar->graph fusion rules (:680-774)
 - MSA column ranks by a LIFO walk (:359-419)
+- `-G`'s path score of an in-edge (:429-437)
 """
 from __future__ import annotations
 
+import math
 from collections import deque
 from typing import List, Optional
 
@@ -134,6 +136,20 @@ class POAGraph:
             self.nodes[aligned_id].aligned_ids.append(ex)
         node.aligned_ids.append(aligned_id)
         self.nodes[aligned_id].aligned_ids.append(node_id)
+
+    def incre_path_score(self, node_id: int, in_idx: int) -> int:
+        """`-G`'s log-scaled score of in-edge `in_idx` of `node_id`
+        (src/abpoa_graph.c:429-437): log(edge weight / the predecessor's
+        out weight), rounded half away from zero as C's round(), at least
+        -20; 0 where either weight is 0."""
+        pre_id = self.nodes[node_id].in_ids[in_idx]
+        node_w = sum(self.nodes[pre_id].out_w)
+        edge_w = self.nodes[node_id].in_w[in_idx]
+        if node_w == 0 or edge_w == 0:
+            return 0
+        v = math.log(edge_w / node_w)
+        score = math.floor(v + 0.5) if v >= 0 else math.ceil(v - 0.5)
+        return max(score, -20)
 
     # ------------------------------------------------------- topological sort
     def _sort_in_out_ids(self) -> None:

@@ -103,13 +103,13 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.abpoa_banded_dp.argtypes = [vp] * 20 + [ci] * 9 + [vp]
+    lib.abpoa_banded_dp.argtypes = [vp] * 21 + [ci] * 9 + [vp]
     lib.abpoa_banded_dp.restype = ci
     lib.abpoa_fused_dp.argtypes = [vp] * 16 + [ci] * 11 + [vp]
     lib.abpoa_fused_dp.restype = ci
     lib.abpoa_backtrack.argtypes = [vp] * 15 + [ci] * 8 + [vp]
     lib.abpoa_backtrack.restype = ci
-    lib.abpoa_backtrack_windows.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+    lib.abpoa_backtrack_windows.argtypes = [vp] * 14 + [ci] * 7 + [vp]
     lib.abpoa_backtrack_windows.restype = ci
     lib.abpoa_topo_sort.argtypes = [vp] * 19 + [ci] * 6 + [vp]
     lib.abpoa_topo_sort.restype = ci

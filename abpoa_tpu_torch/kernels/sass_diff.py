@@ -19,6 +19,7 @@ if any differs or is missing.
 """
 from __future__ import annotations
 
+import difflib
 import os
 import re
 import subprocess
@@ -27,7 +28,7 @@ import tempfile
 
 from . import build
 
-_NAME = re.compile(r"fused_dp_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?E")
+_NAME = re.compile(r"fused_dp_kernelILi(\d+)ELi(\d+)E((?:Lb[01]E)*)E")
 
 
 def b1_sass(src: str, workdir: str) -> dict:
@@ -45,11 +46,22 @@ def _cubin_sass(src: str, workdir: str) -> str:
         capture_output=True, text=True, check=True).stdout
 
 
+_TARGET = re.compile(r"\.L_x_\d+|0x[0-9a-f]+(?=\s*;)")
+_JUMP = re.compile(r"\b(BRA|BSSY|JMP|CALL)\b")
+
+
 def _strip(body: str) -> list:
-    lines = []
+    """The instructions of one function, addresses and encodings dropped
+    and branch targets (labels numbered across the whole cubin, or
+    addresses that move with any instruction before them) renumbered in
+    order of first use, so only the instructions themselves are compared."""
+    lines, labels = [], {}
+    relabel = lambda m: labels.setdefault(m.group(0), f".L{len(labels)}")  # noqa: E731
     for line in body.splitlines():
         line = re.sub(r"/\*[0-9a-fx ]+\*/", "", line).strip()
         if line and not line.startswith("."):
+            if _JUMP.search(line):
+                line = _TARGET.sub(relabel, line)
             lines.append(line)
     return lines
 
@@ -72,7 +84,7 @@ def parse_b1(sass: str) -> dict:
     for block in sass.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
         m = _NAME.search(name)
-        if not m or m.group(3) == "1":
+        if not m or "1" in m.group(3):  # a B2 instantiation
             continue
         out[(int(m.group(1)), int(m.group(2)))] = _strip(body)
     return out
@@ -98,6 +110,9 @@ def main(argv=None) -> int:
         differ += not same
         what = f"B1 <CPT {key[0]}, GAP {key[1]}>" if b1 else key
         print(f"{what}: {'identical' if same else 'DIFFERS'} ({len(old[key])} lines)")
+        if not same and key in new:  # where they part
+            diff = difflib.unified_diff(old[key], new[key], lineterm="", n=1)
+            print("\n".join(list(diff)[2:42]))
     print(f"{len(old) - differ} of {len(old)} "
           f"{'B1 instantiations' if b1 else 'functions'} identical")
     return 1 if differ or not old else 0

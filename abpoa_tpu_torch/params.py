@@ -4,15 +4,13 @@ Mirrors abPOA's parameter lifecycle (`abpoa_init_para` defaults, user
 mutation, `abpoa_post_set_para` derivation in src/abpoa_align.c): construct
 `Params()`, mutate fields, call `finalize()`.
 
-`finalize()` raises NotImplementedError for every configuration the port
-does not cover yet, naming the ROADMAP item that will bring it. It covers
+`finalize()` covers every single-set configuration of the JAX package:
 progressive POA with linear, affine or convex gaps in global, local and
-extend mode, with consensus, MSA and GFA output, majority-vote consensus, up
-to 10 clustered consensus sequences, incremental `-i`, graph plots `-g`,
-minimizer-seeded windows `-S` and the guide-tree order `-p`. The
-configurations that take the per-read route (`-i` with read-id outputs,
-`-Q` with `-d > 1`) need global mode (queue B, item 2); `-b < 0` and `-G`
-are item 8, step 2. Nothing is rerouted.
+extend mode (Z-drop included), banded or unbanded (`-b < 0`), with or
+without path scores (`-G`), with consensus, MSA and GFA output,
+majority-vote consensus, up to 10 clustered consensus sequences, qv
+weights, incremental `-i`, graph plots `-g`, minimizer-seeded windows `-S`
+and the guide-tree order `-p`. Nothing is rerouted.
 """
 from __future__ import annotations
 
@@ -63,23 +61,6 @@ def parse_mat_file(path: str, m: int) -> np.ndarray:
                 for n, tok in enumerate(toks[1:]):
                     mat[row, order[n]] = int(tok)
     return mat
-
-
-def _not_in_slice(what: str, item: str, queue: str = "A") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to abpoa_tpu_torch yet (ROADMAP.md queue "
-        f"{queue}, item {item}); use the JAX package abpoa_tpu for it")
-
-
-def per_read_covers(abpt: "Params") -> bool:
-    """The per-read route (kernel B2) aligns in global mode, with any gaps;
-    its local and extend variants are queue B, item 2."""
-    return abpt.align_mode == C.GLOBAL_MODE
-
-
-def per_read_refusal(what: str) -> NotImplementedError:
-    return _not_in_slice(f"{what} outside global mode (the per-read route)",
-                         "2", queue="B")
 
 
 def plain_route(abpt: "Params") -> bool:
@@ -163,8 +144,8 @@ class Params:
     _finalized: bool = field(default=False, repr=False)
 
     def finalize(self) -> "Params":
-        """Derive gap mode / scoring matrix, check the configuration is in
-        the ported slice, and resolve the torch device."""
+        """Derive gap mode / scoring matrix, check the configuration and
+        resolve the torch device."""
         if min(self.match, self.mismatch, self.gap_open1, self.gap_open2,
                self.gap_ext1, self.gap_ext2) < 0:
             raise ValueError("negative scoring parameters")
@@ -187,7 +168,8 @@ class Params:
             self.wb = -1
         if self.m > 5 and self.k > 11:  # aa sequences: smaller minimizers
             self.k, self.w = 7, 4
-        self._check_slice()
+        if self.align_mode not in (C.GLOBAL_MODE, C.LOCAL_MODE, C.EXTEND_MODE):
+            raise ValueError(f"unknown alignment mode {self.align_mode}")
 
         if not self.use_score_matrix:
             self.mat = gen_simple_mat(self.m, self.match, self.mismatch)
@@ -202,23 +184,6 @@ class Params:
         self.torch_device = resolve_device(self.device)
         self._finalized = True
         return self
-
-    def _check_slice(self) -> None:
-        if self.align_mode not in (C.GLOBAL_MODE, C.LOCAL_MODE, C.EXTEND_MODE):
-            raise ValueError(f"unknown alignment mode {self.align_mode}")
-        if self.wb < 0 and self.align_mode != C.LOCAL_MODE:
-            raise _not_in_slice("unbanded alignment (-b < 0)", "8, step 2")
-        if self.inc_path_score:
-            raise _not_in_slice("path-score mode (-G)", "8, step 2")
-        # the configurations the JAX package sends to its host engine take
-        # the per-read route here
-        if not per_read_covers(self):
-            if self.use_qv and self.max_n_cons > 1:
-                raise per_read_refusal(
-                    "quality-weighted clustering (-Q with -d > 1)")
-            if self.incr_fn and self.use_read_ids:
-                raise per_read_refusal(
-                    "incremental alignment (-i) with read-id outputs")
 
     @property
     def is_aa(self) -> bool:

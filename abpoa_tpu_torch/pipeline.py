@@ -12,23 +12,24 @@ it. Three routes, chosen as the JAX package chooses them:
   (`align/fused_loop.py`, kernels B1/B3, X1, S1, K1), from the empty graph
   or from the restored one (`-i` without read-id outputs), and the graph is
   downloaded once;
-- the per-read route (`poa`): each read is aligned by the banded DP kernel
-  (B2) on the device and fused into the graph on the host. It takes what
-  the JAX package sends to its host engine: `-i` with read-id outputs
+- the per-read route (`poa`): each read is aligned by the DP kernel B2
+  and its backtrack X1w on the device and fused into the graph on the
+  host, in global, local or extend (Z-drop) mode, banded or not. It takes
+  what the JAX package sends to its host engine or to its per-read XLA
+  DP: `-G` and `-b < 0` (outside local mode), `-i` with read-id outputs
   (MSA, GFA, `-a 1`, `-d > 1`), `-Q` with `-d > 1` (per-read qv weights),
   and a set of one read, which launches B2 only when `-i` restored a graph
-  (the first read of an empty graph becomes the graph as it is). B2
-  covers global mode; local and extend mode that would reach it are
-  refused before any output (queue B, item 2);
+  (the first read of an empty graph becomes the graph as it is);
 - the seeded route (`-S` or `-p` in global mode, `seed.anchor_poa_pipeline`):
   the reads in input or guide-tree order, each cut at its minimizer anchors
-  into windows that one batched B2 launch aligns, fused into the host graph
-  read by read, from the graph `-i` restored when there is one.
+  into windows that one batched B2 launch aligns (with `-G`'s path scores
+  or unbanded where asked), fused into the host graph read by read, from
+  the graph `-i` restored when there is one.
 
 The per-read and seeded routes keep the graph in the native host graph
 (`native/`, C++: fusion, sort, the DP's tables, the default consensus)
-unless Z-drop is on, as the JAX package chooses it for its device routes
-(`want_native`); the restore of `-i` loads into it. Their backtrack runs on
+unless Z-drop or `-G` is on, as the JAX package chooses it for its device
+routes (`want_native`); the restore of `-i` loads into it. Their backtrack runs on
 the device too (X1w), so only the walks' results come back to the host. The
 fused route keeps a Python graph.
 
@@ -52,7 +53,7 @@ from .cons.msa import generate_rc_msa
 from .graph import POAGraph
 from .io.fastx import read_fastx
 from .io.output import generate_gfa, output_fx_consensus, output_rc_msa
-from .params import Params, per_read_covers, per_read_refusal, plain_route
+from .params import Params, plain_route
 from .quarantine import validate_records
 
 
@@ -120,8 +121,9 @@ def want_native(abpt: Params, fused: bool = False) -> bool:
     """The twin of `abpoa_tpu/pipeline.py:193` `_want_native`, applied to
     the route instead of the device name, so it is the same on every
     device: the native host graph for the per-read and seeded routes,
-    except with Z-drop (and `-G`, refused by `Params`), which keep the
-    Python graph as the JAX package keeps it for them. The fused route
+    except with Z-drop and `-G` (whose path scores are read from the
+    Python graph's nodes), which keep the Python graph as the JAX package
+    keeps it for them. The fused route
     keeps its Python graph (it comes back from the card as one)."""
     return not fused and not abpt.inc_path_score and abpt.zdrop <= 0
 
@@ -241,9 +243,6 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
     elif fused:
         _run_fused_device(ab, abpt, seqs, weights, exist_n_seq)
     else:
-        if ab.graph.node_n > 2 and not per_read_covers(abpt):
-            # one new read onto a restored graph: B2 would align it
-            raise per_read_refusal("incremental alignment (-i) of one read")
         poa(ab, abpt, seqs, weights, exist_n_seq)
     output(ab, abpt, out_fp)
 

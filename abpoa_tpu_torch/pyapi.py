@@ -6,10 +6,9 @@ Counterpart of `abpoa_tpu/pyapi.py` (abPOA python/pyabpoa.pyx):
 objects. Like the binding, it aligns one read, fuses it, and goes on to the
 next: each read is aligned by kernel B2 on the aligner's device (the
 per-read route, `align/banded.py`, with its backtrack X1w) and fused into
-the native host graph (`native/`), as the CLI's per-read route does. B2 covers
-global mode with linear, affine or convex gaps; an aligner in local or
-extend mode raises NotImplementedError before it aligns anything
-(ROADMAP.md queue B, item 2).
+the native host graph (`native/`), as the CLI's per-read route does, in
+global, local (`aln_mode="l"`) or extend (`"e"`) mode with linear, affine
+or convex gaps.
 
 Two choices differ from the JAX package: `device` defaults to "cuda" (the
 port's rule: the card unless the caller asks for the CPU), and `lockstep`
@@ -28,7 +27,7 @@ from .align.dispatch import align_sequence_to_graph
 from .cons.consensus import (ConsensusResult, generate_consensus,
                              native_consensus_hb, native_hb_eligible)
 from .cons.msa import generate_rc_msa
-from .params import Params, per_read_covers, per_read_refusal
+from .params import Params
 from .pipeline import Abpoa, _select_graph, want_native
 from .quarantine import QUARANTINE_EXCEPTIONS, PoisonedSetError, quarantine_set
 
@@ -150,8 +149,8 @@ class msa_aligner:
 
     def _prepare(self, out_cons, out_msa, max_n_cons, min_freq, incr_fn,
                  qscores) -> int:
-        """Set the outputs, finalize, refuse what B2 cannot align, empty the
-        graph and restore `incr_fn` into it; returns the restored reads."""
+        """Set the outputs, finalize, empty the graph and restore `incr_fn`
+        into it; returns the restored reads."""
         abpt = self.abpt
         abpt.out_cons = bool(out_cons)
         abpt.out_msa = bool(out_msa)
@@ -162,8 +161,6 @@ class msa_aligner:
         abpt.use_qv = qscores is not None
         abpt.incr_fn = _text(incr_fn) if incr_fn else None
         abpt.finalize()
-        if not per_read_covers(abpt):
-            raise per_read_refusal("the Python API")
         _select_graph(self.ab, want_native(abpt))
         self.ab.reset()
         if abpt.incr_fn:

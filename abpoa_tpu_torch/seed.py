@@ -10,10 +10,12 @@ alignments against the graph as the reads before it left it; the windows of
 one read go to the device as one batched launch of kernel B2 and one of
 its backtrack X1w (`align/dispatch.py` `align_windows`), the k-mer match
 runs between them are pushed as matches, and the whole read is fused once,
-into the native host graph (`native/`) through the surface it shares with
-`graph.POAGraph` (`add_subgraph_alignment`; the windows' bands come back
-through `write_band`). The windows keep the JAX package's order, as they
-seed and write back the graph's mpl/mpr.
+into the native host graph (`native/`; the Python graph with `-G`) through
+the surface it shares with `graph.POAGraph` (`add_subgraph_alignment`; the
+windows' bands come back through `write_band`, unless `-b < 0`). With `-G`
+the windows carry their path scores, and with `-b < 0` they run unbanded,
+as `align_windows_jax` builds its snapshots. The windows keep the JAX
+package's order, as they seed and write back the graph's mpl/mpr.
 """
 from __future__ import annotations
 

@@ -26,7 +26,14 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          overflow), and X1w (backtrack_windows) over each launch's ok
          windows against its plain version (headers, bands, ops); those 4
          reads on cuda == on cpu; the read's windows from W = 32 end to
-         end, the overflowed part relaunched, cuda == cpu
+         end, the overflowed part relaunched, cuda == cpu. B2's modes
+         (MODE_CASES): local, extend with Z-drop (-z 20), unbanded global
+         and extend, with and without -G's path scores, in each gap
+         regime, on sim2k's tables (and a read's middle between random
+         flanks, where a local walk stops before a zero cell) and on
+         rcmix's (where Z-drop fires): B2 against its plain version
+         (planes, begend, mplr, ok, ext) and X1w's walk from the mode's
+         best cell against its plain version (header, band, ops)
   A2     on sim2k tables: kernel B1 (fused_dp) against its plain version in
          every variant (linear/affine/convex x global/extend+Z-drop/local x
          int16/int32), B3 as B1's local instantiation at sim2k's local width
@@ -59,7 +66,12 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          (B2 batched, no B1): seq.fa -S -p, rcmix.fa -s -S [-p] -n 200
          reproduce their goldens; sim2k's first 6 reads with -S -n 200
          (and -O 0, -O 4) and -S -p -n 200 -r 1, seq4.fa -i seq10.gfa -S
-         -r 1 and seq.fa -p -O 0 equal the port's CPU runs
+         -r 1 and seq.fa -p -O 0 equal the port's CPU runs. B2's modes:
+         seq.fa -b -1 reproduces seq_noband.txt, and -G, -G -m 1, -m 2 -z
+         20 -b -1, -S -G, -S -b -1, -i seq10.gfa -r 1 -m 1, -Q -d 2 -m 2
+         and -l with -i -m 1 (a set of one read among the list's) on cuda
+         equal the port's CPU runs, each on B2 alone; -r 5, -c and -c -t
+         BLOSUM62.mtx reproduce their goldens
   C      the main path at full width: N ONT-like 10 kb reads at 10 % error
          (made here from a fixed seed) through the CLI on cuda, the fused
          route; the kernel counts are set to 0 before and read after (S1 at
@@ -114,23 +126,39 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          When fewer than half the reads get two windows at 10 % error
          (anchors rarely survive it), C7 runs on reads of the same
          reference at 5 % error, and says so
+  C8     B2's and X1w's modes at full width on the first 20 reads of phase
+         C's set (phase_c8): the per-read route in -m 1, -m 2 and -m 2 -z
+         100 == the fused route (B3/B1), -r 2 byte for byte; the pyapi in
+         aln_mode l and e == the fused MSA rows and consensus; -b -1 -r 2
+         and -G -r 2 through the CLI (B2 every read): rows are their reads,
+         check_walks, consensus identity >= 0.98; per read the split of C2
+         and B2's µs a computed row
   D      at the graph phase C left and one more read: B1, X1, S1 and K1
          against their plain versions with times and bounds (B1 also per
          computed row, X1 per step, K1 per pass, in both degree variants
-         and with its two walks' lengths), the share of predecessor reads B1's
-         rings serve
-         (from the tables), a sweep of B1's column warps, each held equal
-         to the plain version, and the time of the sequential fusion a
-         collision read takes (held equal to the vectorised fusion); B2 the
-         same at the graph of C2's per-read run (time, per computed row,
-         bound, ring share, warp sweep) and at C5 (b)'s per-read graph (C3's
-         restored MSA and 20 new reads, the largest graph the CLI launches
-         B2 on, in C5 (c)); the kernel table's B2 row takes its time, plain
-         time and bound from the latter; B2 batched (the banded_dp[windows]
-         row) on the first launch of C7 (a)'s last read: its windows at the
-         graph the reads before it built, with the longest window alone;
-         X1w (the backtrack[windows] row) on that launch's planes, and on
-         one window of C5's per-read graph and the held-out read
+         and with its two walks' lengths), the share of predecessor reads
+         B1's rings serve (from the tables), a sweep of B1's column warps,
+         each held equal to the plain version, and the time of the
+         sequential fusion a collision read takes (held equal to the
+         vectorised fusion); B2's kernel time at the graph of C2's per-read
+         run, and against its plain version at C5 (b)'s per-read graph
+         (C3's restored MSA and 20 new reads, the largest graph the CLI
+         launches B2 on, in C5 (c); time, per computed row, bound, ring
+         share, warp sweep); the kernel table's B2 row takes its time, plain
+         time and bound from the latter; B2 unbanded, local and -G at C8's
+         final graph (kernel time, µs a row, bound); B2's new modes at C8's
+         launch shape (the held-out read on a graph of phase C's first 3
+         reads: unbanded global and local at W = qlen + 1, no ring; -G
+         banded and unbanded) against the plain version, and X1w's walk
+         from each; B2 batched (the banded_dp[windows] row) against its plain
+         version on the first launch of C7 (a)'s last read: its windows at
+         the graph the reads before it built, with the longest window alone;
+         X1w (the backtrack[windows] row) on that launch's planes, and on one
+         window of C5's per-read graph and the held-out read.
+         The plain versions of B1, B3 and B2 (a loop of small torch ops a
+         row) run on CPU copies of the kernel's inputs, but for phase A's
+         one-read B2 cases (the 20 kb read's wide planes); the others run
+         on the card
 Quick form (~4 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
 --c5-reads 6 --c6-reads 10 --c7-reads 12.
 The line before the last is the kernel table as JSON; the last line is
@@ -322,33 +350,33 @@ def b2_windows(args, out):
         yield r0, R, int(args[0][b][10]), be[:R], be[R:], out[7][b:b + 1]
 
 
-def compare_dp(name: str, got, want, args) -> tuple:
-    """compare() for B1/B3 outputs, or B2's (args of banded_dp: 11 tensors,
-    one window, or 12, a batch), over the plane rows the kernel defines
-    (0..last computed of each window; the kernel leaves later rows as
-    allocated). Returns (max abs difference, rows compared)."""
+def dp_rows(args, out) -> list:
+    """The plane rows B1/B3 or B2 (args of banded_dp: 11 tensors, one
+    window, or 12 or 13, a batch) computed in `out`: (first row, rows) a
+    window, 0..last computed (the kernel leaves later rows as allocated)."""
     from abpoa_tpu_torch.align.fused_dp_kernel import computed_rows
-    if len(args) == 12:  # a batch of windows: each window's computed rows
-        import torch
-        keep, total = [], 0
-        for r0, R, gn, beg, end, ok in b2_windows(args, want):
-            rows = computed_rows(beg.cpu(), end.cpu(), ok.cpu(), gn,
-                                 want[0].shape[1])
-            keep.append(torch.arange(r0, r0 + rows))
-            total += rows
-        idx = torch.cat(keep)
-        cut = lambda out: [t[idx.to(t.device)] if k < 5 else t  # noqa: E731
-                           for k, t in enumerate(out)]
-        return compare(name, cut(got), cut(want)), total
+    W = out[0].shape[1]
+    if len(args) >= 12:  # a batch of windows
+        return [(r0, computed_rows(beg.cpu(), end.cpu(), ok.cpu(), gn, W))
+                for r0, R, gn, beg, end, ok in b2_windows(args, out)]
     if len(args) == 11:  # B2: begend (2R,), gn at scalars[10]
-        R = want[5].shape[0] // 2
-        beg, end, gn = want[5][:R], want[5][R:], int(args[0][10])
+        R = out[5].shape[0] // 2
+        beg, end, gn = out[5][:R], out[5][R:], int(args[0][10])
     else:
-        beg, end, gn = want[5], want[6], int(args[0][8])
-    rows = computed_rows(beg.cpu(), end.cpu(), want[7].cpu(), gn,
-                         want[0].shape[1])
-    cut = lambda out: [t[:rows] if k < 5 else t for k, t in enumerate(out)]  # noqa: E731
-    return compare(name, cut(got), cut(want)), rows
+        beg, end, gn = out[5], out[6], int(args[0][8])
+    return [(0, computed_rows(beg.cpu(), end.cpu(), out[7].cpu(), gn, W))]
+
+
+def compare_dp(name: str, got, want, args) -> tuple:
+    """compare() for B1/B3 outputs, or B2's, over the plane rows the kernel
+    defines (dp_rows of the plain version's outputs). Returns (max abs
+    difference, rows compared)."""
+    import torch
+    spans = dp_rows(args, want)
+    idx = torch.cat([torch.arange(r0, r0 + rows) for r0, rows in spans])
+    cut = lambda out: [t[idx.to(t.device)] if k < 5 else t  # noqa: E731
+                       for k, t in enumerate(out)]
+    return compare(name, cut(got), cut(want)), len(idx)
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -378,6 +406,18 @@ def time_host(fn):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def time_plain(fn, args, **kw):
+    """(ms, outputs on the CPU) of the plain version fn(*args, **kw) run on
+    CPU copies of args, on the host clock. B1's and B2's plain versions are
+    a loop of small torch ops a row, which the host runs faster than the
+    card launches them one by one while a row is narrow (W up to a few
+    thousand; compare() and compare_dp() take outputs on either device)."""
+    cargs = [a.cpu() for a in args]
+    t0 = time.perf_counter()
+    out = fn(*cargs, **kw)
     return (time.perf_counter() - t0) * 1e3, out
 
 
@@ -415,7 +455,8 @@ def nbytes(tensors) -> int:
 
 
 def dp_bound(rates, args, out):
-    """B1/B3, or B2 (args of banded_dp: 11 tensors), over the rows the
+    """B1/B3, or B2 (args of banded_dp: 11 tensors, or 12 or with `-G`'s
+    path scores 13, a batch), over the rows the
     kernel computes, 0 to gn - 2 (or to the row whose band passed W); the
     rows past them are capacity padding. Bytes: those rows of every per-row
     input read once, their plane rows and band ends written once; the
@@ -426,9 +467,10 @@ def dp_bound(rates, args, out):
     argmax (22)."""
     import numpy as np
     planes = out[:5]
-    if len(args) == 12:  # a batch: each window's computed rows, summed
+    if len(args) >= 12:  # a batch: each window's computed rows, summed
         W = planes[0].shape[1]
-        row_bytes = (sum(t[0].numel() * t.element_size() for t in args[1:9])
+        row_bytes = (sum(t[0].numel() * t.element_size()
+                         for t in (*args[1:9], *args[12:]))
                      + sum(W * p.element_size() for p in planes) + 2 * 4)
         rows_all = ops = 0
         for r0, R, gn, beg, end, ok in b2_windows(args, out):
@@ -442,13 +484,15 @@ def dp_bound(rates, args, out):
             npre = args[3][r0: r0 + rows].cpu().numpy().astype(np.int64)
             ops += float((cells * (3 * npre + 22)).sum())
             rows_all += rows
-        # scalars, row 0, the query profiles, roff, ok and every row's mplr
-        fixed = nbytes((args[0], args[9], args[10], args[11], out[7], out[6]))
+        # scalars, row 0, the query profiles, roff, ok, ext and every row's
+        # mplr
+        fixed = nbytes((args[0], args[9], args[10], args[11], out[7], out[6],
+                        out[8]))
         return rates.bound(fixed + rows_all * row_bytes, ops)
     if len(args) == 11:  # B2: begend (2R,), gn at scalars[10]
         R = out[5].shape[0] // 2
         beg, end, gn = out[5][:R], out[5][R:], int(args[0][10])
-        fixed = (args[0], args[10], args[9], out[7], out[6])
+        fixed = (args[0], args[10], args[9], out[7], out[6], out[8])
         per_row = args[1:9]  # base .. mpr0
     else:
         beg, end, gn = out[5], out[6], int(args[0][8])
@@ -811,10 +855,10 @@ def x1w_bound(rates, inputs, want):
     ints) read and written once."""
     import numpy as np
     from abpoa_tpu_torch.align.backtrack_kernel import HEADER
-    pre_cnt = inputs[4].cpu().numpy().astype(np.int64)
-    scalars, roff = inputs[6].tolist(), inputs[7].tolist()
+    pre_cnt = inputs[5].cpu().numpy().astype(np.int64)
+    scalars, roff = inputs[7].tolist(), inputs[8].tolist()
     nb = ops = 0.0
-    for slot, _, h, _, o, _ in inputs[10].tolist():
+    for slot, _, h, _, o, _ in inputs[11].tolist():
         n_ops, gn = int(want[h]), scalars[slot][10]
         rows = want[o: o + 2 * n_ops].view(n_ops, 2)[:, 1].numpy().astype(np.int64)
         npre = pre_cnt[roff[slot] + rows]
@@ -1348,7 +1392,7 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
             ts = to_dev(banded.pack_windows(p, tabs, queries, W), dev)
             got = banded_dp(*ts, gap_mode=p.gap_mode)
             torch.cuda.synchronize()
-            plain_ms, want = time_host(lambda: banded_dp_torch(*ts, gap_mode=p.gap_mode))
+            plain_ms, want = time_plain(banded_dp_torch, ts, gap_mode=p.gap_mode)
             err, rows = compare_dp(f"banded_dp windows {gname} W={W}", got, want, ts)
             max_err["banded_dp[windows]"] = max(max_err["banded_dp[windows]"], err)
             err_w = x1w_check(p, ts, got, tabs, queries, f"{gname} W={W}")[0]
@@ -1390,6 +1434,265 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
             f"{len(last['windows'])} windows from W=32: launches of {sizes} "
             f"windows (the overflowed part relaunched), results and mpl/mpr on "
             f"cuda == on cpu")
+
+
+# Phase A's cases of B2's modes: (fixture, gap, mode, -G); the modes are
+# MODE_FIELDS' (local is unbanded; "-u" runs without a band)
+MODE_FIELDS = {"global": {}, "local": {"align_mode": 1},
+               "extend-zdrop": {"align_mode": 2, "zdrop": 20},
+               "global-u": {"wb": -1},
+               "extend-u": {"align_mode": 2, "wb": -1},
+               "extend-zdrop-u": {"align_mode": 2, "zdrop": 20, "wb": -1}}
+MODE_CASES = [
+    ("flanked", "convex", "local", False), ("flanked", "linear", "local", True),
+    ("flanked", "affine", "local", False),
+    ("sim2k", "convex", "global-u", True), ("sim2k", "convex", "extend-u", False),
+    ("sim2k", "affine", "global-u", False),
+    ("rcmix", "convex", "extend-zdrop", True),
+    ("rcmix", "convex", "extend-zdrop-u", False),
+    ("rcmix", "linear", "extend-zdrop-u", True),
+    ("rcmix", "affine", "extend-zdrop", False)]
+
+
+def mode_graphs(data_dir):
+    """Phase A's graphs for B2's modes, built on the CPU: sim2k's first 3
+    reads (global) with its 4th read, and with the middle of that read
+    between 200 random bases on each side ("flanked": a local walk stops
+    before a zero cell), and rcmix's first 5 reads aligned in extend mode with Z-drop
+    (reads of both strands: on the 6th read Z-drop fires) with its 6th."""
+    import numpy as np
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.graph import POAGraph
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.params import Params
+    out = {}
+    for name, fa, n, kw in (("sim2k", "sim2k.fa", 3, {}),
+                            ("rcmix", "rcmix.fa", 5, {"align_mode": 2, "zdrop": 20})):
+        p = Params(device="cpu", **kw).finalize()
+        seqs = [encode(p, r.seq) for r in read_fastx(os.path.join(data_dir, fa))[:n + 1]]
+        g = POAGraph()
+        for q in seqs[:n]:
+            cigar = (banded.align_sequence_to_subgraph(g, p, 0, 1, q).cigar
+                     if g.node_n > 2 else [])
+            g.add_alignment(p, q, None, cigar, True)
+        out[name] = (g, seqs[n])
+    flank = np.random.default_rng(10).integers(0, 4, (2, 200)).astype(np.uint8)
+    out["flanked"] = (out["sim2k"][0], np.concatenate(
+        [flank[0], out["sim2k"][1][400:1600], flank[1]]))
+    return out
+
+
+def mode_case(dev, graphs, case, rates) -> tuple:
+    """One of MODE_CASES on the card: B2 on the whole graph against its
+    plain version (on the CPU) on the rows it computes and on begend, mplr,
+    ok and ext, with its time and bound, then X1w's walk from the mode's
+    best cell against its plain version (header, band, ops). Returns (B2's
+    max abs diff, X1w's, the log line)."""
+    import copy
+    import torch
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.backtrack_kernel import (
+        HEADER, backtrack_windows, backtrack_windows_torch)
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
+    from abpoa_tpu_torch.align.fused_dp_kernel import launch_shape
+    from abpoa_tpu_torch.align.tables import build_row_tables, initial_band_width
+    from abpoa_tpu_torch.params import Params
+    fixture, gap, mode, ps = case
+    gaps = {"convex": {}, "affine": {"gap_open2": 0}, "linear": {"gap_open1": 0}}
+    kw = dict(gaps[gap], **MODE_FIELDS[mode], inc_path_score=ps)
+    p = Params(device=str(dev), **kw).finalize()
+    pc = Params(device="cpu", **kw).finalize()
+    g, query = graphs[fixture]
+    g = copy.deepcopy(g)
+    g.topological_sort(p)
+    t = build_row_tables(g, 0, 1, p)
+    W = initial_band_width(p, len(query))
+    arrs = banded.pack_windows(p, [t], [query], W)
+    ts, tc = to_dev(arrs, dev), to_dev(arrs, "cpu")
+    got = banded_dp(*ts, gap_mode=p.gap_mode)
+    torch.cuda.synchronize()
+    plain_ms, want = time_plain(banded_dp_torch, tc, gap_mode=p.gap_mode)
+    tag = f"{fixture} {gap} {mode}{' -G' if ps else ''}"
+    err, rows = compare_dp(f"banded_dp {tag}", got, want, ts[:12])
+    ms = time_cuda(lambda: banded_dp(*ts, gap_mode=p.gap_mode), 1)
+    bnd = dp_bound(rates, ts, got)
+    xin, xkw, layout = banded.walk_inputs(p, ts, got, [t], [query], [0])
+    xg = backtrack_windows(*xin, **xkw)
+    torch.cuda.synchronize()
+    cin, ckw, _ = banded.walk_inputs(pc, tc, want, [t], [query], [0])
+    xw = backtrack_windows_torch(*cin, **ckw)
+    h, b_at, o_at, _ = layout[0]
+    n_ops = int(xw[h])
+    sel = torch.cat([torch.arange(h, h + HEADER),
+                     torch.arange(b_at, b_at + 2 * t.gn),
+                     torch.arange(o_at, o_at + 2 * n_ops)])
+    err_w = compare(f"backtrack_windows {tag}", [xg.cpu()[sel]], [xw[sel]])
+    ls = launch_shape(W, t.pre_idx.shape[1], p.gap_mode, seeded=True,
+                      path_score=ps)
+    head = xw[h: h + HEADER].tolist()
+    line = (f"B2 {tag} (gn={t.gn}, W={W}, {ls['block_warps']} warps, cpt "
+            f"{ls['cpt']}, ring D={ls['depth']}): kernel == plain on rows "
+            f"0..{rows - 1}, begend, mplr, ok, ext {got[8][0].tolist()}; kernel "
+            f"{ms:.3f} ms ({ms * 1e3 / max(1, rows - 1):.3f} us a computed row), "
+            f"plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); X1w == "
+            f"plain (best ({head[9]}, {head[10]}) score {head[8]}, {n_ops} ops, "
+            f"start ({head[5]}, {head[6]}), end column {head[2]})")
+    return err, err_w, line
+
+
+def phase_a_modes(dev, data_dir, max_err, rates) -> None:
+    """Phase A, B2's modes: every case of MODE_CASES (`mode_case`)."""
+    graphs = mode_graphs(data_dir)
+    for case in MODE_CASES:
+        err, err_w, line = mode_case(dev, graphs, case, rates)
+        max_err["banded_dp"] = max(max_err["banded_dp"], err)
+        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err_w)
+        log(f"[A] {line}")
+
+
+def phase_c8(ref: str, reads: list) -> dict:
+    """Phase C8: B2's and X1w's modes at full width on the first 20 reads of
+    phase C's set. (a) `-m 1`, `-m 2` and `-m 2 -z 100`: the per-read route
+    (pipeline.poa, as C2 drives it) gives the fused route's (the CLI: B3 or
+    B1) consensus and MSA byte for byte (`-r 2`: the `-r 1` rows and the
+    consensus row in one output); the pyapi in aln_mode `l` and `e` gives
+    the fused MSA rows and consensus. (b) `-b -1 -r 2` and
+    `-G -r 2` through the CLI (neither is fused-eligible: B2 every read):
+    each MSA row without gaps is its read, X1w once a B2 launch and no
+    plane copied (check_walks), consensus identity to the reference >=
+    0.98. Each per-read run's time a read is split as C2's, with B2's µs a
+    computed row. Returns the B2 and X1w launches and the (b) runs' graphs
+    (for phase D)."""
+    import torch
+    from abpoa_tpu_torch import pyapi
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.graph import POAGraph
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.native.graph import NativePOAGraph
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.pipeline import (Abpoa, _ingest_records,
+                                          _select_graph, output, poa,
+                                          want_native)
+    n = min(20, len(reads))
+    fa = os.path.join(OUT, "c8.fa")
+    with open(fa, "w") as fp:
+        fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads[:n])))
+    recs = read_fastx(fa)
+    launched = {"b2": 0, "x1w": 0}
+
+    def per_read(abpt, tag):
+        """The per-read route over the 20 reads: (its output, the split)."""
+        ab = Abpoa()
+        seqs, weights = _ingest_records(ab, abpt, recs)
+        _select_graph(ab, want_native(abpt))
+        banded.reset_stats()
+        banded_dp.launches = backtrack_windows.launches = fused_dp.launches = 0
+        split = {}
+        undo = [timed(NativePOAGraph, "add_subgraph_alignment", split, "fusion"),
+                timed(POAGraph, "add_subgraph_alignment", split, "fusion")]
+        t0 = time.perf_counter()
+        try:
+            poa(ab, abpt, seqs, weights, 0)
+        finally:
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        st, b2, x1w = dict(banded.stats), banded_dp.launches, backtrack_windows.launches
+        check_walks(f"C8 {tag}", st, b2, x1w)
+        if fused_dp.launches or b2 < n - 1:
+            raise AssertionError(f"C8 {tag}: B2 {b2}, B1 {fused_dp.launches} launches")
+        launched["b2"] += b2
+        launched["x1w"] += x1w
+        buf = io.StringIO()
+        output(ab, abpt, buf)
+        return buf.getvalue(), wall, st, split.get("fusion", 0.0)
+
+    def split_line(tag, wall, st, fusion_s):
+        k = max(1, st["reads"])
+        log(f"[C8] {tag}: per-read route, {st['reads']} aligned reads, "
+            f"{st['launches']} B2 launches ({st['rows']} DP rows): wall "
+            f"{wall * 1e3 / k:.1f} ms a read = {per_read_split(st, fusion_s, k)}; "
+            f"B2 {st['kernel_s'] * 1e6 / max(1, st['rows']):.3f} us a computed row")
+
+    # (a) the per-read route == the fused route, consensus and -r 1 MSA
+    from abpoa_tpu_torch import cli
+    for flags in (["-m", "1"], ["-m", "2"], ["-m", "2", "-z", "100"]):
+        what = " ".join(flags)
+        out_f = os.path.join(OUT, f"c8_fused{''.join(flags)}.fa")
+        fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+        t0 = time.perf_counter()
+        run_cli([fa, *flags, "-r", "2", "-o", out_f])
+        wall_f = time.perf_counter() - t0
+        b1 = fused_dp.launches + fused_dp.local_launches
+        if b1 < n - 1 or banded_dp.launches:
+            raise AssertionError(f"C8 {what}: fused route launched B1/B3 "
+                                 f"{b1}, B2 {banded_dp.launches} times")
+        abpt = cli.args_to_params(cli.build_parser().parse_args(
+            [fa, *flags, "-r", "2"])).finalize()
+        got, wall, st, fusion_s = per_read(abpt, what)
+        with open(out_f) as fp:
+            if got != fp.read():
+                raise AssertionError(f"C8 {what} -r 2: the per-read and fused "
+                                     f"routes differ")
+        split_line(f"{what} -r 2 == fused route ({wall_f:.2f} s, B1/B3 {b1}) "
+                   f"byte for byte", wall, st, fusion_s)
+        if "-z" in flags:
+            continue  # the pyapi has no Z-drop argument
+        aln = {"1": "l", "2": "e"}[flags[1]]
+        rows_f = [row for _, row in read_fasta_rows(out_f)]
+        banded_dp.launches = backtrack_windows.launches = 0
+        res = pyapi.msa_aligner(aln_mode=aln).msa([r.seq for r in recs],
+                                                   out_cons=True, out_msa=True)
+        launched["b2"] += banded_dp.launches
+        launched["x1w"] += backtrack_windows.launches
+        if (res.msa_seq[:n] != rows_f[:n]
+                or res.cons_seq != [rows_f[n].replace("-", "")]):
+            raise AssertionError(f"C8 pyapi aln_mode={aln}: differs from the fused route")
+        log(f"[C8] pyapi msa_aligner(aln_mode='{aln}').msa(20 reads, out_cons, "
+            f"out_msa) == the fused route's consensus and MSA rows (B2 "
+            f"{banded_dp.launches}, X1w {backtrack_windows.launches} launches)")
+
+    # (b) unbanded and -G through the CLI: B2 every read
+    graphs = {}
+    for flags in (["-b", "-1"], ["-G"]):
+        what = " ".join(flags)
+        out_b = os.path.join(OUT, f"c8{''.join(flags)}.fa")
+        banded.reset_stats()
+        banded_dp.launches = backtrack_windows.launches = fused_dp.launches = 0
+        split = {}
+        undo = [timed(NativePOAGraph, "add_subgraph_alignment", split, "fusion"),
+                timed(POAGraph, "add_subgraph_alignment", split, "fusion")]
+        t0 = time.perf_counter()
+        try:
+            ab = run_pipeline([fa, *flags, "-r", "2"], out_b)
+        finally:
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        st, b2, x1w = dict(banded.stats), banded_dp.launches, backtrack_windows.launches
+        check_walks(f"C8 {what}", st, b2, x1w)
+        if fused_dp.launches or b2 < n - 1:
+            raise AssertionError(f"C8 {what}: B2 {b2}, B1 {fused_dp.launches} launches")
+        launched["b2"] += b2
+        launched["x1w"] += x1w
+        rows = read_fasta_rows(out_b)
+        if [row.replace("-", "") for _, row in rows[:n]] != reads[:n]:
+            raise AssertionError(f"C8 {what}: an MSA row is not its read")
+        cons = rows[n][1].replace("-", "")
+        ident = 1 - edit_distance(cons, ref) / len(ref)
+        split_line(f"{what} -r 2 through the CLI (wall {wall:.2f} s)", wall, st,
+                   split.get("fusion", 0.0))
+        log(f"[C8] {what} -r 2: {len(rows) - n} consensus row(s), each of the {n} "
+            f"MSA rows without gaps is its read; consensus identity to the "
+            f"reference {ident:.5f} (predicted >= 0.98); final graph "
+            f"{ab.graph.node_n} nodes")
+        if ident < 0.98:
+            raise AssertionError(f"C8 {what}: consensus identity {ident:.5f} < 0.98")
+        graphs[what] = ab.graph
+    return {"launched": launched, "graphs": graphs}
 
 
 def phase_c7(args, ref: str, reads: list, fused_cons: str):
@@ -1569,6 +1872,9 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     t_start = time.perf_counter()
 
+    def lap(phase):
+        log(f"[wall] {phase} ended at {time.perf_counter() - t_start:.1f} s")
+
     # ---- build: the kernels (one nvcc a source) and the native host graph
     # (g++), all at once
     import threading
@@ -1602,6 +1908,7 @@ def main() -> int:
                               "backtrack[windows]", "edge_sort", "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
 
+    lap("build")
     # ---- A: B2 vs plain (the per-read route's kernel, B1's seeded
     # instantiation): sim2k tables, the forced relaunch chain, a re-seeded
     # `-s` launch, a 20 kb read past W = 16384, a warp sweep at W = 512
@@ -1613,6 +1920,8 @@ def main() -> int:
                      qt["row0"]], dev)
         got = banded_dp(*ts, gap_mode=p.gap_mode)
         torch.cuda.synchronize()
+        # on the card: the 20 kb read's planes (up to 24320 x 19988 ints,
+        # five of them) take longer to fill on the host than its rows take
         plain_ms, want = time_host(lambda: banded_dp_torch(*ts, gap_mode=p.gap_mode))
         err, rows = compare_dp(f"banded_dp {tag}", got, want, ts)
         max_err["banded_dp"] = max(max_err["banded_dp"], err)
@@ -1622,8 +1931,8 @@ def main() -> int:
         ls = launch_shape(W, t.pre_idx.shape[1], p.gap_mode, seeded=True)
         log(f"[A] B2 {tag} R={t.R} gn={t.gn} W={W} P={t.pre_idx.shape[1]} "
             f"({ls['block_warps']} warps, cpt {ls['cpt']}, ring D={ls['depth']}) "
-            f"ok={ok}: kernel == plain on rows 0..{rows - 1}, begend, mplr, ok"
-            f" (plain {plain_ms:.1f} ms)")
+            f"ok={ok}: kernel == plain on rows 0..{rows - 1}, begend, mplr, ok, "
+            f"ext (plain {plain_ms:.1f} ms)")
         return ts, got, want, rows, ok
 
     g = POAGraph()
@@ -1687,7 +1996,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sweep_warps("A B2 sim2k", ts512, None, want512)
     phase_a_windows(dev, os.path.join(ROOT, "tests", "data"), max_err)
+    phase_a_modes(dev, os.path.join(ROOT, "tests", "data"), max_err, rates)
 
+    lap("A")
     # ---- A2: B1 (every variant), B3, X1, K1 vs plain on sim2k tables
     sim2k_enc = [encode(cpu, s) for s in sim2k]
     st3, _ = fused_state(abpt, sim2k_enc, 3)
@@ -1711,7 +2022,7 @@ def main() -> int:
                 got = fused_dp(*a2, **kw)
                 torch.cuda.synchronize()
                 name = "fused_dp[local]" if local else "fused_dp"
-                want = fused_dp_torch(*a2, **kw)
+                want = time_plain(fused_dp_torch, a2, **kw)[1]
                 err, rows = compare_dp(f"{name} {gname}-{mname}", got, want, a2)
                 max_err[name] = max(max_err[name], err)
                 bta, max_ops = bt_inputs(p, a2, got, q4, inf, mname != "global")
@@ -1770,7 +2081,7 @@ def main() -> int:
     log(f"[A2] B3 width: local W = {local_W}, B1's VMEM need {vmem / 2**20:.1f} MB "
         f"> 11 MB -> B3 in the JAX package: {vmem > 11 * 2**20}")
     b3_ms = time_cuda(lambda: fused_dp(*b3_case[0], **b3_case[1]), 3)
-    b3_plain_ms, _ = time_host(lambda: fused_dp_torch(*b3_case[0], **b3_case[1]))
+    b3_plain_ms, _ = time_plain(fused_dp_torch, b3_case[0], **b3_case[1])
     b3_bound = dp_bound(rates, b3_case[0], b3_case[2])
     log(f"[A2] B3 (local, gn={int(b3_case[0][0][8])}, R={b3_case[0][1].shape[0]}, "
         f"W={local_W}): kernel "
@@ -1816,6 +2127,7 @@ def main() -> int:
         log(f"[A2] S1 {name} (N={sa[0].shape[0]}, E={sa[0].shape[1]}): kernel "
             f"== plain; kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
 
+    lap("A2")
     # ---- B: goldens through the CLI on cuda (the fused route)
     data = lambda f: os.path.join(ROOT, "tests", "data", f)  # noqa: E731
     golden = [("seq.fa", [], "ref_consensus"), ("seq.fa", ["-O", "4"], "seq_affine"),
@@ -1824,7 +2136,9 @@ def main() -> int:
               ("seq.fa", ["-r", "2"], "seq_r2"), ("seq.fa", ["-r", "4"], "seq_r4"),
               ("heter.fa", ["-d", "2"], "ref_heter"),
               ("heter.fa", ["-d", "2", "-r", "2"], "heter_d2r2"),
-              ("3alleles.fa", ["-d", "3"], "3alleles_d3")]
+              ("3alleles.fa", ["-d", "3"], "3alleles_d3"),
+              ("seq.fa", ["-r", "5"], "seq_r5"), ("aa.fa", ["-c"], "aa_cons"),
+              ("aa.fa", ["-c", "-t", data("BLOSUM62.mtx")], "aa_blosum62")]
     for fa_b, flags, name in golden:
         out_b = os.path.join(OUT, f"{name}.fa")
         fl.reset_stats()
@@ -1966,6 +2280,35 @@ def main() -> int:
         same_files(*outs_b, f"{what} on cuda and cpu")
         check_route(f"{what} on cuda == on cpu", b1, b2, "B2")
 
+    # B2's modes: -b -1's golden, then the flag sets
+    # with no golden on cuda == on cpu, each on B2 alone
+    out_b = os.path.join(OUT, "seq_noband.fa")
+    b1, b2 = launches_of(lambda: run_cli([data("seq.fa"), "-b", "-1", "-o", out_b]))
+    same_files(out_b, os.path.join(ROOT, "tests", "golden", "seq_noband.txt"),
+               "seq.fa -b -1 on cuda and seq_noband.txt")
+    check_route("seq.fa -b -1 on cuda == tests/golden/seq_noband.txt", b1, b2, "B2")
+    lst = os.path.join(OUT, "list_local.txt")
+    one = os.path.join(OUT, "one_read.fa")
+    with open(one, "w") as fp:
+        fp.write(">r\nCGTCAATCTATCGAAGCATACGCGGCAGAGCCGAAGACC\n")
+    with open(lst, "w") as fp:
+        fp.write(f"{data('seq4.fa')}\n{one}\n")
+    for k_b, argv in enumerate((
+            [data("seq.fa"), "-G"], [data("heter.fa"), "-G", "-m", "1"],
+            [data("rcmix.fa"), "-m", "2", "-z", "20", "-b", "-1"],
+            [data("seq.fa"), "-S", "-G"],
+            [data("rcmix.fa"), "-S", "-b", "-1", "-n", "200"],
+            [data("seq4.fa"), "-i", data("seq10.gfa"), "-r", "1", "-m", "1"],
+            [data("heter.fq"), "-Q", "-d", "2", "-m", "2"],
+            [lst, "-l", "-i", data("seq10.gfa"), "-m", "1", "-r", "1"])):
+        what = " ".join(os.path.basename(a) for a in argv)
+        outs_b = [os.path.join(OUT, f"modes_{k_b}.{d}") for d in ("cuda", "cpu")]
+        b1, b2 = launches_of(lambda: run_cli(argv + ["-o", outs_b[0]]))
+        run_cli(argv + ["--device", "cpu", "-o", outs_b[1]])
+        same_files(*outs_b, f"{what} on cuda and cpu")
+        check_route(f"{what} on cuda == on cpu", b1, b2, "B2")
+
+    lap("B")
     # ---- C: the main path at full width, the fused route
     ref, reads = simulate(args.ref_len, args.reads + 1, 0.10, args.seed)
     held_out = reads.pop()
@@ -2024,6 +2367,7 @@ def main() -> int:
         raise AssertionError(f"consensus identity {ident:.5f} < 0.99")
     st_c, caps_c = fl.last_state, s["caps"]
 
+    lap("C")
     # ---- C2: per-read route (B2) and fused route on the first M reads
     m = args.c2_reads
     recs = read_fastx(fa)[:m]
@@ -2065,6 +2409,7 @@ def main() -> int:
         raise AssertionError("per-read and fused routes give different consensus")
     log(f"[C2] per-read (B2 launches {b2_launches}) == fused consensus, byte for byte")
 
+    lap("C2")
     # ---- C3: the read-id outputs at full width: the headline set with -r 2
     from abpoa_tpu_torch import pipeline as pl
     from abpoa_tpu_torch.cons import msa as msa_mod
@@ -2121,6 +2466,7 @@ def main() -> int:
         f"{split.get('write', 0.0):.2f}, the rest (reading, encoding) "
         f"{wall3 - known:.2f}")
 
+    lap("C3")
     # ---- C4: clustering at a diploid user's scale: two haplotypes, -d 2 -r 4
     m4 = args.c4_reads
     h1, h2 = haplotypes(args.ref_len, 0.01, args.seed + 2)
@@ -2183,10 +2529,16 @@ def main() -> int:
             f"{len(abc4.clu_read_ids[k])} reads: {hap_n[0]} of haplotype 1, "
             f"{hap_n[1]} of haplotype 2")
 
+    lap("C4")
     b2_c5, x1w_c5, graph5 = phase_c5(args, ref, rows[:n], msa_len)
+    lap("C5")
     b2_c6, x1w_c6 = phase_c6(args, h1, h2)
+    lap("C6")
     b2_c7, x1w_c7, c7_last, p7 = phase_c7(args, ref, reads, cons[0].seq)
+    lap("C7")
+    c8 = phase_c8(ref, reads)
 
+    lap("C8")
     # ---- D: kernels vs plain at the main path's shape
     qd = encode(cpu, held_out)
     W, plane16 = caps_c["W"], caps_c["plane16"]
@@ -2195,7 +2547,7 @@ def main() -> int:
               zdrop_on=False, local=False)
     got = fused_dp(*ad, **kw)
     torch.cuda.synchronize()
-    b1_plain_ms, want = time_host(lambda: fused_dp_torch(*ad, **kw))
+    b1_plain_ms, want = time_plain(fused_dp_torch, ad, **kw)
     err, rows_d = compare_dp("fused_dp D", got, want, ad)
     max_err["fused_dp"] = max(max_err["fused_dp"], err)
     b1_ms = time_cuda(lambda: fused_dp(*ad, **kw), 3)
@@ -2221,7 +2573,7 @@ def main() -> int:
         f"max {dist.max()}; served by the plane ring (D={shape_d['depth']}) "
         f"{(dist < shape_d['depth']).mean() * 100:.3f} %, by the band ring "
         f"(256 rows) {(dist < 256).mean() * 100:.3f} %")
-    sweep_warps("D B1", ad, kw, want)
+    sweep_warps("D B1", ad, kw, [t.to(dev) for t in want])
     bta, max_ops = bt_inputs(abpt, ad, got, qd, inf, False)
     bkw = dict(max_ops=max_ops, gap_mode=abpt.gap_mode, gap_on_right=False,
                put_gap_at_end=False, local=False)
@@ -2312,9 +2664,9 @@ def main() -> int:
     W2 = initial_band_width(abpt, len(qd))
 
     def b2_at(tag, gp):
-        """B2 against its plain version on the held-out read at graph gp
-        (its error goes into max_err): (ms, plain_ms, bound, inputs, plain
-        outputs)."""
+        """B2 on the held-out read at graph gp: its time, bound and the
+        share of predecessor reads its rings serve. Returns (ms, bound,
+        inputs, outputs)."""
         gp.topological_sort(abpt)
         t = build_row_tables(gp, 0, 1)
         qt = query_tables(abpt, t, qd, W2)
@@ -2323,18 +2675,16 @@ def main() -> int:
         ts = to_dev(a2, dev)
         got = banded_dp(*ts)
         torch.cuda.synchronize()
-        plain_ms, want = time_host(lambda: banded_dp_torch(*ts))
-        err, rows_b2 = compare_dp(f"banded_dp D {tag}", got, want, ts)
+        rows_b2 = dp_rows(ts, got)[0][1]
         ms = time_cuda(lambda: banded_dp(*ts), 3)
         bnd = dp_bound(rates, ts, got)
         P2 = t.pre_idx.shape[1]
         shape_b2 = launch_shape(W2, P2, abpt.gap_mode, seeded=True)
         log(f"[D] B2 at {tag} (R={t.R}, gn={t.gn}, W={W2}, P={P2}; "
             f"{shape_b2['block_warps']} warps, cpt {shape_b2['cpt']}, ring "
-            f"D={shape_b2['depth']}, {shape_b2['smem']} B shared): kernel == "
-            f"plain on rows 0..{rows_b2 - 1}, begend, mplr, ok; kernel "
-            f"{ms:.3f} ms ({ms * 1e3 / max(1, rows_b2 - 1):.3f} us a computed "
-            f"row), plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"D={shape_b2['depth']}, {shape_b2['smem']} B shared): {rows_b2} "
+            f"computed rows; kernel {ms:.3f} ms ({ms * 1e3 / max(1, rows_b2 - 1):.3f} "
+            f"us a computed row), bound {bnd[0]:.4f} ms ({bnd[1]}; "
             f"all R rows and every output: "
             f"{rates.bound(nbytes(ts) + nbytes(got), 0)[0]:.4f} ms)")
         rr = np.arange(t.gn - 1)[:, None]
@@ -2345,22 +2695,72 @@ def main() -> int:
             f"max {dist.max()}; served by the plane ring (D={shape_b2['depth']}) "
             f"{(dist < shape_b2['depth']).mean() * 100:.3f} %, by the band ring "
             f"(256 rows) {(dist < 256).mean() * 100:.3f} %")
-        max_err["banded_dp"] = max(max_err["banded_dp"], err)
-        return ms, plain_ms, bnd, ts, want
+        return ms, bnd, ts, got
 
-    _, _, _, ts, want = b2_at(f"the {m}-read per-read graph of C2", ab_pr.graph)
-    sweep_warps("D B2", ts, None, want)
-    # the row's numbers: the largest graph the CLI launches B2 on (C5 (c))
-    del ts, want
-    b2_ms, b2_plain_ms, b2_bnd, _, _ = b2_at(
-        "C5's per-read graph (C3's restored MSA and the new reads)", graph5)
+    b2_at(f"the {m}-read per-read graph of C2", ab_pr.graph)
+    # the row's numbers: the largest graph the CLI launches B2 on (C5 (c)),
+    # held against the plain version there
+    tag5 = "C5's per-read graph (C3's restored MSA and the new reads)"
+    b2_ms, b2_bnd, ts, got = b2_at(tag5, graph5)
+    b2_plain_ms, want = time_plain(banded_dp_torch, ts)
+    err, rows_b2 = compare_dp(f"banded_dp D {tag5}", got, want, ts)
+    max_err["banded_dp"] = max(max_err["banded_dp"], err)
+    log(f"[D] B2 at {tag5}: kernel == plain on rows 0..{rows_b2 - 1}, begend, "
+        f"mplr, ok, ext; plain {b2_plain_ms:.1f} ms")
+    sweep_warps("D B2", ts, None, [t.to(dev) for t in want])
+    del ts, got, want
+    # B2's modes at C8's final graph (the -G run's) and the held-out read:
+    # kernel times
+    gp8 = c8["graphs"]["-G"]
+    for tag8, kw8 in (("unbanded (-b -1)", {"wb": -1}),
+                      ("local (-m 1)", {"align_mode": 1}),
+                      ("-G", {"inc_path_score": True})):
+        p8 = Params(device="cuda", **kw8).finalize()
+        gp8.topological_sort(p8)
+        t8 = build_row_tables(gp8, 0, 1, p8)
+        W8 = initial_band_width(p8, len(qd))
+        ts = to_dev(banded.pack_windows(p8, [t8], [qd], W8), dev)
+        got = banded_dp(*ts, gap_mode=p8.gap_mode)
+        torch.cuda.synchronize()
+        rows8 = dp_rows(ts, got)[0][1]
+        ms8 = time_cuda(lambda: banded_dp(*ts, gap_mode=p8.gap_mode), 2)
+        bnd8 = dp_bound(rates, ts, got)
+        ls8 = launch_shape(W8, t8.pre_idx.shape[1], p8.gap_mode, seeded=True,
+                           path_score=len(ts) > 12)
+        log(f"[D] B2 {tag8} at C8's final graph (gn={t8.gn}, W={W8}, P="
+            f"{t8.pre_idx.shape[1]}; {ls8['block_warps']} warps, cpt "
+            f"{ls8['cpt']}, ring D={ls8['depth']}) and the held-out read: "
+            f"kernel {ms8:.3f} ms ({ms8 * 1e3 / max(1, rows8 - 1):.3f} us a "
+            f"computed row, {rows8} rows), bound {bnd8[0]:.4f} ms ({bnd8[1]}); "
+            f"launches in C8 {c8['launched']['b2']} (all modes)")
+        del ts, got
+    # the new modes at C8's launch shapes against the plain version (W =
+    # qlen + 1 with no ring unbanded; -G's scores through the ring and the
+    # gather from the planes): the held-out read on a graph of phase C's
+    # first 3 reads, which keeps the plain version's row loop short; X1w's
+    # walk from each
+    g10 = POAGraph()
+    for r in reads[:3]:
+        q = encode(cpu, r)
+        cigar = (banded.align_sequence_to_subgraph(g10, abpt, 0, 1, q).cigar
+                 if g10.node_n > 2 else [])
+        g10.add_alignment(abpt, q, None, cigar, True)
+    for case in (("10 kb", "convex", "global-u", False),
+                 ("10 kb", "convex", "local", False),
+                 ("10 kb", "convex", "global", True),
+                 ("10 kb", "convex", "global-u", True)):
+        err, err_w, line = mode_case(dev, {"10 kb": (g10, qd)}, case, rates)
+        max_err["banded_dp"] = max(max_err["banded_dp"], err)
+        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err_w)
+        log(f"[D] {line}")
+    del g10
     # B2 batched over a read's windows: the first launch of C7 (a)'s last
     # read, at the graph the reads before it built
     tabs7, q7, W7 = c7_last
     ts = to_dev(banded.pack_windows(p7, tabs7, q7, W7), dev)
     got = banded_dp(*ts, gap_mode=p7.gap_mode)
     torch.cuda.synchronize()
-    b2w_plain_ms, want = time_host(lambda: banded_dp_torch(*ts, gap_mode=p7.gap_mode))
+    b2w_plain_ms, want = time_plain(banded_dp_torch, ts, gap_mode=p7.gap_mode)
     err, rows_w = compare_dp("banded_dp D windows", got, want, ts)
     max_err["banded_dp[windows]"] = max(max_err["banded_dp[windows]"], err)
     b2w_ms = time_cuda(lambda: banded_dp(*ts, gap_mode=p7.gap_mode), 3)
@@ -2385,7 +2785,7 @@ def main() -> int:
         ms = time_cuda(lambda: backtrack_windows(*xin, **xkw), 5)
         plain_ms, _ = time_host(lambda: backtrack_windows_torch(*xin, **xkw))
         bnd = x1w_bound(rates, xin, xwant)
-        steps = [int(xwant[h]) for _, _, h, _, _, _ in xin[10].tolist()]
+        steps = [int(xwant[h]) for _, _, h, _, _, _ in xin[11].tolist()]
         log(f"[D] X1w at {tag} ({len(steps)} windows, one warp each; steps "
             f"min {min(steps)} / max {max(steps)} / sum {sum(steps)}): kernel == "
             f"plain (headers, bands, ops); kernel {ms:.3f} ms "
@@ -2402,6 +2802,7 @@ def main() -> int:
     x1w_at("C5's per-read graph (one window, the held-out read)", abpt, ts,
            got, [t5], [qd])
     del ts, got
+    lap("D")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launched, ms, plain_ms, bnd):
@@ -2413,7 +2814,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("banded_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/pallas_kernel.py:215",
-              b2_launches + b2_c5 + b2_c6, b2_ms,
+              b2_launches + b2_c5 + b2_c6 + c8["launched"]["b2"], b2_ms,
               b2_plain_ms, b2_bnd),
         entry("banded_dp[windows]", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/jax_backend.py:512", b2_c7, b2w_ms,
@@ -2429,7 +2830,8 @@ def main() -> int:
               x1_ms, x1_plain_ms, x1_bound),
         entry("backtrack[windows]", "abpoa_tpu_torch/csrc/backtrack.cu",
               "abpoa_tpu/align/jax_backtrack.py:29",
-              x1w_c2 + x1w_c5 + x1w_c6 + x1w_c7, x1w_ms, x1w_plain_ms,
+              x1w_c2 + x1w_c5 + x1w_c6 + x1w_c7 + c8["launched"]["x1w"],
+              x1w_ms, x1w_plain_ms,
               x1w_bnd),
         entry("edge_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
               "abpoa_tpu/align/fused_loop.py:145", launches["edge_sort"],

@@ -40,7 +40,7 @@ from abpoa_tpu_torch.params import Params
 from abpoa_tpu_torch.pipeline import Abpoa, _ingest_records, _rc_encode, poa
 
 INT32_MAX = 2 ** 31 - 1
-OUT_NAMES = ["H", "E1", "E2", "F1", "F2", "begend", "mplr", "ok"]
+OUT_NAMES = ["H", "E1", "E2", "F1", "F2", "begend", "mplr", "ok", "ext"]
 
 
 def params(device="cpu", **kw):
@@ -121,8 +121,8 @@ def test_row_tables_are_transposes(name, monkeypatch):
     real = banded.build_row_tables
     seen = []
 
-    def checked(g, beg, end):
-        t = real(g, beg, end)
+    def checked(g, beg, end, abpt=None):
+        t = real(g, beg, end, abpt)
         assert_transposed(t)
         seen.append(t.gn)
         return t

@@ -1,4 +1,4 @@
-"""The CUDA kernels B1/B3, X1, X1w, S1 and K1 against their plain PyTorch
+"""The CUDA kernels B1/B3, B2, X1, X1w, S1 and K1 against their plain PyTorch
 versions on the card, and the cases they share with the CPU tests.
 
 This file imports no JAX, so the card machine, which has none, collects it.
@@ -10,6 +10,9 @@ The cases are the ones the CPU test files hold against the JAX package:
 - X1 (`backtrack`): the planes of those cases, with the gap-placement flags
   (`BT_CASES`; against JAX in test_torch_fused_steps.py), and a synthetic
   graph with 64 predecessor slots (`_wide_case`; test_torch_kernel_shapes.py);
+- B2 (`banded_dp`) in local, extend + Z-drop, unbanded and `-G` mode, and
+  X1w's local and `-G` walks (`chip_smoke.MODE_CASES`; against JAX in
+  test_torch_modes.py and test_torch_modes_gaps.py);
 - X1w (`backtrack_windows`): the windows of a seeded read of sim2k.fa in
   the three gap modes, some overflowed, and one whole-read window
   (against JAX in test_torch_windows_backtrack.py);
@@ -441,3 +444,21 @@ def test_backtrack_windows_kernel_matches_plain_on_card(gap, flags, tmp_path):
         torch.cuda.synchronize()
         assert any(out[7].tolist())
         assert chip_smoke.x1w_check(p, ts, out, tb, qs, f"{gap} W={W}")[0] == 0
+
+
+@pytest.fixture(scope="module")
+def mode_graphs():
+    return chip_smoke.mode_graphs(DATA_DIR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.MODE_CASES,
+                         ids=[" ".join(map(str, c)) for c in chip_smoke.MODE_CASES])
+def test_b2_modes_and_x1w_walks_match_plain_on_card(mode_graphs, case):
+    """B2 in local, extend with Z-drop, unbanded and `-G` mode on the card
+    == its plain version, and X1w's walk from the mode's best cell (a
+    local stop, path scores) == its plain version (chip_smoke.py phase A's
+    cases; against JAX in test_torch_modes*.py)."""
+    err, err_w, _ = chip_smoke.mode_case(_card(), mode_graphs, case,
+                                         chip_smoke.Rates())
+    assert (err, err_w) == (0, 0)

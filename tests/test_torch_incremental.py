@@ -7,9 +7,9 @@ through the port's CLI on the CPU.
   `-d 2`: the per-read route, kernel B2's plain version) and without them
   (`-s`, `-m 1`, `-m 2`, `-O 0`: the fused loop from the restored state),
   and with one new read (the per-read route);
-- the configurations the per-read route cannot align raise
-  NotImplementedError naming queue B item 2 before any output, `-l` with
-  `-i` among them;
+- the per-read route in local and extend mode (`-i -r 1 -m 1`, `-i -d 2
+  -m 2`, `-Q -d 2 -m 1`, one new read with `-i -m 2`, and `-l` with `-i
+  -m 2` whose second set holds one read) equals the JAX CLI;
 - with `-s` on the fused route the new reads' strand flags land on their
   own slots, after the restored reads';
 - the qv-weighted graph of `-Q -d 2`, per-read weights included, equals
@@ -95,38 +95,41 @@ def test_one_read_onto_a_restored_graph_matches_jax_cli(tmp_path, flags):
     ["seq4.fa", "-i", "seq10.msa", "-d", "2", "-m", "2"],
     ["heter.fq", "-Q", "-d", "2", "-m", "1"],
 ])
-def test_per_read_configs_outside_b2_raise(args, capsys):
-    argv = [_path(a) if "." in a else a for a in args] + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue B, item 2"):
-        _port_cli(argv)
-    assert cli.main(argv) == 1
-    out = capsys.readouterr()
-    assert out.out == "" and "queue B, item 2" in out.err
+def test_per_read_configs_outside_b2_raise(args):
+    """Once refused (B2 aligned in global mode only): the per-read route
+    in local and extend mode now equals the JAX CLI, with B2 and no B1."""
+    argv = [_path(a) if "." in a else a for a in args]
+    out, fused, b2 = _routes(argv)
+    assert out == _jax_cli(argv)
+    assert fused == 0 and b2 > 0
 
 
 def test_one_read_outside_b2_raises_before_output(tmp_path, capsys):
+    """One new read onto a restored graph in extend mode (B2, once
+    refused) equals the JAX CLI; with two reads the fused loop takes the
+    same configuration."""
     path = tmp_path / "one.fa"
     path.write_text(">r\nCGTCAATCTATCGAAGCATACGCGGCAGAGCCGAAGACC\n")
-    argv = [str(path), "-i", _path("seq10.gfa"), "-m", "2", "--device", "cpu"]
-    assert cli.main(argv) == 1
-    out = capsys.readouterr()
-    assert out.out == "" and "queue B, item 2" in out.err
-    # with two reads the fused loop takes the same configuration
+    argv = [str(path), "-i", _path("seq10.gfa"), "-m", "2"]
+    out, fused, b2 = _routes(argv)
+    assert out == _jax_cli(argv) and (fused, b2) == (0, 1)
     path.write_text(">r\nCGTCAATCTATCGAAGCATACG\n>s\nCGTCAATCTATCGAAGCATACG\n")
-    assert cli.main(argv) == 0
+    assert cli.main(argv + ["--device", "cpu"]) == 0
 
 
 def test_list_with_incremental_outside_b2_raises_before_output(tmp_path, capsys):
-    # the list's second set holds one read, which only B2 would align: the
-    # run is refused before the first set writes its consensus
+    """`-l` with `-i -m 2` (once refused: a set may hold one read, which
+    only B2 aligns) equals the JAX CLI, the one-read set included."""
+    from test_torch_list_pyapi import _jax_main, _port_main
     one = tmp_path / "one.fa"
     one.write_text(">r\nCGTCAATCTATCGAAGCATACGCGGCAGAGCCGAAGACC\n")
     lst = tmp_path / "list.txt"
     lst.write_text(f"{_path('seq4.fa')}\n{one}\n")
-    argv = [str(lst), "-l", "-i", _path("seq10.gfa"), "-m", "2", "--device", "cpu"]
-    assert cli.main(argv) == 1
-    out = capsys.readouterr()
-    assert out.out == "" and "queue B, item 2" in out.err
+    argv = [str(lst), "-l", "-i", _path("seq10.gfa"), "-m", "2"]
+    b2 = banded.stats["reads"]
+    got = _port_main(argv)
+    assert got[0] == 0 and got[:2] == _jax_main(argv)[:2]
+    assert banded.stats["reads"] - b2 == 1  # the one-read set
     # with read ids in global mode the same list runs, set by set
     argv = [str(lst), "-l", "-i", _path("seq10.gfa"), "-r", "1", "--device", "cpu"]
     assert cli.main(argv) == 0

@@ -6,11 +6,12 @@
     as package data.
 (e) with no CUDA device, the default `Params()` and the CLI raise instead of
     running on the CPU, and `device="cpu"` runs.
-Configurations outside the ported slice raise NotImplementedError: `-b < 0`
-and `-G` (queue A item 8, step 2) and the per-read route's outside global
-mode (queue B, item 2); those with read-id outputs (MSA, GFA, `-a 1`,
-`-d > 1`) finalize with `use_read_ids` set, and `-i`, `-Q -d 2`, `-g`, `-l`,
-`-S` and `-p` (with any gaps in global mode) finalize and run.
+Every single-set configuration of the JAX package finalizes: `-b < 0`,
+`-G`, the per-read route outside global mode (`-i` with read-id outputs,
+`-Q -d > 1`), those with read-id outputs (MSA, GFA, `-a 1`, `-d > 1`, with
+`use_read_ids` set), `-i`, `-g`, `-l`, `-S` and `-p`; the flag sets once
+refused run on the CPU and equal the JAX CLI, and `-b -1` reproduces its
+golden.
 """
 import os
 import subprocess
@@ -104,27 +105,6 @@ def test_unknown_device_rejected(name):
         Params(device=name).finalize()
 
 
-@pytest.mark.parametrize("fields,item", [
-    ({"wb": -1}, "8, step 2"),                   # unbanded
-    ({"inc_path_score": True}, "8, step 2"),     # -G
-    ({"wb": -1, "disable_seeding": False}, "8, step 2"),   # -S -b -1
-    ({"inc_path_score": True, "disable_seeding": False}, "8, step 2"),  # -S -G
-    # the per-read route outside global mode (queue B, item 2)
-    ({"use_qv": True, "max_n_cons": 2, "align_mode": 2}, "2"),  # -Q -d 2 -m 2
-    ({"incr_fn": "g.gfa", "out_msa": True, "align_mode": 1}, "2"),  # -i -r 1 -m 1
-    # -p -i x.gfa -r 1 -m 2: outside global mode -p is ignored (the JAX
-    # package's plain_route), and -i with read ids is per read
-    ({"progressive_poa": True, "incr_fn": "g.gfa", "out_msa": True,
-      "align_mode": 2}, "2"),
-])
-def test_configs_outside_the_slice_raise(fields, item):
-    abpt = Params(device="cpu")
-    for k, v in fields.items():
-        setattr(abpt, k, v)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        abpt.finalize()
-
-
 @pytest.mark.parametrize("fields", [
     {"use_qv": True, "max_n_cons": 2},           # -Q -d 2
     {"incr_fn": "g.gfa", "out_msa": True},       # -i -r 1
@@ -135,6 +115,17 @@ def test_configs_outside_the_slice_raise(fields, item):
     {"use_qv": True, "max_n_cons": 2, "gap_open2": 0},       # -Q -d 2 -O 4
     {"incr_fn": "g.gfa", "out_gfa": True, "gap_open1": 0},   # -i -r 3 -O 0
     {"disable_seeding": False, "align_mode": 1},  # -S -m 1: the fused route
+    {"wb": -1},                                  # unbanded
+    {"inc_path_score": True},                    # -G
+    {"wb": -1, "disable_seeding": False},        # -S -b -1
+    {"inc_path_score": True, "disable_seeding": False},  # -S -G
+    # the per-read route outside global mode
+    {"use_qv": True, "max_n_cons": 2, "align_mode": 2},  # -Q -d 2 -m 2
+    {"incr_fn": "g.gfa", "out_msa": True, "align_mode": 1},  # -i -r 1 -m 1
+    # -p -i x.gfa -r 1 -m 2: outside global mode -p is ignored (the JAX
+    # package's plain_route), and -i with read ids is per read
+    {"progressive_poa": True, "incr_fn": "g.gfa", "out_msa": True,
+     "align_mode": 2},
 ])
 def test_lifted_configs_finalize(fields):
     abpt = Params(device="cpu")
@@ -171,14 +162,22 @@ def test_configs_of_the_fused_route_finalize(fields, gap_mode, wb):
     assert (abpt.gap_mode, abpt.wb) == (gap_mode, wb)
 
 
-@pytest.mark.parametrize("flags", [["-Q", "-d", "2", "-m", "1"],
-                                   ["-i", "x.gfa", "-r", "1", "-m", "2"],
-                                   ["-S", "-b", "-1"], ["-G"], ["-S", "-G"],
-                                   ["-p", "-i", "x.gfa", "-r", "1", "-m", "2"]])
-def test_cli_rejects_flags_outside_the_slice(flags, capsys):
-    assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
-                     *flags]) == 1
-    assert "not ported" in capsys.readouterr().err
+_GFA = os.path.join(DATA_DIR, "seq10.gfa")
+
+
+@pytest.mark.parametrize("fa,flags", [
+    ("heter.fq", ["-Q", "-d", "2", "-m", "1"]),
+    ("seq4.fa", ["-i", _GFA, "-r", "1", "-m", "2"]),
+    ("seq.fa", ["-S", "-b", "-1"]), ("seq.fa", ["-G"]),
+    ("seq.fa", ["-S", "-G"]),
+    ("seq4.fa", ["-p", "-i", _GFA, "-r", "1", "-m", "2"])])
+def test_cli_rejects_flags_outside_the_slice(fa, flags, capsys):
+    """The flag sets the port refused before B2 ran every mode: each now
+    runs on the CPU and equals the JAX CLI."""
+    from test_torch_pipeline import _jax_cli
+    argv = [os.path.join(DATA_DIR, fa), *flags]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == _jax_cli(argv)
 
 
 @pytest.mark.parametrize("args,head", [
@@ -209,9 +208,12 @@ def test_cli_stores_the_flags_of_the_jax_cli(flag, value, field, want):
 
 
 def test_cli_noband_names_its_item(capsys):
+    """`-b -1`, once refused naming its ROADMAP item, reproduces its
+    golden (the per-read route, B2 unbanded)."""
     assert cli.main([os.path.join(DATA_DIR, "seq.fa"), "--device", "cpu",
-                     "-b", "-1"]) == 1
-    assert "item 8" in capsys.readouterr().err
+                     "-b", "-1"]) == 0
+    with open(os.path.join(ROOT, "tests", "golden", "seq_noband.txt")) as fp:
+        assert capsys.readouterr().out == fp.read()
 
 
 def test_kernel_sources_ship_as_package_data():

@@ -8,7 +8,8 @@
 - `pyapi.msa_aligner` equals the JAX package's on the cases of
   tests/test_pyapi.py (consensus, MSA rows, `msa_align` + `msa_add`, two
   consensus sequences, `msa_batch`), and `msa_batch` equals `msa` set by
-  set; an aligner the per-read route cannot serve raises before aligning.
+  set; aligners in local and extend mode (B2's local and extend modes)
+  equal the JAX package's.
 """
 import contextlib
 import io
@@ -187,11 +188,13 @@ def test_pyapi_msa_batch_equals_msa_set_by_set():
 @pytest.mark.parametrize("kw", [{"aln_mode": "l"}, {"aln_mode": "e"},
                                 {"aln_mode": "e", "gap_open1": 0}])
 def test_pyapi_outside_b2_raises_before_aligning(kw):
-    a = tpa.msa_aligner(device="cpu", **kw)
+    """Aligners in local and extend mode, once refused, equal the JAX
+    package's, every read but the first aligned by B2."""
+    a, b = _pair(**kw)
     b2 = banded.stats["reads"]
-    with pytest.raises(NotImplementedError, match="queue B, item 2"):
-        a.msa(_seqs("seq.fa"), out_cons=True, out_msa=False)
-    assert banded.stats["reads"] == b2 and a.ab.n_seq == 0
+    res = a.msa(_seqs("seq.fa"), out_cons=True, out_msa=True)
+    assert banded.stats["reads"] - b2 == 9
+    _same(res, b.msa(_seqs("seq.fa"), out_cons=True, out_msa=True))
 
 
 def test_pyapi_default_device_is_the_card():
