@@ -26,6 +26,12 @@ into one small buffer. Those buffers come to the host, one copy a launch
 into a page-locked buffer before one wait; the planes never leave the
 device. Then, window by window, a banded alignment's band is written back
 into the graph (`write_band`) and the cigar is rebuilt from the op stream.
+
+The windows may come from different graphs, one each: the K lanes of
+`dp_chunk.run_dp_chunk` (the lockstep and map routes), each a whole graph
+and one read, go through the same launches. A map graph's tables are built
+once (`dp_chunk.StaticGraphTables`) and their graph half stays on the
+device: each launch then uploads only the query half (`pack_queries`).
 """
 from __future__ import annotations
 
@@ -83,14 +89,13 @@ def next_band_width(W: int, qlen: int) -> int:
     return min(qlen + 1, ((2 * W + 127) // 128) * 128)
 
 
-def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
-    """banded_dp's batch-form inputs (numpy int32) for windows with row
-    tables `tabs` and queries `queries` at band width W: each window's gn
-    rows, one after another, and its row of the per-window inputs; with
-    `-G` the path scores last (banded_dp's `pre_score`)."""
-    B = len(tabs)
+def pack_graph(tabs: list) -> list:
+    """The graph half of banded_dp's batch-form inputs (numpy int32) for
+    windows with row tables `tabs`: each window's gn rows, one after
+    another: base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0, mpr0,
+    roff, and with `-G` the path scores (banded_dp's `pre_score`)."""
     gns = [t.gn for t in tabs]
-    roff = np.zeros(B + 1, dtype=np.int32)
+    roff = np.zeros(len(tabs) + 1, dtype=np.int32)
     roff[1:] = np.cumsum(gns)
     Rtot = int(roff[-1])
     P = max(t.pre_idx.shape[1] for t in tabs)
@@ -106,16 +111,34 @@ def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
             pre_score[r0: r0 + gn, : t.pre_idx.shape[1]] = t.pre_score[:gn]
     cat = lambda name: np.concatenate(  # noqa: E731
         [getattr(t, name)[:t.gn] for t in tabs]).astype(np.int32)
+    packed = [cat("base"), pre_idx, cat("pre_cnt"), out_idx, cat("out_cnt"),
+              cat("remain"), cat("mpl0"), cat("mpr0"), roff]
+    return packed + [pre_score] if path_score else packed
+
+
+def pack_queries(abpt: Params, tabs: list, queries: list, W: int) -> list:
+    """The query half of banded_dp's batch-form inputs (numpy int32) at band
+    width W: scalars (B, 16), qp_pad (B, m, Qp + W) and row0 (B, 5, W)."""
     qs = [query_tables(abpt, t, q, W) for t, q in zip(tabs, queries)]
     QW = max(q["qp_pad"].shape[1] for q in qs)
-    qp = np.zeros((B, abpt.m, QW), dtype=np.int32)
+    qp = np.zeros((len(qs), abpt.m, QW), dtype=np.int32)
     for b, q in enumerate(qs):
         qp[b, :, : q["qp_pad"].shape[1]] = q["qp_pad"]
-    packed = [np.stack([q["scalars"] for q in qs]), cat("base"), pre_idx,
-              cat("pre_cnt"), out_idx, cat("out_cnt"), cat("remain"),
-              cat("mpl0"), cat("mpr0"), qp, np.stack([q["row0"] for q in qs]),
-              roff]
-    return packed + [pre_score] if path_score else packed
+    return [np.stack([q["scalars"] for q in qs]), qp,
+            np.stack([q["row0"] for q in qs])]
+
+
+def _args(query_half: list, graph_half: list) -> list:
+    """banded_dp's positional inputs from the two halves."""
+    (scalars, qp, row0), rows = query_half, graph_half
+    return [scalars, *rows[:8], qp, row0, *rows[8:]]
+
+
+def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
+    """banded_dp's batch-form inputs (numpy int32) for windows with row
+    tables `tabs` and queries `queries` at band width W (`pack_queries`
+    and `pack_graph` in banded_dp's order)."""
+    return _args(pack_queries(abpt, tabs, queries, W), pack_graph(tabs))
 
 
 def _timed(dev: torch.device, key: str, fn):
@@ -131,13 +154,19 @@ def _timed(dev: torch.device, key: str, fn):
     return out
 
 
-def run_windows(abpt: Params, tabs: list, queries: list, W: int):
+def run_windows(abpt: Params, tabs: list, queries: list, W: int,
+                graph_half: Optional[list] = None):
     """One launch over the windows at band width W: (the kernel's inputs,
-    its outputs), on the device."""
+    its outputs), on the device. `graph_half` (tensors on the device, as
+    `pack_graph` lays them out) stands in for the windows' graph half: only
+    the query half is uploaded."""
     dev = abpt.torch_device
     t0 = time.perf_counter()
-    args = [torch.from_numpy(a).to(dev)
-            for a in pack_windows(abpt, tabs, queries, W)]
+    up = lambda arrays: [torch.from_numpy(a).to(dev) for a in arrays]  # noqa: E731
+    if graph_half is None:
+        args = up(pack_windows(abpt, tabs, queries, W))
+    else:
+        args = _args(up(pack_queries(abpt, tabs, queries, W)), graph_half)
     stats["tables_s"] += time.perf_counter() - t0
     return args, _timed(dev, "kernel_s",
                         lambda: banded_dp(*args, gap_mode=abpt.gap_mode))
@@ -208,15 +237,26 @@ def _to_host(bufs: list) -> list:
     return [v.numpy() for v in views]
 
 
-def align_windows_banded(g: POAGraph, abpt: Params, windows,
-                         band_width: Optional[int] = None) -> list:
-    """Align independent windows [(beg_id, end_id, query), ...] of a sorted
-    graph: one AlignResult a window, in window order. `band_width`
+def align_windows_banded(g, abpt: Params, windows,
+                         band_width: Optional[int] = None,
+                         static=None) -> list:
+    """Align independent windows [(beg_id, end_id, query), ...] of the
+    sorted graph `g`, or, with `g` a list of sorted graphs, window i on
+    graph g[i] (the K-lane chunk of the lockstep and map routes, one whole
+    graph a lane): one AlignResult a window, in window order. `band_width`
     overrides the first launch's W (the relaunch path is taken for the
-    windows it is too narrow for)."""
+    windows it is too narrow for). `static` (`dp_chunk.StaticGraphTables`
+    of the one graph `g`) gives every window that graph's tables, built
+    once, and their graph half on the device, and leaves the graph's band
+    as it is (no write-back)."""
     global retries
+    graphs = g if isinstance(g, list) else [g] * len(windows)
     t0 = time.perf_counter()
-    tabs = [build_row_tables(g, b, e, abpt) for b, e, _ in windows]
+    if static is None:
+        tabs = [build_row_tables(gi, b, e, abpt)
+                for gi, (b, e, _) in zip(graphs, windows)]
+    else:
+        tabs = [static.tables] * len(windows)
     queries = [q for _, _, q in windows]
     stats["tables_s"] += time.perf_counter() - t0
 
@@ -227,7 +267,9 @@ def align_windows_banded(g: POAGraph, abpt: Params, windows,
     while True:
         n_launch += 1
         args, out = run_windows(abpt, [tabs[i] for i in todo],
-                                [queries[i] for i in todo], W)
+                                [queries[i] for i in todo], W,
+                                None if static is None
+                                else static.lanes(len(todo)))
         ok = out[7].tolist()
         slots = [k for k in range(len(todo)) if ok[k]]
         if slots:
@@ -253,19 +295,24 @@ def align_windows_banded(g: POAGraph, abpt: Params, windows,
     host = _to_host([packed for _, packed, _ in walks])
     stats["d2h_s"] += time.perf_counter() - t0
 
+    # every window's result is read out of the staging buffer here, before
+    # the next call's copy reuses it
     t0 = time.perf_counter()
     where = {i: (buf, *at) for (ids, _, layout), buf in zip(walks, host)
              for i, at in zip(ids, layout)}
     results = []
-    i2n = g.index_to_node_id
-    for i, (t, query) in enumerate(zip(tabs, queries)):  # window order
-        buf, h_at, b_at, o_at, max_ops = where[i]
-        if abpt.wb >= 0:
-            g.write_band(t.beg_index, t.gn, buf[b_at: b_at + t.gn],
-                         buf[b_at + t.gn: b_at + 2 * t.gn])
+    i2n = {}
+    write_back = abpt.wb >= 0 and static is None
+    for i, (gi, t, query) in enumerate(zip(graphs, tabs, queries)):
+        buf, h_at, b_at, o_at, max_ops = where[i]  # window order
+        if write_back:
+            gi.write_band(t.beg_index, t.gn, buf[b_at: b_at + t.gn],
+                          buf[b_at + t.gn: b_at + 2 * t.gn])
+        if id(gi) not in i2n:
+            i2n[id(gi)] = gi.index_to_node_id
         results.append(_result(abpt, buf[h_at: h_at + HEADER],
                                buf[o_at: o_at + 2 * max_ops], t.beg_index,
-                               len(query), i2n))
+                               len(query), i2n[id(gi)]))
     stats["cigar_s"] += time.perf_counter() - t0
     return results
 

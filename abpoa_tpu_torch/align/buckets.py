@@ -1,11 +1,14 @@
 """Capacity and width rungs of the fused route.
 
 Counterpart of `abpoa_tpu/compile/buckets.py` (`bucket`, `bucket_pow2`,
-`grow_node_cap`, `geom_chain`, `snap`) and of the planner helpers of
-`abpoa_tpu/compile/ladder.py:93-151` (`qp_rung`, `plan_chunk_buckets`,
-`chunk_node_cap`), copied so the port never imports the JAX package. The
-port compiles nothing per shape; it keeps the same rungs so that its
-capacities, op-stream caps and error codes are those of the JAX fused loop.
+`grow_node_cap`, `geom_chain`, `snap`), of the planner helpers of
+`abpoa_tpu/compile/ladder.py:93-151` (`qp_rung`, `k_rung`,
+`plan_chunk_buckets`, `chunk_node_cap`) and of
+`abpoa_tpu/align/fused_loop.py:1639` `partition_by_length_bucket`, copied
+so the port never imports the JAX package. The port compiles nothing per
+shape; it keeps the same rungs so that its capacities, op-stream caps and
+error codes are those of the JAX fused loop, and so that the lockstep and
+map routes group sets and refuse reads as the JAX drivers do (`qp_rung`).
 """
 from __future__ import annotations
 
@@ -57,6 +60,24 @@ def snap(n: int, rungs: Tuple[int, ...]) -> int:
 def qp_rung(qmax: int) -> int:
     """Padded query columns for a read set whose longest read is qmax."""
     return snap(qmax + 2, GEOM_128)
+
+
+def k_rung(k: int) -> int:
+    """Lane-axis rung of a lockstep or map group of k lanes (a power of
+    two). The port launches one block a live lane and pads no lane; the
+    rung only names the group's size class."""
+    return bucket_pow2(max(k, 1))
+
+
+def partition_by_length_bucket(entries):
+    """Group (key, seqs, ...) entries by the `qp_rung` of their longest
+    read, in ascending rung order: a lockstep group holds the sets of one
+    rung, as the JAX drivers group them."""
+    parts: dict = {}
+    for entry in entries:
+        qmax = max((len(s) for s in entry[1]), default=0)
+        parts.setdefault(qp_rung(qmax), []).append(entry)
+    return [parts[k] for k in sorted(parts)]
 
 
 def plan_chunk_buckets(abpt, qmax: int) -> Tuple[int, int, bool]:

@@ -131,6 +131,9 @@ class Params:
     verbose: int = C.VERBOSE_NONE
     # set index in the consensus names of a `-l` run (0: a single set)
     batch_index: int = 0
+    # `-l` and msa_batch in split lockstep: "auto" (on where the device is
+    # the card), "on" or "off" (parallel.runner.lockstep_enabled)
+    lockstep: str = "auto"
 
     # torch device the DP kernel runs on: "cuda" (the kernel) or "cpu"
     # (its plain PyTorch version); resolved by finalize()

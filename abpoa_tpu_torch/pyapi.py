@@ -10,11 +10,13 @@ the native host graph (`native/`), as the CLI's per-read route does, in
 global, local (`aln_mode="l"`) or extend (`"e"`) mode with linear, affine
 or convex gaps.
 
-Two choices differ from the JAX package: `device` defaults to "cuda" (the
-port's rule: the card unless the caller asks for the CPU), and `lockstep`
-is accepted and ignored: `msa_batch` runs its sets one after another, which
-gives what the lockstep route gives (ROADMAP.md queue A, item 6, step 2).
-The JAX package's `last_report` telemetry is queue A, item 10.
+`msa_batch` runs the sets the lockstep route covers in split lockstep
+(`parallel/lockstep.py`: one K-lane B2 launch a round, each set's fusion
+on its own native graph) where `lockstep` allows it ("auto": on the card),
+and the others one `msa()` after another; the results equal `msa()`'s set
+by set either way. `device` defaults to "cuda" (the port's rule: the card
+unless the caller asks for the CPU). The JAX package's `last_report`
+telemetry is ROADMAP.md queue A, item 10.
 """
 from __future__ import annotations
 
@@ -92,37 +94,48 @@ class msa_aligner:
         else:
             raise ValueError(f"Unknown consensus algorithm: {cons_algrm}")
         abpt.device = device
+        abpt.lockstep = lockstep
         self.abpt = abpt
         self.ab = Abpoa()
 
     # ------------------------------------------------------------- internals
-    def _add_sequences(self, seqs: List[str], qscores, exist_n: int) -> None:
-        abpt = self.abpt
-        enc = abpt.char_to_code
-        g = self.ab.graph
+    def _encode(self, seqs: List[str], qscores):
+        """One set's reads encoded, with their weights (ones without
+        qscores), after the binding's input checks."""
+        enc = self.abpt.char_to_code
         if qscores is not None and len(qscores) != len(seqs):
             raise ValueError("qscores must contain one entry per input sequence.")
+        bseqs, weights = [], []
         for read_i, seq in enumerate(seqs):
             if not seq:
                 raise PoisonedSetError(f"sequence {read_i} is empty")
-            bseq = enc[np.frombuffer(seq.encode(), dtype=np.uint8)].astype(np.uint8)
-            weights = None
-            if qscores is not None:
-                q = qscores[read_i]
-                if len(q) != len(seq):
-                    raise ValueError(
-                        "Each qscore array must have the same length as its sequence.")
-                weights = np.asarray(q, dtype=np.int64)
-                if (weights < 0).any():
-                    raise ValueError("Qscores must be non-negative integers.")
-            res = align_sequence_to_graph(g, abpt, bseq)
-            g.add_alignment(abpt, bseq, weights, res.cigar, True,
-                            exist_n + read_i)
-            self.ab.append_read(seq=seq)
+            bseqs.append(enc[np.frombuffer(seq.encode(), dtype=np.uint8)
+                             ].astype(np.uint8))
+            if qscores is None:
+                weights.append(np.ones(len(seq), dtype=np.int64))
+                continue
+            q = np.asarray(qscores[read_i], dtype=np.int64)
+            if len(q) != len(seq):
+                raise ValueError(
+                    "Each qscore array must have the same length as its sequence.")
+            if (q < 0).any():
+                raise ValueError("Qscores must be non-negative integers.")
+            weights.append(q)
+        return bseqs, weights
 
-    def _collect(self, n_seq: int) -> msa_result:
+    def _add_sequences(self, seqs: List[str], qscores, exist_n: int) -> None:
         abpt = self.abpt
         g = self.ab.graph
+        bseqs, weights = self._encode(seqs, qscores)
+        for read_i, (seq, bseq, w) in enumerate(zip(seqs, bseqs, weights)):
+            res = align_sequence_to_graph(g, abpt, bseq)
+            g.add_alignment(abpt, bseq, w, res.cigar, True, exist_n + read_i)
+            self.ab.append_read(seq=seq)
+
+    def _collect(self, n_seq: int, ab: Abpoa = None) -> msa_result:
+        abpt = self.abpt
+        ab = ab or self.ab
+        g = ab.graph
         if native_hb_eligible(g, abpt):
             abc = native_consensus_hb(g, n_seq)
         else:
@@ -141,7 +154,7 @@ class msa_aligner:
         if abc.msa_len > 0:
             for row in abc.msa_base:
                 msa_seq.append("".join(chr(decode[b]) for b in row))
-        self.ab.cons = abc
+        ab.cons = abc
         return msa_result(n_seq, abc.n_cons, list(abc.clu_n_seq),
                           [list(x) for x in abc.clu_read_ids], abc.cons_len,
                           cons_seq, [list(c) for c in abc.cons_cov], cons_qv,
@@ -184,22 +197,38 @@ class msa_aligner:
 
     def msa_batch(self, seq_sets, out_cons, out_msa, max_n_cons=1,
                   min_freq=0.25, qscores_sets=None) -> List[msa_result]:
-        """Independent read sets, one `msa()` after another (the JAX
-        package's sequential route of `msa_batch`, whose results equal its
-        lockstep route's). A set that fails its input checks is
-        quarantined: None in its slot, one stderr line, and the rest
-        complete."""
+        """Independent read sets (abpoa_tpu/pyapi.py:216-389): the sets the
+        lockstep route covers (`parallel.lockstep_covers`) in split
+        lockstep, one group a query rung (`flush_lockstep_group`); the
+        others one `msa()` after another. Each result equals `msa()`'s on
+        its set. A set that fails its input checks is quarantined: None in
+        its slot, one stderr line, and the rest complete."""
+        from .parallel import flush_lockstep_group, lockstep_covers
         if qscores_sets is not None and len(qscores_sets) != len(seq_sets):
             raise ValueError("qscores_sets must contain one entry per set.")
-        results: List[msa_result] = []
+        self._prepare(out_cons, out_msa, max_n_cons, min_freq, "",
+                      qscores_sets)
+        group = []   # (set index, Abpoa, encoded reads, weights)
         for k, seqs in enumerate(seq_sets):
+            if not all(seqs) or not lockstep_covers(self.abpt, len(seqs)):
+                continue  # msa() runs it (and quarantines an empty read)
+            ab = Abpoa()
+            for seq in seqs:
+                ab.append_read(seq=seq)
+            qs = qscores_sets[k] if qscores_sets is not None else None
+            group.append((k, ab, *self._encode(seqs, qs)))
+        done = flush_lockstep_group(group, self.abpt)
+        results: List[msa_result] = [None] * len(seq_sets)
+        for k, seqs in enumerate(seq_sets):
+            if k in done:
+                results[k] = self._collect(len(seqs), ab=done[k])
+                continue
             qs = qscores_sets[k] if qscores_sets is not None else None
             try:
-                results.append(self.msa(seqs, out_cons, out_msa, max_n_cons,
-                                        min_freq, qscores=qs))
+                results[k] = self.msa(seqs, out_cons, out_msa, max_n_cons,
+                                      min_freq, qscores=qs)
             except QUARANTINE_EXCEPTIONS as e:
                 quarantine_set(k, f"set {k}", e)
-                results.append(None)
         return results
 
     def msa_align(self, seqs, out_cons, out_msa, max_n_cons=1, min_freq=0.25,

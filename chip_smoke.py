@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
                           [--c5-reads I] [--c6-reads Q] [--c7-reads S]
+                          [--c9-reads T]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -59,7 +60,9 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          their goldens: seq4.fa -i seq10.gfa and -i seq10.msa (the fused
          loop from the restored state: B1, no B2), heter.fq -d 2 -Q (the
          per-read route: B2, no B1) and -l tests/data/list.txt (run from
-         the repository root); seq4.fa -i seq10.gfa with -r 1, -r 3 and
+         the repository root; by default in split lockstep, B2 and no
+         B1, and with --lockstep off set by set, B1 and no B2); seq4.fa
+         -i seq10.gfa with -r 1, -r 3 and
          -d 2 (B2, no B1), seq4.fa -i seq10.msa -m 1 (B3 from a restored
          state), seq.fa -g's .dot file and pyapi.msa_aligner().msa on
          seq.fa's reads (B2) equal the port's CPU runs. The seeded route
@@ -92,11 +95,11 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          the downloads, the replay, the MSA ranks and rows, the consensus and
          the writing
   C4     a diploid set: two haplotypes of --ref-len bp, 1 % apart (SNVs and
-         1-3 bp indels, made from --seed), K reads (200) of 10 % error,
+         1-3 bp indels, made from --seed), K reads (100) of 10 % error,
          alternating between them, with -d 2 -r 4: one or two consensus
          sequences whose read lists partition the reads, and a GFA whose P
          lines spell the reads; each consensus's identity to both
-         haplotypes and its reads by haplotype are printed (C4 is 200 reads,
+         haplotypes and its reads by haplotype are printed (C4 is 100 reads,
          not 500, to keep the script within its time)
   C5     incremental at full width: phase C3's MSA without its consensus
          row (the reads' rows) restored and I new reads (100) of the same
@@ -110,8 +113,8 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          new row without gaps is its read, each restored row without gaps
          is its restored row; the walls split into the restore's parse,
          the state upload, the loop and the download, and per read as C2
-  C6     qv-weighted diploid: phase C4's two haplotypes, Q reads (100, half
-         of each, cut from C4's 200 as this route runs per read) written as
+  C6     qv-weighted diploid: phase C4's two haplotypes, Q reads (50, half
+         of each, cut as this route runs per read) written as
          FASTQ whose erroneous bases carry lower phred values, -d 2 -Q -r 4
          (the per-read route): the read lists partition the reads, every P
          line spells its read, B2 launches >= Q - 1 and B1 none; purity
@@ -126,13 +129,28 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          When fewer than half the reads get two windows at 10 % error
          (anchors rarely survive it), C7 runs on reads of the same
          reference at 5 % error, and says so
-  C8     B2's and X1w's modes at full width on the first 20 reads of phase
+  C8     B2's and X1w's modes at full width on the first 12 reads of phase
          C's set (phase_c8): the per-read route in -m 1, -m 2 and -m 2 -z
          100 == the fused route (B3/B1), -r 2 byte for byte; the pyapi in
          aln_mode l and e == the fused MSA rows and consensus; -b -1 -r 2
          and -G -r 2 through the CLI (B2 every read): rows are their reads,
          check_walks, consensus identity >= 0.98; per read the split of C2
          and B2's µs a computed row
+  C9     `-l` in split lockstep at full width (phase_c9): 8 sets of
+         10 kb reads at 10 % error of 8 references (seeds 11-18), set i of
+         T + 5 i reads (T = 20), through the CLI with -r 2 and --lockstep
+         off (set by set, the fused route) and on (K = 8: one K-lane B2
+         launch and one X1w launch a round, host fusion): byte-identical
+         outputs, no B1 in lockstep, check_walks; wall, reads/s, rounds,
+         mean live lanes, the lockstep wall split, consensus identity to
+         each reference; round 2's launch (8 lanes, each a graph of one
+         read) against the plain version on CPU copies, and X1w's walk of
+         it against its plain version
+  C10    `map` (phase_c10): C5's restored graph and C5's new reads through
+         `python -m abpoa_tpu_torch map` at -K 1 (20 reads), -K 8 and -K 32:
+         the GAF byte-identical across them, the tables built once and
+         their graph half uploaded once a run, check_walks; restore and
+         tables seconds, reads/s, rounds, B2's ms a launch
   D      at the graph phase C left and one more read: B1, X1, S1 and K1
          against their plain versions with times and bounds (B1 also per
          computed row, X1 per step, K1 per pass, in both degree variants
@@ -158,9 +176,12 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          The plain versions of B1, B3 and B2 (a loop of small torch ops a
          row) run on CPU copies of the kernel's inputs, but for phase A's
          one-read B2 cases (the 20 kb read's wide planes); the others run
-         on the card
-Quick form (~4 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
---c5-reads 6 --c6-reads 10 --c7-reads 12.
+         on the card. Those of phase D's B1, B2 and batched-B2 rows and
+         of C9's round-2 launch run side by side in worker processes on
+         the host (PlainPool) from the start of D, while the main process
+         checks B2's modes at C8's launch shapes
+Quick form (~5 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
+--c5-reads 6 --c6-reads 10 --c7-reads 12 --c9-reads 3.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero with no result when there is no
 CUDA device or no checkout of the repository beside this script.
@@ -419,6 +440,71 @@ def time_plain(fn, args, **kw):
     t0 = time.perf_counter()
     out = fn(*cargs, **kw)
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def _plain_worker(fn, arrays, kw):
+    """time_plain in a worker process: numpy in and out (a pipe carries
+    them; shared memory may be small in a container)."""
+    import torch
+    torch.set_num_threads(1)
+    ms, out = time_plain(fn, [torch.from_numpy(a) for a in arrays], **kw)
+    return ms, [o.numpy() for o in out]
+
+
+class PlainPool:
+    """Plain versions of the kernels on CPU copies of their inputs, in
+    worker processes (spawn). `add` queues one and returns a function that
+    gives its time_plain's (ms, outputs on the CPU); the first such call
+    submits every queued one at once (`start` does so without waiting) and
+    waits for them all, so they run side by side on the host's cores while
+    the main process measures no kernel. Each time is its worker's host
+    clock around the plain call."""
+
+    def __init__(self, workers: int = 4):
+        self.workers = workers
+        self.pool = None
+        self.queued = []
+        self.futures = []
+        self.jobs = 0
+
+    def add(self, fn, args, **kw):
+        import numpy as np
+        import torch
+        arrays = [a.cpu().numpy() if isinstance(a, torch.Tensor)
+                  else np.ascontiguousarray(a) for a in args]
+        job = {"call": (fn, arrays, kw)}
+        self.queued.append(job)
+
+        def wait():
+            self.run()
+            ms, out = job["future"].result()
+            return ms, [torch.from_numpy(o) for o in out]
+        return wait
+
+    def run(self) -> None:
+        """Submit every queued plain version and wait for all of them."""
+        from concurrent.futures import wait
+        self.start()
+        wait(self.futures)
+
+    def start(self) -> None:
+        """Submit every queued plain version; do not wait."""
+        if not self.queued:
+            return
+        if self.pool is None:
+            import multiprocessing as mp
+            from concurrent.futures import ProcessPoolExecutor
+            self.pool = ProcessPoolExecutor(
+                max_workers=self.workers, mp_context=mp.get_context("spawn"))
+        for job in self.queued:
+            job["future"] = self.pool.submit(_plain_worker, *job.pop("call"))
+            self.futures.append(job["future"])
+            self.jobs += 1
+        self.queued = []
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def smi(query: str) -> str:
@@ -1291,10 +1377,10 @@ def record_windows():
         calls.append({"windows": list(windows), "launches": []})
         return real_aw(g, abpt, windows)
 
-    def rw(abpt, tabs, queries, W):
+    def rw(abpt, tabs, queries, W, graph_half=None):
         if calls:
             calls[-1]["launches"].append((list(tabs), list(queries), W))
-        return real_rw(abpt, tabs, queries, W)
+        return real_rw(abpt, tabs, queries, W, graph_half)
 
     dispatch.align_windows, banded.run_windows = aw, rw
 
@@ -1551,8 +1637,8 @@ def phase_a_modes(dev, data_dir, max_err, rates) -> None:
 
 
 def phase_c8(ref: str, reads: list) -> dict:
-    """Phase C8: B2's and X1w's modes at full width on the first 20 reads of
-    phase C's set. (a) `-m 1`, `-m 2` and `-m 2 -z 100`: the per-read route
+    """Phase C8: B2's and X1w's modes at full width on the first 12 reads of
+    phase C's set (20 until unbanded B2's time made the script too long). (a) `-m 1`, `-m 2` and `-m 2 -z 100`: the per-read route
     (pipeline.poa, as C2 drives it) gives the fused route's (the CLI: B3 or
     B1) consensus and MSA byte for byte (`-r 2`: the `-r 1` rows and the
     consensus row in one output); the pyapi in aln_mode `l` and `e` gives
@@ -1576,7 +1662,7 @@ def phase_c8(ref: str, reads: list) -> dict:
     from abpoa_tpu_torch.pipeline import (Abpoa, _ingest_records,
                                           _select_graph, output, poa,
                                           want_native)
-    n = min(20, len(reads))
+    n = min(12, len(reads))
     fa = os.path.join(OUT, "c8.fa")
     with open(fa, "w") as fp:
         fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads[:n])))
@@ -1584,7 +1670,7 @@ def phase_c8(ref: str, reads: list) -> dict:
     launched = {"b2": 0, "x1w": 0}
 
     def per_read(abpt, tag):
-        """The per-read route over the 20 reads: (its output, the split)."""
+        """The per-read route over the reads: (its output, the split)."""
         ab = Abpoa()
         seqs, weights = _ingest_records(ab, abpt, recs)
         _select_graph(ab, want_native(abpt))
@@ -1651,7 +1737,7 @@ def phase_c8(ref: str, reads: list) -> dict:
         if (res.msa_seq[:n] != rows_f[:n]
                 or res.cons_seq != [rows_f[n].replace("-", "")]):
             raise AssertionError(f"C8 pyapi aln_mode={aln}: differs from the fused route")
-        log(f"[C8] pyapi msa_aligner(aln_mode='{aln}').msa(20 reads, out_cons, "
+        log(f"[C8] pyapi msa_aligner(aln_mode='{aln}').msa({n} reads, out_cons, "
             f"out_msa) == the fused route's consensus and MSA rows (B2 "
             f"{banded_dp.launches}, X1w {backtrack_windows.launches} launches)")
 
@@ -1693,6 +1779,248 @@ def phase_c8(ref: str, reads: list) -> dict:
             raise AssertionError(f"C8 {what}: consensus identity {ident:.5f} < 0.98")
         graphs[what] = ab.graph
     return {"launched": launched, "graphs": graphs}
+
+
+def record_launches():
+    """Wrap `banded.run_windows`: returns (launches, undo); launches gets
+    (tables, queries, W) of each B2 launch."""
+    from abpoa_tpu_torch.align import banded
+    launches = []
+    real = banded.run_windows
+
+    def rw(abpt, tabs, queries, W, graph_half=None):
+        launches.append((list(tabs), list(queries), W))
+        return real(abpt, tabs, queries, W, graph_half)
+
+    banded.run_windows = rw
+    return launches, lambda: setattr(banded, "run_windows", real)
+
+
+def lanes_check(dev, p, tabs, queries, W, tag, plain=None):
+    """One K-lane B2 launch (the lanes' row tables and queries at band width
+    W) on the card against its plain version on CPU copies of its inputs
+    (planes on the computed rows, begend, mplr, ok, ext), and X1w's walk of
+    its ok lanes against X1w's plain version. With `plain` (a PlainPool)
+    B2's plain version is queued there. Returns (X1w's max abs diff,
+    the launch's inputs, its outputs, and `finish()`, which waits for the
+    plain version and gives (B2's max abs diff, its ms, rows compared))."""
+    import torch
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
+    arrays = banded.pack_windows(p, tabs, queries, W)
+    if plain is not None:
+        wait = plain.add(banded_dp_torch, arrays, gap_mode=p.gap_mode)
+    ts = to_dev(arrays, dev)
+    got = banded_dp(*ts, gap_mode=p.gap_mode)
+    torch.cuda.synchronize()
+    if plain is None:
+        done = time_plain(banded_dp_torch, ts, gap_mode=p.gap_mode)
+        wait = lambda: done  # noqa: E731
+    err_w = x1w_check(p, ts, got, tabs, queries, f"lanes {tag}")[0]
+
+    def finish():
+        plain_ms, want = wait()
+        err, rows = compare_dp(f"banded_dp[lanes] {tag}", got, want, ts)
+        return err, plain_ms, rows
+    return err_w, ts, got, finish
+
+
+def phase_c9(args, rates, plain) -> dict:
+    """Phase C9: `-l` in split lockstep at full width, as users with many
+    small read sets run it (per-locus amplicon clusters, UMI groups): 8
+    sets of reads of 8 simulated references (--ref-len bp, seeds 11-18) at
+    10 % error, set i of --c9-reads + 5 i reads, so the sets drain at
+    different rounds. The list through the CLI with -r 2, once with
+    --lockstep off (set by set: the fused route) and once with --lockstep
+    on (K = 8, one group): the outputs must be byte-identical, the lockstep
+    run must launch no B1 and X1w once a B2 launch (check_walks). Printed:
+    wall, reads/s, rounds, launches, mean live lanes a round, the lockstep
+    wall split into tables, B2, X1w, copy, cigar and fusion + sort, and each
+    set's consensus identity to its reference. Round 2's K-lane launch (the
+    first: every lane's graph is its first read) against its plain version
+    (in `plain`, a PlainPool) and X1w's walk of it against X1w's plain
+    version, with its time and bound. Returns the lockstep run's launches,
+    that launch's numbers and `finish()` (`lanes_check`'s)."""
+    import torch
+    from abpoa_tpu_torch.align import banded, dp_chunk
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.parallel import lockstep
+    from abpoa_tpu_torch.params import Params
+    K = 8
+    sets, files = [], []
+    for i in range(K):
+        ref_i, reads_i = simulate(args.ref_len, args.c9_reads + 5 * i, 0.10, 11 + i)
+        path = os.path.join(OUT, f"c9_set{i}.fa")
+        with open(path, "w") as fp:
+            fp.write("".join(f">s{i}_{j}\n{r}\n" for j, r in enumerate(reads_i)))
+        sets.append((ref_i, reads_i))
+        files.append(path)
+    lst = os.path.join(OUT, "c9_list.txt")
+    with open(lst, "w") as fp:
+        fp.write("".join(f + "\n" for f in files))
+    n_reads = sum(len(r) for _, r in sets)
+    runs = {}
+    for mode in ("off", "on"):
+        out = os.path.join(OUT, f"c9_{mode}.fa")
+        banded.reset_stats()
+        lockstep.reset_stats()
+        dp_chunk.reset_stats()
+        banded_dp.launches = backtrack_windows.launches = 0
+        fused_dp.launches = fused_dp.local_launches = 0
+        launches, undo = record_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            run_cli(["-l", lst, "-r", "2", "--lockstep", mode, "-o", out])
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        runs[mode] = dict(out=out, wall=wall, b2=banded_dp.launches,
+                          x1w=backtrack_windows.launches,
+                          b1=fused_dp.launches + fused_dp.local_launches,
+                          st=dict(banded.stats), ls=dict(lockstep.stats),
+                          sort_s=dp_chunk.stats["sort_s"], launches=launches)
+        log(f"[C9] --lockstep {mode}: {K} sets, {n_reads} reads x "
+            f"{args.ref_len} bp, -r 2: wall {wall:.2f} s, "
+            f"{n_reads / wall:.3f} reads/s; B1/B3 launches {runs[mode]['b1']}, "
+            f"B2 {runs[mode]['b2']}, X1w {runs[mode]['x1w']}")
+    off, on = runs["off"], runs["on"]
+    same = open(off["out"]).read() == open(on["out"]).read()
+    if not same:
+        raise AssertionError("C9: -l --lockstep on and off give different output")
+    ls, st = on["ls"], on["st"]
+    if on["b1"] or ls["groups"] < 1 or not on["b2"]:
+        raise AssertionError(f"C9: lockstep run launched B1 {on['b1']}, B2 "
+                             f"{on['b2']} times in {ls['groups']} groups")
+    if off["b2"] or not off["b1"]:
+        raise AssertionError(f"C9: set-by-set run launched B1 {off['b1']}, B2 "
+                             f"{off['b2']} times")
+    check_walks("C9", st, on["b2"], on["x1w"])
+    rounds = max(1, ls["rounds"])
+    log(f"[C9] --lockstep on == --lockstep off, byte for byte; lockstep: "
+        f"{ls['groups']} group(s), {ls['rounds']} rounds, mean live lanes a "
+        f"round {ls['live_lanes'] / rounds:.3f}, lanes aligned "
+        f"{ls['dp_lanes']} ({st['rows']} DP rows), B2 launches {on['b2']} "
+        f"({st['launches']} with relaunches counted), X1w launches {on['x1w']}; "
+        f"set by set / lockstep wall {off['wall'] / on['wall']:.3f}")
+    parts = {"tables (C++, pack, upload)": st["tables_s"], "B2": st["kernel_s"],
+             "X1w": st["backtrack_s"], "copy": st["d2h_s"],
+             "cigar + band write-back": st["cigar_s"],
+             "fusion + sort (C++)": ls["fusion_s"] + on["sort_s"]}
+    rest = on["wall"] - sum(parts.values())
+    log("[C9] lockstep wall split (s, share of the wall): " + ", ".join(
+        f"{k} {v:.2f} ({v / on['wall'] * 100:.1f} %)" for k, v in parts.items())
+        + f", the rest (reading, MSA and consensus output, Python) {rest:.2f} "
+        f"({rest / on['wall'] * 100:.1f} %); per round "
+        f"{on['wall'] * 1e3 / rounds:.1f} ms; copied "
+        f"{st['d2h_bytes'] / 2**20:.1f} MiB of {st['planes_bytes'] / 2**20:.1f} "
+        f"MiB of planes")
+    cons = [row.replace("-", "") for name, row in read_fasta_rows(on["out"])
+            if name.startswith("Consensus_sequence")]
+    if len(cons) != K:
+        raise AssertionError(f"C9: {len(cons)} consensus rows for {K} sets")
+    idents = [1 - edit_distance(c, ref_i) / len(ref_i)
+              for c, (ref_i, _) in zip(cons, sets)]
+    log("[C9] consensus identity to each set's reference (predicted >= 0.99 "
+        f"at {args.c9_reads}-{args.c9_reads + 5 * (K - 1)} reads a set; "
+        "reported, not gated): "
+        + ", ".join(f"{x:.5f}" for x in idents))
+    # round 2's launch: K lanes, each a graph of its set's first read
+    tabs, queries, W = on["launches"][0]
+    p = Params(device="cuda").finalize()
+    err_w, ts, got, finish = lanes_check(p.torch_device, p, tabs, queries, W,
+                                         "C9 round 2", plain)
+    ms = time_cuda(lambda: banded_dp(*ts, gap_mode=p.gap_mode), 3)
+    bnd = dp_bound(rates, ts, got)
+    gns = [t.gn for t in tabs]
+    log(f"[C9] round 2's launch ({len(tabs)} lanes, gn min {min(gns)} / max "
+        f"{max(gns)} / sum {sum(gns)}, W={W}): X1w == plain (headers, bands, "
+        f"ops); kernel {ms:.3f} ms ({ms * 1e3 / max(1, max(gns) - 1):.3f} us "
+        f"a row of the longest lane), bound {bnd[0]:.4f} ms ({bnd[1]}); B2's "
+        f"plain version runs in phase D")
+    return {"b2": on["b2"], "x1w": on["x1w"], "err_w": err_w, "ms": ms,
+            "bound": bnd, "finish": finish}
+
+
+def phase_c10(args) -> dict:
+    """Phase C10: `map`, as users mapping reads to a pan-read graph run it:
+    phase C5's graph (C3's -r 2 MSA, restored) and C5's new reads through
+    `python -m abpoa_tpu_torch map` on cuda at -K 1 (the first 20 reads),
+    -K 8 and -K 32 (all of them). The GAF must be byte-identical across the
+    three runs on the reads they share; each run builds the graph's tables
+    once and uploads their graph half once, and X1w runs once a B2 launch
+    (check_walks). Printed: the restore's and the tables' seconds, reads/s,
+    rounds and B2's ms a launch. Returns the B2 and X1w launches."""
+    from abpoa_tpu_torch.align import banded, dp_chunk
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.io import restore as restore_mod
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.parallel import map_driver
+    msa5 = os.path.join(OUT, "restore_msa.fa")
+    recs = read_fastx(os.path.join(OUT, "new_reads.fa"))
+    fa20 = os.path.join(OUT, "c10_20.fa")
+    with open(fa20, "w") as fp:
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in recs[:20]))
+    gafs = {}
+    launched = {"b2": 0, "x1w": 0}
+    for k, fa, n in ((1, fa20, min(20, len(recs))),
+                     (8, os.path.join(OUT, "new_reads.fa"), len(recs)),
+                     (32, os.path.join(OUT, "new_reads.fa"), len(recs))):
+        out = os.path.join(OUT, f"c10_K{k}.gaf")
+        banded.reset_stats()
+        dp_chunk.reset_stats()
+        map_driver.reset_stats()
+        banded_dp.launches = backtrack_windows.launches = 0
+        split = {}
+        undo = [timed(restore_mod, "restore_graph", split, "restore"),
+                timed(dp_chunk.StaticGraphTables, "__init__", split, "tables")]
+        t0 = time.perf_counter()
+        try:
+            run_cli(["map", "-g", msa5, fa, "-K", str(k), "-o", out])
+        finally:
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        st, ms = dict(banded.stats), dict(map_driver.stats)
+        b2, x1w = banded_dp.launches, backtrack_windows.launches
+        check_walks(f"C10 -K {k}", st, b2, x1w)
+        if (dp_chunk.stats["static_builds"], dp_chunk.stats["static_uploads"]) != (1, 1):
+            raise AssertionError(f"C10 -K {k}: tables built "
+                                 f"{dp_chunk.stats['static_builds']} times, "
+                                 f"uploaded {dp_chunk.stats['static_uploads']}")
+        if ms["reads"] != n or ms["rounds"] != -(-n // k):
+            raise AssertionError(f"C10 -K {k}: {ms['reads']} reads in "
+                                 f"{ms['rounds']} rounds")
+        launched["b2"] += b2
+        launched["x1w"] += x1w
+        with open(out) as fp:
+            gafs[k] = fp.read().splitlines()
+        if len(gafs[k]) != n:
+            raise AssertionError(f"C10 -K {k}: {len(gafs[k])} GAF records for {n} reads")
+        mapping = wall - split["restore"] - split["tables"]
+        log(f"[C10] map -K {k}, {n} reads x ~{args.ref_len} bp against the "
+            f"restored graph ({st['rows'] // max(1, n)} rows a read): wall "
+            f"{wall:.2f} s = restore {split['restore']:.2f} + tables (once) "
+            f"{split['tables']:.2f} + mapping {mapping:.2f} s; "
+            f"{n / mapping:.3f} reads/s in the mapping ({n / wall:.3f} with the "
+            f"restore); {ms['rounds']} rounds, B2 launches {b2} "
+            f"({st['kernel_s'] * 1e3 / max(1, st['launches']):.3f} ms a "
+            f"launch), X1w launches {x1w} "
+            f"({st['backtrack_s'] * 1e3 / max(1, x1w):.3f} ms a launch); per "
+            f"round: tables {st['tables_s'] * 1e3 / ms['rounds']:.1f}, copy "
+            f"{st['d2h_s'] * 1e3 / ms['rounds']:.1f}, cigar "
+            f"{st['cigar_s'] * 1e3 / ms['rounds']:.1f} ms")
+    n20 = len(gafs[1])
+    if not gafs[1] == gafs[8][:n20] == gafs[32][:n20]:
+        raise AssertionError("C10: the GAF differs between -K 1, 8 and 32")
+    log(f"[C10] GAF at -K 1, 8 and 32 byte-identical on the {n20} reads they "
+        f"share; -K 8 == -K 32 on all {len(gafs[8])}: {gafs[8] == gafs[32]}")
+    if gafs[8] != gafs[32]:
+        raise AssertionError("C10: the GAF differs between -K 8 and 32")
+    return launched
 
 
 def phase_c7(args, ref: str, reads: list, fused_cons: str):
@@ -1814,14 +2142,25 @@ def longest_window(args):
 
 
 def main() -> int:
+    """The run (`run`), with its pool of plain-version workers closed at
+    the end, whether it passes or fails."""
+    plain = PlainPool()
+    try:
+        return run(plain)
+    finally:
+        plain.close()
+
+
+def run(plain) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=500)
     ap.add_argument("--ref-len", type=int, default=10000)
     ap.add_argument("--c2-reads", type=int, default=50)
-    ap.add_argument("--c4-reads", type=int, default=200)
+    ap.add_argument("--c4-reads", type=int, default=100)
     ap.add_argument("--c5-reads", type=int, default=100)
-    ap.add_argument("--c6-reads", type=int, default=100)
+    ap.add_argument("--c6-reads", type=int, default=50)
     ap.add_argument("--c7-reads", type=int, default=200)
+    ap.add_argument("--c9-reads", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -1903,7 +2242,8 @@ def main() -> int:
     dev = torch.device("cuda")
     abpt = Params(device="cuda").finalize()
     cpu = Params(device="cpu").finalize()
-    max_err = {k: 0 for k in ("banded_dp", "banded_dp[windows]", "fused_dp",
+    max_err = {k: 0 for k in ("banded_dp", "banded_dp[windows]",
+                              "banded_dp[lanes]", "fused_dp",
                               "fused_dp[local]", "backtrack",
                               "backtrack[windows]", "edge_sort", "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
@@ -2206,13 +2546,18 @@ def main() -> int:
     cwd = os.getcwd()
     os.chdir(ROOT)  # list.txt names its files from the repository root
     try:
-        out_l = os.path.join(OUT, "list_mode.fa")
-        run_cli(["-l", os.path.join("tests", "data", "list.txt"), "-o", out_l])
+        for mode, route in (("auto", "B2"), ("off", "B1")):
+            out_l = os.path.join(OUT, f"list_mode_{mode}.fa")
+            b1, b2 = launches_of(lambda: run_cli(
+                ["-l", os.path.join("tests", "data", "list.txt"),
+                 "--lockstep", mode, "-o", out_l]))
+            same_files(out_l, os.path.join(ROOT, "tests", "golden",
+                                           "list_mode.txt"),
+                       f"-l list.txt --lockstep {mode} on cuda and list_mode.txt")
+            check_route(f"-l tests/data/list.txt --lockstep {mode} on cuda "
+                        "== tests/golden/list_mode.txt", b1, b2, route)
     finally:
         os.chdir(cwd)
-    same_files(out_l, os.path.join(ROOT, "tests", "golden", "list_mode.txt"),
-               "-l list.txt on cuda and list_mode.txt")
-    log("[B] -l tests/data/list.txt on cuda == tests/golden/list_mode.txt")
     for args_b, route in ((["-r", "1"], "B2"), (["-r", "3"], "B2"),
                           (["-d", "2"], "B2")):
         argv = [data("seq4.fa"), "-i", data("seq10.gfa"), *args_b]
@@ -2539,15 +2884,75 @@ def main() -> int:
     c8 = phase_c8(ref, reads)
 
     lap("C8")
-    # ---- D: kernels vs plain at the main path's shape
+    # phase D's inputs of B1 (the headline's final graph and a held-out
+    # read), B2 (C5's per-read graph) and batched B2 (C7 (a)'s last
+    # launch): their plain versions and C9's run side by side in worker
+    # processes at the start of D
     qd = encode(cpu, held_out)
     W, plane16 = caps_c["W"], caps_c["plane16"]
     ad, inf = fused_case(abpt, st_c, qd, W, plane16, False)
     kw = dict(gap_mode=abpt.gap_mode, plane16=plane16, extend=False,
               zdrop_on=False, local=False)
+    W2 = initial_band_width(abpt, len(qd))
+
+    def b2_tables(gp):
+        """B2's inputs (numpy) for the held-out read at graph gp, and its
+        row tables."""
+        gp.topological_sort(abpt)
+        t = build_row_tables(gp, 0, 1)
+        qt = query_tables(abpt, t, qd, W2)
+        return [qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
+                t.out_cnt, t.remain, t.mpl0, t.mpr0, qt["qp_pad"],
+                qt["row0"]], t
+
+    a5 = b2_tables(graph5)
+    tabs7, q7, W7 = c7_last
+    a7 = banded.pack_windows(p7, tabs7, q7, W7)
+    b1_plain = plain.add(fused_dp_torch, ad, **kw)
+    b2_plain = plain.add(banded_dp_torch, a5[0])
+    b2w_plain = plain.add(banded_dp_torch, a7, gap_mode=p7.gap_mode)
+    c9 = phase_c9(args, rates, plain)
+    max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], c9["err_w"])
+    lap("C9")
+    c10 = phase_c10(args)
+    torch.cuda.empty_cache()
+    lap("C10")
+    # ---- D: kernels vs plain at the main path's shape. The pool's plain
+    # versions start first and run while the main process checks B2's new
+    # modes at C8's launch shapes against the plain version (W = qlen + 1
+    # with no ring unbanded; -G's scores through the ring and the gather
+    # from the planes): the held-out read on a graph of phase C's first 3
+    # reads, which keeps the plain version's row loop short; X1w's walk
+    # from each
+    plain.start()
+    # the workers hold `plain.workers` of the host's cores and the main
+    # process's plain versions get the rest: oversubscribed, they ran 2-10x
+    # slower than alone
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - plain.workers))
+    g10 = POAGraph()
+    for r in reads[:3]:
+        q = encode(cpu, r)
+        cigar = (banded.align_sequence_to_subgraph(g10, abpt, 0, 1, q).cigar
+                 if g10.node_n > 2 else [])
+        g10.add_alignment(abpt, q, None, cigar, True)
+    for case in (("10 kb", "convex", "global-u", False),
+                 ("10 kb", "convex", "local", False),
+                 ("10 kb", "convex", "global", True),
+                 ("10 kb", "convex", "global-u", True)):
+        err, err_w, line = mode_case(dev, {"10 kb": (g10, qd)}, case, rates)
+        max_err["banded_dp"] = max(max_err["banded_dp"], err)
+        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err_w)
+        log(f"[D] {line}")
+    del g10
+    torch.set_num_threads(threads)
+    t_wait = time.perf_counter()
     got = fused_dp(*ad, **kw)
     torch.cuda.synchronize()
-    b1_plain_ms, want = time_plain(fused_dp_torch, ad, **kw)
+    b1_plain_ms, want = b1_plain()
+    log(f"[D] the pool's plain versions ({plain.jobs} in {plain.workers} "
+        f"worker processes; the host has {os.cpu_count()} CPUs) ended "
+        f"{time.perf_counter() - t_wait:.1f} s after the mode checks")
     err, rows_d = compare_dp("fused_dp D", got, want, ad)
     max_err["fused_dp"] = max(max_err["fused_dp"], err)
     b1_ms = time_cuda(lambda: fused_dp(*ad, **kw), 3)
@@ -2661,17 +3066,10 @@ def main() -> int:
     log(f"[D] K1 with int32 degrees in device memory (g32, cache of "
         f"{launch_shape_k1(*g.caps, 'g32')['cache']}): kernel == plain; "
         f"{time_cuda(lambda: topo_sort(*ka, variant='g32'), 3):.3f} ms")
-    W2 = initial_band_width(abpt, len(qd))
-
-    def b2_at(tag, gp):
-        """B2 on the held-out read at graph gp: its time, bound and the
-        share of predecessor reads its rings serve. Returns (ms, bound,
-        inputs, outputs)."""
-        gp.topological_sort(abpt)
-        t = build_row_tables(gp, 0, 1)
-        qt = query_tables(abpt, t, qd, W2)
-        a2 = [qt["scalars"], t.base, t.pre_idx, t.pre_cnt, t.out_idx,
-              t.out_cnt, t.remain, t.mpl0, t.mpr0, qt["qp_pad"], qt["row0"]]
+    def b2_at(tag, a2, t):
+        """B2 on the held-out read at a graph (b2_tables' inputs a2 and row
+        tables t): its time, bound and the share of predecessor reads its
+        rings serve. Returns (ms, bound, inputs, outputs)."""
         ts = to_dev(a2, dev)
         got = banded_dp(*ts)
         torch.cuda.synchronize()
@@ -2697,12 +3095,12 @@ def main() -> int:
             f"(256 rows) {(dist < 256).mean() * 100:.3f} %")
         return ms, bnd, ts, got
 
-    b2_at(f"the {m}-read per-read graph of C2", ab_pr.graph)
+    b2_at(f"the {m}-read per-read graph of C2", *b2_tables(ab_pr.graph))
     # the row's numbers: the largest graph the CLI launches B2 on (C5 (c)),
     # held against the plain version there
     tag5 = "C5's per-read graph (C3's restored MSA and the new reads)"
-    b2_ms, b2_bnd, ts, got = b2_at(tag5, graph5)
-    b2_plain_ms, want = time_plain(banded_dp_torch, ts)
+    b2_ms, b2_bnd, ts, got = b2_at(tag5, *a5)
+    b2_plain_ms, want = b2_plain()
     err, rows_b2 = compare_dp(f"banded_dp D {tag5}", got, want, ts)
     max_err["banded_dp"] = max(max_err["banded_dp"], err)
     log(f"[D] B2 at {tag5}: kernel == plain on rows 0..{rows_b2 - 1}, begend, "
@@ -2734,33 +3132,12 @@ def main() -> int:
             f"computed row, {rows8} rows), bound {bnd8[0]:.4f} ms ({bnd8[1]}); "
             f"launches in C8 {c8['launched']['b2']} (all modes)")
         del ts, got
-    # the new modes at C8's launch shapes against the plain version (W =
-    # qlen + 1 with no ring unbanded; -G's scores through the ring and the
-    # gather from the planes): the held-out read on a graph of phase C's
-    # first 3 reads, which keeps the plain version's row loop short; X1w's
-    # walk from each
-    g10 = POAGraph()
-    for r in reads[:3]:
-        q = encode(cpu, r)
-        cigar = (banded.align_sequence_to_subgraph(g10, abpt, 0, 1, q).cigar
-                 if g10.node_n > 2 else [])
-        g10.add_alignment(abpt, q, None, cigar, True)
-    for case in (("10 kb", "convex", "global-u", False),
-                 ("10 kb", "convex", "local", False),
-                 ("10 kb", "convex", "global", True),
-                 ("10 kb", "convex", "global-u", True)):
-        err, err_w, line = mode_case(dev, {"10 kb": (g10, qd)}, case, rates)
-        max_err["banded_dp"] = max(max_err["banded_dp"], err)
-        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err_w)
-        log(f"[D] {line}")
-    del g10
     # B2 batched over a read's windows: the first launch of C7 (a)'s last
     # read, at the graph the reads before it built
-    tabs7, q7, W7 = c7_last
-    ts = to_dev(banded.pack_windows(p7, tabs7, q7, W7), dev)
+    ts = to_dev(a7, dev)
     got = banded_dp(*ts, gap_mode=p7.gap_mode)
     torch.cuda.synchronize()
-    b2w_plain_ms, want = time_plain(banded_dp_torch, ts, gap_mode=p7.gap_mode)
+    b2w_plain_ms, want = b2w_plain()
     err, rows_w = compare_dp("banded_dp D windows", got, want, ts)
     max_err["banded_dp[windows]"] = max(max_err["banded_dp[windows]"], err)
     b2w_ms = time_cuda(lambda: banded_dp(*ts, gap_mode=p7.gap_mode), 3)
@@ -2802,6 +3179,11 @@ def main() -> int:
     x1w_at("C5's per-read graph (one window, the held-out read)", abpt, ts,
            got, [t5], [qd])
     del ts, got
+    # C9's round-2 launch against its plain version
+    err, c9_plain_ms, rows9 = c9["finish"]()
+    max_err["banded_dp[lanes]"] = err
+    log(f"[D] C9's round-2 launch: B2 == plain on {rows9} computed rows, "
+        f"begend, mplr, ok, ext; plain {c9_plain_ms:.1f} ms")
     lap("D")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
@@ -2819,6 +3201,9 @@ def main() -> int:
         entry("banded_dp[windows]", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/jax_backend.py:512", b2_c7, b2w_ms,
               b2w_plain_ms, b2w_bnd),
+        entry("banded_dp[lanes]", "abpoa_tpu_torch/csrc/fused_dp.cu",
+              "abpoa_tpu/align/dp_chunk.py:61", c9["b2"] + c10["b2"], c9["ms"],
+              c9_plain_ms, c9["bound"]),
         entry("fused_dp", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/pallas_fused.py:696", launches["fused_dp"],
               b1_ms, b1_plain_ms, b1_bound),
@@ -2830,7 +3215,8 @@ def main() -> int:
               x1_ms, x1_plain_ms, x1_bound),
         entry("backtrack[windows]", "abpoa_tpu_torch/csrc/backtrack.cu",
               "abpoa_tpu/align/jax_backtrack.py:29",
-              x1w_c2 + x1w_c5 + x1w_c6 + x1w_c7 + c8["launched"]["x1w"],
+              x1w_c2 + x1w_c5 + x1w_c6 + x1w_c7 + c8["launched"]["x1w"]
+              + c9["x1w"] + c10["x1w"],
               x1w_ms, x1w_plain_ms,
               x1w_bnd),
         entry("edge_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",

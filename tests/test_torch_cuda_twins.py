@@ -19,6 +19,9 @@ The cases are the ones the CPU test files hold against the JAX package:
 - K1 (`topo_sort`) on graphs of the fused loop (`topo_graph_cases`; against
   JAX in test_torch_fused_steps.py). S1 and K1 on the graphs made for their
   traps are in test_torch_sort_twins.py;
+- the K-lane chunk of the lockstep and map routes: a K-lane B2 launch
+  and X1w's walk of it (against JAX in test_torch_dp_chunk.py), and the
+  map route's GAF on the card == on the CPU (test_torch_map.py);
 - the routes from a restored graph (`-i`; against JAX in
   test_torch_incremental.py): the per-read route, B2 from the restored
   graph, and the fused loop from the restored state, each equal to its CPU
@@ -462,3 +465,56 @@ def test_b2_modes_and_x1w_walks_match_plain_on_card(mode_graphs, case):
     err, err_w, _ = chip_smoke.mode_case(_card(), mode_graphs, case,
                                          chip_smoke.Rates())
     assert (err, err_w) == (0, 0)
+
+
+# ---- the K-lane chunk of the lockstep and map routes -----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gap", list(GAPS))
+def test_lane_chunk_kernels_match_plain_on_card(gap):
+    """The split lockstep's first and last K-lane launches over four sets
+    (the first reads of seq.fa, test.fa, heter.fa and rcmix.fa, driven on
+    the CPU) on the card: B2 == its plain version on the computed rows,
+    begend, mplr, ok and ext, and X1w's walk of the ok lanes == its plain
+    version (chip_smoke.lanes_check; against JAX in
+    test_torch_dp_chunk.py)."""
+    from abpoa_tpu_torch.parallel import lockstep
+    p = make_params(**GAPS[gap])
+    sets = [[encode(p, r.seq) for r in read_fastx(os.path.join(DATA_DIR, f))][:4]
+            for f in ("seq.fa", "test.fa", "heter.fa", "rcmix.fa")]
+    launches, undo = chip_smoke.record_launches()
+    try:
+        lockstep.progressive_poa_split_batch(
+            sets, [[np.ones(len(s), np.int64) for s in ss] for ss in sets], p)
+    finally:
+        undo()
+    pc = make_params(**GAPS[gap])
+    pc.device = "cuda"
+    pc.finalize()
+    assert len(launches[0][0]) == 4
+    for tabs, queries, W in (launches[0], launches[-1]):
+        err_w, _, _, finish = chip_smoke.lanes_check(_card(), pc, tabs,
+                                                     queries, W, gap)
+        assert (finish()[0], err_w) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_cap", [1, 3])
+def test_map_on_card_equals_cpu(k_cap):
+    """seq.fa's reads against seq10.gfa's graph through the map route: the
+    GAF on the card (the graph half on the device, rounds on its first k
+    lanes) == the CPU's."""
+    from abpoa_tpu_torch.io.gaf import gaf_record
+    from abpoa_tpu_torch.parallel import map_driver
+    texts = []
+    for device in ("cuda", "cpu"):
+        abpt = Params(device=device, amb_strand=True).finalize()
+        _ab, static = map_driver.load_static_graph(
+            os.path.join(DATA_DIR, "seq10.gfa"), abpt)
+        recs = read_fastx(os.path.join(DATA_DIR, "seq.fa"))
+        qs = [encode(abpt, r.seq) for r in recs]
+        out = map_driver.map_reads_split(static, qs, abpt, k_cap=k_cap)
+        texts.append("".join(gaf_record(r.name, q, res, static.base_by_nid,
+                                        strand) + "\n"
+                             for r, q, (res, strand) in zip(recs, qs, out)))
+    assert texts[0] == texts[1] and texts[0].count("\n") == 10

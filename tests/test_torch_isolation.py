@@ -49,6 +49,12 @@ FUSED_ROUTE = {"abpoa_tpu_torch.align." + m for m in (
 NATIVE_GRAPH = {"abpoa_tpu_torch.native", "abpoa_tpu_torch.native.graph",
                 "abpoa_tpu_torch.align.tables", "abpoa_tpu_torch.align.banded",
                 "abpoa_tpu_torch.seed", "abpoa_tpu_torch.convert"}
+# the lockstep and map routes
+BATCHED = {"abpoa_tpu_torch.align.dp_chunk", "abpoa_tpu_torch.io.gaf",
+           "abpoa_tpu_torch.parallel", "abpoa_tpu_torch.parallel.lockstep",
+           "abpoa_tpu_torch.parallel.map_driver",
+           "abpoa_tpu_torch.parallel.runner",
+           "abpoa_tpu_torch.parallel.scheduler"}
 
 
 def test_port_imports_neither_jax_nor_abpoa_tpu():
@@ -58,7 +64,7 @@ def test_port_imports_neither_jax_nor_abpoa_tpu():
     assert proc.returncode == 0, proc.stderr[-2000:]
     names, _, bad = proc.stdout.strip().partition(" ")
     names = set(names.split(","))
-    assert len(names) >= 29 and FUSED_ROUTE | NATIVE_GRAPH <= names
+    assert len(names) >= 36 and FUSED_ROUTE | NATIVE_GRAPH | BATCHED <= names
     assert bad == ""
 
 

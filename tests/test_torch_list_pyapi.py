@@ -4,11 +4,13 @@
   its files, reproduces list_mode.txt; a list holding an empty file, a
   truncated FASTQ record or more reads than the cap gives the JAX CLI's
   stdout, quarantine line and exit code, alone and beside a good file;
+  each set by set (`--lockstep auto` on the CPU) and in split lockstep
+  (`--lockstep on`);
 - `-g`'s .dot file equals the JAX CLI's;
 - `pyapi.msa_aligner` equals the JAX package's on the cases of
   tests/test_pyapi.py (consensus, MSA rows, `msa_align` + `msa_add`, two
-  consensus sequences, `msa_batch`), and `msa_batch` equals `msa` set by
-  set; aligners in local and extend mode (B2's local and extend modes)
+  consensus sequences, `msa_batch`), and `msa_batch`, set by set or in
+  lockstep, equals `msa` set by set; aligners in local and extend mode (B2's local and extend modes)
   equal the JAX package's.
 """
 import contextlib
@@ -53,9 +55,12 @@ def _quarantine_lines(err):
     return [ln for ln in err.splitlines() if "quarantined:" in ln]
 
 
-def test_list_mode_reproduces_golden(monkeypatch):
+@pytest.mark.parametrize("lockstep", ["auto", "on"])
+def test_list_mode_reproduces_golden(monkeypatch, lockstep):
+    """`auto` runs set by set on the CPU, `on` in split lockstep."""
     monkeypatch.chdir(ROOT)
-    rc, out, _ = _port_main([os.path.join("tests", "data", "list.txt"), "-l"])
+    rc, out, _ = _port_main([os.path.join("tests", "data", "list.txt"), "-l",
+                             "--lockstep", lockstep])
     with open(os.path.join(GOLDEN_DIR, "list_mode.txt")) as fp:
         assert (rc, out) == (0, fp.read())
 
@@ -68,11 +73,12 @@ POISON = {"empty": "",
           "cap": "".join(f">r{i}\nACGTACGT\n" for i in range(11))}
 
 
+@pytest.mark.parametrize("lockstep", ["auto", "on"])
 @pytest.mark.parametrize("files,want_rc", [(["empty.fa"], 1),
                                            (["empty.fa", "seq.fa"], 0)])
 @pytest.mark.parametrize("poison", ["empty", "truncated", "cap"])
 def test_list_with_an_empty_file_matches_jax_cli(tmp_path, monkeypatch, files,
-                                                 want_rc, poison):
+                                                 want_rc, poison, lockstep):
     (tmp_path / "empty.fa").write_text(POISON[poison])
     if poison == "cap":
         monkeypatch.setenv("ABPOA_TPU_MAX_READS", "10")
@@ -80,7 +86,7 @@ def test_list_with_an_empty_file_matches_jax_cli(tmp_path, monkeypatch, files,
              for f in files]
     lst = tmp_path / "list.txt"
     lst.write_text("".join(p + "\n" for p in paths))
-    rc, out, err = _port_main([str(lst), "-l"])
+    rc, out, err = _port_main([str(lst), "-l", "--lockstep", lockstep])
     jrc, jout, jerr = _jax_main([str(lst), "-l"])
     assert (rc, out) == (jrc, jout)
     assert rc == want_rc
@@ -165,9 +171,10 @@ def test_pyapi_two_consensus_match_jax():
     assert res.cons_seq == [lines[1], lines[3]]
 
 
-def test_pyapi_msa_batch_equals_msa_set_by_set():
-    """tests/test_pyapi.py's sets (two length buckets); an empty read
-    quarantines its set alone."""
+@pytest.mark.parametrize("lockstep", ["off", "on"])
+def test_pyapi_msa_batch_equals_msa_set_by_set(lockstep):
+    """tests/test_pyapi.py's sets (two length buckets), set by set or in
+    split lockstep; an empty read quarantines its set alone."""
     def mkset(seed, n=4, L=120):
         r = np.random.default_rng(seed)
         ref = r.integers(0, 4, L)
@@ -176,7 +183,7 @@ def test_pyapi_msa_batch_equals_msa_set_by_set():
                 for _ in range(n)]
 
     sets = [mkset(0), mkset(1, L=400), mkset(2), ["ACGT", ""]]
-    a, b = _pair(lockstep="on")
+    a, b = _pair(lockstep=lockstep)
     batch = a.msa_batch(sets, out_cons=True, out_msa=True)
     assert batch[3] is None
     for k, ss in enumerate(sets[:3]):
