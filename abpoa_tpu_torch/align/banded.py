@@ -45,7 +45,7 @@ from .. import constants as C
 from ..graph import POAGraph
 from ..params import Params
 from .backtrack_kernel import HEADER, backtrack_windows
-from .banded_kernel import banded_dp
+from .banded_kernel import banded_dp, check_ok
 from .buckets import bucket
 from .result import AlignResult
 from .tables import build_row_tables, initial_band_width, query_tables
@@ -157,9 +157,10 @@ def _timed(dev: torch.device, key: str, fn):
 def run_windows(abpt: Params, tabs: list, queries: list, W: int,
                 graph_half: Optional[list] = None):
     """One launch over the windows at band width W: (the kernel's inputs,
-    its outputs), on the device. `graph_half` (tensors on the device, as
-    `pack_graph` lays them out) stands in for the windows' graph half: only
-    the query half is uploaded."""
+    its outputs), on the device: kernel B2, or B2u where the windows are
+    whole rows (`abpt.wb < 0`, local mode included). `graph_half` (tensors
+    on the device, as `pack_graph` lays them out) stands in for the
+    windows' graph half: only the query half is uploaded."""
     dev = abpt.torch_device
     t0 = time.perf_counter()
     up = lambda arrays: [torch.from_numpy(a).to(dev) for a in arrays]  # noqa: E731
@@ -169,7 +170,8 @@ def run_windows(abpt: Params, tabs: list, queries: list, W: int,
         args = _args(up(pack_queries(abpt, tabs, queries, W)), graph_half)
     stats["tables_s"] += time.perf_counter() - t0
     return args, _timed(dev, "kernel_s",
-                        lambda: banded_dp(*args, gap_mode=abpt.gap_mode))
+                        lambda: banded_dp(*args, gap_mode=abpt.gap_mode,
+                                          unbanded=abpt.wb < 0))
 
 
 def walk_inputs(abpt: Params, args: list, out, tabs: list, queries: list,
@@ -270,7 +272,7 @@ def align_windows_banded(g, abpt: Params, windows,
                                 [queries[i] for i in todo], W,
                                 None if static is None
                                 else static.lanes(len(todo)))
-        ok = out[7].tolist()
+        ok = check_ok(out[7])
         slots = [k for k in range(len(todo)) if ok[k]]
         if slots:
             packed, layout = walk_windows(abpt, args, out,

@@ -1,5 +1,5 @@
-"""Kernel B2, the per-read and seeded routes' banded DP: wrapper and plain
-version.
+"""Kernels B2 and B2u, the per-read and seeded routes' DP: wrappers and
+plain version.
 
 Counterpart of the Pallas kernel `abpoa_tpu/align/pallas_kernel.py`
 `pallas_banded_dp` (one read against the whole graph) and of
@@ -10,17 +10,31 @@ mode of `_dp_scan` (jax_backend.py:54): global, extend (with Z-drop) or
 local, adaptive-banded or unbanded, with or without `-G`'s path scores;
 linear, affine or convex gaps, int32 scores.
 
-`banded_dp(...)` checks its inputs and, for CUDA tensors, launches kernel
-B1's seeded instantiation in `csrc/fused_dp.cu` (entry `abpoa_banded_dp`,
-one block a window; or raises); for CPU tensors it runs `banded_dp_torch`,
-the same row loop in torch ops, window by window, which is also the
-kernel's yardstick on the card. The kernel takes B1's design (shared-memory
-ring, control warp, cp.async table prefetch, three barriers a row; the
-launch from `fused_dp_kernel.launch_shape(..., seeded=True)`) and pulls each
-row's band from its predecessors; the plain version pushes it to the
-successors, as Pallas does. The two agree because `tables.build_row_tables`
-gives pre and out tables that are transposes over rows 1..gn-2, and row 0
-pushes nothing (its successors' 1 comes with mpl0/mpr0).
+Two kernels share the work by the kind of window, which the callers know
+from `Params` (`abpt.wb < 0`, local mode included: `finalize` sets wb to
+-1 there) and pass as `unbanded`, a host flag: no device value is read to
+pick a kernel.
+- `banded_dp(..., unbanded=False)`: adaptive-banded windows, kernel B2, B1's
+  seeded instantiation in `csrc/fused_dp.cu` (entry `abpoa_banded_dp`, one
+  block a window). It takes B1's design (shared-memory ring, control warp,
+  cp.async table prefetch, three barriers a row; the launch from
+  `fused_dp_kernel.launch_shape(..., seeded=True)`) and pulls each row's
+  band from its predecessors; the plain version pushes it to the
+  successors, as Pallas does. The two agree because
+  `tables.build_row_tables` gives pre and out tables that are transposes
+  over rows 1..gn-2, and row 0 pushes nothing (its successors' 1 comes with
+  mpl0/mpr0).
+- `banded_dp(..., unbanded=True)`, which is `unbanded_dp`: whole-row windows
+  (scalars[13] = 0, or local mode), kernel B2u in `csrc/unbanded_dp.cu`
+  (entry `abpoa_unbanded_dp`, one thread-block cluster a window; the launch
+  from `fused_dp_kernel.unbanded_launch_shape`, with 16 blocks a cluster
+  only where the card can hold such a cluster, else 8).
+For CUDA tensors each launches its kernel (or raises); a window of the other
+kind is not computed and gets ok = -1 (`check_ok` raises on it), and nothing
+falls back to the other kernel. For CPU tensors each checks that every
+window is of its kind (else raises) and runs `banded_dp_torch`, the same
+row loop in torch ops, window by window, which is also both kernels'
+yardstick on the card.
 
 A batch of B windows is ragged: window b owns rows roff[b]..roff[b+1]-1 of
 the concatenated tables and planes (R_b rows; every per-row table and plane
@@ -43,14 +57,15 @@ Outputs: H, E1, E2, F1, F2 (Rtot, W) banded planes (band lane k of a row is
 column dp_beg + k; linear gaps leave E1..F2 at -inf, affine E2 and F2),
 begend (2 Rtot,) = window b's [dp_beg, dp_end] at 2 roff[b], mplr (2 Rtot,)
 = its final [mpl, mpr] there (the seeds unbanded: no row pushes), ok (B,) =
-0 where some row's band was wider than W, ext (B, 4) = [best score, row,
+0 where some row's band was wider than W (-1 on the card where the kernel
+refused the window, see above), ext (B, 4) = [best score, row,
 column, zdropped] of extend and local mode ([inf, 0, 0, 0] in global):
 extend's best-so-far with its Z-drop stop, local's first row of the
 largest row max at its leftmost column (_dp_full:662-681). An unbanded
 row spans [0, qlen]; a row no predecessor reaches has an empty band in
 every mode. Only plane rows 0..last computed of each window are defined on the
 card: gn - 2, or on ok = 0 the row whose band overflowed
-(`fused_dp_kernel.computed_rows`); the kernel leaves the later rows as
+(`fused_dp_kernel.computed_rows`); the kernels leave the later rows as
 allocated, the plain version fills them with -inf (as Pallas pads them).
 The backtrack reads rows below gn - 1 only (align/banded.py). begend, mplr
 and ok are defined on every row in both, and equal Pallas's.
@@ -63,7 +78,7 @@ import torch
 
 from .. import constants as C
 from ..kernels import build
-from .fused_dp_kernel import launch_shape
+from .fused_dp_kernel import launch_shape, unbanded_launch_shape
 
 _NAMES = ("scalars", "base", "pre_idx", "pre_cnt", "out_idx", "out_cnt",
           "remain", "mpl0", "mpr0", "qp_pad", "row0", "roff")
@@ -132,18 +147,47 @@ def _check_pre_score(pre_score, pre_idx) -> None:
                          "tensor shaped and placed as pre_idx")
 
 
+def _check_kind(scalars: torch.Tensor, unbanded: bool, who: str) -> None:
+    """Raise unless every window (scalars on the CPU) is of the kernel's
+    kind: whole-row (scalars[13] = 0, or local mode) for B2u, banded for
+    B2."""
+    whole = (scalars[:, 13] == 0) | (scalars[:, 12] == 2)
+    if bool((whole != unbanded).any()):
+        kind = "a banded" if unbanded else "a whole-row"
+        raise ValueError(f"{who}: {kind} window sent to kernel "
+                         f"{'B2u' if unbanded else 'B2'}")
+
+
+def check_ok(ok: torch.Tensor) -> list:
+    """A launch's ok as a list; raises where a kernel refused a window of the
+    other kind (ok = -1)."""
+    oks = ok.tolist()
+    if oks and min(oks) < 0:
+        raise RuntimeError("banded_dp: a window was sent to the kernel of the "
+                           "other kind (B2 takes banded windows, B2u "
+                           "whole-row ones)")
+    return oks
+
+
 def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
               mpl0, mpr0, qp_pad, row0, roff=None, pre_score=None, *,
-              gap_mode: int = C.CONVEX_GAP, warps=None):
+              gap_mode: int = C.CONVEX_GAP, unbanded: bool = False,
+              warps=None):
     """Forward DP of a batch of windows; see the module docstring. Returns
-    (H, E1, E2, F1, F2, begend, mplr, ok, ext). `warps` overrides the
-    launch table's column warps (chip_smoke.py's sweep)."""
+    (H, E1, E2, F1, F2, begend, mplr, ok, ext). `unbanded` sends the batch
+    to kernel B2u (`unbanded_dp`). `warps` overrides B2's launch table's
+    column warps (chip_smoke.py's sweep)."""
+    if unbanded:
+        return unbanded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
+                           remain, mpl0, mpr0, qp_pad, row0, roff, pre_score,
+                           gap_mode=gap_mode)
     args = _batch_form((scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
                         remain, mpl0, mpr0, qp_pad, row0), roff)
     B, R, W, P = _check_inputs(args)
     _check_pre_score(pre_score, pre_idx)
     dev = scalars.device
     if dev.type == "cpu":
+        _check_kind(args[0], False, "banded_dp")
         return banded_dp_torch(*args, pre_score=pre_score, gap_mode=gap_mode)
     if dev.type != "cuda":
         raise ValueError(f"banded_dp: unsupported device {dev}")
@@ -177,6 +221,78 @@ def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
 
 
 banded_dp.launches = 0
+
+# the B2u launch shape a (W, P, gap mode, path scores) gets on the card
+_shapes: dict = {}
+
+
+def cluster_shape(W: int, P: int, gap_mode: int, path_score: bool = False,
+                  cs=None) -> dict:
+    """`unbanded_launch_shape` on the card in use: 16 blocks a cluster only
+    where cudaOccupancyMaxActiveClusters says one such cluster fits at once,
+    else 8 (a given `cs` is taken as it is)."""
+    ls = unbanded_launch_shape(W, P, gap_mode, path_score, cs)
+    if cs is not None or ls["cs"] <= 8:
+        return ls
+    key = (W, P, gap_mode, path_score)
+    if key not in _shapes:
+        n = ctypes.c_int(0)
+        build.check(build.load().abpoa_unbanded_max_clusters(
+            W, P, gap_mode, int(path_score), ls["cs"], ls["warps"],
+            ls["lanes"], ls["depth"], ls["smem"], ctypes.addressof(n)),
+            "unbanded_dp cluster occupancy")
+        _shapes[key] = ls if n.value >= 1 else unbanded_launch_shape(
+            W, P, gap_mode, path_score, max_cs=8)
+    return _shapes[key]
+
+
+def unbanded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
+                mpl0, mpr0, qp_pad, row0, roff=None, pre_score=None, *,
+                gap_mode: int = C.CONVEX_GAP, cs=None):
+    """Kernel B2u: `banded_dp` on whole-row windows (see the module
+    docstring), the same inputs and outputs. `cs` forces the blocks a
+    cluster (1, 2, 4, 8 or 16; chip_smoke.py's sweep). The launch needs
+    scratch of Rtot x cs x 4 ints (each block's row maxima)."""
+    args = _batch_form((scalars, base, pre_idx, pre_cnt, out_idx, out_cnt,
+                        remain, mpl0, mpr0, qp_pad, row0), roff)
+    B, R, W, P = _check_inputs(args)
+    _check_pre_score(pre_score, pre_idx)
+    dev = scalars.device
+    if dev.type == "cpu":
+        _check_kind(args[0], True, "unbanded_dp")
+        return banded_dp_torch(*args, pre_score=pre_score, gap_mode=gap_mode)
+    if dev.type != "cuda":
+        raise ValueError(f"unbanded_dp: unsupported device {dev}")
+    ps = pre_score is not None
+    lib = build.load()
+    with torch.cuda.device(dev):
+        ls = cluster_shape(W, P, int(gap_mode), ps, cs)
+        (scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0,
+         mpr0, qp_pad, row0, roff) = args
+        kernel_in = (scalars, roff, base, pre_idx, pre_cnt, remain, mpl0,
+                     mpr0, row0, qp_pad)
+        planes = torch.empty((5, R, W), dtype=torch.int32, device=dev)
+        begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
+        mplr = torch.empty(2 * R, dtype=torch.int32, device=dev)
+        ok = torch.empty(B, dtype=torch.int32, device=dev)
+        ext = torch.empty((B, 4), dtype=torch.int32, device=dev)
+        rmax = torch.empty((R, ls["cs"], 4), dtype=torch.int32, device=dev)
+        outs = (*planes.unbind(0), begend, mplr, ok, ext)
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.abpoa_unbanded_dp(
+            *(ptr(t) for t in kernel_in),
+            ptr(pre_score) if ps else None, *(ptr(t) for t in outs),
+            ptr(rmax), B, W, P, qp_pad.shape[2],
+            qp_pad.shape[1] * qp_pad.shape[2], int(gap_mode), ls["cs"],
+            ls["warps"], ls["lanes"], ls["depth"], ls["smem"],
+            ctypes.c_void_p(stream))
+    build.check(err, "unbanded_dp launch")
+    unbanded_dp.launches += 1
+    return outs
+
+
+unbanded_dp.launches = 0
 
 
 def _f_chain(A: torch.Tensor, ext: int, lane_ext: torch.Tensor,

@@ -133,6 +133,66 @@ def launch_shape(W: int, P: int, gap_mode: int, warps=None,
                 smem=smem)
 
 
+# kernel B2u (csrc/unbanded_dp.cu): one cluster of CS blocks a whole-row
+# window, block c owning the lanes [c S, (c + 1) S) of a row; its layout: a
+# ring of _SCALAR_RING rows' beg/end (8 B each), two rows of P predecessor
+# records (16 B), 256 ints of warp partials, 96 of the cluster's exchange,
+# _STAGES table rows of P + 2 ints (P more with path scores) and the ring of
+# D rows of the slice's planes the gap regime reads
+UNBANDED_MAX_CS = 16       # 16 blocks a cluster (non-portable on Hopper)
+_UNBANDED_MAX_LANES = 8    # lanes a thread takes in each of its warp's runs
+_UNBANDED_COL_WARPS = 31   # column warps a block at most (+ the control warp)
+
+
+def unbanded_smem_bytes(P: int, S: int, depth: int, gap_mode: int,
+                        path_score: bool = False) -> int:
+    tab_w = P + 2 + (P if path_score else 0)
+    return (_SCALAR_RING * 8 + 2 * P * 16 + 256 * 4 + 96 * 4
+            + _STAGES * tab_w * 4 + ring_planes(gap_mode) * depth * S * 4)
+
+
+def unbanded_launch_shape(W: int, P: int, gap_mode: int,
+                          path_score: bool = False, cs=None,
+                          max_cs: int = UNBANDED_MAX_CS) -> dict:
+    """Kernel B2u's launch for whole rows of W lanes: `cs` blocks a cluster
+    (unless given, the fewest, up to `max_cs`, that leave a block at most
+    31 warps of one lane a thread), the slice of `slice` lanes a block
+    (`warps` column warps x 32 x `lanes`, a power of two up to 8, the fewest
+    that cover ceil(W / cs)), `threads` (the column warps and the control
+    warp), ring depth D (0 or a power of two, the deepest up to _MAX_DEPTH
+    that fits) and the dynamic shared-memory bytes. Raises when W or P does
+    not fit."""
+    if W < 1 or W > MAX_W_SEEDED:
+        raise ValueError(f"unbanded_dp: row width {W} outside the kernel's "
+                         f"1..{MAX_W_SEEDED} columns")
+    if cs is None:
+        cs = 1
+        while cs < max_cs and -(-W // cs) > 32 * _UNBANDED_COL_WARPS:
+            cs *= 2
+    if cs not in (1, 2, 4, 8, 16):
+        raise ValueError(f"unbanded_dp: {cs} blocks a cluster")
+    per = -(-W // cs)
+    lanes = 1
+    while lanes * 32 * _UNBANDED_COL_WARPS < per:
+        lanes *= 2
+    if lanes > _UNBANDED_MAX_LANES:
+        raise ValueError(f"unbanded_dp: {cs} blocks cannot cover W = {W}")
+    warps = -(-per // (32 * lanes))
+    S = warps * 32 * lanes
+    depth = _MAX_DEPTH
+    while depth >= 2 and unbanded_smem_bytes(P, S, depth, gap_mode,
+                                             path_score) > SMEM_LIMIT:
+        depth //= 2
+    if depth < 2:
+        depth = 0
+    smem = unbanded_smem_bytes(P, S, depth, gap_mode, path_score)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"unbanded_dp: {smem} bytes of shared memory for "
+                         f"W = {W}, P = {P} pass the block's {SMEM_LIMIT}")
+    return dict(cs=cs, slice=S, lanes=lanes, warps=warps,
+                threads=(warps + 1) * 32, depth=depth, smem=smem)
+
+
 def computed_rows(beg, end, ok, gn: int, W: int) -> int:
     """How many plane rows (from row 0) the DP defined: gn - 1, or on a band
     overflow up to and including the row whose band passed W."""

@@ -15,19 +15,20 @@
 // bit on every output, over the rows it computes.
 //
 // B2 (template SEEDED, entry `abpoa_banded_dp`) is int32, with linear,
-// affine or convex gaps, in every mode of the XLA per-read DP
-// (abpoa_tpu/align/jax_backend.py `_dp_scan`): global, extend (with Z-drop)
-// or local (the window's scalars[12]), banded or not (scalars[13]; local is
-// unbanded: a row spans its predecessors' least begin to qlen, so a row no
-// predecessor reaches has an empty band), and with `-G`'s path scores
-// (when `pre_score` is given: one score a predecessor slot, staged with the
-// table row and added to that predecessor's H, E1 and E2). It also replaces
-// the XLA vmap over a seeded read's windows (`_dp_full_batch`): a grid of B
-// blocks, block b aligning window b of a ragged batch, whose rows are
-// roff[b]..roff[b+1]-1 of the concatenated tables, planes, begend, mplr and
-// scratch (each at its own stride), and whose scalars, row 0, query profile,
-// ok and ext are row b of theirs. The windows are independent, so the
-// blocks share nothing. B2 reads B2's tables: the scalars in
+// affine or convex gaps, in the banded modes of the XLA per-read DP
+// (abpoa_tpu/align/jax_backend.py `_dp_scan`): global or extend (with
+// Z-drop; the window's scalars[12]), adaptive-banded (scalars[13] = 1), and
+// with `-G`'s path scores (when `pre_score` is given: one score a
+// predecessor slot, staged with the table row and added to that
+// predecessor's H, E1 and E2). Whole-row windows (scalars[13] = 0, and local
+// mode, which is unbanded) are kernel B2u's (csrc/unbanded_dp.cu): B2 leaves
+// them uncomputed with ok = -1, and compiles none of their code. It also
+// replaces the XLA vmap over a seeded read's windows (`_dp_full_batch`): a
+// grid of B blocks, block b aligning window b of a ragged batch, whose rows
+// are roff[b]..roff[b+1]-1 of the concatenated tables, planes, begend, mplr
+// and scratch (each at its own stride), and whose scalars, row 0, query
+// profile, ok and ext are row b of theirs. The windows are independent, so
+// the blocks share nothing. B2 reads B2's tables: the scalars in
 // pallas_kernel.py's layout, `base` with no source bit, and per-row seeds
 // mpl0/mpr0, which start each row's band state in place of B1's neutral
 // pair (the first row's successors get their 1 from the seeds, and with `-s`
@@ -208,6 +209,11 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
     b = blockIdx.x;
     r0 = roff[b];
     R = roff[b + 1] - r0;
+    if (sc[16 * b + 13] == 0 || sc[16 * b + 12] == kLocal) {
+      // a whole-row window is B2u's: refused
+      if (threadIdx.x == 0) ok_out[b] = -1;
+      return;
+    }
   }
   const int e0 = 2 * r0;
   const size_t pl0 = (size_t)r0 * W;
@@ -222,8 +228,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   const int ncol_warps = min(nwarps, (W + 32 * CPT - 1) / (32 * CPT));
   const bool has_cols = warp < ncol_warps;
   const bool p16 = !SEEDED && plane16 != 0;
-  // B2 takes its window's mode from the scalars
-  const bool local = (SEEDED ? sc[16 * b + 12] : mode) == kLocal;
+  // B2 takes its window's mode from the scalars; local mode is B2u's
+  const bool local = !SEEDED && mode == kLocal;
   const bool extend = (SEEDED ? sc[16 * b + 12] : mode) == kExtend;
   constexpr int kTab = tab_extra<SEEDED>();
   // B2 with -G stages P more ints a table row; B1 names none of the
@@ -245,7 +251,6 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   const int gn = scw[SEEDED ? 10 : 8], end0 = scw[SEEDED ? 11 : 9];
   const int zdrop = SEEDED ? scw[14] : scw[10];
   if constexpr (SEEDED) zdrop_on = zdrop > 0;
-  const bool unbanded = SEEDED && scw[13] == 0;
 
   // table row q into its stage, by the control warp (one group per call,
   // maybe empty)
@@ -372,13 +377,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       mn_l = min(mn_l, pl);
       mx_r = max(mx_r, pr);
     }
-    bool whole = local;  // the row spans the query
-    if constexpr (SEEDED) whole = whole || unbanded;
-    if (whole) {  // B2: from its predecessors' least begin (none: empty)
-      if constexpr (SEEDED)
-        cur_beg = nx_mnbeg;
-      else
-        cur_beg = 0;
+    if (local) {  // B1/B3: the row spans the query
+      cur_beg = 0;
       cur_end = qlen;
     } else {
       if (nx_bp & 0x100) {  // a successor of the source row
@@ -455,8 +455,6 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
           for (int u = 0; u < 4; ++u) {
             const int pbeg = pr[u].y, pend = pr[u].z;
             const int ps = rec_score(pr[u].w, has_ps);
-            // column -1's cell: 0 in B2's local mode (B1 adds it below)
-            const int lead = local && k0 + u < npre ? 0 : inf;
             const int* rh = s_ring + (size_t)rec_slot(pr[u].w, has_ps) * W;
             const int* re1 = rh + (size_t)D * W;
             const int* re2 = re1 + (size_t)D * W;
@@ -468,7 +466,7 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
               const bool hx = col - 1 >= pbeg && col - 1 <= pend && x < W;
               const bool hy = col >= pbeg && col <= pend && y < W;
               if constexpr (SEEDED) {
-                mq[c] = max(mq[c], (hx ? rh[xc] : col == 0 ? lead : inf) + ps);
+                mq[c] = max(mq[c], (hx ? rh[xc] : inf) + ps);
                 if (GAP == kLinear) {
                   e1r[c] = max(e1r[c], (hy ? rh[yc] : inf) + ps);
                 } else {
@@ -506,8 +504,6 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
             if constexpr (SEEDED) {
               if (col - 1 >= pbeg && col - 1 <= pend && x < W)
                 mq[c] = max(mq[c], (slot >= 0 ? rh[x] : ld(H, grow + x, p16)) + ps);
-              else if (local && col == 0)  // column -1's cell: 0
-                mq[c] = max(mq[c], ps);
             } else if (col - 1 >= pbeg && col - 1 <= pend && x < W) {
               mq[c] = max(mq[c], slot >= 0 ? rh[x] : ld(H, grow + x, p16));
             }
@@ -694,9 +690,8 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
         }
       }
       int pl, pr;
-      if constexpr (SEEDED) {  // an unbanded row pushes nothing either
-        const bool push =
-            !local && !unbanded && !(extend && zdrop_on && zdropped);
+      if constexpr (SEEDED) {
+        const bool push = !(extend && zdrop_on && zdropped);
         pl = push ? left + 1 : quiet_l<SEEDED>(gn);
         pr = push ? right + 1 : quiet_r<SEEDED>();
       } else {
@@ -837,13 +832,13 @@ extern "C" int abpoa_fused_dp(const void* sc, const void* base,
 }
 
 // Kernel B2: the seeded instantiation (int32 planes, gap_mode 0/1/2 =
-// linear/affine/convex; each window's mode, band and Z-drop in its
-// scalars) on B2's tables, one block for each of the B windows of a ragged
-// batch; see the header. `roff` (B + 1) gives each window's first row in
+// linear/affine/convex; each window's mode and Z-drop in its scalars; a
+// whole-row window gets ok = -1 and nothing else) on B2's tables, one
+// block for each of the B windows of a ragged batch; see the header. `roff` (B + 1) gives each window's first row in
 // the concatenated per-row inputs and outputs (rows of the planes, pairs of
 // begend, mplr and lr); sc (B x 16), row0 (B x 5 x W), qp (B x qstride
 // ints, QW columns a base), ok (B) and ext (B x 4: best score, row,
-// column, zdropped of extend and local mode) hold one entry a window.
+// column, zdropped of extend mode) hold one entry a window.
 // `pre_score` (rows x P, the rows as pre_idx's) gives the path scores, or
 // is null. Up to 32 columns a thread. `lr` is scratch; the
 // other arguments are as for abpoa_fused_dp.

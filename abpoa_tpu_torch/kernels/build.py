@@ -105,6 +105,10 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.abpoa_banded_dp.argtypes = [vp] * 21 + [ci] * 9 + [vp]
     lib.abpoa_banded_dp.restype = ci
+    lib.abpoa_unbanded_dp.argtypes = [vp] * 21 + [ci] * 11 + [vp]
+    lib.abpoa_unbanded_dp.restype = ci
+    lib.abpoa_unbanded_max_clusters.argtypes = [ci] * 9 + [vp]
+    lib.abpoa_unbanded_max_clusters.restype = ci
     lib.abpoa_fused_dp.argtypes = [vp] * 16 + [ci] * 11 + [vp]
     lib.abpoa_fused_dp.restype = ci
     lib.abpoa_backtrack.argtypes = [vp] * 15 + [ci] * 8 + [vp]

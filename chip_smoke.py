@@ -32,9 +32,13 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          and extend, with and without -G's path scores, in each gap
          regime, on sim2k's tables (and a read's middle between random
          flanks, where a local walk stops before a zero cell) and on
-         rcmix's (where Z-drop fires): B2 against its plain version
-         (planes, begend, mplr, ok, ext) and X1w's walk from the mode's
-         best cell against its plain version (header, band, ops)
+         rcmix's (where Z-drop fires): B2, or kernel B2u (unbanded_dp, one
+         thread-block cluster a window) for the whole-row cases (local,
+         unbanded), against the plain version (planes, begend, mplr, ok,
+         ext) and X1w's walk from the mode's best cell against its plain
+         version (header, band, ops); B2u at 1, 2, 4, 8 and 16 blocks a
+         cluster (the first of CLUSTER_CASES, at a W that is no multiple
+         of 32), each == plain
   A2     on sim2k tables: kernel B1 (fused_dp) against its plain version in
          every variant (linear/affine/convex x global/extend+Z-drop/local x
          int16/int32), B3 as B1's local instantiation at sim2k's local width
@@ -73,8 +77,9 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          seq.fa -b -1 reproduces seq_noband.txt, and -G, -G -m 1, -m 2 -z
          20 -b -1, -S -G, -S -b -1, -i seq10.gfa -r 1 -m 1, -Q -d 2 -m 2
          and -l with -i -m 1 (a set of one read among the list's) on cuda
-         equal the port's CPU runs, each on B2 alone; -r 5, -c and -c -t
-         BLOSUM62.mtx reproduce their goldens
+         equal the port's CPU runs, each on B2 alone (the `-b -1` and `-m
+         1` runs on B2u and no B2, the others on B2 and no B2u); -r 5, -c
+         and -c -t BLOSUM62.mtx reproduce their goldens
   C      the main path at full width: N ONT-like 10 kb reads at 10 % error
          (made here from a fixed seed) through the CLI on cuda, the fused
          route; the kernel counts are set to 0 before and read after (S1 at
@@ -135,7 +140,8 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          aln_mode l and e == the fused MSA rows and consensus; -b -1 -r 2
          and -G -r 2 through the CLI (B2 every read): rows are their reads,
          check_walks, consensus identity >= 0.98; per read the split of C2
-         and B2's µs a computed row
+         and B2's µs a computed row. The whole-row runs (-m 1, pyapi l, -b
+         -1) launch B2u and no B2, the others B2 and no B2u
   C9     `-l` in split lockstep at full width (phase_c9): 8 sets of
          10 kb reads at 10 % error of 8 references (seeds 11-18), set i of
          T + 5 i reads (T = 20), through the CLI with -r 2 and --lockstep
@@ -163,12 +169,15 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          (C3's restored MSA and 20 new reads, the largest graph the CLI
          launches B2 on, in C5 (c); time, per computed row, bound, ring
          share, warp sweep); the kernel table's B2 row takes its time, plain
-         time and bound from the latter; B2 unbanded, local and -G at C8's
-         final graph (kernel time, µs a row, bound); B2's new modes at C8's
+         time and bound from the latter; B2 with -G at C8's final graph
+         (kernel time, µs a row, bound); B2's modes at C8's
          launch shape (the held-out read on a graph of phase C's first 3
-         reads: unbanded global and local at W = qlen + 1, no ring; -G
-         banded and unbanded) against the plain version, and X1w's walk
-         from each; B2 batched (the banded_dp[windows] row) against its plain
+         reads: unbanded global and local at W = qlen + 1 on B2u, -G banded
+         on B2 and unbanded on B2u) and at C8's final graph (unbanded and
+         local, on B2u) against the plain version (B2u's on the card), with
+         time, µs a row, bound, ring share and B2u at 4, 8 and 16 blocks a
+         cluster, each == plain, and X1w's walk from each; the kernel
+         line's banded_dp[unbanded] row takes C8's unbanded case; B2 batched (the banded_dp[windows] row) against its plain
          version on the first launch of C7 (a)'s last read: its windows at
          the graph the reads before it built, with the longest window alone;
          X1w (the backtrack[windows] row) on that launch's planes, and on one
@@ -176,10 +185,12 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          The plain versions of B1, B3 and B2 (a loop of small torch ops a
          row) run on CPU copies of the kernel's inputs, but for phase A's
          one-read B2 cases (the 20 kb read's wide planes); the others run
-         on the card. Those of phase D's B1, B2 and batched-B2 rows and
-         of C9's round-2 launch run side by side in worker processes on
-         the host (PlainPool) from the start of D, while the main process
-         checks B2's modes at C8's launch shapes
+         on the card. Those of phase D's B1, B2, B2u and batched-B2 rows
+         and of C9's round-2 launch run side by side in six worker
+         processes on the host (PlainPool) from the start of D; the mode
+         cases' workers hand back digests of the planes (plane_digest), not
+         the planes (2-4 GB a whole-row case), and the main process checks
+         each as its worker ends
 Quick form (~5 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
 --c5-reads 6 --c6-reads 10 --c7-reads 12 --c9-reads 3.
 The line before the last is the kernel table as JSON; the last line is
@@ -451,6 +462,42 @@ def _plain_worker(fn, arrays, kw):
     return ms, [o.numpy() for o in out]
 
 
+def plane_digest(planes, rows: int):
+    """(2, 5, rows) int64 on the CPU: two weighted sums of each of the first
+    `rows` rows of the five planes, with random weights below 2^16 (exact in
+    int64 up to W = 32768, so the order of the sum does not matter). Two
+    rows that differ in one cell always differ here; in more, they collide
+    with odds of about 2^-32."""
+    import numpy as np
+    import torch
+    W, dev = planes[0].shape[1], planes[0].device
+    w = torch.from_numpy(np.random.default_rng(12).integers(
+        1, 1 << 16, (2, W))).to(dev)
+    out = torch.empty((2, 5, rows), dtype=torch.int64, device=dev)
+    for k, p in enumerate(planes):
+        for r in range(0, rows, 1024):
+            blk = p[r: min(rows, r + 1024)].long()
+            out[:, k, r: r + blk.shape[0]] = (blk[None] * w[:, None, :]).sum(-1)
+    return out.cpu()
+
+
+def _plain_digest_worker(arrays, kw):
+    """B2's plain version on one window in a worker process, returning the
+    planes as `plane_digest`s of the rows it computes and the other outputs
+    whole: (ms, digests, [begend, mplr, ok, ext], rows). A whole-row
+    window's planes (2-4 GB at 10 kb) would take longer to cross the pipe
+    than to compute."""
+    import torch
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp_torch
+    torch.set_num_threads(1)
+    args = [torch.from_numpy(a) for a in arrays]
+    ps = args[12] if len(args) > 12 else None
+    ms, out = time_plain(banded_dp_torch, args[:12], pre_score=ps, **kw)
+    rows = dp_rows(args, out)[0][1]
+    return (ms, plane_digest(out[:5], rows).numpy(),
+            [o.numpy() for o in out[5:]], rows)
+
+
 class PlainPool:
     """Plain versions of the kernels on CPU copies of their inputs, in
     worker processes (spawn). `add` queues one and returns a function that
@@ -472,13 +519,31 @@ class PlainPool:
         import torch
         arrays = [a.cpu().numpy() if isinstance(a, torch.Tensor)
                   else np.ascontiguousarray(a) for a in args]
-        job = {"call": (fn, arrays, kw)}
+        job = {"call": (_plain_worker, fn, arrays, kw)}
         self.queued.append(job)
 
         def wait():
             self.run()
             ms, out = job["future"].result()
             return ms, [torch.from_numpy(o) for o in out]
+        return wait
+
+    def add_digest(self, arrays, **kw):
+        """`add` of B2's plain version on one window (banded_dp's batch-form
+        inputs, numpy), returning digests of its planes
+        (`_plain_digest_worker`): wait() gives (ms, digests, [begend,
+        mplr, ok, ext] as tensors, rows)."""
+        import numpy as np
+        import torch
+        job = {"call": (_plain_digest_worker,
+                        [np.ascontiguousarray(a) for a in arrays], kw)}
+        self.queued.append(job)
+
+        def wait():  # this job only: the main process goes on with its case
+            self.start()
+            ms, dig, small, rows = job["future"].result()
+            return (ms, torch.from_numpy(dig),
+                    [torch.from_numpy(o) for o in small], rows)
         return wait
 
     def run(self) -> None:
@@ -497,7 +562,7 @@ class PlainPool:
             self.pool = ProcessPoolExecutor(
                 max_workers=self.workers, mp_context=mp.get_context("spawn"))
         for job in self.queued:
-            job["future"] = self.pool.submit(_plain_worker, *job.pop("call"))
+            job["future"] = self.pool.submit(*job.pop("call"))
             self.futures.append(job["future"])
             self.jobs += 1
         self.queued = []
@@ -1523,7 +1588,8 @@ def phase_a_windows(dev, data_dir, max_err) -> None:
 
 
 # Phase A's cases of B2's modes: (fixture, gap, mode, -G); the modes are
-# MODE_FIELDS' (local is unbanded; "-u" runs without a band)
+# MODE_FIELDS' (local is unbanded; "-u" runs without a band: these
+# whole-row cases go to kernel B2u)
 MODE_FIELDS = {"global": {}, "local": {"align_mode": 1},
                "extend-zdrop": {"align_mode": 2, "zdrop": 20},
                "global-u": {"wb": -1},
@@ -1537,7 +1603,14 @@ MODE_CASES = [
     ("rcmix", "convex", "extend-zdrop", True),
     ("rcmix", "convex", "extend-zdrop-u", False),
     ("rcmix", "linear", "extend-zdrop-u", True),
-    ("rcmix", "affine", "extend-zdrop", False)]
+    ("rcmix", "affine", "extend-zdrop", False),
+    ("sim2k", "linear", "global-u", False), ("sim2k", "affine", "extend-u", True),
+    ("rcmix", "affine", "extend-zdrop-u", True)]
+# B2u's cluster sizes are held against the plain version on these (phase A,
+# and the cuda tests)
+CLUSTER_CASES = [("flanked", "convex", "local", False),
+                 ("sim2k", "linear", "global-u", True),
+                 ("rcmix", "affine", "extend-zdrop-u", False)]
 
 
 def mode_graphs(data_dir):
@@ -1568,19 +1641,31 @@ def mode_graphs(data_dir):
     return out
 
 
-def mode_case(dev, graphs, case, rates) -> tuple:
-    """One of MODE_CASES on the card: B2 on the whole graph against its
-    plain version (on the CPU) on the rows it computes and on begend, mplr,
-    ok and ext, with its time and bound, then X1w's walk from the mode's
-    best cell against its plain version (header, band, ops). Returns (B2's
-    max abs diff, X1w's, the log line)."""
+def whole_row(case) -> bool:
+    """A MODE_CASES case whose windows are whole rows (kernel B2u's)."""
+    return case[2] == "local" or case[2].endswith("-u")
+
+
+def ring_share(t, depth: int) -> str:
+    """The share of predecessor reads of row tables `t` a ring of `depth`
+    rows serves (and the 256-row band ring), with the rows-back spread."""
+    import numpy as np
+    P = t.pre_idx.shape[1]
+    rr = np.arange(t.gn - 1)[:, None]
+    live = (np.arange(P)[None, :] < t.pre_cnt[:t.gn - 1, None]) & (rr >= 1)
+    dist = (rr - t.pre_idx[:t.gn - 1].astype(np.int64))[live]
+    return (f"{dist.size} predecessor reads, rows back p50 "
+            f"{np.percentile(dist, 50):.0f}, p99 {np.percentile(dist, 99):.0f}, "
+            f"max {dist.max()}; served by the plane ring (D={depth}) "
+            f"{(dist < depth).mean() * 100:.3f} %, by the band ring (256 "
+            f"rows) {(dist < 256).mean() * 100:.3f} %")
+
+
+def mode_inputs(dev, graphs, case, W=None):
+    """A MODE_CASES case's (Params on dev, on the CPU, row tables, query,
+    W, banded_dp's batch-form inputs as numpy) on a copy of its graph."""
     import copy
-    import torch
     from abpoa_tpu_torch.align import banded
-    from abpoa_tpu_torch.align.backtrack_kernel import (
-        HEADER, backtrack_windows, backtrack_windows_torch)
-    from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
-    from abpoa_tpu_torch.align.fused_dp_kernel import launch_shape
     from abpoa_tpu_torch.align.tables import build_row_tables, initial_band_width
     from abpoa_tpu_torch.params import Params
     fixture, gap, mode, ps = case
@@ -1588,52 +1673,143 @@ def mode_case(dev, graphs, case, rates) -> tuple:
     kw = dict(gaps[gap], **MODE_FIELDS[mode], inc_path_score=ps)
     p = Params(device=str(dev), **kw).finalize()
     pc = Params(device="cpu", **kw).finalize()
+    if (p.wb < 0) != whole_row(case):
+        raise AssertionError(f"mode case {case}: wb = {p.wb}")
     g, query = graphs[fixture]
     g = copy.deepcopy(g)
     g.topological_sort(p)
     t = build_row_tables(g, 0, 1, p)
-    W = initial_band_width(p, len(query))
-    arrs = banded.pack_windows(p, [t], [query], W)
+    W = W or initial_band_width(p, len(query))
+    return p, pc, t, query, W, banded.pack_windows(p, [t], [query], W)
+
+
+def mode_case(dev, graphs, case, rates, W=None, cs=None, sweep=(),
+              pooled=None, inputs=None) -> dict:
+    """One of MODE_CASES on the card: B2, or B2u for a whole-row case, on
+    the whole graph against its plain version (on CPU copies, or in a
+    worker of the PlainPool with `pooled`, the wait function of its
+    `add_digest` job: then the planes are held equal through
+    `plane_digest`s) on the rows it computes and on begend,
+    mplr, ok and ext, with its time and bound, then X1w's walk from the
+    mode's best cell against its plain version (header, band, ops). `W`
+    overrides the band width, `cs` B2u's blocks a cluster; each B2u
+    cluster size in `sweep` is held equal to the same plain version and
+    timed. `inputs` are the case's `mode_inputs`, where the caller has
+    them. Returns {err, err_w (the DP's and X1w's max abs diff), ms,
+    plain_ms, bound, rows, line, name (the kernel line's row)}."""
+    import torch
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.backtrack_kernel import (
+        HEADER, backtrack_windows, backtrack_windows_torch)
+    from abpoa_tpu_torch.align.banded_kernel import (banded_dp,
+                                                     banded_dp_torch,
+                                                     cluster_shape, unbanded_dp)
+    from abpoa_tpu_torch.align.fused_dp_kernel import launch_shape
+    fixture, gap, mode, ps = case
+    p, pc, t, query, W, arrs = inputs or mode_inputs(dev, graphs, case, W)
+    unb = p.wb < 0
     ts, tc = to_dev(arrs, dev), to_dev(arrs, "cpu")
-    got = banded_dp(*ts, gap_mode=p.gap_mode)
-    torch.cuda.synchronize()
-    plain_ms, want = time_plain(banded_dp_torch, tc, gap_mode=p.gap_mode)
+
+    def run(cs=cs):
+        if cs is not None:
+            return unbanded_dp(*ts, gap_mode=p.gap_mode, cs=cs)
+        return banded_dp(*ts, gap_mode=p.gap_mode, unbanded=unb)
+
     tag = f"{fixture} {gap} {mode}{' -G' if ps else ''}"
-    err, rows = compare_dp(f"banded_dp {tag}", got, want, ts[:12])
-    ms = time_cuda(lambda: banded_dp(*ts, gap_mode=p.gap_mode), 1)
+    name = "banded_dp[unbanded]" if unb else "banded_dp"
+    got = run()
+    torch.cuda.synchronize()
+    if pooled is not None:
+        plain_ms, dig, small, rows = pooled()
+        where = "host, a worker; planes by digest"
+
+        def check(out, what):
+            if dp_rows(ts, out)[0][1] != rows or not torch.equal(
+                    plane_digest(out[:5], rows), dig):
+                raise AssertionError(f"{what}: kernel and plain version differ "
+                                     f"on the planes")
+            return compare(what, out[5:], small)
+    else:
+        plain_ms, want = time_plain(banded_dp_torch, tc, gap_mode=p.gap_mode)
+        where = "host"
+
+        def check(out, what):
+            return compare_dp(what, out, want, ts[:12])[0]
+        rows = dp_rows(ts, want)[0][1]
+    err = check(got, f"{name} {tag}")
+    ms = time_cuda(run, 1)
     bnd = dp_bound(rates, ts, got)
     xin, xkw, layout = banded.walk_inputs(p, ts, got, [t], [query], [0])
     xg = backtrack_windows(*xin, **xkw)
     torch.cuda.synchronize()
-    cin, ckw, _ = banded.walk_inputs(pc, tc, want, [t], [query], [0])
-    xw = backtrack_windows_torch(*cin, **ckw)
+    if pooled is not None:  # X1w's plain version on the kernel's planes
+        cin, ckw, _ = banded.walk_inputs(p, ts, got, [t], [query], [0])
+    else:
+        cin, ckw, _ = banded.walk_inputs(pc, tc, want, [t], [query], [0])
+    xw = backtrack_windows_torch(*cin, **ckw).cpu()
     h, b_at, o_at, _ = layout[0]
     n_ops = int(xw[h])
     sel = torch.cat([torch.arange(h, h + HEADER),
                      torch.arange(b_at, b_at + 2 * t.gn),
                      torch.arange(o_at, o_at + 2 * n_ops)])
     err_w = compare(f"backtrack_windows {tag}", [xg.cpu()[sel]], [xw[sel]])
-    ls = launch_shape(W, t.pre_idx.shape[1], p.gap_mode, seeded=True,
-                      path_score=ps)
+    P = t.pre_idx.shape[1]
+    if unb:
+        ls = cluster_shape(W, P, p.gap_mode, ps, cs)
+        shape = (f"B2u: {ls['cs']} blocks a cluster of {ls['threads']} "
+                 f"threads, slice {ls['slice']}, {ls['lanes']} lane(s) a "
+                 f"thread a run, ring D={ls['depth']}, {ls['smem']} B shared")
+    else:
+        ls = launch_shape(W, P, p.gap_mode, seeded=True, path_score=ps)
+        shape = (f"B2: {ls['block_warps']} warps, cpt {ls['cpt']}, ring "
+                 f"D={ls['depth']}")
     head = xw[h: h + HEADER].tolist()
-    line = (f"B2 {tag} (gn={t.gn}, W={W}, {ls['block_warps']} warps, cpt "
-            f"{ls['cpt']}, ring D={ls['depth']}): kernel == plain on rows "
-            f"0..{rows - 1}, begend, mplr, ok, ext {got[8][0].tolist()}; kernel "
-            f"{ms:.3f} ms ({ms * 1e3 / max(1, rows - 1):.3f} us a computed row), "
-            f"plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); X1w == "
-            f"plain (best ({head[9]}, {head[10]}) score {head[8]}, {n_ops} ops, "
-            f"start ({head[5]}, {head[6]}), end column {head[2]})")
-    return err, err_w, line
+    us = ms * 1e3 / max(1, rows - 1)
+    line = (f"{tag} (gn={t.gn}, W={W}, {shape}): kernel == plain on rows "
+            f"0..{rows - 1}, begend, mplr, ok, ext {got[8][0].tolist()}; "
+            f"kernel {ms:.3f} ms ({us:.3f} us a computed row), plain "
+            f"{plain_ms:.1f} ms ({where}), bound {bnd[0]:.4f} ms ({bnd[1]}); "
+            f"{ring_share(t, ls['depth'])}; X1w == plain (best ({head[9]}, "
+            f"{head[10]}) score {head[8]}, {n_ops} ops, start ({head[5]}, "
+            f"{head[6]}), end column {head[2]})")
+    del got, xin, xg
+    for c in sweep:
+        got = run(c)
+        torch.cuda.synchronize()
+        err = max(err, check(got, f"{name} {tag} cs={c}"))
+        del got
+        ms_c = time_cuda(lambda: run(c), 1)
+        line += (f"; cs={c} == plain, {ms_c:.3f} ms "
+                 f"({ms_c * 1e3 / max(1, rows - 1):.3f} us a row)")
+    return dict(err=err, err_w=err_w, ms=ms, plain_ms=plain_ms, bound=bnd,
+                rows=rows, line=line, name=name)
 
 
 def phase_a_modes(dev, data_dir, max_err, rates) -> None:
-    """Phase A, B2's modes: every case of MODE_CASES (`mode_case`)."""
+    """Phase A, B2's modes: every case of MODE_CASES (`mode_case`; the
+    whole-row ones on B2u), then B2u at 1, 2, 4, 8 and 16 blocks a cluster
+    at a W that is no multiple of 32 (the slices' last lanes pass W) on the
+    first of CLUSTER_CASES."""
     graphs = mode_graphs(data_dir)
     for case in MODE_CASES:
-        err, err_w, line = mode_case(dev, graphs, case, rates)
-        max_err["banded_dp"] = max(max_err["banded_dp"], err)
-        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err_w)
-        log(f"[A] {line}")
+        r = mode_case(dev, graphs, case, rates)
+        max_err[r["name"]] = max(max_err[r["name"]], r["err"])
+        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], r["err_w"])
+        log(f"[A] {r['line']}")
+    for case in CLUSTER_CASES[:1]:  # the cuda tests take the others
+        W = cluster_width(len(graphs[case[0]][1]))
+        r = mode_case(dev, graphs, case, rates, W=W, sweep=(1, 2, 4, 8, 16))
+        max_err[r["name"]] = max(max_err[r["name"]], r["err"])
+        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"],
+                                            r["err_w"])
+        log(f"[A] {r['line']}")
+
+
+def cluster_width(qlen: int) -> int:
+    """A whole-row width past qlen + 1 that is no multiple of 32, so that
+    at every cluster size the last block's slice passes W."""
+    W = qlen + 14
+    return W + 1 if W % 32 == 0 else W
 
 
 def phase_c8(ref: str, reads: list) -> dict:
@@ -1646,14 +1822,16 @@ def phase_c8(ref: str, reads: list) -> dict:
     `-G -r 2` through the CLI (neither is fused-eligible: B2 every read):
     each MSA row without gaps is its read, X1w once a B2 launch and no
     plane copied (check_walks), consensus identity to the reference >=
-    0.98. Each per-read run's time a read is split as C2's, with B2's µs a
-    computed row. Returns the B2 and X1w launches and the (b) runs' graphs
-    (for phase D)."""
+    0.98. The whole-row runs (`-m 1`, the pyapi's `l`, `-b -1`) launch
+    kernel B2u and no B2, the others B2 and no B2u. Each per-read run's
+    time a read is split as C2's, with B2's or B2u's µs a computed row.
+    Returns the B2, B2u and X1w launches and the (b) runs' graphs (for
+    phase D)."""
     import torch
     from abpoa_tpu_torch import pyapi
     from abpoa_tpu_torch.align import banded
     from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
-    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp, unbanded_dp
     from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
     from abpoa_tpu_torch.graph import POAGraph
     from abpoa_tpu_torch.io.fastx import read_fastx
@@ -1667,7 +1845,18 @@ def phase_c8(ref: str, reads: list) -> dict:
     with open(fa, "w") as fp:
         fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads[:n])))
     recs = read_fastx(fa)
-    launched = {"b2": 0, "x1w": 0}
+    launched = {"b2": 0, "b2u": 0, "x1w": 0}
+
+    def kernels_of(tag, whole):
+        """The B2 and B2u launches since the last reset, each run on its
+        own kernel: (B2, B2u)."""
+        b2, b2u = banded_dp.launches, unbanded_dp.launches
+        if (b2 if whole else b2u) or not (b2u if whole else b2):
+            raise AssertionError(f"C8 {tag}: B2 {b2}, B2u {b2u} launches; "
+                                 f"expected {'B2u' if whole else 'B2'} only")
+        launched["b2"] += b2
+        launched["b2u"] += b2u
+        return b2, b2u
 
     def per_read(abpt, tag):
         """The per-read route over the reads: (its output, the split)."""
@@ -1675,7 +1864,8 @@ def phase_c8(ref: str, reads: list) -> dict:
         seqs, weights = _ingest_records(ab, abpt, recs)
         _select_graph(ab, want_native(abpt))
         banded.reset_stats()
-        banded_dp.launches = backtrack_windows.launches = fused_dp.launches = 0
+        banded_dp.launches = unbanded_dp.launches = 0
+        backtrack_windows.launches = fused_dp.launches = 0
         split = {}
         undo = [timed(NativePOAGraph, "add_subgraph_alignment", split, "fusion"),
                 timed(POAGraph, "add_subgraph_alignment", split, "fusion")]
@@ -1686,36 +1876,39 @@ def phase_c8(ref: str, reads: list) -> dict:
             for u in undo:
                 u()
         wall = time.perf_counter() - t0
-        st, b2, x1w = dict(banded.stats), banded_dp.launches, backtrack_windows.launches
+        b2 = sum(kernels_of(tag, abpt.wb < 0))
+        st, x1w = dict(banded.stats), backtrack_windows.launches
         check_walks(f"C8 {tag}", st, b2, x1w)
         if fused_dp.launches or b2 < n - 1:
-            raise AssertionError(f"C8 {tag}: B2 {b2}, B1 {fused_dp.launches} launches")
-        launched["b2"] += b2
+            raise AssertionError(f"C8 {tag}: B2/B2u {b2}, B1 {fused_dp.launches} launches")
         launched["x1w"] += x1w
         buf = io.StringIO()
         output(ab, abpt, buf)
         return buf.getvalue(), wall, st, split.get("fusion", 0.0)
 
-    def split_line(tag, wall, st, fusion_s):
+    def split_line(tag, wall, st, fusion_s, whole):
         k = max(1, st["reads"])
+        kern = "B2u" if whole else "B2"
         log(f"[C8] {tag}: per-read route, {st['reads']} aligned reads, "
-            f"{st['launches']} B2 launches ({st['rows']} DP rows): wall "
+            f"{st['launches']} {kern} launches ({st['rows']} DP rows): wall "
             f"{wall * 1e3 / k:.1f} ms a read = {per_read_split(st, fusion_s, k)}; "
-            f"B2 {st['kernel_s'] * 1e6 / max(1, st['rows']):.3f} us a computed row")
+            f"{kern} {st['kernel_s'] * 1e6 / max(1, st['rows']):.3f} us a computed row")
 
     # (a) the per-read route == the fused route, consensus and -r 1 MSA
     from abpoa_tpu_torch import cli
     for flags in (["-m", "1"], ["-m", "2"], ["-m", "2", "-z", "100"]):
         what = " ".join(flags)
         out_f = os.path.join(OUT, f"c8_fused{''.join(flags)}.fa")
-        fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+        fused_dp.launches = fused_dp.local_launches = 0
+        banded_dp.launches = unbanded_dp.launches = 0
         t0 = time.perf_counter()
         run_cli([fa, *flags, "-r", "2", "-o", out_f])
         wall_f = time.perf_counter() - t0
         b1 = fused_dp.launches + fused_dp.local_launches
-        if b1 < n - 1 or banded_dp.launches:
+        if b1 < n - 1 or banded_dp.launches or unbanded_dp.launches:
             raise AssertionError(f"C8 {what}: fused route launched B1/B3 "
-                                 f"{b1}, B2 {banded_dp.launches} times")
+                                 f"{b1}, B2 {banded_dp.launches}, B2u "
+                                 f"{unbanded_dp.launches} times")
         abpt = cli.args_to_params(cli.build_parser().parse_args(
             [fa, *flags, "-r", "2"])).finalize()
         got, wall, st, fusion_s = per_read(abpt, what)
@@ -1724,22 +1917,23 @@ def phase_c8(ref: str, reads: list) -> dict:
                 raise AssertionError(f"C8 {what} -r 2: the per-read and fused "
                                      f"routes differ")
         split_line(f"{what} -r 2 == fused route ({wall_f:.2f} s, B1/B3 {b1}) "
-                   f"byte for byte", wall, st, fusion_s)
+                   f"byte for byte", wall, st, fusion_s, abpt.wb < 0)
         if "-z" in flags:
             continue  # the pyapi has no Z-drop argument
         aln = {"1": "l", "2": "e"}[flags[1]]
         rows_f = [row for _, row in read_fasta_rows(out_f)]
-        banded_dp.launches = backtrack_windows.launches = 0
+        banded_dp.launches = unbanded_dp.launches = 0
+        backtrack_windows.launches = 0
         res = pyapi.msa_aligner(aln_mode=aln).msa([r.seq for r in recs],
                                                    out_cons=True, out_msa=True)
-        launched["b2"] += banded_dp.launches
+        b2, b2u = kernels_of(f"pyapi aln_mode={aln}", aln == "l")
         launched["x1w"] += backtrack_windows.launches
         if (res.msa_seq[:n] != rows_f[:n]
                 or res.cons_seq != [rows_f[n].replace("-", "")]):
             raise AssertionError(f"C8 pyapi aln_mode={aln}: differs from the fused route")
         log(f"[C8] pyapi msa_aligner(aln_mode='{aln}').msa({n} reads, out_cons, "
             f"out_msa) == the fused route's consensus and MSA rows (B2 "
-            f"{banded_dp.launches}, X1w {backtrack_windows.launches} launches)")
+            f"{b2}, B2u {b2u}, X1w {backtrack_windows.launches} launches)")
 
     # (b) unbanded and -G through the CLI: B2 every read
     graphs = {}
@@ -1747,7 +1941,8 @@ def phase_c8(ref: str, reads: list) -> dict:
         what = " ".join(flags)
         out_b = os.path.join(OUT, f"c8{''.join(flags)}.fa")
         banded.reset_stats()
-        banded_dp.launches = backtrack_windows.launches = fused_dp.launches = 0
+        banded_dp.launches = unbanded_dp.launches = 0
+        backtrack_windows.launches = fused_dp.launches = 0
         split = {}
         undo = [timed(NativePOAGraph, "add_subgraph_alignment", split, "fusion"),
                 timed(POAGraph, "add_subgraph_alignment", split, "fusion")]
@@ -1758,11 +1953,11 @@ def phase_c8(ref: str, reads: list) -> dict:
             for u in undo:
                 u()
         wall = time.perf_counter() - t0
-        st, b2, x1w = dict(banded.stats), banded_dp.launches, backtrack_windows.launches
+        b2 = sum(kernels_of(what, flags[0] == "-b"))
+        st, x1w = dict(banded.stats), backtrack_windows.launches
         check_walks(f"C8 {what}", st, b2, x1w)
         if fused_dp.launches or b2 < n - 1:
-            raise AssertionError(f"C8 {what}: B2 {b2}, B1 {fused_dp.launches} launches")
-        launched["b2"] += b2
+            raise AssertionError(f"C8 {what}: B2/B2u {b2}, B1 {fused_dp.launches} launches")
         launched["x1w"] += x1w
         rows = read_fasta_rows(out_b)
         if [row.replace("-", "") for _, row in rows[:n]] != reads[:n]:
@@ -1770,7 +1965,7 @@ def phase_c8(ref: str, reads: list) -> dict:
         cons = rows[n][1].replace("-", "")
         ident = 1 - edit_distance(cons, ref) / len(ref)
         split_line(f"{what} -r 2 through the CLI (wall {wall:.2f} s)", wall, st,
-                   split.get("fusion", 0.0))
+                   split.get("fusion", 0.0), flags[0] == "-b")
         log(f"[C8] {what} -r 2: {len(rows) - n} consensus row(s), each of the {n} "
             f"MSA rows without gaps is its read; consensus identity to the "
             f"reference {ident:.5f} (predicted >= 0.98); final graph "
@@ -2144,7 +2339,7 @@ def longest_window(args):
 def main() -> int:
     """The run (`run`), with its pool of plain-version workers closed at
     the end, whether it passes or fails."""
-    plain = PlainPool()
+    plain = PlainPool(workers=6)  # phase D's 11 jobs; the main process waits
     try:
         return run(plain)
     finally:
@@ -2178,7 +2373,8 @@ def run(plain) -> int:
     from abpoa_tpu_torch.align import fused_loop as fl
     from abpoa_tpu_torch.align.backtrack_kernel import (
         backtrack, backtrack_torch, backtrack_windows, backtrack_windows_torch)
-    from abpoa_tpu_torch.align.banded_kernel import banded_dp, banded_dp_torch
+    from abpoa_tpu_torch.align.banded_kernel import (banded_dp, banded_dp_torch,
+                                                     unbanded_dp)
     from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
     from abpoa_tpu_torch.align.device_graph import fuse_alignment
     from abpoa_tpu_torch.align.edge_sort_kernel import (edge_sort,
@@ -2243,7 +2439,8 @@ def run(plain) -> int:
     abpt = Params(device="cuda").finalize()
     cpu = Params(device="cpu").finalize()
     max_err = {k: 0 for k in ("banded_dp", "banded_dp[windows]",
-                              "banded_dp[lanes]", "fused_dp",
+                              "banded_dp[lanes]", "banded_dp[unbanded]",
+                              "fused_dp",
                               "fused_dp[local]", "backtrack",
                               "backtrack[windows]", "edge_sort", "topo_sort")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
@@ -2515,22 +2712,39 @@ def run(plain) -> int:
         raise AssertionError("the -m 1 run did not launch the local kernel")
 
     # incremental, qv-weighted and list runs: goldens on cuda, B1 and B2
-    # each on its own route
+    # each on its own route ("B2" counts kernel B2u's whole-row launches
+    # too; `whole_rows` checks which of the two a run took)
+    kinds = {}
+
     def launches_of(fn):
-        fused_dp.launches = fused_dp.local_launches = banded_dp.launches = 0
+        fused_dp.launches = fused_dp.local_launches = 0
+        banded_dp.launches = unbanded_dp.launches = 0
         fn()
-        return fused_dp.launches + fused_dp.local_launches, banded_dp.launches
+        kinds["b2"], kinds["b2u"] = banded_dp.launches, unbanded_dp.launches
+        return (fused_dp.launches + fused_dp.local_launches,
+                banded_dp.launches + unbanded_dp.launches)
+
+    def whole_rows(tag, argv):
+        """`-b -1` and `-m 1` runs launch B2u and no B2, the others B2
+        and no B2u (the last `launches_of`)."""
+        pairs = list(zip(argv, argv[1:]))
+        whole = ("-b", "-1") in pairs or ("-m", "1") in pairs
+        if (kinds["b2"] if whole else kinds["b2u"]):
+            raise AssertionError(f"{tag}: B2 {kinds['b2']}, B2u {kinds['b2u']} "
+                                 f"launches; expected {'B2u' if whole else 'B2'} only")
+        return f" (B2u {kinds['b2u']})" if whole else ""
 
     def same_files(a, b, what):
         with open(a) as x, open(b) as y:
             if x.read() != y.read():
                 raise AssertionError(f"{what} differ")
 
-    def check_route(tag, b1, b2, route):
+    def check_route(tag, b1, b2, route, argv=()):
         if (b1 > 0, b2 > 0) != (route == "B1", route == "B2"):
             raise AssertionError(f"{tag}: B1 launches {b1}, B2 launches {b2}, "
                                  f"expected {route} only")
-        log(f"[B] {tag}: B1 launches {b1}, B2 launches {b2}")
+        kind = whole_rows(tag, list(argv)) if route == "B2" else ""
+        log(f"[B] {tag}: B1 launches {b1}, B2 launches {b2}{kind}")
 
     for args_b, name, route in (
             (["seq4.fa", "-i", "seq10.gfa"], "incr_gfa", "B1"),
@@ -2542,7 +2756,7 @@ def run(plain) -> int:
         same_files(out_b, os.path.join(ROOT, "tests", "golden", f"{name}.txt"),
                    f"{' '.join(args_b)} on cuda and {name}.txt")
         check_route(f"{' '.join(args_b)} on cuda == tests/golden/{name}.txt",
-                    b1, b2, route)
+                    b1, b2, route, args_b)
     cwd = os.getcwd()
     os.chdir(ROOT)  # list.txt names its files from the repository root
     try:
@@ -2567,7 +2781,7 @@ def run(plain) -> int:
         run_cli(argv + ["--device", "cpu", "-o", outs_b[1]])
         same_files(*outs_b, f"seq4.fa -i seq10.gfa {' '.join(args_b)} cuda and cpu")
         check_route(f"seq4.fa -i seq10.gfa {' '.join(args_b)} on cuda == on cpu",
-                    b1, b2, route)
+                    b1, b2, route, args_b)
     argv = [data("seq4.fa"), "-i", data("seq10.msa"), "-m", "1"]
     outs_b = [os.path.join(OUT, f"incr_m1.{d}") for d in ("cuda", "cpu")]
     fused_dp.local_launches = 0
@@ -2608,7 +2822,7 @@ def run(plain) -> int:
         same_files(out_b, os.path.join(ROOT, "tests", "golden", f"{name}.txt"),
                    f"{fa_b} {' '.join(flags)} on cuda and {name}.txt")
         check_route(f"{fa_b} {' '.join(flags)} on cuda == tests/golden/{name}.txt",
-                    b1, b2, "B2")
+                    b1, b2, "B2", flags)
     fa6 = os.path.join(OUT, "sim2k_6.fa")
     with open(fa6, "w") as fp:
         fp.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(sim2k[:6])))
@@ -2623,15 +2837,16 @@ def run(plain) -> int:
         b1, b2 = launches_of(lambda: run_cli(argv + ["-o", outs_b[0]]))
         run_cli(argv + ["--device", "cpu", "-o", outs_b[1]])
         same_files(*outs_b, f"{what} on cuda and cpu")
-        check_route(f"{what} on cuda == on cpu", b1, b2, "B2")
+        check_route(f"{what} on cuda == on cpu", b1, b2, "B2", argv)
 
     # B2's modes: -b -1's golden, then the flag sets
-    # with no golden on cuda == on cpu, each on B2 alone
+    # with no golden on cuda == on cpu, each on B2 or on B2u alone
     out_b = os.path.join(OUT, "seq_noband.fa")
     b1, b2 = launches_of(lambda: run_cli([data("seq.fa"), "-b", "-1", "-o", out_b]))
     same_files(out_b, os.path.join(ROOT, "tests", "golden", "seq_noband.txt"),
                "seq.fa -b -1 on cuda and seq_noband.txt")
-    check_route("seq.fa -b -1 on cuda == tests/golden/seq_noband.txt", b1, b2, "B2")
+    check_route("seq.fa -b -1 on cuda == tests/golden/seq_noband.txt", b1, b2,
+                "B2", ["-b", "-1"])
     lst = os.path.join(OUT, "list_local.txt")
     one = os.path.join(OUT, "one_read.fa")
     with open(one, "w") as fp:
@@ -2651,7 +2866,7 @@ def run(plain) -> int:
         b1, b2 = launches_of(lambda: run_cli(argv + ["-o", outs_b[0]]))
         run_cli(argv + ["--device", "cpu", "-o", outs_b[1]])
         same_files(*outs_b, f"{what} on cuda and cpu")
-        check_route(f"{what} on cuda == on cpu", b1, b2, "B2")
+        check_route(f"{what} on cuda == on cpu", b1, b2, "B2", argv)
 
     lap("B")
     # ---- C: the main path at full width, the fused route
@@ -2665,7 +2880,7 @@ def run(plain) -> int:
     fl.timing = True
     fused_dp.launches = fused_dp.local_launches = 0
     backtrack.launches = topo_sort.launches = banded_dp.launches = 0
-    edge_sort.launches = 0
+    edge_sort.launches = unbanded_dp.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_cli([fa, "-o", out_c])
@@ -2673,7 +2888,7 @@ def run(plain) -> int:
     fl.timing = False
     launches = {"fused_dp": fused_dp.launches, "backtrack": backtrack.launches,
                 "edge_sort": edge_sort.launches, "topo_sort": topo_sort.launches}
-    if banded_dp.launches or fused_dp.local_launches:
+    if banded_dp.launches or unbanded_dp.launches or fused_dp.local_launches:
         raise AssertionError("the fused route launched another route's kernel")
     s = dict(fl.stats)
     n = args.reads
@@ -2767,7 +2982,7 @@ def run(plain) -> int:
     fl.reset_stats()
     fused_dp.launches = fused_dp.local_launches = 0
     backtrack.launches = topo_sort.launches = banded_dp.launches = 0
-    edge_sort.launches = 0
+    edge_sort.launches = unbanded_dp.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ab3 = run_pipeline([fa, "-r", "2"], out_c3)
@@ -2777,7 +2992,8 @@ def run(plain) -> int:
     launches3 = {"fused_dp": fused_dp.launches, "backtrack": backtrack.launches,
                  "edge_sort": edge_sort.launches, "topo_sort": topo_sort.launches}
     s3 = dict(fl.stats)
-    if launches3 != launches or banded_dp.launches or fused_dp.local_launches:
+    if (launches3 != launches or banded_dp.launches or unbanded_dp.launches
+            or fused_dp.local_launches):
         raise AssertionError(f"-r 2 launches {launches3}, the consensus run's {launches}")
     if (s3["syncs"], s3["reads"]) != (s["syncs"], s["reads"]):
         raise AssertionError(f"-r 2: {s3['syncs']} host syncs in {s3['reads']} read "
@@ -2911,6 +3127,27 @@ def run(plain) -> int:
     b1_plain = plain.add(fused_dp_torch, ad, **kw)
     b2_plain = plain.add(banded_dp_torch, a5[0])
     b2w_plain = plain.add(banded_dp_torch, a7, gap_mode=p7.gap_mode)
+    # B2's modes at C8's launch shape, the held-out read on a graph of phase
+    # C's first 3 reads ("10 kb", which keeps the plain version's row loop
+    # short) and on C8's final graph (the -G run's, the largest C8's
+    # whole-row runs align to): unbanded, local and -G unbanded on B2u,
+    # -G banded on B2. Their plain versions run in the pool too, each
+    # handing back digests of its planes
+    g10 = POAGraph()
+    for r in reads[:3]:
+        q = encode(cpu, r)
+        cigar = (banded.align_sequence_to_subgraph(g10, abpt, 0, 1, q).cigar
+                 if g10.node_n > 2 else [])
+        g10.add_alignment(abpt, q, None, cigar, True)
+    graphs_d = {"10 kb": (g10, qd), "C8": (c8["graphs"]["-G"], qd)}
+    cases_d = [("10 kb", "convex", "global-u", False),
+               ("10 kb", "convex", "local", False),
+               ("10 kb", "convex", "global", True),
+               ("10 kb", "convex", "global-u", True),
+               ("C8", "convex", "global-u", False), ("C8", "convex", "local", False),
+               ("C8", "convex", "global", True)]
+    inputs_d = [mode_inputs(dev, graphs_d, case) for case in cases_d]
+    plain_d = [plain.add_digest(m[5], gap_mode=m[0].gap_mode) for m in inputs_d]
     c9 = phase_c9(args, rates, plain)
     max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], c9["err_w"])
     lap("C9")
@@ -2918,34 +3155,22 @@ def run(plain) -> int:
     torch.cuda.empty_cache()
     lap("C10")
     # ---- D: kernels vs plain at the main path's shape. The pool's plain
-    # versions start first and run while the main process checks B2's new
-    # modes at C8's launch shapes against the plain version (W = qlen + 1
-    # with no ring unbanded; -G's scores through the ring and the gather
-    # from the planes): the held-out read on a graph of phase C's first 3
-    # reads, which keeps the plain version's row loop short; X1w's walk
-    # from each
+    # versions start first; the main process checks B2's modes against
+    # theirs as each ends (with B2u at 4, 8 and 16 blocks a cluster in the
+    # whole-row cases, and X1w's walk from each)
     plain.start()
-    # the workers hold `plain.workers` of the host's cores and the main
-    # process's plain versions get the rest: oversubscribed, they ran 2-10x
-    # slower than alone
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) - plain.workers))
-    g10 = POAGraph()
-    for r in reads[:3]:
-        q = encode(cpu, r)
-        cigar = (banded.align_sequence_to_subgraph(g10, abpt, 0, 1, q).cigar
-                 if g10.node_n > 2 else [])
-        g10.add_alignment(abpt, q, None, cigar, True)
-    for case in (("10 kb", "convex", "global-u", False),
-                 ("10 kb", "convex", "local", False),
-                 ("10 kb", "convex", "global", True),
-                 ("10 kb", "convex", "global-u", True)):
-        err, err_w, line = mode_case(dev, {"10 kb": (g10, qd)}, case, rates)
-        max_err["banded_dp"] = max(max_err["banded_dp"], err)
-        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err_w)
-        log(f"[D] {line}")
-    del g10
-    torch.set_num_threads(threads)
+    b2u_row = None
+    for case, pooled, inputs in zip(cases_d, plain_d, inputs_d):
+        whole = whole_row(case)
+        r = mode_case(dev, graphs_d, case, rates, pooled=pooled, inputs=inputs,
+                      sweep=(4, 8, 16) if whole else ())
+        max_err[r["name"]] = max(max_err[r["name"]], r["err"])
+        max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], r["err_w"])
+        log(f"[D] {r['line']}")
+        if case[0] == "C8" and case[2] == "global-u":
+            b2u_row = r  # the kernel line's B2u numbers: -b -1 at C8's graph
+        torch.cuda.empty_cache()
+    del g10, graphs_d, inputs_d
     t_wait = time.perf_counter()
     got = fused_dp(*ad, **kw)
     torch.cuda.synchronize()
@@ -3107,31 +3332,8 @@ def run(plain) -> int:
         f"mplr, ok, ext; plain {b2_plain_ms:.1f} ms")
     sweep_warps("D B2", ts, None, [t.to(dev) for t in want])
     del ts, got, want
-    # B2's modes at C8's final graph (the -G run's) and the held-out read:
-    # kernel times
-    gp8 = c8["graphs"]["-G"]
-    for tag8, kw8 in (("unbanded (-b -1)", {"wb": -1}),
-                      ("local (-m 1)", {"align_mode": 1}),
-                      ("-G", {"inc_path_score": True})):
-        p8 = Params(device="cuda", **kw8).finalize()
-        gp8.topological_sort(p8)
-        t8 = build_row_tables(gp8, 0, 1, p8)
-        W8 = initial_band_width(p8, len(qd))
-        ts = to_dev(banded.pack_windows(p8, [t8], [qd], W8), dev)
-        got = banded_dp(*ts, gap_mode=p8.gap_mode)
-        torch.cuda.synchronize()
-        rows8 = dp_rows(ts, got)[0][1]
-        ms8 = time_cuda(lambda: banded_dp(*ts, gap_mode=p8.gap_mode), 2)
-        bnd8 = dp_bound(rates, ts, got)
-        ls8 = launch_shape(W8, t8.pre_idx.shape[1], p8.gap_mode, seeded=True,
-                           path_score=len(ts) > 12)
-        log(f"[D] B2 {tag8} at C8's final graph (gn={t8.gn}, W={W8}, P="
-            f"{t8.pre_idx.shape[1]}; {ls8['block_warps']} warps, cpt "
-            f"{ls8['cpt']}, ring D={ls8['depth']}) and the held-out read: "
-            f"kernel {ms8:.3f} ms ({ms8 * 1e3 / max(1, rows8 - 1):.3f} us a "
-            f"computed row, {rows8} rows), bound {bnd8[0]:.4f} ms ({bnd8[1]}); "
-            f"launches in C8 {c8['launched']['b2']} (all modes)")
-        del ts, got
+    log(f"[D] launches in C8: B2 {c8['launched']['b2']}, B2u "
+        f"{c8['launched']['b2u']}")
     # B2 batched over a read's windows: the first launch of C7 (a)'s last
     # read, at the graph the reads before it built
     ts = to_dev(a7, dev)
@@ -3198,6 +3400,9 @@ def run(plain) -> int:
               "abpoa_tpu/align/pallas_kernel.py:215",
               b2_launches + b2_c5 + b2_c6 + c8["launched"]["b2"], b2_ms,
               b2_plain_ms, b2_bnd),
+        entry("banded_dp[unbanded]", "abpoa_tpu_torch/csrc/unbanded_dp.cu",
+              "abpoa_tpu/align/jax_backend.py:54", c8["launched"]["b2u"],
+              b2u_row["ms"], b2u_row["plain_ms"], b2u_row["bound"]),
         entry("banded_dp[windows]", "abpoa_tpu_torch/csrc/fused_dp.cu",
               "abpoa_tpu/align/jax_backend.py:512", b2_c7, b2w_ms,
               b2w_plain_ms, b2w_bnd),

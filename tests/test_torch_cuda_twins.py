@@ -10,9 +10,12 @@ The cases are the ones the CPU test files hold against the JAX package:
 - X1 (`backtrack`): the planes of those cases, with the gap-placement flags
   (`BT_CASES`; against JAX in test_torch_fused_steps.py), and a synthetic
   graph with 64 predecessor slots (`_wide_case`; test_torch_kernel_shapes.py);
-- B2 (`banded_dp`) in local, extend + Z-drop, unbanded and `-G` mode, and
-  X1w's local and `-G` walks (`chip_smoke.MODE_CASES`; against JAX in
-  test_torch_modes.py and test_torch_modes_gaps.py);
+- B2 (`banded_dp`) in extend + Z-drop and `-G` mode, B2u (`unbanded_dp`,
+  the whole-row windows) in local mode and without a band, at each of its
+  cluster sizes (`chip_smoke.CLUSTER_CASES`), and X1w's local and `-G`
+  walks (`chip_smoke.MODE_CASES`; against JAX in test_torch_modes.py and
+  test_torch_modes_gaps.py); a window sent to the kernel of the other kind
+  is refused;
 - X1w (`backtrack_windows`): the windows of a seeded read of sim2k.fa in
   the three gap modes, some overflowed, and one whole-read window
   (against JAX in test_torch_windows_backtrack.py);
@@ -31,6 +34,7 @@ Without a card every test here skips before its cases are built.
 
     pytest -m cuda tests/test_torch_cuda_twins.py    # on the card
 """
+import copy
 import os
 
 import numpy as np
@@ -462,9 +466,74 @@ def test_b2_modes_and_x1w_walks_match_plain_on_card(mode_graphs, case):
     == its plain version, and X1w's walk from the mode's best cell (a
     local stop, path scores) == its plain version (chip_smoke.py phase A's
     cases; against JAX in test_torch_modes*.py)."""
-    err, err_w, _ = chip_smoke.mode_case(_card(), mode_graphs, case,
-                                         chip_smoke.Rates())
-    assert (err, err_w) == (0, 0)
+    r = chip_smoke.mode_case(_card(), mode_graphs, case, chip_smoke.Rates())
+    assert (r["err"], r["err_w"]) == (0, 0)
+
+
+WHOLE_CASES = [c for c in chip_smoke.MODE_CASES if chip_smoke.whole_row(c)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WHOLE_CASES,
+                         ids=[" ".join(map(str, c)) for c in WHOLE_CASES])
+def test_unbanded_kernel_matches_plain_on_card(mode_graphs, case):
+    """Kernel B2u on MODE_CASES' whole-row cases (local; global, extend and
+    extend + Z-drop without a band; linear, affine and convex; with and
+    without -G) == its plain version, and X1w's walk from its planes ==
+    its plain version; B2u is the kernel launched, B2 not."""
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp, unbanded_dp
+    banded_dp.launches = unbanded_dp.launches = 0
+    r = chip_smoke.mode_case(_card(), mode_graphs, case, chip_smoke.Rates())
+    assert (r["err"], r["err_w"]) == (0, 0)
+    assert unbanded_dp.launches > 0 and banded_dp.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.CLUSTER_CASES,
+                         ids=[" ".join(map(str, c)) for c in chip_smoke.CLUSTER_CASES])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_unbanded_cluster_sizes_match_plain_on_card(mode_graphs, case, cs):
+    """B2u at cs blocks a cluster, at a W that is no multiple of cs x 32
+    (the last block's slice passes W), == its plain version, and X1w's walk
+    from its planes == its plain version."""
+    W = chip_smoke.cluster_width(len(mode_graphs[case[0]][1]))
+    assert W % (cs * 32)
+    r = chip_smoke.mode_case(_card(), mode_graphs, case, chip_smoke.Rates(),
+                             W=W, cs=cs)
+    assert (r["err"], r["err_w"]) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unbanded", [False, True])
+def test_window_of_the_other_kind_is_refused_on_card(mode_graphs, unbanded):
+    """A whole-row window sent to B2, or a banded one to B2u, is not
+    computed: its ok is -1, beside a window of the kernel's own kind in
+    the same launch, and `check_ok` (which align_windows_banded reads)
+    raises; no kernel falls back to the other."""
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.banded_kernel import (banded_dp, check_ok,
+                                                     unbanded_dp)
+    from abpoa_tpu_torch.align.tables import build_row_tables
+    g, query = mode_graphs["sim2k"]
+    g = copy.deepcopy(g)
+    own, other = make_params(wb=-1), make_params()
+    g.topological_sort(own)
+    if not unbanded:
+        own, other = other, own
+    tabs = [build_row_tables(g, 0, 1, p) for p in (own, other)]
+    W = 2 * 1024 + 512
+    half = [banded.pack_windows(p, [t], [query], W)
+            for p, t in zip((own, other), tabs)]
+    arrs = banded.pack_windows(own, tabs, [query, query], W)
+    arrs[0] = np.stack([half[0][0][0], half[1][0][0]])  # each its kind's scalars
+    ts = chip_smoke.to_dev(arrs, _card())
+    banded_dp.launches = unbanded_dp.launches = 0
+    out = banded_dp(*ts, unbanded=unbanded)
+    torch.cuda.synchronize()
+    assert out[7].tolist() == [1, -1]
+    assert (banded_dp.launches, unbanded_dp.launches) == ((0, 1) if unbanded else (1, 0))
+    with pytest.raises(RuntimeError, match="other kind"):
+        check_ok(out[7])
 
 
 # ---- the K-lane chunk of the lockstep and map routes -----------------------------

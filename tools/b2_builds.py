@@ -13,8 +13,8 @@ outputs must equal the plain version's, then each build is timed with CUDA
 events six times, in the order ABC..CBA then reversed, and the median, the
 µs a computed row and every time are printed. A source from before the
 window batch (its `abpoa_banded_dp` takes no `roff`) is called with the
-one-window signature. Run it from the repository root on a machine with
-the card.
+one-window signature, and one from before `-G` (no `pre_score`) without
+that argument. Run it from the repository root on a machine with the card.
 """
 from __future__ import annotations
 
@@ -52,13 +52,15 @@ def main() -> int:
     for spec in args.builds:
         name, src = spec.split("=", 1)
         with open(src) as fp:
-            batched = "const void* roff" in fp.read()
+            text = fp.read()
+        batched = "const void* roff" in text
+        scored = "const void* pre_score" in text
         so = os.path.join(tmp, f"{name}.so")
-        procs.append((name, so, batched, subprocess.Popen(
+        procs.append((name, so, (batched, scored), subprocess.Popen(
             [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
              "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    for name, so, batched, p in procs:
+    for name, so, kind, p in procs:
         out = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
@@ -66,7 +68,7 @@ def main() -> int:
         for i, line in enumerate(lines):
             if "Compiling entry" in line and "ILi2ELi2ELb1E" in line:
                 print(f"{name}: B2 <CPT 2, convex>: {lines[i + 3].strip()}")
-        builds[name] = (ctypes.CDLL(so), batched)
+        builds[name] = (ctypes.CDLL(so), *kind)
 
     dev = torch.device("cuda")
     abpt = Params(device="cuda").finalize()
@@ -90,7 +92,7 @@ def main() -> int:
           f"{ls['block_warps']} warps, ring D={ls['depth']}")
 
     def launch(name):
-        lib, batched = builds[name]
+        lib, batched, scored = builds[name]
         planes = torch.empty((5, R, W), dtype=torch.int32, device=dev)
         begend, mplr, lr = (torch.empty(2 * R, dtype=torch.int32, device=dev)
                             for _ in range(3))
@@ -101,7 +103,7 @@ def main() -> int:
         outs = [ptr(x) for x in (*planes.unbind(0), begend, mplr, ok, ext, lr)]
         shape = [ls["block_warps"], ls["depth"], ls["smem"], stream]
         tables = [ptr(x) for x in (base, pre_idx, pre_cnt, remain, mpl0, mpr0,
-                                   row0, qp)]
+                                   row0, qp)] + ([None] if scored else [])
         if batched:
             err = lib.abpoa_banded_dp(ptr(sc), ptr(roff), *tables, *outs, 1, W,
                                       P, QW, qp.numel(), 2, *shape)
