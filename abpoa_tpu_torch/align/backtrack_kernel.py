@@ -27,8 +27,10 @@ X1w (`backtrack_windows`) is the counterpart of
 `abpoa_tpu/align/jax_backtrack.py` `device_backtrack` as
 `jax_backend.py` `_dp_full_batch` vmaps it over a seeded read's windows,
 with `_dp_full`'s best cell of each mode (:662-681), the local stop and
-`-G`'s path scores: one warp a window of a B2 launch, reading B2's ragged
-planes in place; its plain version `backtrack_windows_torch` runs the pick
+`-G`'s path scores: on the card one block a window of a B2 launch
+(`csrc/backtrack_windows.cu`), whose walker warp reads B2's ragged planes
+from shared-memory tiles that its loader warp stages ahead of it
+(`tile_shape`); its plain version `backtrack_windows_torch` runs the pick
 and `backtrack_torch` window by window.
 """
 from __future__ import annotations
@@ -247,6 +249,38 @@ def backtrack_torch(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
 # ----------------------------------------------------------------- X1w
 HEADER = 11  # [n_ops, fin_i, fin_j, n_aln, n_match, start_i, start_j, err,
 #               best_score, best_i, best_j]
+
+# X1w's tile (csrc/backtrack_windows.cu `tile_shape`, which this mirrors):
+# C columns, at most 256 rows, pre_idx/pre_score staged up to 32 slots, two
+# stages in a block's 227 KB after a 32-int control block and mat
+TILE_COLS = 32
+_MAX_ROWS, _MAX_STAGED_P, _SMEM_BYTES, _CTL = 256, 32, 232448, 32
+
+
+def tile_shape(gap_mode: int, P: int, path_score: bool, m: int,
+               cols: int = TILE_COLS) -> dict:
+    """X1w's tile for a launch: R rows x C columns of the planes the gap
+    mode reads (H; H, E1, F1; all five), the rows' tables (pre_idx and
+    pre_score only up to 32 slots) and the query's C bases, two stages to a
+    block. `cols` is the kernel's compile-time C (a build of the source
+    with another `X1W_TILE_COLS` has its own)."""
+    r4 = lambda x: (x + 3) & ~3  # noqa: E731
+    planes = (1 if gap_mode == C.LINEAR_GAP else
+              5 if gap_mode == C.CONVEX_GAP else 3)
+    staged = P if P <= _MAX_STAGED_P else 0
+    tabs = (2 if path_score else 1) if staged else 0
+    mat = _CTL + r4(m * m)
+    half = (_SMEM_BYTES // 4 - mat) // 2
+    stride = cols + 4
+    rows = (half - (16 + 4 * tabs + stride)) // (4 + staged * tabs
+                                                  + planes * (stride + 1))
+    R = min(rows, _MAX_ROWS) & ~7
+    pre = R * staged + 4 if staged else 0
+    stage = 4 * (R + 4) + pre * tabs + stride + planes * R * (stride + 1)
+    return {"R": R, "C": cols, "planes": planes, "staged_p": staged,
+            "smem": 4 * (mat + 2 * stage)}
+
+
 _WNAMES = ("planes", "begend", "mplr", "ext", "pre_idx", "pre_cnt", "base",
            "scalars", "roff", "mat", "query", "plan")
 
@@ -306,8 +340,9 @@ def backtrack_windows(planes, begend, mplr, ext, pre_idx, pre_cnt, base,
     output the header (`HEADER` ints), the window's final [mpl..., mpr...]
     (2 gn) and its ops (max_ops, 2) [op, row] in walk order (op 0 match, 1
     deletion, 2 insertion; rows past n_ops undefined). For CUDA tensors one
-    warp a walk runs it on the card (`csrc/backtrack.cu`), for CPU tensors
-    `backtrack_windows_torch`."""
+    block a walk runs it on the card (`csrc/backtrack_windows.cu`: a walker
+    warp on shared-memory tiles of the planes, a loader warp that stages
+    them), for CPU tensors `backtrack_windows_torch`."""
     args = (planes, begend, mplr, ext, pre_idx, pre_cnt, base, scalars, roff,
             mat, query, plan)
     R, W, P = _check_windows(args)

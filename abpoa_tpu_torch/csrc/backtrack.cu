@@ -29,8 +29,6 @@
 // while one of the two is still missing. Every lane keeps the walk's state,
 // so no value is broadcast but the chosen predecessor; lane 0 writes the
 // op stream.
-#include <climits>
-
 #include <cuda_runtime.h>
 
 namespace {
@@ -66,11 +64,12 @@ struct Planes {
   }
 };
 
-// The walk of X1 and X1w from cell (i, j) back to row 0 (or, in local
-// mode, to a zero cell): ops written by lane 0, the end cell, the counts,
-// err, and the cell the last step started from. With PS (X1w with `-G`)
-// each predecessor slot's path score pre_score[i * P + k] enters every
-// equality that crosses to that predecessor (jax_backtrack.py:73-110).
+// The walk of X1 from cell (i, j) back to row 0 (or, in local mode, to a
+// zero cell): ops written by lane 0, the end cell, the counts, err, and the
+// cell the last step started from. With PS each predecessor slot's path
+// score pre_score[i * P + k] enters every equality that crosses to that
+// predecessor (jax_backtrack.py:73-110); X1w (backtrack_windows.cu) walks
+// the same chain from shared-memory tiles.
 struct Walk {
   int i, j, n_ops, n_aln, n_match, err, si, sj;
 };
@@ -258,128 +257,6 @@ backtrack_kernel(Planes pl, const int* __restrict__ pre_idx,
   }
 }
 
-// Kernel X1w: the walk of X1 over the windows of one B2 launch, one warp a
-// window, after the best cell.
-//
-// Replaces: abpoa_tpu/align/jax_backtrack.py `device_backtrack` as
-// jax_backend.py `_dp_full_batch` vmaps it over a seeded read's windows,
-// with `_dp_full`'s best cell of each mode (jax_backend.py:662-681). The
-// plain PyTorch version is `backtrack_windows_torch` in
-// align/backtrack_kernel.py.
-//
-// Walk k takes window plan[k][0] of the launch: its rows start at
-// roff[slot] in B2's ragged planes, tables and band (read in place, no
-// copy), and its scalars are B2's (scalars[12] its mode: 0 global, 1
-// extend, 2 local). The warp copies the window's final mpl/mpr into the
-// packed output and takes the best cell: in global mode over the end row's
-// predecessors in in-edge order (lane k takes slot k; the first strict
-// maximum wins, as jnp.argmax; an end row without predecessors picks row
-// 0), in extend and local mode B2's `ext` (extend's best-so-far, local's
-// first row of the largest row max at its leftmost column). It walks as X1
-// does (a local walk stops before a zero cell; PS adds the path scores),
-// recording the cell each step starts from. Lane 0 writes the header
-// [n_ops, fin_i, fin_j, n_aln, n_match, start_i, start_j, err, best_score,
-// best_i, best_j] and the op stream.
-//
-// What bounds it: as X1, the walk's chain of dependent loads; the launch
-// lasts as long as its longest window's walk.
-constexpr int kWalkWarps = 4;
-
-template <bool PS>
-__global__ void __launch_bounds__(32 * kWalkWarps)
-backtrack_windows_kernel(const int* __restrict__ planes,
-                         const int* __restrict__ begend,
-                         const int* __restrict__ mplr,
-                         const int* __restrict__ ext,
-                         const int* __restrict__ pre_idx_all,
-                         const int* __restrict__ pre_cnt_all,
-                         const int* __restrict__ base_all,
-                         const int* __restrict__ scalars,
-                         const int* __restrict__ roff,
-                         const int* __restrict__ mat,
-                         const int* __restrict__ query_all,
-                         const int* __restrict__ plan,
-                         const int* __restrict__ pre_score_all, int* packed,
-                         int n, int Rtot, int W, int P, int m, int gap_mode,
-                         int flags) {
-  const int k = blockIdx.x * kWalkWarps + threadIdx.x / 32;
-  if (k >= n) return;
-  const int lane = threadIdx.x & 31;
-  const int* pk = plan + 6 * k;
-  const int* sc = scalars + 16 * pk[0];
-  const int qlen = sc[0], inf = sc[3], e1 = sc[5], oe1 = sc[6], e2 = sc[8],
-            oe2 = sc[9], gn = sc[10], mode = sc[12];
-  const int r0 = roff[pk[0]];
-  const size_t plane = (size_t)Rtot * W;
-  const int* H0 = planes + (size_t)r0 * W;
-  const Planes pl{H0, H0 + plane, H0 + 2 * plane, H0 + 3 * plane,
-                  H0 + 4 * plane, begend + 2 * r0, begend + 2 * r0 + gn, W,
-                  false};
-  const int* pre_idx = pre_idx_all + (size_t)r0 * P;
-  const int* pre_cnt = pre_cnt_all + r0;
-  const int* base = base_all + r0;
-  const int* query = query_all + pk[1];
-  const int* pre_score = PS ? pre_score_all + (size_t)r0 * P : nullptr;
-
-  for (int t = lane; t < 2 * gn; t += 32) packed[pk[3] + t] = mplr[2 * r0 + t];
-
-  // the best cell: B2's in extend and local mode, else the best over the
-  // end row's predecessors
-  const int nsink = pre_cnt[gn - 1];
-  const int ncand = mode != 0 ? 0 : nsink > 0 ? nsink : 1;
-  int best = inf, best_i = 0, best_j = 0;
-  if (mode != 0) {
-    best = ext[4 * pk[0]];
-    best_i = ext[4 * pk[0] + 1];
-    best_j = ext[4 * pk[0] + 2];
-  }
-  for (int c0 = 0; c0 < ncand; c0 += 32) {
-    const int slot = c0 + lane;
-    const bool has = slot < ncand;
-    int p = 0, e = 0, v = INT_MIN, at = INT_MAX;
-    if (has) {
-      p = nsink > 0 ? pre_idx[(size_t)(gn - 1) * P + slot] : 0;
-      e = min(qlen, pl.end[p]);
-      v = pl.cell(pl.H, p, pl.beg[p], e, true, inf);
-      at = slot;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const int ov = __shfl_xor_sync(kFull, v, off);
-      const int oat = __shfl_xor_sync(kFull, at, off);
-      if (ov > v || (ov == v && oat < at)) {
-        v = ov;
-        at = oat;
-      }
-    }
-    const int bp = __shfl_sync(kFull, p, at - c0);
-    const int be = __shfl_sync(kFull, e, at - c0);
-    if (c0 == 0 || v > best) {
-      best = v;
-      best_i = bp;
-      best_j = be;
-    }
-  }
-
-  const Walk w = walk<PS>(pl, pre_idx, pre_cnt, base, query, mat,
-                          packed + pk[4], best_i, best_j, e1, oe1, e2, oe2,
-                          inf, pk[5], P, m, gap_mode,
-                          (flags & 3) | (mode == 2 ? 4 : 0), lane, pre_score);
-  if (lane == 0) {
-    int* hdr = packed + pk[2];
-    hdr[0] = w.n_ops;
-    hdr[1] = w.i;
-    hdr[2] = w.j;
-    hdr[3] = w.n_aln;
-    hdr[4] = w.n_match;
-    hdr[5] = w.si;
-    hdr[6] = w.sj;
-    hdr[7] = w.err;
-    hdr[8] = best;
-    hdr[9] = best_i;
-    hdr[10] = best_j;
-  }
-}
-
 }  // namespace
 
 // Launches the walk (one warp) on `stream` and returns a cudaError_t as an
@@ -404,35 +281,5 @@ extern "C" int abpoa_backtrack(const void* H, const void* E1, const void* E2,
                                     (const int*)query, (const int*)mat,
                                     (const int*)sc, (int*)ops, (int*)res, P,
                                     m, gap_mode, flags);
-  return (int)cudaGetLastError();
-}
-
-// Launches X1w, one warp a walk (n walks), on `stream`; returns a
-// cudaError_t as an int (0 = launched). `planes` is B2's (5, Rtot, W) int32
-// output, begend/mplr its (2 Rtot,) outputs, ext its (B, 4) best cells,
-// pre_idx (Rtot, P), pre_cnt and base (Rtot,), scalars (B, 16) and roff
-// (B + 1,) its inputs, pre_score its (Rtot, P) path scores or null; query
-// holds the walked windows' queries one after another, plan (n, 6) each
-// walk's [slot, query offset, header, band and op offsets in packed,
-// max_ops]. flags: 1 put_gap_on_right, 2 put_gap_at_end.
-extern "C" int abpoa_backtrack_windows(
-    const void* planes, const void* begend, const void* mplr,
-    const void* ext, const void* pre_idx, const void* pre_cnt,
-    const void* base, const void* scalars, const void* roff, const void* mat,
-    const void* query, const void* plan, const void* pre_score, void* packed,
-    int n, int Rtot, int W, int P, int m, int gap_mode, int flags,
-    void* stream) {
-  if (n < 1 || Rtot < 1 || W < 1 || P < 1 || m < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (n + kWalkWarps - 1) / kWalkWarps;
-  auto kern = pre_score ? backtrack_windows_kernel<true>
-                        : backtrack_windows_kernel<false>;
-  kern<<<blocks, 32 * kWalkWarps, 0, s>>>(
-      (const int*)planes, (const int*)begend, (const int*)mplr,
-      (const int*)ext, (const int*)pre_idx, (const int*)pre_cnt,
-      (const int*)base, (const int*)scalars, (const int*)roff,
-      (const int*)mat, (const int*)query, (const int*)plan,
-      (const int*)pre_score, (int*)packed, n, Rtot, W, P, m, gap_mode, flags);
   return (int)cudaGetLastError();
 }

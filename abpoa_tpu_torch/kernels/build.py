@@ -115,6 +115,8 @@ def load() -> ctypes.CDLL:
     lib.abpoa_backtrack.restype = ci
     lib.abpoa_backtrack_windows.argtypes = [vp] * 14 + [ci] * 7 + [vp]
     lib.abpoa_backtrack_windows.restype = ci
+    lib.abpoa_backtrack_windows_tile.argtypes = [ci] * 4 + [vp]
+    lib.abpoa_backtrack_windows_tile.restype = ci
     lib.abpoa_topo_sort.argtypes = [vp] * 19 + [ci] * 6 + [vp]
     lib.abpoa_topo_sort.restype = ci
     lib.abpoa_edge_sort.argtypes = [vp] * 10 + [ci] * 2 + [vp]

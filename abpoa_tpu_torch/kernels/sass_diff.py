@@ -14,8 +14,10 @@ source) every `fused_dp_kernel<CPT, GAP>` of the old source is held against
 the new source's `<CPT, GAP>` (with B2's seeded flag off where the source
 has one); for any other source every function of the old source is held
 against the new source's function of the same demangled name (functions
-only the new source has are not compared). One line per function; exits 1
-if any differs or is missing.
+only the new source has are not compared; those only the old one has, say
+a kernel moved to a file of its own, are listed as absent). One line per
+function; exits 1 if any function both have differs, if a B1
+instantiation is missing, or if nothing was compared.
 """
 from __future__ import annotations
 
@@ -104,18 +106,24 @@ def main(argv=None) -> int:
         # so nothing but their code tells them apart
         old, new = [get(_as(src, tmp, k), os.path.join(tmp, k))
                     for k, src in (("old", argv[0]), ("new", new_src))]
-    differ = 0
+    differ = absent = 0
     for key in sorted(old):
+        what = f"B1 <CPT {key[0]}, GAP {key[1]}>" if b1 else key
+        if key not in new and not b1:
+            absent += 1
+            print(f"{what}: not in the new source ({len(old[key])} lines)")
+            continue
         same = new.get(key) == old[key]
         differ += not same
-        what = f"B1 <CPT {key[0]}, GAP {key[1]}>" if b1 else key
         print(f"{what}: {'identical' if same else 'DIFFERS'} ({len(old[key])} lines)")
         if not same and key in new:  # where they part
             diff = difflib.unified_diff(old[key], new[key], lineterm="", n=1)
             print("\n".join(list(diff)[2:42]))
-    print(f"{len(old) - differ} of {len(old)} "
-          f"{'B1 instantiations' if b1 else 'functions'} identical")
-    return 1 if differ or not old else 0
+    compared = len(old) - absent
+    print(f"{compared - differ} of {compared} "
+          f"{'B1 instantiations' if b1 else 'functions'} identical"
+          + (f"; {absent} not in the new source" if absent else ""))
+    return 1 if differ or not compared else 0
 
 
 def _as(src: str, tmp: str, tag: str) -> str:

@@ -180,8 +180,11 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          line's banded_dp[unbanded] row takes C8's unbanded case; B2 batched (the banded_dp[windows] row) against its plain
          version on the first launch of C7 (a)'s last read: its windows at
          the graph the reads before it built, with the longest window alone;
-         X1w (the backtrack[windows] row) on that launch's planes, and on one
-         window of C5's per-read graph and the held-out read.
+         X1w (the backtrack[windows] row) on that launch's planes, then on
+         one window of C5's per-read graph and the held-out read, on C8's
+         whole-row planes (B2u, -b -1) and on C9's round-2 launch: each ==
+         plain, with its time, µs a step of the longest walk, bound and the
+         share of steps its tiles serve from shared memory (tile_replay).
          The plain versions of B1, B3 and B2 (a loop of small torch ops a
          row) run on CPU copies of the kernel's inputs, but for phase A's
          one-read B2 cases (the 20 kb read's wide planes); the others run
@@ -1019,6 +1022,184 @@ def x1w_bound(rates, inputs, want):
     return rates.bound(nb, ops)
 
 
+def tile_replay(inputs, kw, packed, cols=None) -> dict:
+    """X1w's tile rule (csrc/backtrack_windows.cu `walk_tiles`) replayed on
+    the walks of one launch (`backtrack_windows`' inputs and keywords, and
+    its plain output `packed` on the host), from each walk's start cell and
+    ops: which tile each step reads, given a tile's rows and columns
+    (`backtrack_kernel.tile_shape`; `cols`, another build's C). A step a
+    tile holds (row i, every predecessor of row i, columns j - 1 and j)
+    reads shared memory. Returns counts over the launch's walks: `steps`;
+    `held`, the steps the current tile holds after the stage change; the
+    steps the current tile did not hold before it, by what it missed first
+    (`rows`: row i; `far`: a predecessor below it; `columns`: column
+    j - 1); `changes` of stage; `loads`, tiles asked for (the first of each
+    walk included); `passed`, requests the walk passed below or left of
+    before it used them (waited for and asked again); and `share`, held /
+    steps."""
+    import numpy as np
+    from abpoa_tpu_torch.align.backtrack_kernel import tile_shape
+    pre_idx, pre_cnt, scalars, roff, mat, plan = (
+        inputs[4], inputs[5], inputs[7], inputs[8], inputs[9], inputs[11])
+    extra = {"cols": cols} if cols else {}
+    shape = tile_shape(kw["gap_mode"], pre_idx.shape[1],
+                       kw["pre_score"] is not None, mat.shape[1], **extra)
+    R, C = shape["R"], shape["C"]
+    pre = pre_idx.cpu().numpy()
+    cnt = pre_cnt.cpu().numpy()
+    pk = np.asarray(packed)
+    ro = roff.tolist()
+    out = dict(steps=0, held=0, rows=0, columns=0, far=0, changes=0, loads=0,
+               passed=0)
+
+    def box(ai, aj):  # rows [rlo, rhi], columns [clo, chi]
+        return max(ai - R + 1, 0), ai, aj - C + 1, aj
+
+    def holds(b, i, j, pmin):
+        return b[0] <= i <= b[1] and j - 1 >= b[2] and j <= b[3] and pmin >= b[0]
+
+    for slot, _, h, _, o, max_ops in plan.tolist():
+        n_ops, fin_i, fin_j = int(pk[h]), int(pk[h + 1]), int(pk[h + 2])
+        i, j = int(pk[h + 9]), int(pk[h + 10])
+        ops = pk[o: o + 2 * n_ops].reshape(n_ops, 2)
+        r0 = ro[slot]
+        cur, other = box(i, j), None
+        out["loads"] += 1
+        for t in range(n_ops):
+            if int(ops[t, 1]) != i:
+                raise AssertionError(f"tile_replay: op {t} of slot {slot} is "
+                                     f"at row {int(ops[t, 1])}, the walk at {i}")
+            c = int(cnt[r0 + i])
+            pmin = int(pre[r0 + i, :c].min()) if c else 1 << 30
+            if not holds(cur, i, j, pmin):
+                out["rows" if i < cur[0] else "far" if pmin < cur[0]
+                    else "columns"] += 1
+                if other is not None and holds(other, i, j, pmin):
+                    cur, other = other, None
+                    out["changes"] += 1
+            out["held"] += holds(cur, i, j, pmin)
+            i = int(ops[t + 1, 1]) if t + 1 < n_ops else fin_i
+            j -= int(ops[t, 0]) != 1
+            if t + 1 >= max_ops or i <= 0 or j <= 0:
+                continue
+            if other is not None and (i < other[0] or j - 1 < other[2]):
+                other = None
+                out["passed"] += 1
+            if other is None and (i <= cur[1] - R // 2 or j <= cur[3] - C // 2):
+                other = box(i, j)
+                out["loads"] += 1
+        if j != fin_j:
+            raise AssertionError(f"tile_replay: slot {slot}'s walk ends at "
+                                 f"column {j}, its header says {fin_j}")
+        out["steps"] += n_ops
+    out["share"] = out["held"] / max(1, out["steps"])
+    return out
+
+
+def x1w_report(rates, inputs, kw, want, tag: str, plain_ms=None) -> dict:
+    """X1w on the card at one launch (`backtrack_windows`' inputs and
+    keywords, the plain output `want` on the host): its time (CUDA events,
+    5 launches), the plain version's (host clock; `plain_ms` where the
+    caller timed it), the bound, µs a step of the longest walk and the share
+    of steps the tile rule serves from shared memory (`tile_replay`).
+    Logs one line; returns {ms, plain_ms, bound, us_step, replay}."""
+    from abpoa_tpu_torch.align.backtrack_kernel import (
+        backtrack_windows, backtrack_windows_torch, tile_shape)
+    ms = time_cuda(lambda: backtrack_windows(*inputs, **kw), 5)
+    if plain_ms is None:
+        plain_ms, _ = time_host(lambda: backtrack_windows_torch(*inputs, **kw))
+    bnd = x1w_bound(rates, inputs, want)
+    steps = [int(want[h]) for _, _, h, _, _, _ in inputs[11].tolist()]
+    rep = tile_replay(inputs, kw, want)
+    shape = tile_shape(kw["gap_mode"], inputs[4].shape[1],
+                       kw["pre_score"] is not None, inputs[9].shape[1])
+    us = ms * 1e3 / max(1, max(steps))
+    log(f"[D] X1w at {tag} ({len(steps)} windows, one block each; W "
+        f"{inputs[0].shape[2]}, tile {shape['R']} rows x {shape['C']} columns, "
+        f"{shape['smem']} B shared; steps min {min(steps)} / max {max(steps)} / "
+        f"sum {sum(steps)}): kernel == plain (headers, bands, ops); kernel "
+        f"{ms:.3f} ms ({us:.3f} us a step of the longest walk), plain "
+        f"{plain_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); steps from "
+        f"shared memory {rep['share'] * 100:.2f} % (missed by the current tile "
+        f"before a stage change: rows {rep['rows']}, far predecessor "
+        f"{rep['far']}, columns {rep['columns']}; {rep['changes']} stage "
+        f"changes, {rep['loads']} tiles, {rep['passed']} passed)")
+    return dict(ms=ms, plain_ms=plain_ms, bound=bnd, us_step=us, replay=rep)
+
+
+# X1w's tile fixtures (`tile_fixture`): the Params fields of each gap mode
+# and of each fixture
+TILE_GAPS = {"convex": {}, "affine": {"gap_open2": 0}, "linear": {"gap_open1": 0}}
+TILE_FIXTURES = {"bubble": {}, "gaps": {}, "local": {"align_mode": 1},
+                 "path scores": {"inc_path_score": True},
+                 "whole rows": {"wb": -1}}
+
+
+def tile_fixture(kind: str, gap: str):
+    """A graph and a query built to reach one branch of X1w's tile rule
+    (`tile_replay`), through the port's per-read route on the CPU, from an
+    800 bp random reference (seed 5) and reads of it at 1 % error:
+    - "bubble": two of the four graph reads carry a 300 bp insertion, so
+      the row after it has a predecessor 301 rows back, past any tile; the
+      query lacks it;
+    - "gaps": the query carries a 60 bp insertion and lacks 60 bp, runs
+      longer than a tile's columns;
+    - "local": local mode, the query's 500 middle bases and 80 random ones
+      after them: the walk starts and stops inside the graph;
+    - "path scores" and "whole rows": "gaps" with `-G` and with `-b -1`.
+    Returns (Params on the CPU, the sorted graph, the query)."""
+    import numpy as np
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.pipeline import Abpoa, _select_graph, poa, want_native
+    rng = np.random.default_rng(5)
+
+    def mutate(s, err=0.01):
+        out = []
+        for b in s.tolist():
+            r = rng.random()
+            if r < err / 3:
+                continue
+            if r < 2 * err / 3:
+                out.append(int(rng.integers(0, 4)))
+            out.append(int((b + 1 + rng.integers(0, 3)) % 4) if r < err else b)
+        return np.array(out, np.uint8)
+
+    ref = rng.integers(0, 4, 800).astype(np.uint8)
+    ins = rng.integers(0, 4, 300).astype(np.uint8)
+    if kind == "bubble":
+        alt = np.concatenate([ref[:400], ins, ref[400:]])
+        reads = [mutate(x) for x in (alt, ref, alt, ref)]
+        query = mutate(ref)
+    else:
+        reads = [mutate(ref) for _ in range(4)]
+        if kind == "local":
+            query = np.concatenate([ref[150:650], ins[:80]])
+        else:
+            query = np.concatenate([ref[:300], ins[:60], ref[300:500], ref[560:]])
+    p = Params(device="cpu", **TILE_GAPS[gap], **TILE_FIXTURES[kind]).finalize()
+    ab = Abpoa()
+    _select_graph(ab, want_native(p))
+    poa(ab, p, reads, [np.ones(len(r), np.int64) for r in reads], 0)
+    ab.graph.topological_sort(p)
+    return p, ab.graph, query
+
+
+def tile_launch(p, g, query):
+    """B2 (B2u for whole rows) on the device of Params `p` over one window,
+    the whole graph `g` and `query`, from the first band width up to the
+    one it fits: (the launch's inputs, its outputs, the row tables)."""
+    from abpoa_tpu_torch.align import banded
+    from abpoa_tpu_torch.align.banded_kernel import check_ok
+    from abpoa_tpu_torch.align.tables import build_row_tables, initial_band_width
+    t = build_row_tables(g, 0, 1, p)
+    W = initial_band_width(p, len(query))
+    while True:
+        ts, out = banded.run_windows(p, [t], [query], W)
+        if check_ok(out[7])[0]:
+            return ts, out, t
+        W = banded.next_band_width(W, len(query))
+
+
 def per_read_split(st: dict, fusion_s: float, n: int) -> str:
     """The per-read and seeded routes' time a read (ms) from `banded.stats`
     and the fusion's timer."""
@@ -1684,7 +1865,7 @@ def mode_inputs(dev, graphs, case, W=None):
 
 
 def mode_case(dev, graphs, case, rates, W=None, cs=None, sweep=(),
-              pooled=None, inputs=None) -> dict:
+              pooled=None, inputs=None, x1w_tag=None) -> dict:
     """One of MODE_CASES on the card: B2, or B2u for a whole-row case, on
     the whole graph against its plain version (on CPU copies, or in a
     worker of the PlainPool with `pooled`, the wait function of its
@@ -1695,8 +1876,10 @@ def mode_case(dev, graphs, case, rates, W=None, cs=None, sweep=(),
     overrides the band width, `cs` B2u's blocks a cluster; each B2u
     cluster size in `sweep` is held equal to the same plain version and
     timed. `inputs` are the case's `mode_inputs`, where the caller has
-    them. Returns {err, err_w (the DP's and X1w's max abs diff), ms,
-    plain_ms, bound, rows, line, name (the kernel line's row)}."""
+    them. With `x1w_tag`, X1w's time, bound and tile share on the case's
+    planes are logged under that tag (`x1w_report`). Returns {err, err_w
+    (the DP's and X1w's max abs diff), ms, plain_ms, bound, rows, line,
+    name (the kernel line's row)}."""
     import torch
     from abpoa_tpu_torch.align import banded
     from abpoa_tpu_torch.align.backtrack_kernel import (
@@ -1746,13 +1929,15 @@ def mode_case(dev, graphs, case, rates, W=None, cs=None, sweep=(),
         cin, ckw, _ = banded.walk_inputs(p, ts, got, [t], [query], [0])
     else:
         cin, ckw, _ = banded.walk_inputs(pc, tc, want, [t], [query], [0])
-    xw = backtrack_windows_torch(*cin, **ckw).cpu()
+    xw_ms, xw = time_host(lambda: backtrack_windows_torch(*cin, **ckw).cpu())
     h, b_at, o_at, _ = layout[0]
     n_ops = int(xw[h])
     sel = torch.cat([torch.arange(h, h + HEADER),
                      torch.arange(b_at, b_at + 2 * t.gn),
                      torch.arange(o_at, o_at + 2 * n_ops)])
     err_w = compare(f"backtrack_windows {tag}", [xg.cpu()[sel]], [xw[sel]])
+    if x1w_tag is not None:
+        x1w_report(rates, xin, xkw, xw, x1w_tag, plain_ms=xw_ms)
     P = t.pre_idx.shape[1]
     if unb:
         ls = cluster_shape(W, P, p.gap_mode, ps, cs)
@@ -2035,7 +2220,8 @@ def phase_c9(args, rates, plain) -> dict:
     first: every lane's graph is its first read) against its plain version
     (in `plain`, a PlainPool) and X1w's walk of it against X1w's plain
     version, with its time and bound. Returns the lockstep run's launches,
-    that launch's numbers and `finish()` (`lanes_check`'s)."""
+    that launch's numbers, `finish()` (`lanes_check`'s) and the launch
+    (Params, inputs, outputs, row tables, queries) for X1w's row in D."""
     import torch
     from abpoa_tpu_torch.align import banded, dp_chunk
     from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
@@ -2136,7 +2322,8 @@ def phase_c9(args, rates, plain) -> dict:
         f"a row of the longest lane), bound {bnd[0]:.4f} ms ({bnd[1]}); B2's "
         f"plain version runs in phase D")
     return {"b2": on["b2"], "x1w": on["x1w"], "err_w": err_w, "ms": ms,
-            "bound": bnd, "finish": finish}
+            "bound": bnd, "finish": finish,
+            "lanes": (p, ts, got, tabs, queries)}
 
 
 def phase_c10(args) -> dict:
@@ -2372,7 +2559,7 @@ def run(plain) -> int:
     from abpoa_tpu_torch.align import banded
     from abpoa_tpu_torch.align import fused_loop as fl
     from abpoa_tpu_torch.align.backtrack_kernel import (
-        backtrack, backtrack_torch, backtrack_windows, backtrack_windows_torch)
+        backtrack, backtrack_torch, backtrack_windows)
     from abpoa_tpu_torch.align.banded_kernel import (banded_dp, banded_dp_torch,
                                                      unbanded_dp)
     from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
@@ -3163,7 +3350,9 @@ def run(plain) -> int:
     for case, pooled, inputs in zip(cases_d, plain_d, inputs_d):
         whole = whole_row(case)
         r = mode_case(dev, graphs_d, case, rates, pooled=pooled, inputs=inputs,
-                      sweep=(4, 8, 16) if whole else ())
+                      sweep=(4, 8, 16) if whole else (),
+                      x1w_tag="C8's whole-row planes (B2u, -b -1)"
+                      if case == ("C8", "convex", "global-u", False) else None)
         max_err[r["name"]] = max(max_err[r["name"]], r["err"])
         max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], r["err_w"])
         log(f"[D] {r['line']}")
@@ -3361,19 +3550,10 @@ def run(plain) -> int:
     def x1w_at(tag, p, ts, got, tabs, queries):
         err, xin, xkw, xwant = x1w_check(p, ts, got, tabs, queries, f"D {tag}")
         max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], err)
-        ms = time_cuda(lambda: backtrack_windows(*xin, **xkw), 5)
-        plain_ms, _ = time_host(lambda: backtrack_windows_torch(*xin, **xkw))
-        bnd = x1w_bound(rates, xin, xwant)
-        steps = [int(xwant[h]) for _, _, h, _, _, _ in xin[11].tolist()]
-        log(f"[D] X1w at {tag} ({len(steps)} windows, one warp each; steps "
-            f"min {min(steps)} / max {max(steps)} / sum {sum(steps)}): kernel == "
-            f"plain (headers, bands, ops); kernel {ms:.3f} ms "
-            f"({ms * 1e3 / max(1, max(steps)):.3f} us a step of the longest "
-            f"walk), plain {plain_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
-        return ms, plain_ms, bnd
+        return x1w_report(rates, xin, xkw, xwant, tag)
 
-    x1w_ms, x1w_plain_ms, x1w_bnd = x1w_at(
-        "C7 (a)'s last read (the batched B2 above)", p7, ts, got, tabs7, q7)
+    x1w_row = x1w_at("C7 (a)'s last read (the batched B2 above)", p7, ts, got,
+                     tabs7, q7)
     del ts, want, got
     t5 = build_row_tables(graph5, 0, 1)
     ts = to_dev(banded.pack_windows(abpt, [t5], [qd], W2), dev)
@@ -3381,6 +3561,7 @@ def run(plain) -> int:
     x1w_at("C5's per-read graph (one window, the held-out read)", abpt, ts,
            got, [t5], [qd])
     del ts, got
+    x1w_at("C9's round-2 launch (8 lanes)", *c9["lanes"])
     # C9's round-2 launch against its plain version
     err, c9_plain_ms, rows9 = c9["finish"]()
     max_err["banded_dp[lanes]"] = err
@@ -3418,12 +3599,11 @@ def run(plain) -> int:
         entry("backtrack", "abpoa_tpu_torch/csrc/backtrack.cu",
               "abpoa_tpu/align/fused_loop.py:601", launches["backtrack"],
               x1_ms, x1_plain_ms, x1_bound),
-        entry("backtrack[windows]", "abpoa_tpu_torch/csrc/backtrack.cu",
+        entry("backtrack[windows]", "abpoa_tpu_torch/csrc/backtrack_windows.cu",
               "abpoa_tpu/align/jax_backtrack.py:29",
               x1w_c2 + x1w_c5 + x1w_c6 + x1w_c7 + c8["launched"]["x1w"]
               + c9["x1w"] + c10["x1w"],
-              x1w_ms, x1w_plain_ms,
-              x1w_bnd),
+              x1w_row["ms"], x1w_row["plain_ms"], x1w_row["bound"]),
         entry("edge_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
               "abpoa_tpu/align/fused_loop.py:145", launches["edge_sort"],
               s1_ms, s1_plain_ms, s1_bound_d),

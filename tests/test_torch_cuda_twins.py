@@ -421,29 +421,40 @@ def test_restored_graph_routes_on_card_match_cpu(flags, route):
 def test_backtrack_windows_kernel_matches_plain_on_card(gap, flags, tmp_path):
     """X1w on the card == its plain version (headers, bands, ops) over the
     windows of sim2k's 4th read at -S -k 11 -w 5 -n 50, at the first W
-    and at W = 64 (where some windows overflow and are not walked), and
-    over the 5th read aligned whole (one window)."""
+    and at W = 64 (where some windows overflow and are not walked), over
+    the 5th read aligned whole against the final graph (one window), over
+    one launch of 200 windows of sim2k's seeded reads (more blocks than the
+    card has SMs: they run in waves), and over the tile fixtures
+    (`chip_smoke.tile_fixture`: a predecessor past any tile, insertion and
+    deletion runs past a tile's columns, a local walk, -G, a -b -1
+    whole-row window on B2u), whose walks must also change stage."""
     from abpoa_tpu_torch.align import banded
     from abpoa_tpu_torch.align.banded_kernel import banded_dp
     from abpoa_tpu_torch.align.tables import build_row_tables, initial_band_width
     reads = read_fastx(os.path.join(DATA_DIR, "sim2k.fa"))
-    fa = str(tmp_path / "sim2k_4.fa")
+    fa = str(tmp_path / "sim2k.fa")
     with open(fa, "w") as fp:
-        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in reads[:4]))
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in reads))
     calls, undo = chip_smoke.record_windows()
     try:
         ab = chip_smoke.run_pipeline(
-            [fa, *chip_smoke.SIM2K_WINDOWS, *flags, "--device", "cpu"],
+            [fa, *chip_smoke.SIM2K_WINDOWS, *flags, "--device", "cuda"],
             str(tmp_path / "out.fa"))
     finally:
         undo()
     p = make_params(**GAPS[gap])
     p.device = "cuda"
     p.finalize()
-    tabs, queries, _ = calls[-1]["launches"][0]
-    t5 = build_row_tables(ab.graph, 0, 1)
+    assert len(calls) == len(reads)  # one a read; the first aligns nothing
+    tabs, queries, _ = calls[3]["launches"][0]  # the 4th read's windows
+    t_all = build_row_tables(ab.graph, 0, 1)
+    many = [(t, q) for c in calls[1:]
+            for t, q in zip(*c["launches"][0][:2])][:200]
+    assert len(many) == 200
     cases = [(tabs, queries, max(initial_band_width(p, len(q)) for q in queries)),
-             (tabs, queries, 64), ([t5], [encode(p, reads[4].seq)], None)]
+             (tabs, queries, 64), ([t_all], [encode(p, reads[4].seq)], None),
+             ([t for t, _ in many], [q for _, q in many],
+              max(initial_band_width(p, len(q)) for _, q in many))]
     for tb, qs, W in cases:
         W = W or initial_band_width(p, len(qs[0]))
         ts = chip_smoke.to_dev(banded.pack_windows(p, tb, qs, W), _card())
@@ -451,6 +462,37 @@ def test_backtrack_windows_kernel_matches_plain_on_card(gap, flags, tmp_path):
         torch.cuda.synchronize()
         assert any(out[7].tolist())
         assert chip_smoke.x1w_check(p, ts, out, tb, qs, f"{gap} W={W}")[0] == 0
+    for kind in chip_smoke.TILE_FIXTURES:
+        pc, g, query = chip_smoke.tile_fixture(kind, gap)
+        pc.device = "cuda"
+        pc.finalize()
+        ts, out, t = chip_smoke.tile_launch(pc, g, query)
+        torch.cuda.synchronize()
+        err, xin, xkw, want = chip_smoke.x1w_check(pc, ts, out, [t], [query],
+                                                   f"{gap} {kind}")
+        assert err == 0
+        assert chip_smoke.tile_replay(xin, xkw, want)["changes"] >= 1
+
+
+@pytest.mark.cuda
+def test_backtrack_windows_tile_shape_matches_its_mirror_on_card():
+    """The kernel library's X1w tile (`abpoa_backtrack_windows_tile`) is the
+    one `backtrack_kernel.tile_shape` (which tile_replay reads) describes."""
+    import ctypes
+    from abpoa_tpu_torch.align.backtrack_kernel import tile_shape
+    from abpoa_tpu_torch.kernels import build
+    _card()
+    lib = build.load()
+    out = (ctypes.c_int * 5)()
+    for gap in (C.LINEAR_GAP, C.AFFINE_GAP, C.CONVEX_GAP):
+        for P in (1, 4, 16, 32, 64):
+            for ps in (0, 1):
+                for m in (5, 27):
+                    assert lib.abpoa_backtrack_windows_tile(
+                        gap, P, ps, m, ctypes.cast(out, ctypes.c_void_p)) == 0
+                    want = tile_shape(gap, P, bool(ps), m)
+                    assert list(out) == [want["R"], want["C"], want["planes"],
+                                         want["staged_p"], want["smem"]]
 
 
 @pytest.fixture(scope="module")
