@@ -1,20 +1,27 @@
-"""Kernel S1, the per-read edge sort: wrapper and plain version.
+"""Kernel S1, the tail of a fusion (span update and edge sort): wrappers and
+plain versions.
 
-Counterpart of the XLA step `abpoa_tpu/align/fused_loop.py` `_edge_sort`
-(reference src/abpoa_graph.c:192-219), which follows every fusion: abPOA's
-weight-descending exchange sort of every node's in and out slots, with its
-unstable tie order (for each slot j, each later slot k with a strictly
-larger weight is swapped into j). Only the first `cnt` slots of a row take
-part; rows with count 0 (all rows past node_n) are copied unchanged. The
-same sort is pass 2 of kernel K1 (`topo_kernel.topo_sort`), which launches
-this kernel for it.
+Counterpart of the XLA steps that end each fusion of
+`abpoa_tpu/align/fused_loop.py` (:1446-1452): the whole-graph span update
+(`n_span + 1` below node_n) and `_edge_sort` (:145, reference
+src/abpoa_graph.c:192-219), abPOA's weight-descending exchange sort of
+every node's in and out slots with its unstable tie order (for each slot j,
+each later slot k with a strictly larger weight is swapped into j). Only
+the first `cnt` slots of a row take part.
 
-`edge_sort(...)` checks its inputs and, for CUDA tensors, launches the kernel
-in `csrc/topo_sort.cu` (or raises); for CPU tensors it runs `edge_sort_torch`,
-which is also the kernel's yardstick on the card.
+`finish_fusion_(...)` does both in place, in one launch of the kernel in
+`csrc/topo_sort.cu` for CUDA tensors (or raises), on the rows below node_n
+only: rows past it are neither read nor written (the fused loop keeps their
+counts at 0), and a row whose weights do not increase is not written (the
+sort leaves it as it is). For CPU tensors it runs `finish_fusion_torch_`,
+which is also the kernel's yardstick on the card. `edge_sort(...)` is the
+out-of-place sort of every row: a copy, then `finish_fusion_` over all N
+rows with no span; `edge_sort_torch` is its plain version. The same sort is
+pass 2 of kernel K1 (`topo_kernel.topo_sort`), which runs this launch on
+copies of its inputs.
 
 Inputs (int32, contiguous, one device): in_ids, in_w, out_ids, out_w (N, E);
-in_cnt, out_cnt (N,). Returns sorted copies of in_ids, in_w, out_ids, out_w.
+in_cnt, out_cnt (N,); node_n one element (None: all N rows); n_span (N,).
 """
 from __future__ import annotations
 
@@ -53,29 +60,68 @@ def check_slots(fn: str, args, names=_NAMES) -> tuple:
     return N, E
 
 
-def edge_sort(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt):
-    """The edge sort; see the module docstring."""
+def _check_extra(fn: str, N: int, dev, node_n, n_span) -> None:
+    for name, t, shape in (("node_n", node_n, None), ("n_span", n_span, (N,))):
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"{fn}: {name} must be an int32 tensor")
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device}, in_ids on {dev}")
+        if shape is None and t.numel() != 1:
+            raise ValueError(f"{fn}: node_n must hold one element")
+        if shape is not None and (t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"{fn}: n_span must be contiguous, shape {shape}")
+
+
+def finish_fusion_(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, node_n,
+                   n_span=None) -> None:
+    """The span update and edge sort in place; see the module docstring."""
     args = (in_ids, in_w, out_ids, out_w, in_cnt, out_cnt)
-    N, E = check_slots("edge_sort", args)
+    N, E = check_slots("finish_fusion_", args)
     dev = in_ids.device
+    _check_extra("finish_fusion_", N, dev, node_n, n_span)
     if dev.type == "cpu":
-        return edge_sort_torch(*args)
+        finish_fusion_torch_(*args, node_n, n_span)
+        return
     if dev.type != "cuda":
-        raise ValueError(f"edge_sort: unsupported device {dev}")
+        raise ValueError(f"finish_fusion_: unsupported device {dev}")
     lib = build.load()
+    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+        None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
-        out = torch.empty((4, N, E), dtype=torch.int32, device=dev)
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.abpoa_edge_sort(*(ptr(t) for t in args),
-                                  *(ptr(t) for t in out.unbind(0)), N, E,
-                                  ctypes.c_void_p(stream))
-    build.check(err, "edge_sort launch")
+        err = lib.abpoa_finish_fusion(*(ptr(t) for t in args), ptr(node_n),
+                                      ptr(n_span), N, E,
+                                      ctypes.c_void_p(stream))
+    build.check(err, "finish_fusion_ launch")
     edge_sort.launches += 1
-    return tuple(out.unbind(0))
 
 
+def edge_sort(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt):
+    """Sorted copies of in_ids, in_w, out_ids, out_w: every row by its
+    count (one launch of S1 on the copies)."""
+    args = (in_ids, in_w, out_ids, out_w, in_cnt, out_cnt)
+    check_slots("edge_sort", args)
+    copies = [t.clone() for t in args[:4]]
+    finish_fusion_(*copies, in_cnt, out_cnt, None)
+    return tuple(copies)
+
+
+# S1's launches, from `finish_fusion_` and so from `edge_sort` (K1's pass 2
+# counts as K1's)
 edge_sort.launches = 0
+
+
+def moving_rows(w: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """Which rows of w the exchange sort changes: those where a weight among
+    the first cnt is larger than the one before it."""
+    k = torch.arange(1, w.shape[1], device=w.device)
+    return ((w[:, 1:] > w[:, :-1]) & (k[None, :] < cnt[:, None])).any(1)
+
+
+def _rows(node_n, N: int) -> int:
+    return N if node_n is None else min(max(int(node_n.reshape(-1)[0]), 0), N)
 
 
 def sort_rows(ids: torch.Tensor, w: torch.Tensor, cnt: torch.Tensor):
@@ -97,3 +143,16 @@ def sort_rows(ids: torch.Tensor, w: torch.Tensor, cnt: torch.Tensor):
 def edge_sort_torch(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt):
     """The plain version of `edge_sort`."""
     return (*sort_rows(in_ids, in_w, in_cnt), *sort_rows(out_ids, out_w, out_cnt))
+
+
+def finish_fusion_torch_(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt,
+                         node_n=None, n_span=None) -> None:
+    """The plain version of `finish_fusion_`: `sort_rows` written back on
+    the rows below node_n that move, and n_span + 1 below node_n."""
+    n = _rows(node_n, in_ids.shape[0])
+    for ids, w, cnt in ((in_ids, in_w, in_cnt), (out_ids, out_w, out_cnt)):
+        rows = torch.nonzero(moving_rows(w[:n], cnt[:n])).flatten()
+        if rows.numel():
+            ids[rows], w[rows] = sort_rows(ids[rows], w[rows], cnt[rows])
+    if n_span is not None:
+        n_span[:n] += 1

@@ -8,7 +8,7 @@ device as dense tensors (`device_graph.DeviceGraph`); every read runs
   DP) -> best cell -> kernel X1 (`backtrack`) -> forward op stream ->
   fusion (`_fuse_vectorized`, or the sequential `fuse_alignment` on a
   group-root collision) -> span update and edge sort (kernel S1,
-  `edge_sort`, one launch) -> topological order by
+  `finish_fusion_`, one launch in place) -> topological order by
   splicing (`_splice_order`), repaired by kernel K1 (`topo_sort`) when the
   splice is not a valid order -> max_remain (`_remain_doubling`)
 
@@ -50,7 +50,7 @@ from .backtrack_kernel import backtrack
 from .buckets import (bucket_pow2, chunk_node_cap, grow_node_cap,
                       plan_chunk_buckets)
 from .device_graph import DeviceGraph, fuse_alignment, init_device_graph
-from .edge_sort_kernel import edge_sort
+from .edge_sort_kernel import finish_fusion_
 from .fused_dp_kernel import fused_dp, row0_planes
 from .oracle import (INT16_MIN, INT32_MIN, dp_inf_min, int16_score_limit,
                      max_score_bound)
@@ -285,14 +285,6 @@ def _add_at(arr: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     lin = rows * K + cols.to(torch.int64)
     ok = valid & (rows >= 0) & (rows < S)
     return spill_scatter(arr.reshape(-1), lin, ok, vals, op="add").view(S, K)
-
-
-def _edge_sort(g: DeviceGraph) -> DeviceGraph:
-    """fused_loop.py:145: every node's in and out slots sorted by weight,
-    in one launch of kernel S1."""
-    in_ids, in_w, out_ids, out_w = edge_sort(g.in_ids, g.in_w, g.out_ids,
-                                             g.out_w, g.in_cnt, g.out_cnt)
-    return g._replace(in_ids=in_ids, in_w=in_w, out_ids=out_ids, out_w=out_w)
 
 
 def _remain_doubling(g: DeviceGraph) -> torch.Tensor:
@@ -810,7 +802,7 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
             _fuse_vectorized(g, fwd_op, fwd_arg, n_fwd, query_u, qlen,
                              weight_u)
     with _step("edge_sort"):
-        g2s = _finish_fusion(g2)
+        g2s = _finish_fusion(g2, g)
     # the splice and its check, speculatively: they stand unless the read
     # collides (then the Kahn repair orders the sequentially fused graph)
     with _step("splice"):
@@ -828,7 +820,7 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
         g_seq, seq_path = fuse_alignment(
             g, fwd_op, fwd_arg, min(_sync_read(n_fwd), run.max_ops),
             query_u, qlen, weight_u)
-        g2s = _finish_fusion(g_seq)
+        g2s = _finish_fusion(g_seq, g)
         n2 = int(g2s.node_n)
         g2_ok = int(g2s.ok)
     err = (ERR_NODE_CAP if n2 + 2 > N else ERR_BAND_CAP if overflow
@@ -873,14 +865,23 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
     return ERR_OK, new, n2
 
 
-def _finish_fusion(g2: DeviceGraph) -> DeviceGraph:
+_FINISHED = ("in_ids", "in_w", "out_ids", "out_w", "n_span")
+
+
+def _finish_fusion(g2: DeviceGraph, g: DeviceGraph) -> DeviceGraph:
     """The whole-graph span update (abpoa_graph.c:559-571) and the edge
-    sort that follow every fusion (fused_loop.py:1447-1452)."""
-    N = g2.base.shape[0]
-    nodes = torch.arange(N, dtype=torch.int32, device=g2.base.device)
-    g2 = g2._replace(n_span=torch.where(nodes < g2.node_n, g2.n_span + 1,
-                                        g2.n_span))
-    return _edge_sort(g2)
+    sort that follow every fusion (fused_loop.py:1447-1452): one launch of
+    kernel S1, in place on g2's slot arrays and n_span, rows below node_n.
+    `g` is the graph g2 was fused from, the state's: a read that reports an
+    error runs again from it, so g2 must share no storage with it."""
+    held = {t.untyped_storage().data_ptr() for t in g.tensors().values()}
+    for name in _FINISHED:
+        if getattr(g2, name).untyped_storage().data_ptr() in held:
+            raise RuntimeError(f"fused loop: the fused graph's {name} shares "
+                               "storage with the state's graph")
+    finish_fusion_(g2.in_ids, g2.in_w, g2.out_ids, g2.out_w, g2.in_cnt,
+                   g2.out_cnt, g2.node_n, g2.n_span)
+    return g2
 
 
 def run_fused_chunk(run: _Run, st: FusedState, node_n: int):

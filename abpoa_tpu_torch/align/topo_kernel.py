@@ -8,10 +8,12 @@ when the spliced order is not a valid topological order:
      where a node is queued only when its whole aligned group has in-degree
      0, and then its group follows it (aligned-group atomicity);
   2. abPOA's weight-descending exchange sort of every node's edge slots, with
-     its (unstable) tie order: kernel S1 (`edge_sort_kernel`);
+     its (unstable) tie order: kernel S1 (`edge_sort_kernel`), on copies;
   3. a reverse BFS from the sink for max_remain: remain[v] is remain of v's
      heaviest out-edge target (slot 0 after the sort) plus one.
-On the card (`csrc/topo_sort.cu`) pass 2 is S1's launch over the whole card,
+On the card (`csrc/topo_sort.cu`) pass 2 copies the four slot arrays into
+the sorted outputs on the stream and runs S1's in-place launch on the copies
+over all N rows (`edge_sort_kernel.finish_fusion_`'s kernel, no span update),
 a second launch writes each node's records (pass 1's: its out slots and
 their targets' groups; pass 3's: its sorted in slots and out slot 0), and
 the two BFS passes run in one block: one warp visits a node at a time with

@@ -2,9 +2,11 @@
 // topological order (K1), written for Hopper (sm_90a).
 //
 // Replaces:
-//   S1  the XLA step abpoa_tpu/align/fused_loop.py `_edge_sort`: abPOA's
-//       weight-descending exchange sort of every node's in and out slots,
-//       with its unstable tie order (src/abpoa_graph.c:192-219);
+//   S1  the XLA steps that end a fusion in abpoa_tpu/align/fused_loop.py
+//       (:1446-1452): the whole-graph span update (n_span + 1 below node_n)
+//       and `_edge_sort` (:145), abPOA's weight-descending exchange sort of
+//       every node's in and out slots, with its unstable tie order
+//       (src/abpoa_graph.c:192-219);
 //   K1  the XLA function abpoa_tpu/align/device_graph.py `topo_sort`
 //       (reference src/abpoa_graph.c:192-357), run when the spliced order of
 //       the fused loop is not a valid topological order. Three passes:
@@ -14,24 +16,41 @@
 //         2. the exchange sort of S1;
 //         3. reverse BFS from the sink: remain[v] = remain[heaviest
 //            out-edge target] + 1 (slot 0 after the sort), -1 at the sink.
-// The plain PyTorch versions are `edge_sort_torch` (align/edge_sort_kernel.py)
-// and `topo_sort_torch` (align/topo_kernel.py, whose pass 2 is
-// `edge_sort_torch`); both kernels must agree with them exactly.
+// The plain PyTorch versions are `finish_fusion_torch_` and `edge_sort_torch`
+// (align/edge_sort_kernel.py) and `topo_sort_torch` (align/topo_kernel.py,
+// whose pass 2 is `edge_sort_torch`); the kernels must agree with them
+// exactly.
 //
-// What bounds them: S1 moves the node_n rows of four (N, E) int arrays in
-// and out and does a few comparisons a slot, so it is bound by bytes (about
-// 8 microseconds at the headline's final graph, node_n = 52163, E = 16).
-// K1's two BFS passes visit ~node_n nodes one after another; each visit is
-// a few dependent loads (the node's slots, the targets' degrees, their
-// aligned groups) and the warp's own steps, so the passes are bound by the
-// latency of that chain, far from the card's bytes and operations.
+// What bounds them: S1 follows one read's fusion, which changed only the
+// rows of that read's path (a weight raised by the read's weight, or an edge
+// appended last at the read's weight, which ties or loses and so never
+// swaps). It must read both counts and n_span below node_n, the weights of
+// the rows with two or more slots, and read and write the few hundred rows
+// that move: about a megabyte at the headline's final graph (node_n =
+// 52163, E = 16), well under a microsecond of HBM time, so the launch itself
+// sets its floor. K1's two BFS passes visit ~node_n nodes one after another;
+// each visit is a few dependent loads (the node's slots, the targets'
+// degrees, their aligned groups) and the warp's own steps, so the passes are
+// bound by the latency of that chain, far from the card's bytes and
+// operations.
 //
 // What the design does about it:
-//  - S1 is one launch over the whole card: a block stages 32-128 rows of
-//    one side (in or out) in shared memory with coalesced loads, one thread
-//    sorts each row there (rows padded to E + 1 words, so the threads' rows
-//    fall in different banks), and the block writes the rows back. Rows past
-//    node_n have count 0 and are copied unchanged. K1's pass 2 is this launch.
+//  - S1 is one launch, in place, one thread a row and a side (blockIdx.y: 0
+//    in, 1 out). It reads node_n on the card (no host sync); a block whose
+//    rows all lie past node_n returns, and rows past node_n are neither read
+//    nor written. Side 0 adds 1 to n_span below node_n (when given). A row
+//    with two or more slots reads its weights (16-byte loads where E is a
+//    multiple of 4) and stops at the first weight above the one before it;
+//    a row without one is left exactly as it is, since the exchange sort
+//    swaps only on a strictly larger later weight. Only the rows that move
+//    read their ids; the row's own thread runs the exchange sort on its
+//    copy in shared memory (rows padded to E + 1 words), so a warp's
+//    moving rows sort side by side, and writes it back. (A warp a row,
+//    where pass j is a prefix max of the later weights, was slower on the
+//    card at the fused loop's inputs and on tie-heavy rows: a warp's moving
+//    rows wait for each other; PERF.md.) K1's pass 2 copies its inputs into
+//    its outputs on the stream and runs this launch on them over all N rows
+//    with no span.
 //  - K1's two BFS passes run in one block, walked by one warp. The degrees
 //    live in shared memory as int8 when E <= 127 and N bytes fit, and in an
 //    int32 instantiation in device memory otherwise
@@ -59,7 +78,14 @@
 //    its neighbour's remain in device memory: shared-memory copies of
 //    either saved at most 1 % of K1's time at the headline's final graph.
 //
-// Traps (each has a test in tests/test_torch_edge_sort.py):
+// Traps (each has a test in tests/test_torch_edge_sort.py or, for S1's
+// in-place launch, tests/test_torch_finish_fusion.py):
+//  - S1 skips the rows past node_n, where the JAX step sorts every row: the
+//    fused loop keeps their counts at 0, and a caller without a node_n
+//    (`edge_sort`, K1's pass 2) gets all N rows sorted;
+//  - a read whose fusion reports an error runs again from the state's graph,
+//    so S1's in-place launch must not touch storage that graph holds
+//    (`fused_loop._finish_fusion` raises on a shared storage);
 //  - pass 1 walks the slots in the order given, not the sorted order (the
 //    fused loop hands K1 sorted slots, a general caller may not);
 //  - the group check of slot k reads the degrees as they are after slot k's
@@ -88,86 +114,125 @@ __device__ __forceinline__ void cp_async_commit_wait() {
 
 // ---------------------------------------------------------------- S1 ----
 
+// the sort of one row (abpoa_graph.c:192-219), slot j's
+// entry held in registers through its pass
 __device__ void exchange_sort(int* ids, int* w, int cnt) {
-  for (int j = 0; j < cnt; ++j)
+  for (int j = 0; j + 1 < cnt; ++j) {
+    int cw = w[j], ci = ids[j];
     for (int k = j + 1; k < cnt; ++k)
-      if (w[j] < w[k]) {
-        const int tw = w[j], ti = ids[j];
-        w[j] = w[k];
-        ids[j] = ids[k];
-        w[k] = tw;
-        ids[k] = ti;
+      if (cw < w[k]) {
+        const int tw = w[k], ti = ids[k];
+        w[k] = cw;
+        ids[k] = ci;
+        cw = tw;
+        ci = ti;
       }
+    w[j] = cw;
+    ids[j] = ci;
+  }
 }
 
-// blockIdx.y is the side (0 = in, 1 = out); blockDim.x rows a block.
-__global__ void edge_sort_kernel(
-    const int* __restrict__ in_ids, const int* __restrict__ in_w,
-    const int* __restrict__ out_ids, const int* __restrict__ out_w,
-    const int* __restrict__ in_cnt, const int* __restrict__ out_cnt,
-    int* __restrict__ s_in_ids, int* __restrict__ s_in_w,
-    int* __restrict__ s_out_ids, int* __restrict__ s_out_w, int N, int E) {
+// Whether the exchange sort moves the row: some weight among its first cnt
+// is larger than the one before it. VEC: 16-byte loads (E a multiple of 4,
+// the row 16-byte aligned).
+template <bool VEC>
+__device__ __forceinline__ bool row_moves(const int* w, int cnt) {
+  int prev = 0x7fffffff;
+  if constexpr (VEC) {
+    for (int q = 0; q < cnt; q += 4) {
+      const int4 v = *reinterpret_cast<const int4*>(w + q);
+      const int a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (q + i < cnt && a[i] > prev) return true;
+        prev = a[i];
+      }
+    }
+  } else {
+    for (int k = 0; k < cnt; ++k) {
+      if (w[k] > prev) return true;
+      prev = w[k];
+    }
+  }
+  return false;
+}
+
+// One thread a row (blockIdx.y: 0 = in, 1 = out), in place; node_n null:
+// all N rows; n_span null: no span update.
+template <bool VEC>
+__global__ void finish_fusion_kernel(
+    int* __restrict__ in_ids, int* __restrict__ in_w, int* __restrict__ out_ids,
+    int* __restrict__ out_w, const int* __restrict__ in_cnt,
+    const int* __restrict__ out_cnt, const int* __restrict__ node_n,
+    int* __restrict__ n_span, int N, int E) {
   extern __shared__ int smem[];
+  const int n = node_n ? max(0, min(*node_n, N)) : N;
+  const int r0 = blockIdx.x * blockDim.x;
+  if (r0 >= n) return;  // every row of the block lies past node_n
   const bool out = blockIdx.y == 1;
-  const int* ids = out ? out_ids : in_ids;
-  const int* w = out ? out_w : in_w;
-  const int* cnt = out ? out_cnt : in_cnt;
-  int* d_ids = out ? s_out_ids : s_in_ids;
-  int* d_w = out ? s_out_w : s_in_w;
-  const int rows = blockDim.x, stride = E + 1;
-  int* r_ids = smem;
-  int* r_w = smem + rows * stride;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, N - r0);
-  const size_t base = (size_t)r0 * E;
-  const int total = nr * E;
-  for (int i = threadIdx.x; i < total; i += rows) {
-    const int r = i / E, k = i - r * E;
-    r_ids[r * stride + k] = ids[base + i];
-    r_w[r * stride + k] = w[base + i];
+  const int r = r0 + threadIdx.x;
+  const bool live = r < n;
+  if (!out && n_span && live) n_span[r] += 1;
+  int* ids = out ? out_ids : in_ids;
+  int* w = out ? out_w : in_w;
+  const int cnt = live ? min((out ? out_cnt : in_cnt)[r], E) : 0;
+  const bool moves = cnt >= 2 && row_moves<VEC>(w + (size_t)r * E, cnt);
+  if (!moves) return;
+  const int stride = E + 1;
+  int* r_ids = smem + threadIdx.x * stride;
+  int* r_w = smem + (blockDim.x + threadIdx.x) * stride;
+  int* g_ids = ids + (size_t)r * E;
+  int* g_w = w + (size_t)r * E;
+  for (int k = 0; k < cnt; ++k) {
+    r_ids[k] = g_ids[k];
+    r_w[k] = g_w[k];
   }
-  __syncthreads();
-  if ((int)threadIdx.x < nr) {
-    const int r = threadIdx.x;
-    exchange_sort(r_ids + r * stride, r_w + r * stride,
-                  min(cnt[r0 + r], E));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < total; i += rows) {
-    const int r = i / E, k = i - r * E;
-    d_ids[base + i] = r_ids[r * stride + k];
-    d_w[base + i] = r_w[r * stride + k];
+  exchange_sort(r_ids, r_w, cnt);
+  for (int k = 0; k < cnt; ++k) {
+    g_ids[k] = r_ids[k];
+    g_w[k] = r_w[k];
   }
 }
 
-// rows a block of S1 and its dynamic shared memory: up to 128 rows, fewer
-// (down to 32) while 2 x rows x (E + 1) ints pass 48 KB
-int edge_sort_rows(int E) {
+// rows a block and its dynamic shared memory: up to 128 rows, fewer (down
+// to 32) while 2 x rows x (E + 1) ints pass 48 KB
+int s1_rows(int E) {
   int rows = 128;
   while (rows > 32 && 2 * rows * (E + 1) * 4 > 48 * 1024) rows /= 2;
   return rows;
 }
 
-cudaError_t launch_edge_sort(const int* in_ids, const int* in_w,
-                             const int* out_ids, const int* out_w,
-                             const int* in_cnt, const int* out_cnt,
-                             int* s_in_ids, int* s_in_w, int* s_out_ids,
-                             int* s_out_w, int N, int E,
-                             cudaStream_t stream) {
-  const int rows = edge_sort_rows(E);
+template <bool VEC>
+cudaError_t launch_ff(int* in_ids, int* in_w, int* out_ids, int* out_w,
+                      const int* in_cnt, const int* out_cnt,
+                      const int* node_n, int* n_span, int N, int E,
+                      cudaStream_t stream) {
+  const int rows = s1_rows(E);
   const size_t smem = (size_t)2 * rows * (E + 1) * sizeof(int);
   if (smem > 232448) return cudaErrorInvalidValue;
+  auto kern = finish_fusion_kernel<VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        edge_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((N + rows - 1) / rows, 2);
-  edge_sort_kernel<<<grid, rows, smem, stream>>>(
-      in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, s_in_ids, s_in_w,
-      s_out_ids, s_out_w, N, E);
+  kern<<<grid, rows, smem, stream>>>(in_ids, in_w, out_ids, out_w, in_cnt,
+                                     out_cnt, node_n, n_span, N, E);
   return cudaGetLastError();
+}
+
+cudaError_t launch_finish_fusion(int* in_ids, int* in_w, int* out_ids,
+                                 int* out_w, const int* in_cnt,
+                                 const int* out_cnt, const int* node_n,
+                                 int* n_span, int N, int E,
+                                 cudaStream_t stream) {
+  const bool vec = E % 4 == 0 &&
+                   (((uintptr_t)in_w | (uintptr_t)out_w) & 15) == 0;
+  return vec ? launch_ff<true>(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt,
+                               node_n, n_span, N, E, stream)
+             : launch_ff<false>(in_ids, in_w, out_ids, out_w, in_cnt,
+                                out_cnt, node_n, n_span, N, E, stream);
 }
 
 // ---------------------------------------------------------------- K1 ----
@@ -532,24 +597,25 @@ cudaError_t launch_bfs(const BfsArgs& a, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// Launches S1 on `stream`: sorted copies of the four slot arrays. Returns a
+// Launches S1 on `stream`, in place on the four (N, E) slot arrays: the
+// exchange sort of the rows below *node_n (all N rows when node_n is null)
+// and, when n_span is not null, n_span + 1 below node_n. Returns a
 // cudaError_t as an int (0 = launched).
-extern "C" int abpoa_edge_sort(const void* in_ids, const void* in_w,
-                               const void* out_ids, const void* out_w,
-                               const void* in_cnt, const void* out_cnt,
-                               void* s_in_ids, void* s_in_w, void* s_out_ids,
-                               void* s_out_w, int N, int E, void* stream) {
+extern "C" int abpoa_finish_fusion(void* in_ids, void* in_w, void* out_ids,
+                                   void* out_w, const void* in_cnt,
+                                   const void* out_cnt, const void* node_n,
+                                   void* n_span, int N, int E,
+                                   void* stream) {
   if (N < 1 || E < 1) return (int)cudaErrorInvalidValue;
-  return (int)launch_edge_sort(
-      (const int*)in_ids, (const int*)in_w, (const int*)out_ids,
-      (const int*)out_w, (const int*)in_cnt, (const int*)out_cnt,
-      (int*)s_in_ids, (int*)s_in_w, (int*)s_out_ids, (int*)s_out_w, N, E,
-      (cudaStream_t)stream);
+  return (int)launch_finish_fusion(
+      (int*)in_ids, (int*)in_w, (int*)out_ids, (int*)out_w,
+      (const int*)in_cnt, (const int*)out_cnt, (const int*)node_n,
+      (int*)n_span, N, E, (cudaStream_t)stream);
 }
 
-// Launches K1 on `stream`: S1 into the sorted outputs (pass 2), the nodes'
-// records into `rec` (N x (record1_ints(E, A) + record3_ints(E)) ints: pass
-// 1's, then pass 3's), then the BFS block (passes 1 and 3). variant: 0 =
+// Launches K1 on `stream`: S1 on copies of the slots in the sorted outputs
+// (pass 2), the nodes' records into `rec` (N x (record1_ints(E, A) +
+// record3_ints(E)) ints: pass 1's, then pass 3's), then the BFS block (passes 1 and 3). variant: 0 =
 // int8 degrees in shared memory, 1 = int32 in device memory; C record cache
 // slots (a power of two). walks: a mask of the BFS passes to run (1 = pass
 // 1, 2 = pass 3); 3 is the function, the others exist only to time a walk
@@ -571,10 +637,20 @@ extern "C" int abpoa_topo_sort(const void* in_ids, const void* in_w,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int S1 = record1_ints(E, A), S3 = record3_ints(E);
-  cudaError_t err = launch_edge_sort(
-      (const int*)in_ids, (const int*)in_w, (const int*)out_ids,
-      (const int*)out_w, (const int*)in_cnt, (const int*)out_cnt,
-      (int*)s_in_ids, (int*)s_in_w, (int*)s_out_ids, (int*)s_out_w, N, E, st);
+  // pass 2: the inputs copied into the sorted outputs, then S1 in place on
+  // them over all N rows, no span
+  const size_t slot_bytes = (size_t)N * E * sizeof(int);
+  const void* src[4] = {in_ids, in_w, out_ids, out_w};
+  void* dst[4] = {s_in_ids, s_in_w, s_out_ids, s_out_w};
+  cudaError_t err;
+  for (int i = 0; i < 4; ++i) {
+    err = cudaMemcpyAsync(dst[i], src[i], slot_bytes,
+                          cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = launch_finish_fusion((int*)s_in_ids, (int*)s_in_w, (int*)s_out_ids,
+                             (int*)s_out_w, (const int*)in_cnt,
+                             (const int*)out_cnt, nullptr, nullptr, N, E, st);
   if (err != cudaSuccess) return (int)err;
   BfsArgs a;
   a.out_ids = (const int*)out_ids;

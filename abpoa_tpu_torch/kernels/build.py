@@ -119,8 +119,8 @@ def load() -> ctypes.CDLL:
     lib.abpoa_backtrack_windows_tile.restype = ci
     lib.abpoa_topo_sort.argtypes = [vp] * 19 + [ci] * 6 + [vp]
     lib.abpoa_topo_sort.restype = ci
-    lib.abpoa_edge_sort.argtypes = [vp] * 10 + [ci] * 2 + [vp]
-    lib.abpoa_edge_sort.restype = ci
+    lib.abpoa_finish_fusion.argtypes = [vp] * 8 + [ci] * 2 + [vp]
+    lib.abpoa_finish_fusion.restype = ci
     lib.abpoa_cuda_error_string.argtypes = [ci]
     lib.abpoa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

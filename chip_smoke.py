@@ -45,12 +45,14 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          (2048, where the JAX package picks pallas_fused_dp_local_hbm), X1
          (backtrack) on each variant's planes, and K1 (topo_sort) on a graph
          that needed a Kahn repair and on the adversarial graphs of
-         `k1_graph`, each in its two degree variants; S1 (edge_sort) on
-         the sim2k graphs and on `tie_graph` at E = 8, 16, 32, timed with
-         its bound: all outputs equal; then B1 and X1 on two
-         synthetic graphs (`synthetic_graph`): predecessors 70 rows back,
-         past B1's shared-memory ring, and 64 predecessor slots with the
-         backtrack's first hit in slot 40. B1/B3 are compared on the plane
+         `k1_graph`, each in its two degree variants; S1 on the sim2k
+         graphs and on `tie_graph` at E = 8, 16, 32, out of place over every
+         row (edge_sort) and in place below node_n with the span update
+         (finish_fusion_), timed on fresh copies with its bounds: all
+         outputs equal; then B1 and X1 on two synthetic graphs
+         (`synthetic_graph`): predecessors 70 rows back, past B1's
+         shared-memory ring, and 64 predecessor slots with the backtrack's
+         first hit in slot 40. B1/B3 are compared on the plane
          rows they compute (0..gn-2, or to the overflow row). A sweep of
          B1's column warps at W = 128 and of B3's at W = 2048, each shape
          held equal to the plain version
@@ -157,7 +159,10 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          the GAF byte-identical across them, the tables built once and
          their graph half uploaded once a run, check_walks; restore and
          tables seconds, reads/s, rounds, B2's ms a launch
-  D      at the graph phase C left and one more read: B1, X1, S1 and K1
+  D      at the graph phase C left and one more read: B1, X1, S1 (on the
+         read's fused graph before its sort, as the main path hands it
+         over; each timed launch on a fresh copy; rows moved
+         and the bound of what they need) and K1
          against their plain versions with times and bounds (B1 also per
          computed row, X1 per step, K1 per pass, in both degree variants
          and with its two walks' lengths), the share of predecessor reads
@@ -434,6 +439,78 @@ def time_cuda(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+# cycles of the sleep kernel the queued timings start behind (~50 ms at
+# the H100's 1980 MHz): far longer than the host takes to queue their runs
+SLEEP_CYCLES = 100_000_000
+
+
+def time_queued(launch, reps: int, warm) -> float:
+    """Mean ms of launch(i) for i < reps by CUDA events, after warm() runs
+    for at least two calls and 0.3 s. The launches wait behind a sleep
+    kernel, so the card runs them back to back and the time is the card's
+    alone, not its wrapper's host time as time_cuda's is for a small kernel
+    (raises if the card reached them before the host had queued the
+    last)."""
+    import torch
+    t0 = time.perf_counter()
+    for k in range(1000):
+        warm()
+        torch.cuda.synchronize()
+        if k >= 1 and time.perf_counter() - t0 >= 0.3:
+            break
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    e0.record()
+    for i in range(reps):
+        launch(i)
+    reached = e0.query()
+    e1.record()
+    e1.synchronize()
+    if reached:
+        raise AssertionError("the card ran out of queued work before the "
+                             "host had queued every launch")
+    return e0.elapsed_time(e1) / reps
+
+
+def time_s1(slots, cnts, node_n, n_span, reps: int) -> float:
+    """Mean ms of one S1 launch (`finish_fusion_`, in place; the span update
+    when n_span is given) on fresh copies of the four slot arrays and
+    n_span, a stack of reps made before the events, one launch a copy
+    (time_queued; the warm-up on a copy of its own, which its first launch
+    sorts: the later ones find nothing to move)."""
+    import torch
+    from abpoa_tpu_torch.align.edge_sort_kernel import finish_fusion_
+    stack = torch.stack(list(slots)).unsqueeze(0).repeat(reps, 1, 1, 1)
+    spans = (None if n_span is None
+             else n_span.unsqueeze(0).repeat(reps, 1))
+    warm = [t.clone() for t in slots]
+    warm_span = None if n_span is None else n_span.clone()
+    return time_queued(
+        lambda i: finish_fusion_(*stack[i].unbind(0), *cnts, node_n,
+                                 None if spans is None else spans[i]),
+        reps, lambda: finish_fusion_(*warm, *cnts, node_n, warm_span))
+
+
+def check_s1(name, slots, cnts, node_n, n_span):
+    """S1 as the loop runs it, on copies, against its plain version on
+    copies (on the card): the four slot arrays and n_span. Returns the max
+    abs difference (0) and the plain version's ms."""
+    import torch
+    from abpoa_tpu_torch.align.edge_sort_kernel import (finish_fusion_,
+                                                        finish_fusion_torch_)
+    copies = lambda: ([t.clone() for t in slots],  # noqa: E731
+                      None if n_span is None else n_span.clone())
+    p_slots, p_span = copies()
+    plain_ms, _ = time_host(lambda: finish_fusion_torch_(
+        *p_slots, *cnts, node_n, p_span))
+    want = p_slots + ([] if p_span is None else [p_span])
+    k_slots, k_span = copies()
+    finish_fusion_(*k_slots, *cnts, node_n, k_span)
+    torch.cuda.synchronize()
+    return compare(name, k_slots + ([] if k_span is None else [k_span]),
+                   want), plain_ms
+
+
 def time_host(fn):
     """(ms, result) of one fn() on the host clock, ended by a device sync."""
     import torch
@@ -702,6 +779,33 @@ def s1_bound(rates, args, n):
                           args[0].shape[1]) for t in args[4:6]))
     return rates.bound(2 * nbytes(t[:n] for t in args[:4])
                        + nbytes(t[:n] for t in args[4:6]), ops)
+
+
+def s1_need_bound(rates, args, n):
+    """S1 as the loop runs it (`finish_fusion_`, in place, rows below node_n
+    = n, span update on), counted from these inputs (args: the four slot
+    arrays and two counts). Bytes: both counts and n_span's entries (read
+    and written) below node_n; the weights in the counted slots of the rows
+    with two or more; the ids of the rows that move read once and their ids
+    and weights written once (the scan read their weights). Operations: a
+    compare a counted slot past the first of those rows, the exchange sort's
+    cnt (cnt - 1) / 2 compare-and-selects a moving row, an add a span
+    entry. Returns (bound, rows with count >= 2, rows that move), each side
+    summed."""
+    import torch
+    from abpoa_tpu_torch.align.edge_sort_kernel import moving_rows
+    E = args[0].shape[1]
+    nb, ops, multi, moved = 4 * 4 * n, float(n), 0, 0
+    for w, cnt in ((args[1], args[4]), (args[3], args[5])):
+        w, c = w[:n].cpu(), cnt[:n].cpu().clamp(0, E).long()
+        m = c >= 2
+        mv = moving_rows(w, c)
+        cm = c[mv]
+        nb += 4 * int(c[m].sum()) + 3 * 4 * int(cm.sum())
+        ops += float((c[m] - 1).sum()) + float((cm * (cm - 1) // 2).sum())
+        multi += int(m.sum())
+        moved += int(mv.sum())
+    return rates.bound(nb, ops), multi, moved
 
 
 def k1_chains(args):
@@ -2565,7 +2669,8 @@ def run(plain) -> int:
     from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
     from abpoa_tpu_torch.align.device_graph import fuse_alignment
     from abpoa_tpu_torch.align.edge_sort_kernel import (edge_sort,
-                                                        edge_sort_torch)
+                                                        edge_sort_torch,
+                                                        finish_fusion_)
     from abpoa_tpu_torch.align.fused_dp_kernel import (fused_dp,
                                                        fused_dp_torch,
                                                        launch_shape)
@@ -2833,23 +2938,36 @@ def run(plain) -> int:
         log(f"[A2] K1 {kind} (N={ka[0].shape[0]}, E={ka[0].shape[1]}, "
             f"A={ka[6].shape[1]}, node_n={int(ka[8][0])}, ok={int(want[7][0])}): "
             f"kernel == plain in the s8 and g32 variants")
-    # S1 on the sim2k graphs and the tie-heavy rows
+    # S1 on the sim2k graphs and the tie-heavy rows: out of place over every
+    # row (`edge_sort`), and in place below node_n with the span update as
+    # the loop runs it (`finish_fusion_`), each on fresh copies
     s1_cases = [(name, (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt,
-                        g.out_cnt), int(g.node_n))
+                        g.out_cnt), int(g.node_n), g.n_span)
                 for name, g in (("sim2k 3 reads", st3.g),
                                 ("sim2k 12 reads", st_k.g))]
-    s1_cases.append(("sim2k Kahn input", kahn_in[:6], int(kahn_in[8][0])))
-    s1_cases += [(f"ties E={E}", to_dev(tie_graph(E), dev), 80)
+    s1_cases.append(("sim2k Kahn input", kahn_in[:6], int(kahn_in[8][0]),
+                     None))
+    s1_cases += [(f"ties E={E}", to_dev(tie_graph(E), dev), 80, None)
                  for E in (8, 16, 32)]
-    for name, sa, n_rows in s1_cases:
+    for name, sa, n_rows, span in s1_cases:
         got = edge_sort(*sa)
         torch.cuda.synchronize()
         max_err["edge_sort"] = max(max_err["edge_sort"], compare(
             f"edge_sort {name}", got, edge_sort_torch(*sa)))
-        ms = time_cuda(lambda: edge_sort(*sa), 20)
+        if span is None:
+            span = torch.arange(sa[0].shape[0], dtype=torch.int32, device=dev)
+        nn = torch.tensor([n_rows], dtype=torch.int32, device=dev)
+        err, _ = check_s1(f"finish_fusion_ {name}", sa[:4], sa[4:6], nn, span)
+        max_err["edge_sort"] = max(max_err["edge_sort"], err)
+        ms = time_s1(sa[:4], sa[4:6], nn, span, 20)
         bnd = s1_bound(rates, sa, n_rows)
-        log(f"[A2] S1 {name} (N={sa[0].shape[0]}, E={sa[0].shape[1]}): kernel "
-            f"== plain; kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        need, multi, moved = s1_need_bound(rates, sa, n_rows)
+        log(f"[A2] S1 {name} (N={sa[0].shape[0]}, E={sa[0].shape[1]}, node_n "
+            f"{n_rows}; {multi} rows with 2+ slots, {moved} move): kernel == "
+            f"plain (out of place; in place with span); in place on fresh "
+            f"copies, queued: {ms:.4f} ms; bound of what it needs "
+            f"{need[0]:.5f} ms ({need[1]}), of a copy of every row "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
 
     lap("A2")
     # ---- B: goldens through the CLI on cuda (the fused route)
@@ -3101,8 +3219,9 @@ def run(plain) -> int:
         + ", ".join(f"{k} {per(dev_s[k])}/{per(host_s[k])}" for k in fl.STEPS)
         + f"; host waits in syncs {per(host_s['sync'])}; stream time outside "
         f"the steps {per(s['wall_s'] - sum(dev_s.values()))}")
-    log(f"[C] edge_sort per read: {per(dev_s['edge_sort'])} ms on the stream, "
-        f"{per(host_s['edge_sort'])} ms on the host ({launches['edge_sort']} "
+    log(f"[C] edge_sort (span update and S1) per read: "
+        f"{dev_s['edge_sort'] / n * 1e3:.4f} ms on the stream, "
+        f"{host_s['edge_sort'] / n * 1e3:.4f} ms on the host ({launches['edge_sort']} "
         f"S1 launches); topo_sort {per(dev_s['topo_sort'])} ms on the stream")
     log(f"[C] launches {launches}; read attempts {s['reads']}, host syncs "
         f"{s['syncs']} ({s['syncs'] / max(1, s['reads']):.3f} per attempt); "
@@ -3415,11 +3534,17 @@ def run(plain) -> int:
     q_d, w_d = bta[10], torch.ones_like(bta[10])
     coll_ms, g_seq = time_host(lambda: fl._finish_fusion(fuse_alignment(
         st_c.g, fwd_op, fwd_arg, min(int(n_fwd), max_ops), q_d, qlen_d,
-        w_d)[0]))
+        w_d)[0], st_c.g))
     vec = fl._fuse_vectorized(st_c.g, fwd_op, fwd_arg, n_fwd, q_d, qlen_d, w_d)
+    # S1's input on the main path: the held-out read fused, before its sort
+    g_un = vec[0]
+    s1_slots = [t.clone() for t in (g_un.in_ids, g_un.in_w, g_un.out_ids,
+                                    g_un.out_w)]
+    s1_cnts, s1_nn = (g_un.in_cnt, g_un.out_cnt), g_un.node_n.reshape(1)
+    s1_span = g_un.n_span.clone()
     same = "the read collides, so no comparison"
     if not bool(vec[4]):
-        g_vec = fl._finish_fusion(vec[0])
+        g_vec = fl._finish_fusion(vec[0], st_c.g)
         for k, t in g_vec.tensors().items():
             if not torch.equal(t, g_seq.tensors()[k]):
                 raise AssertionError(f"sequential and vectorised fusion differ on {k}")
@@ -3430,13 +3555,22 @@ def run(plain) -> int:
     g = st_c.g
     ka = (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt, g.out_cnt,
           g.aligned, g.aligned_cnt, g.node_n.reshape(1))
-    sa = ka[:6]
-    got = edge_sort(*sa)
-    torch.cuda.synchronize()
-    s1_plain_ms, want = time_host(lambda: edge_sort_torch(*sa))
-    max_err["edge_sort"] = max(max_err["edge_sort"], compare("edge_sort D", got, want))
-    s1_ms = time_cuda(lambda: edge_sort(*sa), 50)
-    s1_bound_d = s1_bound(rates, sa, int(g.node_n))
+    # S1 as the main path runs it: in place on the held-out read's fused
+    # graph, span update on; each timed launch on a fresh copy
+    sa = (*s1_slots, *s1_cnts)
+    n_d = int(s1_nn[0])
+    err, s1_plain_ms = check_s1("finish_fusion_ D", s1_slots, s1_cnts, s1_nn,
+                                s1_span)
+    max_err["edge_sort"] = max(max_err["edge_sort"], err)
+    s1_ms = time_s1(s1_slots, s1_cnts, s1_nn, s1_span, 50)
+    # as the out-of-place kernel's figure was taken: launches as fast as the
+    # host queues them, on one copy (its first launch sorts it; the later
+    # ones find nothing to move)
+    paced = [t.clone() for t in (*s1_slots, s1_span)]
+    s1_paced = time_cuda(lambda: finish_fusion_(*paced[:4], *s1_cnts, s1_nn,
+                                                paced[4]), 50)
+    s1_bound_d = s1_bound(rates, sa, n_d)
+    s1_need_d, s1_multi, s1_moved = s1_need_bound(rates, sa, n_d)
     # a yardstick only, a different function: a stable descending torch.sort
     # of each side's weights and the gather of its ids (abPOA's exchange sort
     # is unstable: no single torch call gives its tie order)
@@ -3445,10 +3579,16 @@ def run(plain) -> int:
             _, idx = torch.sort(w, dim=1, descending=True, stable=True)
             torch.gather(ids, 1, idx)
     ts_ms = time_cuda(torch_sort, 20)
-    log(f"[D] S1 on the final graph (N={sa[0].shape[0]}, E={sa[0].shape[1]}, "
-        f"node_n {int(g.node_n)}): kernel == plain; kernel {s1_ms:.4f} ms, plain "
-        f"{s1_plain_ms:.1f} ms, bound {s1_bound_d[0]:.4f} ms ({s1_bound_d[1]}); "
-        f"torch.sort + gather of both sides (a different function) {ts_ms:.4f} ms")
+    log(f"[D] S1 on the held-out read's fused graph before its sort (N="
+        f"{sa[0].shape[0]}, E={sa[0].shape[1]}): {n_d} rows below node_n, "
+        f"{s1_multi} with 2+ slots (both sides), {s1_moved} that the sort "
+        f"moves (plain version); kernel == plain (span on); in place on "
+        f"fresh copies, queued: {s1_ms:.4f} ms (on one copy as fast as the "
+        f"host queues it {s1_paced:.4f} ms); plain {s1_plain_ms:.1f} ms; bound of "
+        f"what these inputs need {s1_need_d[0]:.5f} ms ({s1_need_d[1]}), of "
+        f"a copy of every row below node_n {s1_bound_d[0]:.4f} ms "
+        f"({s1_bound_d[1]}); torch.sort + gather of both sides (a different "
+        f"function) {ts_ms:.4f} ms")
     got = topo_sort(*ka)
     torch.cuda.synchronize()
     k1_plain_ms, want = time_host(lambda: topo_sort_torch(*ka))
@@ -3467,10 +3607,14 @@ def run(plain) -> int:
     k1_walks = {name: time_cuda(lambda: topo_sort(*ka, walks=mask), 3)
                 for name, mask in (("neither", 0), ("pass 1", 1),
                                    ("pass 3", 2))}
-    log("[D] K1 by pass (ms): pass 2 (S1) {:.4f}; the launch with no walk "
-        "(S1 and the set-up) {:.3f}; pass 1 {:.3f}, pass 3 {:.3f} (each the "
-        "launch with that walk alone, less the launch with neither)".format(
-            s1_ms, k1_walks["neither"],
+    k1_pass2 = time_queued(lambda i: topo_sort(*ka, walks=0), 20,
+                           lambda: topo_sort(*ka, walks=0))
+    log("[D] K1 by pass (ms): the launch with no walk (pass 2: the slots "
+        "copied and S1 in place on the copies, which are sorted already; the "
+        "BFS block's set-up) {:.4f} as fast as the host queues it, {:.4f} "
+        "queued; pass 1 {:.3f}, pass 3 {:.3f} (each the launch with that "
+        "walk alone, less the launch with neither)".format(
+            k1_walks["neither"], k1_pass2,
             k1_walks["pass 1"] - k1_walks["neither"],
             k1_walks["pass 3"] - k1_walks["neither"]))
     got = topo_sort(*ka, variant="g32")
@@ -3606,7 +3750,7 @@ def run(plain) -> int:
               x1w_row["ms"], x1w_row["plain_ms"], x1w_row["bound"]),
         entry("edge_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
               "abpoa_tpu/align/fused_loop.py:145", launches["edge_sort"],
-              s1_ms, s1_plain_ms, s1_bound_d),
+              s1_ms, s1_plain_ms, s1_need_d),
         entry("topo_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
               "abpoa_tpu/align/device_graph.py:210", launches["topo_sort"],
               k1_ms, k1_plain_ms, k1_bound)]}), flush=True)

@@ -20,7 +20,10 @@ The cases are the ones the CPU test files hold against the JAX package:
   the three gap modes, some overflowed, and one whole-read window
   (against JAX in test_torch_windows_backtrack.py);
 - K1 (`topo_sort`) on graphs of the fused loop (`topo_graph_cases`; against
-  JAX in test_torch_fused_steps.py). S1 and K1 on the graphs made for their
+  JAX in test_torch_fused_steps.py), and S1 as the loop runs it
+  (`finish_fusion_`, in place, with and without the span update, each
+  launch on fresh copies; against JAX in
+  test_torch_finish_fusion.py). S1 and K1 on the graphs made for their
   traps are in test_torch_sort_twins.py;
 - the K-lane chunk of the lockstep and map routes: a K-lane B2 launch
   and X1w's walk of it (against JAX in test_torch_dp_chunk.py), and the
@@ -48,6 +51,8 @@ from abpoa_tpu_torch import constants as C
 from abpoa_tpu_torch.align import fused_loop as tfl
 from abpoa_tpu_torch.align.backtrack_kernel import backtrack, backtrack_torch
 from abpoa_tpu_torch.align.buckets import qp_rung
+from abpoa_tpu_torch.align.edge_sort_kernel import (finish_fusion_,
+                                                    finish_fusion_torch_)
 from abpoa_tpu_torch.align.fused_dp_kernel import (computed_rows, fused_dp,
                                                    fused_dp_torch, launch_shape)
 from abpoa_tpu_torch.align.oracle import INT16_MIN, INT32_MIN, dp_inf_min
@@ -248,14 +253,17 @@ def _bt_inputs(case):
 
 
 def topo_graph_cases():
-    """name -> port DeviceGraph: a fused-but-unsorted graph (seq.fa), a
-    sorted mid-run graph with aligned groups (heter.fa) and a larger one
-    (sim2k.fa)."""
+    """name -> port DeviceGraph: fused-but-unsorted graphs (seq.fa; sim2k.fa,
+    where rows move), a sorted mid-run graph with aligned groups (heter.fa)
+    and a larger one (sim2k.fa)."""
     out = {}
-    abpt, st, run, k, fwd = aligned_read("seq.fa", 6)
-    fwd_op, fwd_arg, n_fwd = fwd[:3]
-    out["seq-fused-unsorted"] = tfl._fuse_vectorized(
-        st.g, fwd_op, fwd_arg, n_fwd, run.seqs[k], run.lens[k], run.wgts[k])[0]
+    for name, fa, n in (("seq-fused-unsorted", "seq.fa", 6),
+                        ("sim2k-fused-unsorted", "sim2k.fa", 3)):
+        abpt, st, run, k, fwd = aligned_read(fa, n)
+        fwd_op, fwd_arg, n_fwd = fwd[:3]
+        out[name] = tfl._fuse_vectorized(
+            st.g, fwd_op, fwd_arg, n_fwd, run.seqs[k], run.lens[k],
+            run.wgts[k])[0]
     out["heter-sorted"] = port_state("heter.fa", 8, make_params())[0].g
     out["sim2k-sorted"] = port_state("sim2k.fa", 5, make_params())[0].g
     return out
@@ -359,6 +367,24 @@ def test_topo_sort_kernel_matches_plain_on_card(name, topo_graphs):
     got = topo_sort(*[t.to(dev).contiguous() for t in args])
     torch.cuda.synchronize()
     for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [False, True])
+@pytest.mark.parametrize("name", ["seq-fused-unsorted", "sim2k-fused-unsorted",
+                                  "heter-sorted", "sim2k-sorted"])
+def test_finish_fusion_kernel_matches_plain_on_card(name, span, topo_graphs):
+    dev = _card()
+    g = topo_graphs[name]
+    args = [t.clone() for t in (g.in_ids, g.in_w, g.out_ids, g.out_w,
+                                g.in_cnt, g.out_cnt, g.node_n.reshape(1),
+                                g.n_span)]
+    gpu = [t.to(dev) for t in args]
+    finish_fusion_(*gpu[:7], gpu[7] if span else None)
+    finish_fusion_torch_(*args[:7], args[7] if span else None)
+    torch.cuda.synchronize()
+    for a, b in zip(gpu[:4] + gpu[7:], args[:4] + args[7:]):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
 
 

@@ -11,7 +11,8 @@ JAX package, on graphs made to hit their traps.
   node queued twice (the queue passes N), a cycle (ok = 0), a 40-slot hub,
   groups that lie past 4096 words into a node's record, and a random DAG
   with aligned neighbours;
-- the fused loop runs S1 once per read attempt that reaches the fusion;
+- the fused loop runs S1 (`finish_fusion_`) once per read attempt that
+  reaches the fusion;
 - K1's launch shapes (degree variant and record cache) fit the card's
   shared memory;
 Every comparison is exact. The CUDA kernels are held against their plain
@@ -26,6 +27,7 @@ import jax.numpy as jnp
 
 import abpoa_tpu.align.device_graph as jdg
 import abpoa_tpu.align.fused_loop as jfl
+from abpoa_tpu_torch.align import edge_sort_kernel as esk
 from abpoa_tpu_torch.align import fused_loop as tfl
 from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort, edge_sort_torch
 from abpoa_tpu_torch.align.topo_kernel import (SMEM_MAX, launch_shape,
@@ -123,12 +125,15 @@ def test_edge_sort_checks_inputs():
 
 def test_fused_loop_sorts_once_per_attempt(monkeypatch):
     calls = []
+    plain = esk.finish_fusion_torch_
 
     def counting(*args):
         calls.append(1)
-        return edge_sort_torch(*args)
+        return plain(*args)
 
-    monkeypatch.setattr(tfl, "edge_sort", counting)
+    # the loop's S1 is `finish_fusion_`, which runs its plain version on
+    # the CPU
+    monkeypatch.setattr(esk, "finish_fusion_torch_", counting)
     abpt = make_params()
     tfl.reset_stats()
     port_state("heter.fa", 8, abpt)

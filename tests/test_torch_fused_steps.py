@@ -8,7 +8,8 @@
   equals `device_graph.topo_sort` on graphs carried across by `convert.py`,
   including one straight out of the fusion, before its edge sort;
 - the torch steps `_build_tables`, `_fuse_vectorized`, `_splice_order`,
-  `_edge_sort`, `_remain_doubling`, `_seed_state` and the sequential
+  `_finish_fusion` (kernel S1's plain version: the span update and the edge
+  sort, in place), `_remain_doubling`, `_seed_state` and the sequential
   `fuse_alignment` equal their JAX twins (a synthetic op stream covers a
   group-root collision, which no fixture produces).
 Every comparison is exact. The CUDA kernels X1 and K1 are compared with
@@ -183,8 +184,12 @@ def test_fuse_splice_sort_remain_match_jax(read_case):
     np.testing.assert_array_equal(order2.numpy(), np.asarray(j_order))
     np.testing.assert_array_equal(n2i2.numpy(), np.asarray(j_n2i))
 
-    gs = tfl._edge_sort(g2)
-    j_gs = jfl._edge_sort(want[0])
+    gs = tfl._finish_fusion(g2, st.g)
+    # the JAX loop's span update, then its sort (fused_loop.py:1446-1452)
+    jg = want[0]
+    nodes_r = jnp.arange(jg.n_span.shape[0], dtype=jnp.int32)
+    j_gs = jfl._edge_sort(jg._replace(
+        n_span=jnp.where(nodes_r < jg.node_n, jg.n_span + 1, jg.n_span)))
     assert_graph_equal(gs, j_gs)
 
     np.testing.assert_array_equal(tfl._remain_doubling(gs).numpy(),
