@@ -90,21 +90,88 @@ def backtrack(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base, query,
         return backtrack_torch(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"backtrack: unsupported device {dev}")
+    ops, res = _launch((*args[:12], sc.reshape(1, 8)), 1, R, W, P, None, R,
+                       **kw)
+    backtrack.launches += 1
+    return ops[0], res[0]
+
+
+def _launch(args, L: int, R: int, W: int, P: int, lanes, bstride: int, *,
+            max_ops: int, gap_mode: int, gap_on_right: bool,
+            put_gap_at_end: bool, local: bool):
+    """One launch of X1 over the lanes of `lanes` (host ints; None: all L),
+    lane b's rows R apart in the planes and tables, its beg/end bstride
+    ints apart. Returns ops (L, max_ops, 2), res (L, 6)."""
+    H, query, mat = args[0], args[10], args[11]
+    dev = H.device
     lib = build.load()
     flags = ((1 if gap_on_right else 0) | (2 if put_gap_at_end else 0)
              | (4 if local else 0) | (8 if H.dtype == torch.int16 else 0))
+    nl = L if lanes is None else len(lanes)
     with torch.cuda.device(dev):
-        ops = torch.zeros((max_ops, 2), dtype=torch.int32, device=dev)
-        res = torch.empty(6, dtype=torch.int32, device=dev)
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        ops = torch.zeros((L, max_ops, 2), dtype=torch.int32, device=dev)
+        res = torch.empty((L, 6), dtype=torch.int32, device=dev)
+        lanes_t = build.lane_list(lanes, dev)
+        ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+            None if t is None else t.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_backtrack(
-            *(ptr(t) for t in args), ptr(ops), ptr(res), R, W, P,
-            mat.shape[1], query.shape[0], int(max_ops), int(gap_mode), flags,
-            ctypes.c_void_p(stream))
+            *(ptr(t) for t in args), ptr(ops), ptr(res), ptr(lanes_t), R, W,
+            P, mat.shape[1], query.shape[-1], int(max_ops), int(gap_mode),
+            flags, nl, int(bstride), ctypes.c_void_p(stream))
     build.check(err, "backtrack launch")
-    backtrack.launches += 1
     return ops, res
+
+
+def backtrack_lanes(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
+                    query, mat, sc, *, max_ops: int, gap_mode: int,
+                    gap_on_right: bool, put_gap_at_end: bool, local: bool,
+                    lanes=None):
+    """The walks of L lanes in one launch of X1 (one warp a lane): each
+    input of `backtrack` with a leading lane axis (planes (L, R, W), beg
+    and end (L, R) with unit column stride, as B1's lanes give them, ...,
+    query (L, Q), sc (L, 8)); mat is shared. `lanes` (host ints) lists the
+    lanes to walk (None: all); the others' res is undefined on the card
+    (zero in the plain version). Returns ops (L, max_ops, 2), res (L, 6).
+    On the CPU the plain version walks lane by lane."""
+    args = (H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base, query, mat,
+            sc)
+    L = H.shape[0]
+    one = tuple(t if k == 11 else t[0].contiguous()
+                for k, t in enumerate(args))
+    R, W, P = _check_inputs(one)
+    for k, (name, t) in enumerate(zip(_NAMES, args)):
+        if k == 11:
+            continue
+        if t.shape[0] != L:
+            raise ValueError(f"backtrack_lanes: {name} must have {L} lanes")
+        if k in (5, 6):
+            if t.stride(1) != 1 or t.stride() != args[5].stride():
+                raise ValueError("backtrack_lanes: beg and end must share "
+                                 "one lane stride, unit column stride")
+        elif not t.is_contiguous():
+            raise ValueError(f"backtrack_lanes: {name} must be contiguous")
+    kw = dict(max_ops=max_ops, gap_mode=gap_mode, gap_on_right=gap_on_right,
+              put_gap_at_end=put_gap_at_end, local=local)
+    todo = list(range(L)) if lanes is None else [int(x) for x in lanes]
+    dev = H.device
+    if dev.type == "cpu":
+        ops = torch.zeros((L, max_ops, 2), dtype=torch.int32)
+        res = torch.zeros((L, 6), dtype=torch.int32)
+        for l in todo:
+            ops[l], res[l] = backtrack_torch(
+                *(t if k == 11 else t[l] for k, t in enumerate(args)), **kw)
+        return ops, res
+    if dev.type != "cuda":
+        raise ValueError(f"backtrack_lanes: unsupported device {dev}")
+    if not todo:
+        raise ValueError("backtrack_lanes: no lane to launch")
+    out = _launch(args, L, R, W, P, lanes, beg.stride(0), **kw)
+    backtrack_lanes.launches += 1
+    return out
+
+
+backtrack_lanes.launches = 0
 
 
 backtrack.launches = 0

@@ -12,12 +12,14 @@ zero, an invariant the vectorised fusion relies on.
 
 `fuse_alignment` is the sequential fusion the fused loop takes only when two
 mismatch columns of one read touch the same aligned-node group (a
-"collision"; none on the test fixtures and on the headline set). It walks the
-op stream in Python over the graph's first node_n rows, copied to the host
-once, and copies those rows back: the same steps as the JAX function, one op
-at a time. It also returns the node path the read took, which the fused loop
-records for the read-id outputs (the JAX loop hands such a run to its host
-loop instead).
+"collision"; none on the test fixtures and on the headline set), in the plain
+version of kernel F1 (`fuse_kernel.py`): it walks the op stream in Python
+over the graph's first node_n rows, copied to the host, and copies those rows
+back: the same steps as the JAX function, one op at a time, past a capacity
+too (a row past N reads as row N - 1 and takes no write, as JAX clamps its
+gathers and drops its scatters). It also returns the node path the read
+took, which the fused loop records for the read-id outputs (the JAX loop
+hands such a run to its host loop instead).
 """
 from __future__ import annotations
 
@@ -92,50 +94,61 @@ class _HostGraph:
                 kw[f.name] = t
         return DeviceGraph(**kw)
 
-    # ---- device_graph.py:62-116, one scalar step at a time
+    # ---- device_graph.py:62-116, one scalar step at a time. A row past
+    # the capacity N (a node id the walk made after it passed N) is read as
+    # row N - 1 and written nowhere, as JAX clamps a gather and drops a
+    # scatter out of range; the run is already marked failed.
+    def _r(self, row: int) -> int:
+        return min(row, self.N - 1)
+
     def add_edge(self, fr: int, to: int, check: bool, w: int) -> None:
         """Append-or-reweight fr->to (abpoa_graph.c:480-556)."""
-        E = self.E
-        o_ids, i_ids = self.out_ids[fr], self.in_ids[to]
-        o_slot = self.out_cnt[fr]
+        E, N = self.E, self.N
+        fr_r, to_r = self._r(fr), self._r(to)
+        o_ids, i_ids = self.out_ids[fr_r], self.in_ids[to_r]
+        o_slot = self.out_cnt[fr_r]
         o_exists = False
         if check:
-            for k in range(min(self.out_cnt[fr], E)):
+            for k in range(min(self.out_cnt[fr_r], E)):
                 if o_ids[k] == to:
                     o_slot, o_exists = k, True
                     break
-        i_slot = self.in_cnt[to]
+        i_slot = self.in_cnt[to_r]
         i_exists = False
         if check:
-            for k in range(min(self.in_cnt[to], E)):
+            for k in range(min(self.in_cnt[to_r], E)):
                 if i_ids[k] == fr:
                     i_slot, i_exists = k, True
                     break
         self.ok = self.ok and o_slot < E and i_slot < E
         # an out-of-range slot writes nowhere (JAX drops it); the run is
         # already marked failed and its state is discarded
-        if o_slot < E:
-            o_ids[o_slot] = to
-            self.out_w[fr][o_slot] = (self.out_w[fr][o_slot] + w
-                                      if o_exists else w)
-        if not o_exists:
-            self.out_cnt[fr] += 1
-        if i_slot < E:
-            i_ids[i_slot] = fr
-            self.in_w[to][i_slot] = (self.in_w[to][i_slot] + w
-                                     if i_exists else w)
-        if not i_exists:
-            self.in_cnt[to] += 1
-        self.n_read[fr] += 1
+        if fr < N:
+            if o_slot < E:
+                o_ids[o_slot] = to
+                self.out_w[fr][o_slot] = (self.out_w[fr][o_slot] + w
+                                          if o_exists else w)
+            if not o_exists:
+                self.out_cnt[fr] += 1
+            self.n_read[fr] += 1
+        if to < N:
+            if i_slot < E:
+                i_ids[i_slot] = fr
+                self.in_w[to][i_slot] = (self.in_w[to][i_slot] + w
+                                         if i_exists else w)
+            if not i_exists:
+                self.in_cnt[to] += 1
 
     def get_aligned_id(self, node_id: int, b: int) -> int:
-        ids = self.aligned[node_id]
-        for k in range(min(self.aligned_cnt[node_id], self.A)):
-            if self.base[ids[k]] == b:
+        ids = self.aligned[self._r(node_id)]
+        for k in range(min(self.aligned_cnt[self._r(node_id)], self.A)):
+            if self.base[self._r(ids[k])] == b:
                 return ids[k]
         return -1
 
     def _append_aligned(self, row: int, v: int) -> None:
+        if row >= self.N:
+            return
         if self.aligned_cnt[row] < self.A:
             self.aligned[row][self.aligned_cnt[row]] = v
         self.aligned_cnt[row] += 1
@@ -143,15 +156,15 @@ class _HostGraph:
     def add_aligned(self, node_id: int, new_id: int) -> None:
         """Mutual registration across the mismatch group
         (abpoa_graph.c:455-463)."""
-        A = self.A
-        for k in range(self.aligned_cnt[node_id]):
-            ex = self.aligned[node_id][min(k, A - 1)]
-            self.ok = (self.ok and self.aligned_cnt[ex] < A
-                       and self.aligned_cnt[new_id] < A)
+        A, r = self.A, self._r
+        for k in range(self.aligned_cnt[r(node_id)]):
+            ex = self.aligned[r(node_id)][min(k, A - 1)]
+            self.ok = (self.ok and self.aligned_cnt[r(ex)] < A
+                       and self.aligned_cnt[r(new_id)] < A)
             self._append_aligned(ex, new_id)
             self._append_aligned(new_id, ex)
-        self.ok = (self.ok and self.aligned_cnt[node_id] < A
-                   and self.aligned_cnt[new_id] < A)
+        self.ok = (self.ok and self.aligned_cnt[r(node_id)] < A
+                   and self.aligned_cnt[r(new_id)] < A)
         self._append_aligned(node_id, new_id)
         self._append_aligned(new_id, node_id)
 
@@ -171,6 +184,10 @@ class _HostGraph:
         self.node_n += 1
         return nid
 
+    def set_span(self, nid: int, last: int) -> None:
+        if nid < self.N:
+            self.n_span[nid] = self.n_span[self._r(last)]
+
 
 def fuse_alignment(g: DeviceGraph, fwd_op, fwd_arg, n_fwd: int, query,
                    qlen: int, weight) -> tuple:
@@ -186,40 +203,29 @@ def fuse_alignment(g: DeviceGraph, fwd_op, fwd_arg, n_fwd: int, query,
     args = fwd_arg[:n_fwd].tolist()
     q = query.tolist()
     wt = weight.tolist()
+    Q = len(q)
     last, last_new, qpos = C.SRC_NODE_ID, 0, 0
     path = []
     for op, arg in zip(ops, args):
-        if op == 0:
-            b, w = q[qpos], wt[qpos]
-            if h.base[arg] == b:
-                h.add_edge(last, arg, last_new == 0, w)
-                last, last_new = arg, 0
+        if op not in (0, 2):
+            continue
+        b, w = q[min(qpos, Q - 1)], wt[min(qpos, Q - 1)]
+        if op == 0 and h.base[arg] == b:
+            h.add_edge(last, arg, last_new == 0, w)
+            last, last_new = arg, 0
+        else:
+            aln = h.get_aligned_id(arg, b) if op == 0 else -1
+            if aln >= 0:
+                h.add_edge(last, aln, last_new == 0, w)
+                last, last_new = aln, 0
             else:
-                aln = h.get_aligned_id(arg, b)
-                if aln >= 0:
-                    h.add_edge(last, aln, last_new == 0, w)
-                    last, last_new = aln, 0
-                else:
-                    nid = h.new_node(b)
-                    if nid >= h.N:
-                        break
-                    h.add_edge(last, nid, False, w)
-                    h.n_span[nid] = h.n_span[last]
+                nid = h.new_node(b)
+                h.add_edge(last, nid, False, w)
+                h.set_span(nid, last)
+                if op == 0:
                     h.add_aligned(arg, nid)
-                    last, last_new = nid, 1
-            qpos += 1
-            path.append(last)
-        elif op == 2:
-            b, w = q[qpos], wt[qpos]
-            nid = h.new_node(b)
-            if nid >= h.N:
-                break
-            h.add_edge(last, nid, False, w)
-            h.n_span[nid] = h.n_span[last]
-            last, last_new = nid, 1
-            qpos += 1
-            path.append(last)
-    else:
-        h.add_edge(last, C.SINK_NODE_ID, last_new == 0,
-                   wt[max(qlen - 1, 0)])
+                last, last_new = nid, 1
+        qpos += 1
+        path.append(last)
+    h.add_edge(last, C.SINK_NODE_ID, last_new == 0, wt[max(qlen - 1, 0)])
     return h.to_device(g), path

@@ -92,10 +92,60 @@ def finish_fusion_(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, node_n,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_finish_fusion(*(ptr(t) for t in args), ptr(node_n),
-                                      ptr(n_span), N, E,
+                                      ptr(n_span), ptr(None), N, E, 1,
                                       ctypes.c_void_p(stream))
     build.check(err, "finish_fusion_ launch")
     edge_sort.launches += 1
+
+
+def finish_fusion_lanes_(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt,
+                         node_n, n_span=None, lanes=None) -> None:
+    """`finish_fusion_` of L lanes in one launch (a block row a lane): the
+    slot arrays (L, N, E), the counts and n_span (L, N), node_n (L,). Each
+    lane of `lanes` (host ints; None: all) is sorted in place below its
+    node_n; the others are not touched. On the CPU the plain version runs
+    lane by lane."""
+    args = (in_ids, in_w, out_ids, out_w, in_cnt, out_cnt)
+    L = in_ids.shape[0]
+    for t in (*args, node_n) + ((n_span,) if n_span is not None else ()):
+        if not isinstance(t, torch.Tensor) or t.shape[0] != L:
+            raise ValueError(f"finish_fusion_lanes_: every input must have "
+                             f"{L} lanes")
+    N, E = check_slots("finish_fusion_lanes_", tuple(t[0] for t in args))
+    for name, t in zip(_NAMES, args):
+        if not t.is_contiguous():
+            raise ValueError(f"finish_fusion_lanes_: {name} must be contiguous")
+    dev = in_ids.device
+    _check_extra("finish_fusion_lanes_", N, dev, node_n[:1],
+                 None if n_span is None else n_span[0])
+    if not node_n.is_contiguous() or (n_span is not None
+                                      and not n_span.is_contiguous()):
+        raise ValueError("finish_fusion_lanes_: node_n and n_span must be "
+                         "contiguous")
+    todo = list(range(L)) if lanes is None else [int(x) for x in lanes]
+    if dev.type == "cpu":
+        for l in todo:
+            finish_fusion_torch_(*(t[l] for t in args), node_n[l:l + 1],
+                                 None if n_span is None else n_span[l])
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"finish_fusion_lanes_: unsupported device {dev}")
+    if not todo:
+        return
+    lib = build.load()
+    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+        None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        lanes_t = build.lane_list(lanes, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.abpoa_finish_fusion(*(ptr(t) for t in args), ptr(node_n),
+                                      ptr(n_span), ptr(lanes_t), N, E,
+                                      len(todo), ctypes.c_void_p(stream))
+    build.check(err, "finish_fusion_lanes_ launch")
+    finish_fusion_lanes_.launches += 1
+
+
+finish_fusion_lanes_.launches = 0
 
 
 def edge_sort(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt):

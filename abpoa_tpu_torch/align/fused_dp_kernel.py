@@ -276,7 +276,8 @@ def fused_dp(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
              local: bool = False, warps=None):
     """Banded forward DP; see the module docstring. Returns
     (H, E1, E2, F1, F2, beg, end, ok, ext). `warps` overrides the launch
-    table's column warps (chip_smoke.py's sweep)."""
+    table's column warps (chip_smoke.py's sweep). On the card it is the
+    kernel's launch of one lane (`fused_dp_lanes`' entry point)."""
     args = (scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt, remain,
             row0, qp_pad)
     R, W, P, O = _check_inputs(args)
@@ -289,32 +290,121 @@ def fused_dp(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
         return fused_dp_torch(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_dp: unsupported device {dev}")
-    ls = launch_shape(W, P, gap_mode, warps)
-    lib = build.load()
-    dt = torch.int16 if plane16 else torch.int32
-    mode = _MODES["local" if local else "extend" if extend else "global"]
-    kernel_in = (scalars, base_packed, pre_idx, pre_cnt, remain, row0, qp_pad)
-    with torch.cuda.device(dev):
-        planes = torch.empty((5, R, W), dtype=dt, device=dev)
-        begend = torch.empty(2 * R, dtype=torch.int32, device=dev)
-        ok = torch.empty(1, dtype=torch.int32, device=dev)
-        ext = torch.empty(4, dtype=torch.int32, device=dev)
-        lr = torch.empty(2 * R, dtype=torch.int32, device=dev)  # scratch
-        outs = (*planes.unbind(0), begend, ok, ext, lr)
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.abpoa_fused_dp(
-            *(ptr(t) for t in kernel_in), *(ptr(t) for t in outs),
-            R, W, P, qp_pad.shape[1], int(gap_mode), mode,
-            int(bool(zdrop_on)), int(bool(plane16)), ls["block_warps"],
-            ls["depth"], ls["smem"],
-            ctypes.c_void_p(stream))
-    build.check(err, "fused_dp launch")
+    planes, begend, ok, ext = _launch(args, 1, R, W, P, None, warps, None,
+                                      **kw)
     if local:
         fused_dp.local_launches += 1
     else:
         fused_dp.launches += 1
-    return (*planes.unbind(0), begend[:R], begend[R:], ok, ext)
+    return (*planes[:, 0].unbind(0), begend[0, 0], begend[0, 1], ok, ext[0])
+
+
+def _launch(args, L: int, R: int, W: int, P: int, lanes, warps, planes, *,
+            gap_mode: int, plane16: bool, extend: bool, zdrop_on: bool,
+            local: bool):
+    """One launch of the kernel over the lanes of `lanes` (host ints; None:
+    all L), the inputs stacked over L lanes of R rows, into `planes` (None:
+    allocated here). Returns planes (5, L, R, W), begend (L, 2, R), ok (L,),
+    ext (L, 4); a lane not launched keeps them as allocated."""
+    dev = args[0].device
+    qp_pad = args[8]
+    ls = launch_shape(W, P, gap_mode, warps)
+    lib = build.load()
+    dt = torch.int16 if plane16 else torch.int32
+    mode = _MODES["local" if local else "extend" if extend else "global"]
+    kernel_in = tuple(args[i] for i in (0, 1, 2, 3, 6, 7, 8))
+    nl = L if lanes is None else len(lanes)
+    with torch.cuda.device(dev):
+        if planes is None:
+            planes = torch.empty((5, L, R, W), dtype=dt, device=dev)
+        begend = torch.empty((L, 2, R), dtype=torch.int32, device=dev)
+        ok = torch.empty(L, dtype=torch.int32, device=dev)
+        ext = torch.empty((L, 4), dtype=torch.int32, device=dev)
+        lr = torch.empty((L, 2, R), dtype=torch.int32, device=dev)  # scratch
+        lanes_t = build.lane_list(lanes, dev)
+        outs = (*planes.unbind(0), begend, ok, ext, lr)
+        ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+            None if t is None else t.data_ptr())
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        QW = qp_pad.shape[-1]
+        err = lib.abpoa_fused_dp(
+            *(ptr(t) for t in kernel_in), *(ptr(t) for t in outs),
+            ptr(lanes_t), R, W, P, QW, qp_pad.shape[-2] * QW, nl,
+            int(gap_mode), mode, int(bool(zdrop_on)), int(bool(plane16)),
+            ls["block_warps"], ls["depth"], ls["smem"],
+            ctypes.c_void_p(stream))
+    build.check(err, "fused_dp launch")
+    return planes, begend, ok, ext
+
+
+def fused_dp_lanes(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
+                   remain, row0, qp_pad, *, gap_mode: int, plane16: bool,
+                   extend: bool = False, zdrop_on: bool = False,
+                   local: bool = False, lanes=None, warps=None,
+                   planes=None):
+    """The DP of L lanes, one read against one graph each, in one launch of
+    the kernel (one block a lane): each input of `fused_dp` with a leading
+    lane axis (scalars (L, 16), base_packed (L, R), pre_idx (L, R, P), ...,
+    row0 (L, 5, W), qp_pad (L, m, Qp + W)), all lanes at one R and W.
+    `lanes` (host ints) lists the lanes to compute (None: all); the others'
+    outputs are undefined on the card (zero in the plain version).
+    `planes`, a contiguous (5, L, R, W) tensor of the plane dtype, takes the
+    planes (None: allocated here). Returns (H, E1, E2, F1, F2 each (L, R,
+    W), beg, end (L, R), ok (L,), ext (L, 4)). On the CPU the plain version
+    runs lane by lane."""
+    args = (scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt, remain,
+            row0, qp_pad)
+    if scalars.dim() != 2:
+        raise ValueError("fused_dp_lanes: scalars must have shape (L, 16)")
+    L = scalars.shape[0]
+    for name, t in zip(_NAMES, args):
+        if not isinstance(t, torch.Tensor) or t.shape[0] != L:
+            raise ValueError(f"fused_dp_lanes: {name} must have {L} lanes")
+    R, W, P, O = _check_inputs(tuple(t[0] for t in args))
+    for name, t in zip(_NAMES, args):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_dp_lanes: {name} must be contiguous")
+    if extend and local:
+        raise ValueError("fused_dp_lanes: extend and local are exclusive")
+    dev = scalars.device
+    kw = dict(gap_mode=gap_mode, plane16=plane16, extend=extend,
+              zdrop_on=zdrop_on, local=local)
+    todo = list(range(L)) if lanes is None else [int(x) for x in lanes]
+    dt = torch.int16 if plane16 else torch.int32
+    if planes is not None and (planes.shape != (5, L, R, W)
+                               or planes.dtype != dt or planes.device != dev
+                               or not planes.is_contiguous()):
+        raise ValueError(f"fused_dp_lanes: planes must be a contiguous "
+                         f"(5, {L}, {R}, {W}) {dt} tensor on {dev}")
+    if dev.type == "cpu":
+        if planes is None:
+            planes = torch.zeros((5, L, R, W), dtype=dt)
+        else:
+            planes.zero_()
+        beg, end = (torch.zeros((L, R), dtype=torch.int32) for _ in range(2))
+        ok = torch.zeros(L, dtype=torch.int32)
+        ext = torch.zeros((L, 4), dtype=torch.int32)
+        for l in todo:
+            out = fused_dp_torch(*(t[l] for t in args), **kw)
+            for q in range(5):
+                planes[q, l] = out[q]
+            beg[l], end[l], ok[l], ext[l] = out[5], out[6], out[7][0], out[8]
+        return (*planes.unbind(0), beg, end, ok, ext)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_dp_lanes: unsupported device {dev}")
+    if not todo:
+        raise ValueError("fused_dp_lanes: no lane to launch")
+    planes, begend, ok, ext = _launch(args, L, R, W, P, lanes, warps, planes,
+                                      **kw)
+    if local:
+        fused_dp_lanes.local_launches += 1
+    else:
+        fused_dp_lanes.launches += 1
+    return (*planes.unbind(0), begend[:, 0], begend[:, 1], ok, ext)
+
+
+fused_dp_lanes.launches = 0        # kernel B1 over lanes (the device lockstep)
+fused_dp_lanes.local_launches = 0  # B3 over lanes
 
 
 fused_dp.launches = 0        # global and extend mode (kernel B1)

@@ -6,8 +6,9 @@ device as dense tensors (`device_graph.DeviceGraph`); every read runs
 
   tables (`_build_tables`) -> kernel B1/B3 (`fused_dp`, the banded forward
   DP) -> best cell -> kernel X1 (`backtrack`) -> forward op stream ->
-  fusion (`_fuse_vectorized`, or the sequential `fuse_alignment` on a
-  group-root collision) -> span update and edge sort (kernel S1,
+  fusion (`_fuse_vectorized`, or kernel F1's sequential fusion,
+  `fuse_kernel.fuse_alignment_lanes`, on a group-root collision) -> span
+  update and edge sort (kernel S1,
   `finish_fusion_`, one launch in place) -> topological order by
   splicing (`_splice_order`), repaired by kernel K1 (`topo_sort`) when the
   splice is not a valid order -> max_remain (`_remain_doubling`)
@@ -23,8 +24,11 @@ loop and the per-edge read-id bitsets are rebuilt from them on the host
 decided by one flag read where one side is expensive: the `-s` reverse
 strand (`need_rc`), the collision fusion and the Kahn repair. A read's
 flags come back in one host sync; the reverse strand and a Kahn repair add
-one each. On an error the read's new state is not committed: the host loop
-grows the capacity the error names and runs the read again, as JAX resumes.
+one each (a collision read's F1, S1 and K1 all run before that one sync,
+so its graph never leaves the device). K read sets run through these steps
+at once in the device lockstep (`fused_lanes.py`). On an error the read's
+new state is not committed: the host loop grows the capacity the error
+names and runs the read again, as JAX resumes.
 There is no fallback: a diverged backtrack, an unknown error or growth that
 does not converge raises.
 
@@ -49,8 +53,9 @@ from ..params import Params
 from .backtrack_kernel import backtrack
 from .buckets import (bucket_pow2, chunk_node_cap, grow_node_cap,
                       plan_chunk_buckets)
-from .device_graph import DeviceGraph, fuse_alignment, init_device_graph
+from .device_graph import DeviceGraph, init_device_graph
 from .edge_sort_kernel import finish_fusion_
+from .fuse_kernel import fuse_alignment_lanes, lane_graph
 from .fused_dp_kernel import fused_dp, row0_planes
 from .oracle import (INT16_MIN, INT32_MIN, dp_inf_min, int16_score_limit,
                      max_score_bound)
@@ -77,9 +82,12 @@ _MAX_PASSES = 24
 # read attempts (a read that reports an error is attempted again after the
 # growth), host syncs, Kahn repairs, collisions, reverse-strand alignments,
 # attempts refused on the host before any device work, growths by error
-# code, promotions, the wall of the loop (with the upload of a restored
-# graph and the download), and within it that upload, the graph's download
-# and the paths' download plus the read-id replay.
+# code, promotions, the device lockstep's rounds (with the reverse strand,
+# with a Kahn repair), live lanes summed over its rounds, its B1 + X1 passes
+# beyond one a round where the lanes' planes did not fit on the card
+# (`fused_lanes.plane_groups`), the wall of the loop (with the upload of a
+# restored graph and the download), and within it that upload, the graph's
+# download and the paths' download plus the read-id replay.
 # When `timing` is set, each step of a read also adds its time on the
 # stream (`device_s`, by CUDA events read back at the end of the run, so no
 # extra sync) and its host time (`host_s`); `host_s["sync"]` is the time
@@ -93,7 +101,8 @@ timing = False
 def reset_stats() -> None:
     stats.clear()
     stats.update(reads=0, syncs=0, kahn=0, collisions=0, rc_reads=0,
-                 host_errs=0, grow={}, promotions=0, wall_s=0.0,
+                 host_errs=0, grow={}, promotions=0, rounds=0, rc_rounds=0,
+                 kahn_rounds=0, live_lanes=0, plane_splits=0, wall_s=0.0,
                  upload_s=0.0, download_s=0.0, replay_s=0.0,
                  device_s=dict.fromkeys(STEPS, 0.0),
                  host_s=dict.fromkeys(STEPS + ("sync",), 0.0))
@@ -756,6 +765,32 @@ def _need_rc(best_sc: int, qlen: int, n: int, max_mat: int) -> bool:
     return best_sc < 0 or best_sc * 10000 < min(qlen, n - 2) * max_mat * 3333
 
 
+def host_error(run, qlen: int, n: int, N: int) -> int:
+    """The error a read of qlen bases onto a graph of n nodes (n = 2: the
+    empty graph, which the read seeds) at node capacity N reports on the
+    host before any device work (the first two of the priority chain at
+    fused_loop.py:1477; the seed chain must fit), or ERR_OK."""
+    if n == 2:
+        return ERR_NODE_CAP if qlen + 2 > N else ERR_OK
+    a = run.abpt
+    if run.plane16 and max(qlen * a.max_mat, max(qlen, n) * a.gap_ext1
+                           + a.gap_open1) > run.int16_limit:
+        return ERR_PROMOTE
+    return ERR_NODE_CAP if n + qlen + 1 > N else ERR_OK
+
+
+def read_error(N: int, n2: int, overflow, edge_cap, grp_full, bt_err,
+               ops_cap, g2_ok) -> int:
+    """A read's error code from its flags (fused_loop.py:1477's chain after
+    the host's two): n2 the fused graph's node count, g2_ok its capacity
+    flag."""
+    err = (ERR_NODE_CAP if n2 + 2 > N else ERR_BAND_CAP if overflow
+           else ERR_EDGE_CAP if edge_cap else ERR_ALIGN_CAP if grp_full
+           else ERR_BACKTRACK if bt_err else ERR_OPS_CAP if ops_cap
+           else ERR_OK)
+    return ERR_GRAPH_CAP if err == ERR_OK and not g2_ok else err
+
+
 def _read_step(run: _Run, st: FusedState, node_n: int):
     """Align and fuse read st.read_idx (fused_loop.py:1219-1521). Returns
     (err, new_state, new_node_n); on an error the state is the old one."""
@@ -765,16 +800,10 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
     query, weight = run.seqs[k], run.wgts[k]
     g, N = st.g, st.g.caps[0]
     n = node_n
-    # errors known on the host before any work (the first two of the
-    # priority chain at fused_loop.py:1477)
-    if run.plane16 and max(qlen * abpt.max_mat,
-                           max(qlen, n) * abpt.gap_ext1 + abpt.gap_open1) \
-            > run.int16_limit:
+    err = host_error(run, qlen, n, N)
+    if err != ERR_OK:
         stats["host_errs"] += 1
-        return ERR_PROMOTE, st, node_n
-    if n + qlen + 1 > N:
-        stats["host_errs"] += 1
-        return ERR_NODE_CAP, st, node_n
+        return err, st, node_n
 
     with _step("tables"):
         tables = _build_tables(g, st.order, st.n2i, st.remain)
@@ -817,42 +846,42 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
     (collision, overflow, bt_err, ops_cap, edge_cap, grp_full, bad, g2_ok,
      n2, use_rc) = flags
     if collision:
-        g_seq, seq_path = fuse_alignment(
-            g, fwd_op, fwd_arg, min(_sync_read(n_fwd), run.max_ops),
-            query_u, qlen, weight_u)
-        g2s = _finish_fusion(g_seq, g)
-        n2 = int(g2s.node_n)
-        g2_ok = int(g2s.ok)
-    err = (ERR_NODE_CAP if n2 + 2 > N else ERR_BAND_CAP if overflow
-           else ERR_EDGE_CAP if edge_cap else ERR_ALIGN_CAP if grp_full
-           else ERR_BACKTRACK if bt_err else ERR_OPS_CAP if ops_cap
-           else ERR_OK)
-    if err == ERR_OK and not g2_ok:
-        err = ERR_GRAPH_CAP
+        # kernel F1 on a fresh copy of the state's graph, its tail (S1) and
+        # the Kahn repair, all on the stream; one sync reads the repair's
+        # flag with the fused graph's size and ok
+        Pcap = st.paths.shape[1] if st.paths is not None else 1
+        with _step("fuse"):
+            g1, seq_path, seq_len = fuse_alignment_lanes(
+                _stacked(g), fwd_op[None], fwd_arg[None], n_fwd.reshape(1),
+                query_u[None], weight_u[None], _host_ints([qlen], dev), Pcap)
+        with _step("edge_sort"):
+            g2s = _finish_fusion(lane_graph(g1, 0), g)
+        kahn = _kahn(g2s)
+        n2, g2_ok, ok_k = _sync_read(torch.stack([
+            g2s.node_n, _i32(g2s.ok), kahn[7][0]]))
+    err = read_error(N, n2, overflow, edge_cap, grp_full, bt_err, ops_cap,
+                     g2_ok)
     if err != ERR_OK:
         return err, st, node_n
 
     need_kahn = bool(bad or collision)
     if need_kahn:
-        gk = g2s
-        with _step("topo_sort"):
-            (in_ids, in_w, out_ids, out_w, order3, n2i3, remain3,
-             ok_k) = topo_sort(gk.in_ids, gk.in_w, gk.out_ids, gk.out_w,
-                               gk.in_cnt, gk.out_cnt, gk.aligned,
-                               gk.aligned_cnt, gk.node_n.reshape(1))
-        if not _sync_read(ok_k)[0]:
+        if not collision:
+            kahn = _kahn(g2s)
+            ok_k = _sync_read(kahn[7])[0]
+        if not ok_k:
             return ERR_GRAPH_CAP, st, node_n
-        g3 = gk._replace(in_ids=in_ids, in_w=in_w, out_ids=out_ids,
-                         out_w=out_w)
+        in_ids, in_w, out_ids, out_w, order3, n2i3, remain3, _ = kahn
+        g3 = g2s._replace(in_ids=in_ids, in_w=in_w, out_ids=out_ids,
+                          out_w=out_w)
     else:
         g3, order3, n2i3 = g2s, order2, n2i2
         with _step("remain"):
             remain3 = _remain_doubling(g2s)
     if st.paths is not None:  # the read is committed: record its path
         if collision:
-            st.paths[k, :len(seq_path)] = torch.tensor(
-                seq_path, dtype=torch.int32, device=dev)
-            st.path_lens[k] = len(seq_path)
+            st.paths[k] = seq_path[0]
+            st.path_lens[k] = seq_len[0]
         else:
             st.paths[k] = path_nodes[:st.paths.shape[1]]
             st.path_lens[k] = path_len
@@ -865,6 +894,19 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
     return ERR_OK, new, n2
 
 
+def _stacked(g: DeviceGraph) -> DeviceGraph:
+    """g as a stack of one lane (views)."""
+    return DeviceGraph(**{k: v[None] for k, v in g.tensors().items()})
+
+
+def _kahn(g: DeviceGraph) -> tuple:
+    """Kernel K1 on g: the sorted slots, order, n2i, remain and ok (1,)."""
+    with _step("topo_sort"):
+        return topo_sort(g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt,
+                         g.out_cnt, g.aligned, g.aligned_cnt,
+                         g.node_n.reshape(1))
+
+
 _FINISHED = ("in_ids", "in_w", "out_ids", "out_w", "n_span")
 
 
@@ -874,14 +916,19 @@ def _finish_fusion(g2: DeviceGraph, g: DeviceGraph) -> DeviceGraph:
     kernel S1, in place on g2's slot arrays and n_span, rows below node_n.
     `g` is the graph g2 was fused from, the state's: a read that reports an
     error runs again from it, so g2 must share no storage with it."""
+    check_fresh(g2, g)
+    finish_fusion_(g2.in_ids, g2.in_w, g2.out_ids, g2.out_w, g2.in_cnt,
+                   g2.out_cnt, g2.node_n, g2.n_span)
+    return g2
+
+
+def check_fresh(g2: DeviceGraph, g: DeviceGraph) -> None:
+    """Raise if the arrays S1 sorts in place in g2 share storage with g."""
     held = {t.untyped_storage().data_ptr() for t in g.tensors().values()}
     for name in _FINISHED:
         if getattr(g2, name).untyped_storage().data_ptr() in held:
             raise RuntimeError(f"fused loop: the fused graph's {name} shares "
                                "storage with the state's graph")
-    finish_fusion_(g2.in_ids, g2.in_w, g2.out_ids, g2.out_w, g2.in_cnt,
-                   g2.out_cnt, g2.node_n, g2.n_span)
-    return g2
 
 
 def run_fused_chunk(run: _Run, st: FusedState, node_n: int):
@@ -892,8 +939,8 @@ def run_fused_chunk(run: _Run, st: FusedState, node_n: int):
         k = st.read_idx
         if node_n == 2:
             qlen = run.lens[k]
-            if qlen + 2 > st.g.caps[0]:  # the seed chain does not fit
-                stats["host_errs"] += 1
+            if host_error(run, qlen, 2, st.g.caps[0]) != ERR_OK:
+                stats["host_errs"] += 1  # the seed chain does not fit
                 return ERR_NODE_CAP, st, node_n
             st = _seed_state(st, run.seqs[k], qlen, run.wgts[k])
             st.rc_flags = st.rc_flags + [0]
@@ -910,18 +957,20 @@ def run_fused_chunk(run: _Run, st: FusedState, node_n: int):
 # the host loop: capacity growth, resume, download                            #
 # --------------------------------------------------------------------------- #
 
-def _grow_state(st: FusedState, N2: int, E2: int, A2: int) -> FusedState:
-    """fused_loop.py:1532: the state copied into larger capacities."""
+def _grow_state(st, N2: int, E2: int, A2: int):
+    """fused_loop.py:1532: the state copied into larger capacities. `st` is
+    a `FusedState` or the device lockstep's lanes (`fused_lanes._Lanes`),
+    whose tensors carry a leading lane axis (node_n's dimensions tell)."""
     g = st.g
-    N, E, A = g.caps
+    lead = g.node_n.dim()  # 0 for one set, 1 with a lane axis
 
     def pad(x, cols=None):
-        if x.dim() == 0:
+        if x.dim() == lead:
             return x
-        p = [0, 0] if x.dim() == 2 else []
+        p = [0, 0] if x.dim() == lead + 2 else []
         if cols is not None:
-            p = [0, cols - x.shape[1]]
-        return torch.nn.functional.pad(x, p + [0, N2 - N])
+            p = [0, cols - x.shape[-1]]
+        return torch.nn.functional.pad(x, p + [0, N2 - x.shape[lead]])
 
     g2 = DeviceGraph(
         base=pad(g.base), in_ids=pad(g.in_ids, E2), in_w=pad(g.in_w, E2),
@@ -930,26 +979,28 @@ def _grow_state(st: FusedState, N2: int, E2: int, A2: int) -> FusedState:
         aligned=pad(g.aligned, A2), aligned_cnt=pad(g.aligned_cnt),
         n_read=pad(g.n_read), n_span=pad(g.n_span), node_n=g.node_n, ok=g.ok)
     return replace(st, g=g2, order=pad(st.order), n2i=pad(st.n2i),
-                   remain=pad(st.remain), err=ERR_OK)
+                   remain=pad(st.remain))
 
 
-def _grown_caps(err: int, N: int, E: int, A: int, W: int, plane16: bool):
-    """fused_loop.py:1732: the capacities an error code asks for. Returns
-    (N, E, A, W, plane16, grew) where `grew` means the state must be
-    padded to the new N/E/A."""
+def _grown_caps(errs, N: int, E: int, A: int, W: int, plane16: bool):
+    """fused_loop.py:1732: the capacities the error codes `errs` (one set's,
+    or a lockstep round's) ask for, each capacity grown once. Returns (N,
+    E, A, W, plane16, grew) where `grew` means the state must be padded to
+    the new N/E/A."""
+    errs = set(errs) - {ERR_OK}
     grew = False
-    if err in (ERR_NODE_CAP, ERR_OPS_CAP, ERR_GRAPH_CAP):
+    if errs & {ERR_NODE_CAP, ERR_OPS_CAP, ERR_GRAPH_CAP}:
         N, grew = grow_node_cap(N), True
-    if err in (ERR_EDGE_CAP, ERR_GRAPH_CAP):
+    if errs & {ERR_EDGE_CAP, ERR_GRAPH_CAP}:
         E, grew = E * 2, True
-    if err in (ERR_ALIGN_CAP, ERR_GRAPH_CAP):
+    if errs & {ERR_ALIGN_CAP, ERR_GRAPH_CAP}:
         A, grew = A * 2, True
-    if err == ERR_BAND_CAP:
+    if ERR_BAND_CAP in errs:
         W *= 2
-    if err == ERR_PROMOTE:
+    if ERR_PROMOTE in errs:
         plane16 = False
         stats["promotions"] += 1
-    if err != ERR_OK:
+    for err in errs:
         stats["grow"][err] = stats["grow"].get(err, 0) + 1
     return N, E, A, W, plane16, grew
 
@@ -1032,7 +1083,7 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
         if err not in _RECOVERABLE_ERRS:
             raise RuntimeError(
                 f"fused loop: unknown error {err} at read {st.read_idx}")
-        N, E, A, W, plane16, grew = _grown_caps(err, N, E, A, W, plane16)
+        N, E, A, W, plane16, grew = _grown_caps({err}, N, E, A, W, plane16)
         if grew:
             st = _grow_state(st, N, E, A)
     else:

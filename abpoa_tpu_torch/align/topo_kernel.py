@@ -123,25 +123,84 @@ def topo_sort(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, aligned,
         return topo_sort_torch(*args)
     if dev.type != "cuda":
         raise ValueError(f"topo_sort: unsupported device {dev}")
+    out = _launch(tuple(t[None] for t in args[:8]) + (node_n,), 1, N, E, A,
+                  None, walks, variant)
+    topo_sort.launches += 1
+    return (*(t[0] for t in out[:7]), out[7])
+
+
+def _launch(args, L: int, N: int, E: int, A: int, lanes, walks: int,
+            variant: Optional[str]):
+    """One launch of K1 over the lanes of `lanes` (host ints; None: all L),
+    the inputs stacked over L lanes of N rows. Returns the sorted slots
+    (L, N, E) each, i2n, n2i, remain (L, N) and ok (L,)."""
+    dev = args[0].device
     shape = launch_shape(N, E, A, variant)
     lib = build.load()
+    nl = L if lanes is None else len(lanes)
     with torch.cuda.device(dev):
-        sorted_ = torch.empty((4, N, E), dtype=torch.int32, device=dev)
-        vecs = torch.empty((3, N), dtype=torch.int32, device=dev)
-        ok = torch.empty(1, dtype=torch.int32, device=dev)
-        scratch = torch.empty(2 * N + 1, dtype=torch.int32, device=dev)
-        rec = torch.empty(N * sum(record_ints(E, A)), dtype=torch.int32,
+        sorted_ = torch.empty((4, L, N, E), dtype=torch.int32, device=dev)
+        vecs = torch.empty((3, L, N), dtype=torch.int32, device=dev)
+        ok = torch.empty(L, dtype=torch.int32, device=dev)
+        scratch = torch.empty((nl, 2 * N + 1), dtype=torch.int32, device=dev)
+        rec = torch.empty((nl, N * sum(record_ints(E, A))), dtype=torch.int32,
                           device=dev)
+        lanes_t = build.lane_list(lanes, dev)
         outs = (*sorted_.unbind(0), *vecs.unbind(0), ok, scratch, rec)
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+            None if t is None else t.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abpoa_topo_sort(
-            *(ptr(t) for t in args), *(ptr(t) for t in outs), N, E, A,
-            tuple(VARIANTS).index(shape["variant"]), shape["cache"], walks,
-            ctypes.c_void_p(stream))
+            *(ptr(t) for t in args), *(ptr(t) for t in outs), ptr(lanes_t),
+            N, E, A, tuple(VARIANTS).index(shape["variant"]), shape["cache"],
+            walks, L, nl, ctypes.c_void_p(stream))
     build.check(err, "topo_sort launch")
-    topo_sort.launches += 1
     return (*sorted_.unbind(0), *vecs.unbind(0), ok)
+
+
+def topo_sort_lanes(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, aligned,
+                    aligned_cnt, node_n, lanes=None,
+                    variant: Optional[str] = None):
+    """The Kahn repair of L lanes in one launch of K1 (one BFS block a lane,
+    each with its own shared memory): each input of `topo_sort` with a
+    leading lane axis (slots (L, N, E), counts (L, N), aligned (L, N, A),
+    node_n (L,)). `lanes` (host ints) lists the lanes to repair (None:
+    all); the others' outputs are undefined on the card (zero in the plain
+    version). Returns (in_ids, in_w, out_ids, out_w, i2n, n2i, remain, ok)
+    with the lane axis. On the CPU the plain version runs lane by lane."""
+    args = (in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, aligned,
+            aligned_cnt, node_n)
+    L = in_ids.shape[0]
+    for name, t in zip(_NAMES, args):
+        if not isinstance(t, torch.Tensor) or t.shape[0] != L:
+            raise ValueError(f"topo_sort_lanes: {name} must have {L} lanes")
+        if not t.is_contiguous():
+            raise ValueError(f"topo_sort_lanes: {name} must be contiguous")
+    N, E, A = _check_inputs(tuple(t[0] for t in args[:8])
+                            + (node_n[:1],))
+    todo = list(range(L)) if lanes is None else [int(x) for x in lanes]
+    dev = in_ids.device
+    if dev.type == "cpu":
+        outs = [torch.zeros((L, N, E), dtype=torch.int32) for _ in range(4)]
+        outs += [torch.zeros((L, N), dtype=torch.int32) for _ in range(3)]
+        outs.append(torch.zeros(L, dtype=torch.int32))
+        for l in todo:
+            got = topo_sort_torch(*(t[l] for t in args[:8]),
+                                  node_n[l:l + 1])
+            for o, g in zip(outs[:7], got[:7]):
+                o[l] = g
+            outs[7][l] = got[7][0]
+        return tuple(outs)
+    if dev.type != "cuda":
+        raise ValueError(f"topo_sort_lanes: unsupported device {dev}")
+    if not todo:
+        raise ValueError("topo_sort_lanes: no lane to launch")
+    out = _launch(args, L, N, E, A, lanes, 3, variant)
+    topo_sort_lanes.launches += 1
+    return out
+
+
+topo_sort_lanes.launches = 0
 
 
 topo_sort.launches = 0

@@ -5,7 +5,7 @@ local (`-m 1`) or extend (`-m 2`, Z-drop `-z`) mode, writing consensus
 heaviest bundling or majority vote (`-a 1`), with up to 10 clustered
 consensus sequences (`-d`, `-q`), qv weights (`-Q`), incremental alignment
 onto a restored MSA or GFA (`-i`), the graph plot (`-g`), file lists
-(`-l`: K sets in split lockstep, `--lockstep`, or one set after another),
+(`-l`: K sets in lockstep, `--lockstep`, or one set after another),
 minimizer-seeded windows (`-S`, `-k`, `-w`, `-n`), the guide-tree order
 (`-p`), path scores (`-G`) and unbanded alignment (`-b < 0`); and the
 `map` subcommand, which maps reads against a restored graph and writes one
@@ -81,9 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch versions) [%(default)s]")
     p.add_argument("--lockstep", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="-l: K read sets in split lockstep (one K-lane DP "
-                        "launch a round); auto = on where the device is "
-                        "cuda [%(default)s]")
+                   help="-l: K read sets in lockstep (the device "
+                        "lockstep, or the split driver in local mode, on "
+                        "the CPU or where ABPOA_TPU_LOCKSTEP_IMPL=split); "
+                        "auto = on where the device is cuda [%(default)s]")
     return p
 
 

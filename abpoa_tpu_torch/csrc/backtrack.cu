@@ -16,7 +16,9 @@
 // operations bounds. The planes of a 10 kb read are several hundred MB, far
 // past the 50 MB L2, so most of those loads go to device memory.
 //
-// What the design does about it: one warp walks. Every load of a step that
+// What the design does about it: one warp walks, one block a lane (the
+// device lockstep's K read sets in one launch; one read set is lane 0).
+// Every load of a step that
 // does not depend on another is issued at once, so a step is three
 // dependent rounds instead of about ten:
 //  1. the row's band, predecessor count, base, the query base, and lane k's
@@ -232,13 +234,20 @@ __device__ __forceinline__ Walk walk(
   return w;
 }
 
-__global__ void __launch_bounds__(32)
-backtrack_kernel(Planes pl, const int* __restrict__ pre_idx,
-                 const int* __restrict__ pre_cnt, const int* __restrict__ base,
-                 const int* __restrict__ query, const int* __restrict__ mat,
-                 const int* __restrict__ sc, int* ops, int* res, int P, int m,
-                 int gap_mode, int flags) {
-  if (blockIdx.x != 0) return;
+// the plane pointer p moved by `off` cells
+__device__ __forceinline__ const void* cells_at(const void* p, size_t off,
+                                                bool p16) {
+  return p16 ? (const void*)((const short*)p + off)
+             : (const void*)((const int*)p + off);
+}
+
+// One read's walk: from sc's best cell, ops and res written.
+__device__ __forceinline__ void walk_read(
+    const Planes& pl, const int* __restrict__ pre_idx,
+    const int* __restrict__ pre_cnt, const int* __restrict__ base,
+    const int* __restrict__ query, const int* __restrict__ mat,
+    const int* __restrict__ sc, int* ops, int* res, int P, int m,
+    int gap_mode, int flags) {
   const int lane = threadIdx.x;
   const int inf = sc[6];
   const int i = sc[0], j = sc[1];
@@ -257,29 +266,73 @@ backtrack_kernel(Planes pl, const int* __restrict__ pre_idx,
   }
 }
 
+// One block a lane. LANES: lane b's planes, pre_idx, pre_cnt and base rows
+// are rows b R .. b R + R - 1 of the stacked arrays, its beg/end start
+// bstride ints a lane apart, its query Q ints, its op stream T rows (2 ints
+// a row), sc 8 ints and res 6 ints a lane. Without LANES (the single-set
+// launch, lane 0 alone) the walk reads the arguments as they are, so the
+// fused loop of one read set pays nothing for the lane index.
+template <bool LANES>
+__global__ void __launch_bounds__(32)
+backtrack_kernel(Planes pl, const int* __restrict__ pre_idx,
+                 const int* __restrict__ pre_cnt, const int* __restrict__ base,
+                 const int* __restrict__ query, const int* __restrict__ mat,
+                 const int* __restrict__ sc, int* ops, int* res, int P, int m,
+                 int gap_mode, int flags, const int* __restrict__ lanes,
+                 int R, int Q, int T, int bstride) {
+  if constexpr (!LANES) {
+    if (blockIdx.x != 0) return;
+    walk_read(pl, pre_idx, pre_cnt, base, query, mat, sc, ops, res, P, m,
+              gap_mode, flags);
+  } else {
+    const int b = lanes ? lanes[blockIdx.x] : (int)blockIdx.x;
+    const size_t r0 = (size_t)b * R, c0 = r0 * pl.W;
+    Planes p = pl;
+    p.H = cells_at(pl.H, c0, pl.p16);
+    p.E1 = cells_at(pl.E1, c0, pl.p16);
+    p.E2 = cells_at(pl.E2, c0, pl.p16);
+    p.F1 = cells_at(pl.F1, c0, pl.p16);
+    p.F2 = cells_at(pl.F2, c0, pl.p16);
+    p.beg = pl.beg + (size_t)b * bstride;
+    p.end = pl.end + (size_t)b * bstride;
+    walk_read(p, pre_idx + r0 * P, pre_cnt + r0, base + r0,
+              query + (size_t)b * Q, mat, sc + 8 * (size_t)b,
+              ops + (size_t)b * 2 * T, res + 6 * (size_t)b, P, m, gap_mode,
+              flags);
+  }
+}
+
 }  // namespace
 
-// Launches the walk (one warp) on `stream` and returns a cudaError_t as an
-// int (0 = launched). flags: 1 put_gap_on_right, 2 put_gap_at_end, 4 local,
-// 8 int16 planes. ops must be zeroed by the caller.
+// Launches the walk (one warp a lane) on `stream` over `nl` lanes and
+// returns a cudaError_t as an int (0 = launched). Lane b reads rows b R ..
+// b R + R - 1 of the planes (R x W each), pre_idx (R x P), pre_cnt and
+// base, beg and end from b bstride on (R ints each), query b Q .. (Q ints),
+// sc b 8 .. and writes ops from b 2 max_ops on (max_ops rows of 2 ints,
+// zeroed by the caller) and res b 6 ... `lanes` lists the lanes the blocks
+// take (null: lanes 0 .. nl - 1); the fused loop of one read set is the
+// launch of lane 0. flags: 1 put_gap_on_right, 2 put_gap_at_end, 4 local,
+// 8 int16 planes.
 extern "C" int abpoa_backtrack(const void* H, const void* E1, const void* E2,
                                const void* F1, const void* F2,
                                const void* beg, const void* end,
                                const void* pre_idx, const void* pre_cnt,
                                const void* base, const void* query,
                                const void* mat, const void* sc, void* ops,
-                               void* res, int R, int W, int P, int m, int Q,
-                               int max_ops, int gap_mode, int flags,
-                               void* stream) {
-  if (R < 1 || W < 1 || P < 1 || max_ops < 1 || m < 1 || Q < 1)
+                               void* res, const void* lanes, int R, int W,
+                               int P, int m, int Q, int max_ops, int gap_mode,
+                               int flags, int nl, int bstride, void* stream) {
+  if (R < 1 || W < 1 || P < 1 || max_ops < 1 || m < 1 || Q < 1 || nl < 1)
     return (int)cudaErrorInvalidValue;
   Planes pl{H, E1, E2, F1, F2, (const int*)beg, (const int*)end, W,
             (flags & 8) != 0};
   cudaStream_t s = (cudaStream_t)stream;
-  backtrack_kernel<<<1, 32, 0, s>>>(pl, (const int*)pre_idx,
-                                    (const int*)pre_cnt, (const int*)base,
-                                    (const int*)query, (const int*)mat,
-                                    (const int*)sc, (int*)ops, (int*)res, P,
-                                    m, gap_mode, flags);
+  auto kern = lanes == nullptr && nl == 1 ? backtrack_kernel<false>
+                                          : backtrack_kernel<true>;
+  kern<<<nl, 32, 0, s>>>(
+      pl, (const int*)pre_idx, (const int*)pre_cnt, (const int*)base,
+      (const int*)query, (const int*)mat, (const int*)sc, (int*)ops,
+      (int*)res, P, m, gap_mode, flags, (const int*)lanes, R, Q, max_ops,
+      bstride);
   return (int)cudaGetLastError();
 }

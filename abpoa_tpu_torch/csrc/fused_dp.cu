@@ -14,6 +14,12 @@
 // align/banded_kernel.py; each must agree with its instantiation bit for
 // bit on every output, over the rows it computes.
 //
+// B1 takes lanes (the device lockstep's K read sets in one launch, one
+// block a lane; one read set is lane 0): lane b's rows sit b R rows into
+// the stacked tables and planes, its scalars, row 0, query profile, ok and
+// ext are entry b of theirs, and a list of lanes (`roff`, which B1 does not
+// otherwise use) picks the blocks' lanes.
+//
 // B2 (template SEEDED, entry `abpoa_banded_dp`) is int32, with linear,
 // affine or convex gaps, in the banded modes of the XLA per-read DP
 // (abpoa_tpu/align/jax_backend.py `_dp_scan`): global or extend (with
@@ -199,12 +205,13 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_beg, s_end, s_ovf, s_npre, s_qb, s_allring;
 
-  // This block's window of a ragged batch (B2): its first row r0 in the
-  // per-row inputs and outputs (its pairs start at e0 = 2 r0 in begend, mplr
-  // and lr; its plane rows at pl0) and its entry b of the per-window ones.
-  // B1's one problem is window 0. Offsets, not moved pointers, so that the
-  // pointer parameters stay out of registers.
-  int b = 0, r0 = 0;
+  // This block's window of a ragged batch (B2), or its lane (B1): its first
+  // row r0 in the per-row inputs and outputs (its pairs start at e0 = 2 r0
+  // in begend, mplr and lr; its plane rows at pl0) and its entry b of the
+  // per-window or per-lane ones. B1's lanes sit R rows apart; `roff` lists
+  // the lanes its blocks take (null: lane = block). Offsets, not moved
+  // pointers, so that the pointer parameters stay out of registers.
+  int b, r0;
   if constexpr (SEEDED) {
     b = blockIdx.x;
     r0 = roff[b];
@@ -214,6 +221,9 @@ fused_dp_kernel(const int* __restrict__ sc, const int* __restrict__ base,
       if (threadIdx.x == 0) ok_out[b] = -1;
       return;
     }
+  } else {
+    b = roff ? roff[blockIdx.x] : (int)blockIdx.x;
+    r0 = b * R;
   }
   const int e0 = 2 * r0;
   const size_t pl0 = (size_t)r0 * W;
@@ -748,7 +758,7 @@ struct Args {
   int R, W, P, QW, D, mode, zdrop_on, plane16;
   const int *mpl0, *mpr0;  // B2 only
   int* mplr;
-  const int* roff;
+  const int* roff;  // B2: the windows' row offsets; B1: its lanes (or null)
   int qstride, grid;
   const int* pre_score;  // B2 with path scores only
 };
@@ -787,26 +797,33 @@ int cols_per_thread(int W, int threads) {
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns a cudaError_t as an int
-// (0 = launched). gap_mode 0/1/2 = linear/affine/convex; mode 0/1/2 =
-// global/extend/local. Planes are int16 when plane16 is 1, else int32.
-// `warps` sets the block, column warps and the control warp (CPT = W /
-// (32 warps), a power of two up to 16),
-// D the shared-memory ring's rows (0 or a power of two); `smem` must be the
-// layout's byte count, which the wrapper computes the same way.
+// Launches the kernel on `stream` over `nl` lanes and returns a
+// cudaError_t as an int (0 = launched). A lane is one read against one
+// graph of R rows: lane b's rows are rows b R .. b R + R - 1 of the per-row
+// inputs (base, pre_idx, pre_cnt, remain) and outputs (each plane's rows;
+// begend and lr hold 2 R ints a lane, beg then end), and entry b of sc
+// (16 ints), row0 (5 x W), qp (qstride ints, QW columns a base), ok (1)
+// and ext (4). `lanes` lists the nl lanes the blocks take (null: lanes 0
+// .. nl - 1); the fused loop of one read set is the launch of lane 0.
+// gap_mode 0/1/2 = linear/affine/convex; mode 0/1/2 = global/extend/local.
+// Planes are int16 when plane16 is 1, else int32. `warps` sets the block,
+// column warps and the control warp (CPT = W / (32 warps), a power of two
+// up to 16), D the shared-memory ring's rows (0 or a power of two); `smem`
+// must be the layout's byte count, which the wrapper computes the same way.
 extern "C" int abpoa_fused_dp(const void* sc, const void* base,
                               const void* pre_idx, const void* pre_cnt,
                               const void* remain, const void* row0,
                               const void* qp, void* H, void* E1, void* E2,
                               void* F1, void* F2, void* begend, void* ok,
-                              void* ext, void* lr, int R, int W, int P,
-                              int QW, int gap_mode, int mode, int zdrop_on,
+                              void* ext, void* lr, const void* lanes, int R,
+                              int W, int P, int QW, int qstride, int nl,
+                              int gap_mode, int mode, int zdrop_on,
                               int plane16, int warps, int D, int smem,
                               void* stream) {
   const int threads = warps * 32;
   if (warps < 1 || threads > kMaxThreads || W < 1 || R < 1 || P < 1 ||
-      mode < 0 || mode > 2 || gap_mode < 0 || gap_mode > 2 || D < 0 ||
-      (D & (D - 1)) != 0)
+      nl < 1 || mode < 0 || mode > 2 || gap_mode < 0 || gap_mode > 2 ||
+      D < 0 || (D & (D - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const int cpt = cols_per_thread(W, threads);
   const int nplanes = gap_mode == kLinear ? 1 : gap_mode == kAffine ? 2 : 3;
@@ -817,8 +834,8 @@ extern "C" int abpoa_fused_dp(const void* sc, const void* base,
          (const int*)pre_cnt, (const int*)remain, (const int*)row0,
          (const int*)qp,      H, E1, E2, F1, F2, (int*)begend, (int*)ok,
          (int*)ext,           (int*)lr, R, W, P, QW, D, mode, zdrop_on,
-         plane16,             nullptr, nullptr, nullptr, nullptr, 0, 1,
-         nullptr};
+         plane16,             nullptr, nullptr, nullptr, (const int*)lanes,
+         qstride,             nl, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (cpt) {

@@ -36,7 +36,9 @@
 //
 // What the design does about it:
 //  - S1 is one launch, in place, one thread a row and a side (blockIdx.y: 0
-//    in, 1 out). It reads node_n on the card (no host sync); a block whose
+//    in, 1 out) and a block row a lane (blockIdx.z: the device lockstep's
+//    lanes, N rows apart; one read set is lane 0). It reads node_n on the
+//    card (no host sync); a block whose
 //    rows all lie past node_n returns, and rows past node_n are neither read
 //    nor written. Side 0 adds 1 to n_span below node_n (when given). A row
 //    with two or more slots reads its weights (16-byte loads where E is a
@@ -51,7 +53,9 @@
 //    rows wait for each other; PERF.md.) K1's pass 2 copies its inputs into
 //    its outputs on the stream and runs this launch on them over all N rows
 //    with no span.
-//  - K1's two BFS passes run in one block, walked by one warp. The degrees
+//  - K1's two BFS passes run in one block a lane to repair (a device list
+//    of the lockstep's lanes, each block with its own shared memory; one
+//    read set is one block), walked by one warp. The degrees
 //    live in shared memory as int8 when E <= 127 and N bytes fit, and in an
 //    int32 instantiation in device memory otherwise
 //    (`topo_kernel.launch_shape` picks; the tests run both). A decrement
@@ -158,15 +162,26 @@ __device__ __forceinline__ bool row_moves(const int* w, int cnt) {
 }
 
 // One thread a row (blockIdx.y: 0 = in, 1 = out), in place; node_n null:
-// all N rows; n_span null: no span update.
+// all N rows; n_span null: no span update. blockIdx.z picks the lane (of
+// `lanes`, or lane blockIdx.z when null): its rows sit N rows a lane apart,
+// its node_n is entry lane.
 template <bool VEC>
 __global__ void finish_fusion_kernel(
     int* __restrict__ in_ids, int* __restrict__ in_w, int* __restrict__ out_ids,
     int* __restrict__ out_w, const int* __restrict__ in_cnt,
     const int* __restrict__ out_cnt, const int* __restrict__ node_n,
-    int* __restrict__ n_span, int N, int E) {
+    int* __restrict__ n_span, int N, int E, const int* __restrict__ lanes) {
   extern __shared__ int smem[];
-  const int n = node_n ? max(0, min(*node_n, N)) : N;
+  const int lane = lanes ? lanes[blockIdx.z] : (int)blockIdx.z;
+  const size_t lr = (size_t)lane * N, le = lr * E;
+  in_ids += le;
+  in_w += le;
+  out_ids += le;
+  out_w += le;
+  in_cnt += lr;
+  out_cnt += lr;
+  if (n_span) n_span += lr;
+  const int n = node_n ? max(0, min(node_n[lane], N)) : N;
   const int r0 = blockIdx.x * blockDim.x;
   if (r0 >= n) return;  // every row of the block lies past node_n
   const bool out = blockIdx.y == 1;
@@ -206,7 +221,7 @@ template <bool VEC>
 cudaError_t launch_ff(int* in_ids, int* in_w, int* out_ids, int* out_w,
                       const int* in_cnt, const int* out_cnt,
                       const int* node_n, int* n_span, int N, int E,
-                      cudaStream_t stream) {
+                      const int* lanes, int nl, cudaStream_t stream) {
   const int rows = s1_rows(E);
   const size_t smem = (size_t)2 * rows * (E + 1) * sizeof(int);
   if (smem > 232448) return cudaErrorInvalidValue;
@@ -216,23 +231,25 @@ cudaError_t launch_ff(int* in_ids, int* in_w, int* out_ids, int* out_w,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((N + rows - 1) / rows, 2);
+  const dim3 grid((N + rows - 1) / rows, 2, nl);
   kern<<<grid, rows, smem, stream>>>(in_ids, in_w, out_ids, out_w, in_cnt,
-                                     out_cnt, node_n, n_span, N, E);
+                                     out_cnt, node_n, n_span, N, E, lanes);
   return cudaGetLastError();
 }
 
 cudaError_t launch_finish_fusion(int* in_ids, int* in_w, int* out_ids,
                                  int* out_w, const int* in_cnt,
                                  const int* out_cnt, const int* node_n,
-                                 int* n_span, int N, int E,
-                                 cudaStream_t stream) {
+                                 int* n_span, int N, int E, const int* lanes,
+                                 int nl, cudaStream_t stream) {
+  if (nl < 1 || nl > 65535) return cudaErrorInvalidValue;
   const bool vec = E % 4 == 0 &&
                    (((uintptr_t)in_w | (uintptr_t)out_w) & 15) == 0;
   return vec ? launch_ff<true>(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt,
-                               node_n, n_span, N, E, stream)
+                               node_n, n_span, N, E, lanes, nl, stream)
              : launch_ff<false>(in_ids, in_w, out_ids, out_w, in_cnt,
-                                out_cnt, node_n, n_span, N, E, stream);
+                                out_cnt, node_n, n_span, N, E, lanes, nl,
+                                stream);
 }
 
 // ---------------------------------------------------------------- K1 ----
@@ -303,8 +320,36 @@ __device__ void build_record(const BfsArgs& a, bool kahn, int v, int* dst) {
   dst[0] = cnt | len << 16;
 }
 
-// writes the records of the nodes below node_n, for the walks asked
-__global__ void records_kernel(BfsArgs a) {
+// The arguments of lane `lane` (rows N a lane apart in the inputs and in
+// i2n, n2i, remain; node_n and ok entry lane), the j-th lane of the launch
+// (its records and scratch at position j).
+__device__ BfsArgs lane_args(const BfsArgs& g, const int* lanes, int j) {
+  const int lane = lanes ? lanes[j] : j;
+  const size_t r = (size_t)lane * g.N, e = r * g.E;
+  BfsArgs a = g;
+  a.out_ids += e;
+  a.s_in_ids += e;
+  a.s_out_ids += e;
+  a.out_cnt += r;
+  a.in_cnt += r;
+  a.aligned += r * g.A;
+  a.aligned_cnt += r;
+  a.rec1 += (size_t)j * g.N * (g.S1 + g.S3);
+  a.rec3 += (size_t)j * g.N * (g.S1 + g.S3);
+  a.node_n += lane;
+  a.i2n += r;
+  a.n2i += r;
+  a.remain += r;
+  a.ok += lane;
+  a.rqueue += (size_t)j * (2 * g.N + 1);
+  a.deg_global += (size_t)j * (2 * g.N + 1);
+  return a;
+}
+
+// writes the records of the nodes below node_n, for the walks asked; the
+// launch's lane j is blockIdx.y
+__global__ void records_kernel(BfsArgs g, const int* __restrict__ lanes) {
+  const BfsArgs a = lane_args(g, lanes, blockIdx.y);
   const int n = min(a.node_n[0], a.N);
   for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < n;
        v += gridDim.x * blockDim.x) {
@@ -511,8 +556,10 @@ __device__ void walk_remain(const BfsArgs& a, Walk& wk, Degrees<DegT> deg) {
 // shared memory: the record cache and its tags and (the shared
 // instantiation) the degrees.
 template <typename DegT, bool kSharedDeg>
-__global__ void __launch_bounds__(kBfsThreads) topo_bfs_kernel(BfsArgs a) {
+__global__ void __launch_bounds__(kBfsThreads)
+    topo_bfs_kernel(BfsArgs g, const int* __restrict__ lanes) {
   extern __shared__ int4 smem4[];
+  const BfsArgs a = lane_args(g, lanes, blockIdx.x);
   __shared__ int walk_end[2];
   int* smem = (int*)smem4;
   const int tid = threadIdx.x, N = a.N;
@@ -586,40 +633,48 @@ size_t bfs_smem(int N, int E, int A, int C, int deg_bytes) {
 }
 
 template <typename DegT, bool kSharedDeg>
-cudaError_t launch_bfs(const BfsArgs& a, size_t smem, cudaStream_t stream) {
+cudaError_t launch_bfs(const BfsArgs& a, const int* lanes, int nl,
+                       size_t smem, cudaStream_t stream) {
   auto kern = topo_bfs_kernel<DegT, kSharedDeg>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<1, kBfsThreads, smem, stream>>>(a);
+  kern<<<nl, kBfsThreads, smem, stream>>>(a, lanes);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches S1 on `stream`, in place on the four (N, E) slot arrays: the
-// exchange sort of the rows below *node_n (all N rows when node_n is null)
-// and, when n_span is not null, n_span + 1 below node_n. Returns a
-// cudaError_t as an int (0 = launched).
+// Launches S1 on `stream` over `nl` lanes, in place on the four slot
+// arrays (lanes x N x E): the exchange sort of each lane's rows below its
+// node_n entry (all N rows when node_n is null) and, when n_span is not
+// null, n_span + 1 below node_n. `lanes` lists the lanes (null: lanes 0 ..
+// nl - 1); one read set is lane 0. Returns a cudaError_t as an int (0 =
+// launched).
 extern "C" int abpoa_finish_fusion(void* in_ids, void* in_w, void* out_ids,
                                    void* out_w, const void* in_cnt,
                                    const void* out_cnt, const void* node_n,
-                                   void* n_span, int N, int E,
-                                   void* stream) {
+                                   void* n_span, const void* lanes, int N,
+                                   int E, int nl, void* stream) {
   if (N < 1 || E < 1) return (int)cudaErrorInvalidValue;
   return (int)launch_finish_fusion(
       (int*)in_ids, (int*)in_w, (int*)out_ids, (int*)out_w,
       (const int*)in_cnt, (const int*)out_cnt, (const int*)node_n,
-      (int*)n_span, N, E, (cudaStream_t)stream);
+      (int*)n_span, N, E, (const int*)lanes, nl, (cudaStream_t)stream);
 }
 
-// Launches K1 on `stream`: S1 on copies of the slots in the sorted outputs
-// (pass 2), the nodes' records into `rec` (N x (record1_ints(E, A) +
-// record3_ints(E)) ints: pass 1's, then pass 3's), then the BFS block (passes 1 and 3). variant: 0 =
-// int8 degrees in shared memory, 1 = int32 in device memory; C record cache
-// slots (a power of two). walks: a mask of the BFS passes to run (1 = pass
-// 1, 2 = pass 3); 3 is the function, the others exist only to time a walk
-// alone. scratch holds 2N + 1 ints. Returns a cudaError_t as an int.
+// Launches K1 on `stream` over `nl` lanes: S1 on copies of the slots in the
+// sorted outputs (pass 2), the nodes' records into `rec` (N x
+// (record1_ints(E, A) + record3_ints(E)) ints a lane of the launch: pass
+// 1's, then pass 3's), then one BFS block a lane (passes 1 and 3). The
+// inputs, the sorted slots and i2n, n2i, remain hold `L` lanes of N rows
+// (node_n and ok one entry a lane); `lanes` lists the nl lanes to repair
+// (null: lanes 0 .. nl - 1), and the launch's j-th lane takes entry j of
+// rec and scratch (2N + 1 ints each). One read set is lane 0 of one.
+// variant: 0 = int8 degrees in shared memory, 1 = int32 in device memory;
+// C record cache slots (a power of two). walks: a mask of the BFS passes to
+// run (1 = pass 1, 2 = pass 3); 3 is the function, the others exist only to
+// time a walk alone. Returns a cudaError_t as an int.
 extern "C" int abpoa_topo_sort(const void* in_ids, const void* in_w,
                                const void* out_ids, const void* out_w,
                                const void* in_cnt, const void* out_cnt,
@@ -627,19 +682,20 @@ extern "C" int abpoa_topo_sort(const void* in_ids, const void* in_w,
                                const void* node_n, void* s_in_ids,
                                void* s_in_w, void* s_out_ids, void* s_out_w,
                                void* i2n, void* n2i, void* remain, void* ok,
-                               void* scratch, void* rec, int N, int E, int A,
-                               int variant, int C, int walks, void* stream) {
+                               void* scratch, void* rec, const void* lanes,
+                               int N, int E, int A, int variant, int C,
+                               int walks, int L, int nl, void* stream) {
   // the records pack a node id in 25 bits, a group size in 7, a member
   // offset in 13 and their length in 16
   if (N < 2 || N > (1 << 25) || E < 1 || A < 1 || A > 127 || E * A > 8191 ||
       record1_ints(E, A) > 65535 || C < 2 || (C & (C - 1)) || variant < 0 ||
-      variant > 1)
+      variant > 1 || L < 1 || nl < 1 || nl > L || nl > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int S1 = record1_ints(E, A), S3 = record3_ints(E);
   // pass 2: the inputs copied into the sorted outputs, then S1 in place on
   // them over all N rows, no span
-  const size_t slot_bytes = (size_t)N * E * sizeof(int);
+  const size_t slot_bytes = (size_t)L * N * E * sizeof(int);
   const void* src[4] = {in_ids, in_w, out_ids, out_w};
   void* dst[4] = {s_in_ids, s_in_w, s_out_ids, s_out_w};
   cudaError_t err;
@@ -650,7 +706,8 @@ extern "C" int abpoa_topo_sort(const void* in_ids, const void* in_w,
   }
   err = launch_finish_fusion((int*)s_in_ids, (int*)s_in_w, (int*)s_out_ids,
                              (int*)s_out_w, (const int*)in_cnt,
-                             (const int*)out_cnt, nullptr, nullptr, N, E, st);
+                             (const int*)out_cnt, nullptr, nullptr, N, E,
+                             (const int*)lanes, nl, st);
   if (err != cudaSuccess) return (int)err;
   BfsArgs a;
   a.out_ids = (const int*)out_ids;
@@ -677,13 +734,16 @@ extern "C" int abpoa_topo_sort(const void* in_ids, const void* in_w,
   a.S3 = S3;
   a.walks = walks;
   if (walks & 3) {
-    records_kernel<<<(N + 127) / 128, 128, 0, st>>>(a);
+    records_kernel<<<dim3((N + 127) / 128, nl), 128, 0, st>>>(
+        a, (const int*)lanes);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const size_t smem = bfs_smem(N, E, A, C, variant == 0 ? 1 : 0);
   if (smem > 232448 - 16) return (int)cudaErrorInvalidValue;
-  if (variant == 0) err = launch_bfs<int8_t, true>(a, smem, st);
-  else err = launch_bfs<int, false>(a, smem, st);
+  if (variant == 0)
+    err = launch_bfs<int8_t, true>(a, (const int*)lanes, nl, smem, st);
+  else
+    err = launch_bfs<int, false>(a, (const int*)lanes, nl, smem, st);
   return (int)err;
 }

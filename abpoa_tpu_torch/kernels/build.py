@@ -109,22 +109,35 @@ def load() -> ctypes.CDLL:
     lib.abpoa_unbanded_dp.restype = ci
     lib.abpoa_unbanded_max_clusters.argtypes = [ci] * 9 + [vp]
     lib.abpoa_unbanded_max_clusters.restype = ci
-    lib.abpoa_fused_dp.argtypes = [vp] * 16 + [ci] * 11 + [vp]
+    lib.abpoa_fused_dp.argtypes = [vp] * 17 + [ci] * 13 + [vp]
     lib.abpoa_fused_dp.restype = ci
-    lib.abpoa_backtrack.argtypes = [vp] * 15 + [ci] * 8 + [vp]
+    lib.abpoa_backtrack.argtypes = [vp] * 16 + [ci] * 10 + [vp]
     lib.abpoa_backtrack.restype = ci
     lib.abpoa_backtrack_windows.argtypes = [vp] * 14 + [ci] * 7 + [vp]
     lib.abpoa_backtrack_windows.restype = ci
     lib.abpoa_backtrack_windows_tile.argtypes = [ci] * 4 + [vp]
     lib.abpoa_backtrack_windows_tile.restype = ci
-    lib.abpoa_topo_sort.argtypes = [vp] * 19 + [ci] * 6 + [vp]
+    lib.abpoa_topo_sort.argtypes = [vp] * 20 + [ci] * 8 + [vp]
     lib.abpoa_topo_sort.restype = ci
-    lib.abpoa_finish_fusion.argtypes = [vp] * 8 + [ci] * 2 + [vp]
+    lib.abpoa_finish_fusion.argtypes = [vp] * 9 + [ci] * 3 + [vp]
     lib.abpoa_finish_fusion.restype = ci
+    lib.abpoa_fuse_alignment.argtypes = [vp] * 22 + [ci] * 7 + [vp]
+    lib.abpoa_fuse_alignment.restype = ci
     lib.abpoa_cuda_error_string.argtypes = [ci]
     lib.abpoa_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def lane_list(lanes, dev):
+    """A host list of lanes as an int32 tensor on the card (copied from
+    pinned memory, so the copy does not wait for the stream), or None for
+    None (every lane)."""
+    if lanes is None:
+        return None
+    import torch
+    return torch.tensor([int(x) for x in lanes], dtype=torch.int32
+                        ).pin_memory().to(dev, non_blocking=True)
 
 
 def check(err: int, what: str) -> None:

@@ -1,10 +1,12 @@
 """`-l` file lists: lockstep groups of read sets, or one set after another.
 
-Counterpart of the parts of `abpoa_tpu/parallel/runner.py` the split
-lockstep route needs: `lockstep_group_size` (:35), `lockstep_enabled`
-(:44), `_lockstep_ok` (:79), `flush_lockstep_group` (:89) and `run_batch`
-(:237). Segments of K sets that the fused route would take run in split
-lockstep (`parallel/lockstep.py`); every other set takes its single-set
+Counterpart of the parts of `abpoa_tpu/parallel/runner.py` the lockstep
+route needs: `lockstep_group_size` (:35), `lockstep_enabled` (:44),
+`_lockstep_ok` (:79), `flush_lockstep_group` (:89) and `run_batch` (:237).
+Segments of K sets that the fused route would take run in lockstep, on the
+implementation `scheduler.lockstep_impl` picks (the device lockstep,
+`align/fused_lanes.py`, or the split driver, `parallel/lockstep.py`);
+every other set takes its single-set
 route (`pipeline.msa_from_file`). Output comes in file order, and a set
 that fails its input checks or cannot be read is quarantined (one stderr
 line) while the others go on. Left for later items: the memory admission
@@ -36,21 +38,23 @@ def lockstep_enabled(abpt: Params) -> bool:
 
 def _lockstep_ok(abpt: Params) -> bool:
     """Lockstep covers the configurations of the fused route without `-i`
-    on the plain route (no seeding, no guide tree) and without Z-drop, on
-    cuda, and on cpu when asked for (`lockstep_enabled`). Z-drop stays set
-    by set: the split driver gives it the per-read route's output, which
-    differs from the fused route's (ROADMAP.md §C)."""
+    on the plain route (no seeding, no guide tree), on cuda, and on cpu
+    when asked for (`lockstep_enabled`). Z-drop joins the device lockstep,
+    whose output is the fused route's, as in JAX; with the split driver it
+    stays set by set, since that driver gives it the per-read route's
+    output, which differs from the fused route's (ROADMAP.md §C)."""
     from ..align.eligibility import fused_config_eligible
     from ..params import plain_route
+    from .scheduler import lockstep_impl
     return (not abpt.incr_fn
-            and abpt.zdrop <= 0
+            and (abpt.zdrop <= 0 or lockstep_impl(abpt) == "device")
             and lockstep_enabled(abpt)
             and plain_route(abpt)
             and fused_config_eligible(abpt))
 
 
 def lockstep_covers(abpt: Params, n_reads: int) -> bool:
-    """Does a set of `n_reads` reads run in split lockstep (`run_batch`,
+    """Does a set of `n_reads` reads run in lockstep (`run_batch`,
     `msa_batch`)? Where the configuration allows it, the sets the fused
     route would take."""
     from ..align.eligibility import fused_eligible
@@ -59,15 +63,21 @@ def lockstep_covers(abpt: Params, n_reads: int) -> bool:
 
 def flush_lockstep_group(group: List, abpt: Params) -> dict:
     """Run one lockstep group of (idx, ab, seqs, weights) entries, in
-    groups of one `qp_rung` each; returns {idx: Abpoa with its set's
-    graph and strand flags}."""
+    groups of one `qp_rung` each, on the implementation
+    `scheduler.lockstep_impl` picks ("device": the device lockstep,
+    `fused_lanes.progressive_poa_fused_batch`; "split": the split driver);
+    returns {idx: Abpoa with its set's graph and strand flags}. A failed
+    group raises: neither implementation stands in for the other."""
     from ..align.buckets import partition_by_length_bucket
+    from ..align.fused_lanes import progressive_poa_fused_batch
     from .lockstep import progressive_poa_split_batch
+    from .scheduler import lockstep_impl
+    drive = (progressive_poa_fused_batch if lockstep_impl(abpt) == "device"
+             else progressive_poa_split_batch)
     results: dict = {}
     for sub in partition_by_length_bucket(
             [(e[0], e[2], e[3], e[1]) for e in group]):
-        outs = progressive_poa_split_batch([e[1] for e in sub],
-                                           [e[2] for e in sub], abpt)
+        outs = drive([e[1] for e in sub], [e[2] for e in sub], abpt)
         for (idx, _seqs, _w, ab), (graph, is_rc) in zip(sub, outs):
             ab.graph = graph
             if abpt.amb_strand:

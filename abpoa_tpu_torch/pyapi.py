@@ -10,13 +10,18 @@ the native host graph (`native/`), as the CLI's per-read route does, in
 global, local (`aln_mode="l"`) or extend (`"e"`) mode with linear, affine
 or convex gaps.
 
-`msa_batch` runs the sets the lockstep route covers in split lockstep
+`msa_batch` runs the sets the lockstep route covers in lockstep where
+`lockstep` allows it ("auto": on the card), on the implementation
+`parallel.scheduler.lockstep_impl` picks: the device lockstep
+(`align/fused_lanes.py`: every set's graph on the card, each kernel
+launched once a round over the sets) or the split driver
 (`parallel/lockstep.py`: one K-lane B2 launch a round, each set's fusion
-on its own native graph) where `lockstep` allows it ("auto": on the card),
-and the others one `msa()` after another; the results equal `msa()`'s set
-by set either way. `device` defaults to "cuda" (the port's rule: the card
-unless the caller asks for the CPU). The JAX package's `last_report`
-telemetry is ROADMAP.md queue A, item 10.
+on its own native graph); the others run one `msa()` after another. The
+results equal `msa()`'s set by set either way, but for Z-drop (`-m 2
+-z`), which the device lockstep takes with the fused route's output, as
+the JAX package's does (ROADMAP.md §C). `device` defaults to "cuda" (the
+port's rule: the card unless the caller asks for the CPU). The JAX
+package's `last_report` telemetry is ROADMAP.md queue A, item 10.
 """
 from __future__ import annotations
 
@@ -198,8 +203,8 @@ class msa_aligner:
     def msa_batch(self, seq_sets, out_cons, out_msa, max_n_cons=1,
                   min_freq=0.25, qscores_sets=None) -> List[msa_result]:
         """Independent read sets (abpoa_tpu/pyapi.py:216-389): the sets the
-        lockstep route covers (`parallel.lockstep_covers`) in split
-        lockstep, one group a query rung (`flush_lockstep_group`); the
+        lockstep route covers (`parallel.lockstep_covers`) in lockstep,
+        one group a query rung (`flush_lockstep_group`); the
         others one `msa()` after another. Each result equals `msa()`'s on
         its set. A set that fails its input checks is quarantined: None in
         its slot, one stderr line, and the rest complete."""

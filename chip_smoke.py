@@ -66,8 +66,10 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          their goldens: seq4.fa -i seq10.gfa and -i seq10.msa (the fused
          loop from the restored state: B1, no B2), heter.fq -d 2 -Q (the
          per-read route: B2, no B1) and -l tests/data/list.txt (run from
-         the repository root; by default in split lockstep, B2 and no
-         B1, and with --lockstep off set by set, B1 and no B2); seq4.fa
+         the repository root; by default in the lockstep implementation
+         that lockstep_impl picks on cuda: the split driver, B2 and no B1,
+         or the device lockstep, B1 over lanes and no B2; with --lockstep
+         off set by set, B1 and no B2); seq4.fa
          -i seq10.gfa with -r 1, -r 3 and
          -d 2 (B2, no B1), seq4.fa -i seq10.msa -m 1 (B3 from a restored
          state), seq.fa -g's .dot file and pyapi.msa_aligner().msa on
@@ -93,7 +95,11 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          into the tables (C++), B2, X1w, the copy of the small results, the
          cigar rebuild and the fusion and sort (C++); X1w launched once a
          B2 launch, and the bytes copied to the host, beside the planes'
-         bytes that stay on the card (check_walks; the same in C5-C7)
+         bytes that stay on the card (check_walks; the same in C5-C7);
+         the fused route once more with a collision forced on every read
+         (forced_collisions): kernel F1's sequential fusion, its S1 and K1
+         each read, the consensus byte-identical, no host graph built from
+         the card's graph
   C3     phase C's set again with -r 2 (MSA and consensus; the loop records
          each read's path, the read-id bitsets are replayed on the host): the
          consensus equals phase C's, each MSA row without gaps is its read,
@@ -136,7 +142,7 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          When fewer than half the reads get two windows at 10 % error
          (anchors rarely survive it), C7 runs on reads of the same
          reference at 5 % error, and says so
-  C8     B2's and X1w's modes at full width on the first 12 reads of phase
+  C8     B2's and X1w's modes at full width on the first 5 reads of phase
          C's set (phase_c8): the per-read route in -m 1, -m 2 and -m 2 -z
          100 == the fused route (B3/B1), -r 2 byte for byte; the pyapi in
          aln_mode l and e == the fused MSA rows and consensus; -b -1 -r 2
@@ -144,16 +150,27 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          check_walks, consensus identity >= 0.98; per read the split of C2
          and B2's µs a computed row. The whole-row runs (-m 1, pyapi l, -b
          -1) launch B2u and no B2, the others B2 and no B2u
-  C9     `-l` in split lockstep at full width (phase_c9): 8 sets of
-         10 kb reads at 10 % error of 8 references (seeds 11-18), set i of
-         T + 5 i reads (T = 20), through the CLI with -r 2 and --lockstep
-         off (set by set, the fused route) and on (K = 8: one K-lane B2
-         launch and one X1w launch a round, host fusion): byte-identical
-         outputs, no B1 in lockstep, check_walks; wall, reads/s, rounds,
-         mean live lanes, the lockstep wall split, consensus identity to
-         each reference; round 2's launch (8 lanes, each a graph of one
-         read) against the plain version on CPU copies, and X1w's walk of
-         it against its plain version
+  C9     `-l` at full width (phase_c9): 8 sets of 10 kb reads at 10 %
+         error of 8 references (seeds 11-18), set i of T + 5 i reads
+         (T = 10), through the CLI with -r 2 and --lockstep off (set by
+         set, the fused route), on with the split driver (K = 8: one
+         K-lane B2 launch and one X1w launch a round, host fusion) and on
+         with the device lockstep (every graph on the card; B1, X1, S1
+         and K1 once a round over the lanes), and once more with the
+         device lockstep and a collision forced on the even lane
+         positions of every round (F1 over a lane list, its S1, K1 and
+         the merge into the round's graph): byte-identical outputs; the
+         split run launches no B1 (check_walks), the device run no B2 and
+         no X1w and B1 once a round, at most one host sync a round beyond
+         `-s` and Kahn; the forced run F1 once a round and no host graph
+         built from the card's; wall, reads/s, rounds, mean live lanes,
+         launches,
+         the wall split (by step on the stream and host for the device
+         run), consensus identity to each reference; the split run's round
+         2 launch (8 lanes, each a graph of one read) against the plain
+         version on CPU copies, and X1w's walk of it; the device run's
+         mid-run round: its B1, X1 and S1 lane launches against their
+         plain versions, with times and bounds
   C10    `map` (phase_c10): C5's restored graph and C5's new reads through
          `python -m abpoa_tpu_torch map` at -K 1 (20 reads), -K 8 and -K 32:
          the GAF byte-identical across them, the tables built once and
@@ -167,9 +184,13 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          computed row, X1 per step, K1 per pass, in both degree variants
          and with its two walks' lengths), the share of predecessor reads
          B1's rings serve (from the tables), a sweep of B1's column warps,
-         each held equal to the plain version, and the time of the
-         sequential fusion a collision read takes (held equal to the
-         vectorised fusion); B2's kernel time at the graph of C2's per-read
+         each held equal to the plain version, the time of the
+         sequential fusion a collision read takes (the host walk, F1's
+         plain version, held equal to the vectorised fusion) and kernel
+         F1 on the same op stream against it (every graph array, ok,
+         node_n, the path; time, bound); K1 over two lanes (the final
+         graph and the read's sequentially fused graph) in one launch
+         against its plain version; B2's kernel time at the graph of C2's per-read
          run, and against its plain version at C5 (b)'s per-read graph
          (C3's restored MSA and 20 new reads, the largest graph the CLI
          launches B2 on, in C5 (c); time, per computed row, bound, ring
@@ -194,7 +215,8 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          row) run on CPU copies of the kernel's inputs, but for phase A's
          one-read B2 cases (the 20 kb read's wide planes); the others run
          on the card. Those of phase D's B1, B2, B2u and batched-B2 rows
-         and of C9's round-2 launch run side by side in six worker
+         and of C9's round-2 launch and its device run's B1 lane launch
+         (a job a lane) run side by side in seven worker
          processes on the host (PlainPool) from the start of D; the mode
          cases' workers hand back digests of the planes (plane_digest), not
          the planes (2-4 GB a whole-row case), and the main process checks
@@ -615,15 +637,24 @@ class PlainPool:
         mplr, ok, ext] as tensors, rows)."""
         import numpy as np
         import torch
-        job = {"call": (_plain_digest_worker,
-                        [np.ascontiguousarray(a) for a in arrays], kw)}
-        self.queued.append(job)
+        job = self.add_call(_plain_digest_worker,
+                            [np.ascontiguousarray(a) for a in arrays], kw)
 
         def wait():  # this job only: the main process goes on with its case
-            self.start()
-            ms, dig, small, rows = job["future"].result()
+            ms, dig, small, rows = job()
             return (ms, torch.from_numpy(dig),
                     [torch.from_numpy(o) for o in small], rows)
+        return wait
+
+    def add_call(self, worker, *call_args):
+        """Queue worker(*call_args) (a module-level function; numpy in and
+        out); wait() gives its result, after submitting every queued job."""
+        job = {"call": (worker, *call_args)}
+        self.queued.append(job)
+
+        def wait():
+            self.start()
+            return job["future"].result()
         return wait
 
     def run(self) -> None:
@@ -766,6 +797,19 @@ def topo_bound(rates, g):
     E, A = g.in_ids.shape[1], g.aligned.shape[1]
     nb = n * (4 * E + 3 + A + 1) * 4 + n * (4 * E + 3) * 4
     return rates.bound(nb, float(n * (2 * E * E + 4 * E + 2 * A)))
+
+
+def f1_bound(rates, g, out, n_ops: int, qlen: int):
+    """F1: its op stream (n_ops ops and arguments) and the read (qlen bases
+    and weights) read once; per op the two slot rows add_edge scans (E ids
+    each) read once; every graph entry the fusion changed (input g against
+    output `out`) read and written once. Operations: per op the scans'
+    compares and ~16 more."""
+    E = g.in_ids.shape[-1]
+    changed = sum(int((a != b).sum()) for k, (a, b) in enumerate(zip(
+        g.tensors().values(), out.tensors().values())))
+    nb = 8 * n_ops + 8 * qlen + n_ops * 2 * E * 4 + 2 * 4 * changed
+    return rates.bound(nb, float(n_ops * (2 * E + 16)))
 
 
 def s1_bound(rates, args, n):
@@ -1435,6 +1479,64 @@ def run_pipeline(argv, out_path: str):
     return ab
 
 
+def forced_collisions(abpt, recs, want: str) -> dict:
+    """The fused route on `recs` with `_fuse_vectorized`'s collision flag
+    forced on every read (tests/test_torch_read_ids.py forces it so): each
+    read takes kernel F1's sequential fusion on the card, its S1 and a Kahn
+    repair. Its consensus must equal `want` (the unforced run's), and no
+    host graph (`device_graph._HostGraph`, the plain walk's) may be built
+    on the card. The counts are set to 0 just before the run and read just
+    after. Returns its wall, launches and counters."""
+    import torch
+    from abpoa_tpu_torch.align import device_graph
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort
+    from abpoa_tpu_torch.align.fuse_kernel import fuse_alignment_lanes
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort
+    from abpoa_tpu_torch.pipeline import (Abpoa, _ingest_records,
+                                          _run_fused_device, output)
+    real, real_host = fl._fuse_vectorized, device_graph._HostGraph.__init__
+    built = []
+
+    def colliding(*a, **k):
+        out = list(real(*a, **k))
+        out[4] = torch.ones((), dtype=torch.bool, device=out[4].device)
+        return tuple(out)
+
+    def host_graph(self, g):
+        built.append(g.base.device.type)
+        real_host(self, g)
+
+    ab = Abpoa()
+    seqs, weights = _ingest_records(ab, abpt, recs)
+    fl.reset_stats()
+    fuse_alignment_lanes.launches = topo_sort.launches = edge_sort.launches = 0
+    fl._fuse_vectorized, device_graph._HostGraph.__init__ = colliding, host_graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        _run_fused_device(ab, abpt, seqs, weights)
+    finally:
+        fl._fuse_vectorized, device_graph._HostGraph.__init__ = real, real_host
+    wall = time.perf_counter() - t0
+    out = dict(wall=wall, f1=fuse_alignment_lanes.launches,
+               k1=topo_sort.launches, s1=edge_sort.launches,
+               collisions=fl.stats["collisions"], syncs=fl.stats["syncs"])
+    buf = io.StringIO()
+    output(ab, abpt, buf)
+    if buf.getvalue() != want:
+        raise AssertionError("C2: forced collisions change the consensus")
+    if "cuda" in built:
+        raise AssertionError(f"C2: {built.count('cuda')} host graphs built "
+                             "from the card's graph")
+    n = len(recs) - 1
+    if out["f1"] < n or out["collisions"] < n or out["k1"] < n:
+        raise AssertionError(f"C2: forced collisions: F1 {out['f1']}, K1 "
+                             f"{out['k1']}, collisions {out['collisions']} "
+                             f"for {n} aligned reads")
+    return out
+
+
 def run_cli(argv):
     from abpoa_tpu_torch import cli
     rc = cli.main(argv)
@@ -2102,8 +2204,10 @@ def cluster_width(qlen: int) -> int:
 
 
 def phase_c8(ref: str, reads: list) -> dict:
-    """Phase C8: B2's and X1w's modes at full width on the first 12 reads of
-    phase C's set (20 until unbanded B2's time made the script too long). (a) `-m 1`, `-m 2` and `-m 2 -z 100`: the per-read route
+    """Phase C8: B2's and X1w's modes at full width on the first 5 reads of
+    phase C's set (20 until unbanded B2's time made the script too long,
+    12 and then 8 until the device lockstep's checks did). (a) `-m 1`, `-m 2` and
+    `-m 2 -z 100`: the per-read route
     (pipeline.poa, as C2 drives it) gives the fused route's (the CLI: B3 or
     B1) consensus and MSA byte for byte (`-r 2`: the `-r 1` rows and the
     consensus row in one output); the pyapi in aln_mode `l` and `e` gives
@@ -2129,7 +2233,7 @@ def phase_c8(ref: str, reads: list) -> dict:
     from abpoa_tpu_torch.pipeline import (Abpoa, _ingest_records,
                                           _select_graph, output, poa,
                                           want_native)
-    n = min(12, len(reads))
+    n = min(5, len(reads))
     fa = os.path.join(OUT, "c8.fa")
     with open(fa, "w") as fp:
         fp.write("".join(f">read_{i}\n{r}\n" for i, r in enumerate(reads[:n])))
@@ -2309,28 +2413,179 @@ def lanes_check(dev, p, tabs, queries, W, tag, plain=None):
     return err_w, ts, got, finish
 
 
+class Tally:
+    """A stand-in for Rates whose bound() returns (bytes, operations), so
+    that a bound can be summed over lanes before it is turned into ms."""
+
+    @staticmethod
+    def bound(nbytes: float, ops: float):
+        return nbytes, ops
+
+
+def lanes_bound(rates, fn, lanes):
+    """The bound of a lane launch: fn(Tally, lane) per lane, summed."""
+    nb = ops = 0.0
+    for l in lanes:
+        b, o = fn(Tally, l)
+        nb, ops = nb + b, ops + o
+    return rates.bound(nb, ops)
+
+
+def force_lane_collisions():
+    """Set the device lockstep's collision flag (`fused_lanes.
+    _fuse_vectorized_l`'s) on the even lane positions of every round: the
+    stack's first lane always, so F1 runs once a round, over a lane list
+    whenever two or more lanes are live. Records the devices of the host
+    graphs (`device_graph._HostGraph`, the plain walk's) built meanwhile.
+    Returns (built, undo)."""
+    import torch
+    from abpoa_tpu_torch.align import device_graph
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    real, real_host = fla._fuse_vectorized_l, device_graph._HostGraph.__init__
+    built = []
+
+    def colliding(*a, **k):
+        out = list(real(*a, **k))
+        even = torch.arange(out[4].shape[0], device=out[4].device) % 2 == 0
+        out[4] = out[4] | even
+        return tuple(out)
+
+    def host_graph(self, g):
+        built.append(g.base.device.type)
+        real_host(self, g)
+
+    fla._fuse_vectorized_l, device_graph._HostGraph.__init__ = colliding, host_graph
+
+    def undo():
+        fla._fuse_vectorized_l, device_graph._HostGraph.__init__ = real, real_host
+    return built, undo
+
+
+def record_lane_round(target: int):
+    """Wrap the device lockstep's lane launches of B1, X1 and S1: returns
+    (seen, undo); seen gets each wrapper's (args, kwargs) at its call number
+    `target` (1 = the first round's), S1's cloned before its in-place
+    launch. The wrappers call the kernels as they are: the counts are the
+    run's own."""
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    seen, calls = {}, {}
+    names = ("fused_dp_lanes", "backtrack_lanes", "finish_fusion_lanes_")
+    real = {n: getattr(fla, n) for n in names}
+
+    def wrap(name):
+        def w(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            if calls[name] == target:
+                seen[name] = ([t.clone() if name == names[2] else t
+                               for t in a], dict(k))
+            return real[name](*a, **k)
+        return w
+
+    for n in names:
+        setattr(fla, n, wrap(n))
+    return seen, lambda: [setattr(fla, n, f) for n, f in real.items()]
+
+
+def _plain_lanes_worker(arrays, kw):
+    """B1's plain version over lanes (`fused_dp_lanes` on the CPU) in a
+    worker process, returning each lane's planes as `plane_digest`s of the
+    rows it computes and the other outputs whole: (ms, digests, [beg, end,
+    ok, ext], rows a lane)."""
+    import torch
+    from abpoa_tpu_torch.align.fused_dp_kernel import (computed_rows,
+                                                       fused_dp_lanes)
+    torch.set_num_threads(1)
+    args = [torch.from_numpy(a) for a in arrays]
+    ms, out = time_plain(fused_dp_lanes, args, **kw)
+    W = out[0].shape[2]
+    rows = [computed_rows(out[5][l], out[6][l], out[7][l:l + 1],
+                          int(args[0][l, 8]), W) for l in range(len(out[7]))]
+    digs = [plane_digest([p[l] for p in out[:5]], r).numpy()
+            for l, r in enumerate(rows)]
+    return ms, digs, [o.numpy() for o in out[5:]], rows
+
+
+def b1_lanes_check(rates, plain, ts, kw):
+    """A captured B1 lane launch (ts, kw on the card): the kernel again, its
+    time, and the bound over each lane's computed rows; the plain version
+    runs in `plain` (a PlainPool), one job a lane, and returns digests.
+    Returns (finish, ms, bound, longest lane's rows): finish() waits for
+    the plain version, compares it lane by lane and gives (max abs diff,
+    plain ms: the jobs' times summed, the plain version's time on one
+    core)."""
+    import torch
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp_lanes
+    L = ts[0].shape[0]
+    waits = [plain.add_call(_plain_lanes_worker,
+                            [t[l:l + 1].cpu().numpy() for t in ts], kw)
+             for l in range(L)]
+    got = fused_dp_lanes(*ts, **kw)
+    torch.cuda.synchronize()
+    ms = time_cuda(lambda: fused_dp_lanes(*ts, **kw), 3)
+    bnd = lanes_bound(rates, lambda r, l: dp_bound(
+        r, [t[l] for t in ts], [*(p[l] for p in got[:5]), got[5][l],
+                                 got[6][l], got[7][l:l + 1], got[8][l]]),
+        range(L))
+    gns = [int(ts[0][l, 8]) for l in range(L)]
+
+    def finish():
+        err = p_ms = 0
+        for l, wait in enumerate(waits):
+            ms_l, digs, small, rows = wait()
+            p_ms += ms_l
+            mine = plane_digest([p[l] for p in got[:5]], rows[0])
+            if not torch.equal(mine, torch.from_numpy(digs[0])):
+                raise AssertionError(f"fused_dp[lanes] lane {l}: planes "
+                                     "differ from the plain version")
+            err = max(err, compare(f"fused_dp[lanes] lane {l}",
+                                   [got[5][l], got[6][l], got[7][l:l + 1],
+                                    got[8][l]],
+                                   [torch.from_numpy(small[0][0]),
+                                    torch.from_numpy(small[1][0]),
+                                    torch.from_numpy(small[2][0:1]),
+                                    torch.from_numpy(small[3][0])]))
+        return err, p_ms
+    return finish, ms, bnd, max(gns) - 1, got
+
+
 def phase_c9(args, rates, plain) -> dict:
-    """Phase C9: `-l` in split lockstep at full width, as users with many
-    small read sets run it (per-locus amplicon clusters, UMI groups): 8
-    sets of reads of 8 simulated references (--ref-len bp, seeds 11-18) at
-    10 % error, set i of --c9-reads + 5 i reads, so the sets drain at
-    different rounds. The list through the CLI with -r 2, once with
-    --lockstep off (set by set: the fused route) and once with --lockstep
-    on (K = 8, one group): the outputs must be byte-identical, the lockstep
-    run must launch no B1 and X1w once a B2 launch (check_walks). Printed:
-    wall, reads/s, rounds, launches, mean live lanes a round, the lockstep
-    wall split into tables, B2, X1w, copy, cigar and fusion + sort, and each
-    set's consensus identity to its reference. Round 2's K-lane launch (the
-    first: every lane's graph is its first read) against its plain version
-    (in `plain`, a PlainPool) and X1w's walk of it against X1w's plain
-    version, with its time and bound. Returns the lockstep run's launches,
-    that launch's numbers, `finish()` (`lanes_check`'s) and the launch
-    (Params, inputs, outputs, row tables, queries) for X1w's row in D."""
+    """Phase C9: `-l` at full width, as users with many small read sets run
+    it (per-locus amplicon clusters, UMI groups): 8 sets of reads of 8
+    simulated references (--ref-len bp, seeds 11-18) at 10 % error, set i of
+    --c9-reads + 5 i reads, so the sets drain at different rounds. The list
+    through the CLI with -r 2 four times: --lockstep off (set by set: the
+    fused route), --lockstep on with the split driver
+    (ABPOA_TPU_LOCKSTEP_IMPL=split; one K-lane B2 launch and one X1w launch
+    a round, host fusion) and on with the device lockstep (=device; every
+    set's graph on the card, B1, X1, S1 and K1 launched once a round over
+    the lanes), then the device lockstep once more with a collision forced
+    on the even lane positions of every round (`force_lane_collisions`):
+    the four outputs must be byte-identical. The split run launches no B1
+    and X1w once a B2 launch (check_walks); the device run no B2 and no
+    X1w, and B1 and X1 once a round (the reverse strand adds its rounds);
+    the forced run F1 and K1 once a round and builds no host graph from the
+    card's; each with the counts set to 0 just before it and read just
+    after. Printed: each run's wall and reads/s; the split run's rounds,
+    live lanes and wall split; the device run's rounds, mean live lanes,
+    launches, host syncs a round and wall split by step (CUDA events and
+    the host clock, `fused_loop.timing`); each set's consensus identity to
+    its reference. The split run's round-2 K-lane launch (the first: every
+    lane's graph is its first read) against its plain version (in `plain`,
+    a PlainPool) and X1w's walk of it; the device run's mid-run round:
+    its B1 lane launch (plain version in `plain`, planes compared by
+    digests), its X1 lane launch and its S1 lane launch (in place, on
+    fresh copies) against their plain versions, with times and bounds.
+    Returns the runs' launches and those checks' numbers."""
     import torch
     from abpoa_tpu_torch.align import banded, dp_chunk
-    from abpoa_tpu_torch.align.backtrack_kernel import backtrack_windows
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.backtrack_kernel import (backtrack_lanes,
+                                                        backtrack_windows)
     from abpoa_tpu_torch.align.banded_kernel import banded_dp
-    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.align.edge_sort_kernel import finish_fusion_lanes_
+    from abpoa_tpu_torch.align.fuse_kernel import fuse_alignment_lanes
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp, fused_dp_lanes
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort_lanes
     from abpoa_tpu_torch.parallel import lockstep
     from abpoa_tpu_torch.params import Params
     K = 8
@@ -2346,63 +2601,157 @@ def phase_c9(args, rates, plain) -> dict:
     with open(lst, "w") as fp:
         fp.write("".join(f + "\n" for f in files))
     n_reads = sum(len(r) for _, r in sets)
+    lane_counters = (fused_dp_lanes, backtrack_lanes, finish_fusion_lanes_,
+                     topo_sort_lanes, fuse_alignment_lanes)
+    target = max(1, (args.c9_reads + 5 * (K - 1) - 1) // 2)
     runs = {}
-    for mode in ("off", "on"):
-        out = os.path.join(OUT, f"c9_{mode}.fa")
+    for tag, mode, impl in (("off", "off", None), ("split", "on", "split"),
+                            ("device", "on", "device"),
+                            ("forced", "on", "device")):
+        out = os.path.join(OUT, f"c9_{tag}.fa")
         banded.reset_stats()
         lockstep.reset_stats()
         dp_chunk.reset_stats()
+        fl.reset_stats()
+        fl.timing = tag == "device"
         banded_dp.launches = backtrack_windows.launches = 0
         fused_dp.launches = fused_dp.local_launches = 0
+        for f in lane_counters:
+            f.launches = 0
+        fused_dp_lanes.local_launches = 0
+        if impl:
+            os.environ["ABPOA_TPU_LOCKSTEP_IMPL"] = impl
         launches, undo = record_launches()
+        seen, undo_lanes = record_lane_round(target)
+        built, undo_forced = (force_lane_collisions() if tag == "forced"
+                              else ([], lambda: None))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
             run_cli(["-l", lst, "-r", "2", "--lockstep", mode, "-o", out])
         finally:
             undo()
+            undo_lanes()
+            undo_forced()
+            os.environ.pop("ABPOA_TPU_LOCKSTEP_IMPL", None)
+            fl.timing = False
         wall = time.perf_counter() - t0
-        runs[mode] = dict(out=out, wall=wall, b2=banded_dp.launches,
-                          x1w=backtrack_windows.launches,
-                          b1=fused_dp.launches + fused_dp.local_launches,
-                          st=dict(banded.stats), ls=dict(lockstep.stats),
-                          sort_s=dp_chunk.stats["sort_s"], launches=launches)
-        log(f"[C9] --lockstep {mode}: {K} sets, {n_reads} reads x "
-            f"{args.ref_len} bp, -r 2: wall {wall:.2f} s, "
-            f"{n_reads / wall:.3f} reads/s; B1/B3 launches {runs[mode]['b1']}, "
-            f"B2 {runs[mode]['b2']}, X1w {runs[mode]['x1w']}")
-    off, on = runs["off"], runs["on"]
-    same = open(off["out"]).read() == open(on["out"]).read()
-    if not same:
-        raise AssertionError("C9: -l --lockstep on and off give different output")
+        runs[tag] = dict(out=out, wall=wall, b2=banded_dp.launches,
+                         x1w=backtrack_windows.launches,
+                         b1=fused_dp.launches + fused_dp.local_launches,
+                         lanes={f.__name__: f.launches for f in lane_counters},
+                         b1_lanes=fused_dp_lanes.launches
+                         + fused_dp_lanes.local_launches,
+                         st=dict(banded.stats), ls=dict(lockstep.stats),
+                         fl=dict(fl.stats), sort_s=dp_chunk.stats["sort_s"],
+                         launches=launches, seen=seen, built=built)
+        log(f"[C9] --lockstep {mode}{f' ({impl})' if impl else ''}"
+            f"{', collisions forced' if tag == 'forced' else ''}: {K} sets, "
+            f"{n_reads} reads x {args.ref_len} bp, -r 2: wall {wall:.2f} s, "
+            f"{n_reads / wall:.3f} reads/s; B1 launches {runs[tag]['b1']}, "
+            f"B1 lane launches {runs[tag]['b1_lanes']}, B2 {runs[tag]['b2']}, "
+            f"X1w {runs[tag]['x1w']}")
+    off, on, dv = runs["off"], runs["split"], runs["device"]
+    text = open(off["out"]).read()
+    for tag in ("split", "device", "forced"):
+        if open(runs[tag]["out"]).read() != text:
+            raise AssertionError(f"C9: -l --lockstep on ({tag}) and off give "
+                                 "different output")
     ls, st = on["ls"], on["st"]
-    if on["b1"] or ls["groups"] < 1 or not on["b2"]:
-        raise AssertionError(f"C9: lockstep run launched B1 {on['b1']}, B2 "
-                             f"{on['b2']} times in {ls['groups']} groups")
-    if off["b2"] or not off["b1"]:
+    if on["b1"] or on["b1_lanes"] or ls["groups"] < 1 or not on["b2"]:
+        raise AssertionError(f"C9: split run launched B1 {on['b1']} + "
+                             f"{on['b1_lanes']}, B2 {on['b2']} times in "
+                             f"{ls['groups']} groups")
+    if off["b2"] or not off["b1"] or off["b1_lanes"]:
         raise AssertionError(f"C9: set-by-set run launched B1 {off['b1']}, B2 "
                              f"{off['b2']} times")
     check_walks("C9", st, on["b2"], on["x1w"])
+    s = dv["fl"]
+    lanes = dv["lanes"]
+    if dv["b2"] or dv["x1w"] or dv["b1"]:
+        raise AssertionError(f"C9: device run launched B2 {dv['b2']}, X1w "
+                             f"{dv['x1w']}, single-set B1 {dv['b1']}")
+    if not (dv["b1_lanes"] == lanes["backtrack_lanes"]
+            == s["rounds"] + s["rc_rounds"] > 0):
+        raise AssertionError(f"C9: device run: {s['rounds']} rounds, "
+                             f"{s['rc_rounds']} reverse-strand rounds, B1 "
+                             f"lanes {dv['b1_lanes']}, X1 lanes "
+                             f"{lanes['backtrack_lanes']}")
+    if lanes["finish_fusion_lanes_"] < s["rounds"] or \
+            lanes["topo_sort_lanes"] != s["kahn_rounds"]:
+        raise AssertionError(f"C9: device run: S1 lanes "
+                             f"{lanes['finish_fusion_lanes_']}, K1 lanes "
+                             f"{lanes['topo_sort_lanes']} for {s['rounds']} "
+                             f"rounds, {s['kahn_rounds']} with a repair")
+    if s["syncs"] > s["rounds"] + s["rc_rounds"] + s["kahn_rounds"]:
+        raise AssertionError(f"C9: device run: {s['syncs']} host syncs in "
+                             f"{s['rounds']} rounds")
+    fc = runs["forced"]
+    fs, fln = fc["fl"], fc["lanes"]
+    if "cuda" in fc["built"]:
+        raise AssertionError(f"C9: forced collisions: {fc['built'].count('cuda')}"
+                             " host graphs built from the card's graph")
+    if fc["b2"] or fc["x1w"] or fc["b1"] or not (
+            fln["fuse_alignment_lanes"] == fln["topo_sort_lanes"]
+            == fs["kahn_rounds"] == fs["rounds"] > 0) \
+            or fs["collisions"] < fs["rounds"] \
+            or fs["live_lanes"] <= fs["rounds"]:
+        raise AssertionError(f"C9: forced collisions: {fs['rounds']} rounds, "
+                             f"{fs['live_lanes']} live lanes, F1 "
+                             f"{fln['fuse_alignment_lanes']}, K1 lanes "
+                             f"{fln['topo_sort_lanes']}, Kahn rounds "
+                             f"{fs['kahn_rounds']}, collisions "
+                             f"{fs['collisions']}, B2 {fc['b2']}, X1w "
+                             f"{fc['x1w']}, single-set B1 {fc['b1']}")
+    log(f"[C9] device lockstep with a collision forced on the even lane "
+        f"positions of every round: == --lockstep off, byte for byte; "
+        f"{fs['rounds']} rounds (mean live lanes "
+        f"{fs['live_lanes'] / fs['rounds']:.3f}, so F1 took a lane list "
+        f"whenever two or more lanes were live), F1 launches "
+        f"{fln['fuse_alignment_lanes']}, K1 lane launches "
+        f"{fln['topo_sort_lanes']}, S1 lane launches "
+        f"{fln['finish_fusion_lanes_']}, collisions {fs['collisions']}, no "
+        f"host graph built from the card's; host syncs {fs['syncs']}; wall "
+        f"{fc['wall']:.2f} s (unforced {dv['wall']:.2f} s)")
     rounds = max(1, ls["rounds"])
-    log(f"[C9] --lockstep on == --lockstep off, byte for byte; lockstep: "
-        f"{ls['groups']} group(s), {ls['rounds']} rounds, mean live lanes a "
-        f"round {ls['live_lanes'] / rounds:.3f}, lanes aligned "
+    log(f"[C9] --lockstep on (split and device) == --lockstep off, byte for "
+        f"byte; split: {ls['groups']} group(s), {ls['rounds']} rounds, mean "
+        f"live lanes a round {ls['live_lanes'] / rounds:.3f}, lanes aligned "
         f"{ls['dp_lanes']} ({st['rows']} DP rows), B2 launches {on['b2']} "
-        f"({st['launches']} with relaunches counted), X1w launches {on['x1w']}; "
-        f"set by set / lockstep wall {off['wall'] / on['wall']:.3f}")
+        f"({st['launches']} with relaunches counted), X1w launches "
+        f"{on['x1w']}; set by set / split wall {off['wall'] / on['wall']:.3f}, "
+        f"set by set / device wall {off['wall'] / dv['wall']:.3f}, split / "
+        f"device wall {on['wall'] / dv['wall']:.3f}")
     parts = {"tables (C++, pack, upload)": st["tables_s"], "B2": st["kernel_s"],
              "X1w": st["backtrack_s"], "copy": st["d2h_s"],
              "cigar + band write-back": st["cigar_s"],
              "fusion + sort (C++)": ls["fusion_s"] + on["sort_s"]}
     rest = on["wall"] - sum(parts.values())
-    log("[C9] lockstep wall split (s, share of the wall): " + ", ".join(
+    log("[C9] split wall split (s, share of the wall): " + ", ".join(
         f"{k} {v:.2f} ({v / on['wall'] * 100:.1f} %)" for k, v in parts.items())
         + f", the rest (reading, MSA and consensus output, Python) {rest:.2f} "
         f"({rest / on['wall'] * 100:.1f} %); per round "
         f"{on['wall'] * 1e3 / rounds:.1f} ms; copied "
         f"{st['d2h_bytes'] / 2**20:.1f} MiB of {st['planes_bytes'] / 2**20:.1f} "
         f"MiB of planes")
-    cons = [row.replace("-", "") for name, row in read_fasta_rows(on["out"])
+    dr = max(1, s["rounds"])
+    log(f"[C9] device lockstep: {s['rounds']} rounds ({s['rc_rounds']} with "
+        f"the reverse strand, {s['kahn_rounds']} with a Kahn repair), mean "
+        f"live lanes a round {s['live_lanes'] / dr:.3f}; launches: B1 lanes "
+        f"{dv['b1_lanes']}, X1 lanes {lanes['backtrack_lanes']}, S1 lanes "
+        f"{lanes['finish_fusion_lanes_']}, K1 lanes {lanes['topo_sort_lanes']}, "
+        f"F1 {lanes['fuse_alignment_lanes']} (collisions {s['collisions']}), "
+        f"B2 {dv['b2']}, X1w {dv['x1w']}; host syncs {s['syncs']} "
+        f"({s['syncs'] / dr:.3f} a round); growths {s['grow']}, caps {s['caps']}")
+    dev_s, host_s = s["device_s"], s["host_s"]
+    log("[C9] device lockstep, per round, each step on the stream (CUDA "
+        "events) / on the host (ms): " + ", ".join(
+            f"{k} {dev_s[k] * 1e3 / dr:.2f}/{host_s[k] * 1e3 / dr:.2f}"
+            for k in fl.STEPS)
+        + f"; host waits in syncs {host_s['sync'] * 1e3 / dr:.2f}; the loop "
+        f"{s['wall_s']:.2f} s of the {dv['wall']:.2f} s wall (the rest: "
+        f"reading, the downloads, MSA and consensus output)")
+    cons = [row.replace("-", "") for name, row in read_fasta_rows(dv["out"])
             if name.startswith("Consensus_sequence")]
     if len(cons) != K:
         raise AssertionError(f"C9: {len(cons)} consensus rows for {K} sets")
@@ -2412,7 +2761,8 @@ def phase_c9(args, rates, plain) -> dict:
         f"at {args.c9_reads}-{args.c9_reads + 5 * (K - 1)} reads a set; "
         "reported, not gated): "
         + ", ".join(f"{x:.5f}" for x in idents))
-    # round 2's launch: K lanes, each a graph of its set's first read
+    # the split run's round-2 launch: K lanes, each a graph of its set's
+    # first read
     tabs, queries, W = on["launches"][0]
     p = Params(device="cuda").finalize()
     err_w, ts, got, finish = lanes_check(p.torch_device, p, tabs, queries, W,
@@ -2420,14 +2770,64 @@ def phase_c9(args, rates, plain) -> dict:
     ms = time_cuda(lambda: banded_dp(*ts, gap_mode=p.gap_mode), 3)
     bnd = dp_bound(rates, ts, got)
     gns = [t.gn for t in tabs]
-    log(f"[C9] round 2's launch ({len(tabs)} lanes, gn min {min(gns)} / max "
-        f"{max(gns)} / sum {sum(gns)}, W={W}): X1w == plain (headers, bands, "
-        f"ops); kernel {ms:.3f} ms ({ms * 1e3 / max(1, max(gns) - 1):.3f} us "
-        f"a row of the longest lane), bound {bnd[0]:.4f} ms ({bnd[1]}); B2's "
+    log(f"[C9] split round 2's launch ({len(tabs)} lanes, gn min {min(gns)} / "
+        f"max {max(gns)} / sum {sum(gns)}, W={W}): X1w == plain (headers, "
+        f"bands, ops); kernel {ms:.3f} ms ({ms * 1e3 / max(1, max(gns) - 1):.3f} "
+        f"us a row of the longest lane), bound {bnd[0]:.4f} ms ({bnd[1]}); B2's "
         f"plain version runs in phase D")
+    # the device run's round `target`: its B1, X1 and S1 lane launches
+    seen = dv["seen"]
+    b1a, b1k = seen["fused_dp_lanes"]
+    b1_finish, b1_ms, b1_bnd, b1_rows, b1_out = b1_lanes_check(
+        rates, plain, b1a, b1k)
+    L = b1a[0].shape[0]
+    log(f"[C9] device round {target}'s B1 lane launch ({L} lanes, node_n "
+        f"{[int(x) for x in b1a[0][:, 8].tolist()]}, W={b1a[7].shape[2]}, one "
+        f"block a lane): kernel {b1_ms:.3f} ms ({b1_ms * 1e3 / max(1, b1_rows):.3f}"
+        f" us a row of the longest lane), bound {b1_bnd[0]:.4f} ms "
+        f"({b1_bnd[1]}); plain version in phase D's pool")
+    xa, xk = seen["backtrack_lanes"]
+    got_x = backtrack_lanes(*xa, **xk)
+    torch.cuda.synchronize()
+    x1_plain_ms, want_x = time_plain(backtrack_lanes, xa, **xk)
+    x1_err = compare("backtrack[lanes]", got_x, want_x)
+    x1_ms = time_cuda(lambda: backtrack_lanes(*xa, **xk), 3)
+    res = got_x[1].cpu()
+    x1_bnd = lanes_bound(rates, lambda r, l: bt_bound(
+        r, [t[l] for t in xa[:5]], xa[8][l], got_x[0][l], res[l]), range(L))
+    steps = int(res[:, 0].max())
+    log(f"[C9] device round {target}'s X1 lane launch ({L} walks, steps "
+        f"{res[:, 0].tolist()}): kernel == plain; kernel {x1_ms:.3f} ms "
+        f"({x1_ms * 1e3 / max(1, steps):.3f} us a step of the longest walk), "
+        f"plain {x1_plain_ms:.1f} ms, bound {x1_bnd[0]:.5f} ms ({x1_bnd[1]})")
+    sa, sk = seen["finish_fusion_lanes_"]
+    fresh = lambda: [t.clone() for t in sa]  # noqa: E731
+    got_s = fresh()
+    finish_fusion_lanes_(*got_s, **sk)
+    torch.cuda.synchronize()
+    want_s = [t.cpu() for t in sa]
+    t0 = time.perf_counter()
+    finish_fusion_lanes_(*want_s, **sk)
+    s1_plain_ms = (time.perf_counter() - t0) * 1e3
+    s1_err = compare("edge_sort[lanes]", got_s, want_s)
+    copies = [fresh() for _ in range(21)]
+    s1_ms = time_queued(lambda i: finish_fusion_lanes_(*copies[i], **sk), 20,
+                        lambda: finish_fusion_lanes_(*copies[20], **sk))
+    s1_bnd = lanes_bound(rates, lambda r, l: s1_need_bound(
+        r, [t[l] for t in sa[:6]], int(sa[6][l]))[0], range(L))
+    log(f"[C9] device round {target}'s S1 lane launch (in place, span on, "
+        f"{L} lanes): kernel == plain; {s1_ms:.4f} ms queued on fresh copies, "
+        f"plain {s1_plain_ms:.1f} ms, bound of what these inputs need "
+        f"{s1_bnd[0]:.5f} ms ({s1_bnd[1]})")
     return {"b2": on["b2"], "x1w": on["x1w"], "err_w": err_w, "ms": ms,
             "bound": bnd, "finish": finish,
-            "lanes": (p, ts, got, tabs, queries)}
+            "lanes": (p, ts, got, tabs, queries),
+            "device": dv, "forced": fc,
+            "b1_lanes": (b1_finish, b1_ms, b1_bnd),
+            "x1_lanes": (x1_err, x1_ms, x1_plain_ms, x1_bnd),
+            "s1_lanes": (s1_err, s1_ms, s1_plain_ms, s1_bnd),
+            "reads_s": {k: n_reads / r["wall"] for k, r in runs.items()
+                        if k != "forced"}}
 
 
 def phase_c10(args) -> dict:
@@ -2630,7 +3030,7 @@ def longest_window(args):
 def main() -> int:
     """The run (`run`), with its pool of plain-version workers closed at
     the end, whether it passes or fails."""
-    plain = PlainPool(workers=6)  # phase D's 11 jobs; the main process waits
+    plain = PlainPool(workers=7)  # phase D's ~20 jobs; the main process waits
     try:
         return run(plain)
     finally:
@@ -2646,7 +3046,8 @@ def run(plain) -> int:
     ap.add_argument("--c5-reads", type=int, default=100)
     ap.add_argument("--c6-reads", type=int, default=50)
     ap.add_argument("--c7-reads", type=int, default=200)
-    ap.add_argument("--c9-reads", type=int, default=20)
+    # 20 until C9's run with collisions forced made the script too long
+    ap.add_argument("--c9-reads", type=int, default=10)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -2667,17 +3068,22 @@ def run(plain) -> int:
     from abpoa_tpu_torch.align.banded_kernel import (banded_dp, banded_dp_torch,
                                                      unbanded_dp)
     from abpoa_tpu_torch.align.buckets import bucket_pow2, qp_rung
-    from abpoa_tpu_torch.align.device_graph import fuse_alignment
+    from abpoa_tpu_torch.align.device_graph import DeviceGraph, fuse_alignment
+    from abpoa_tpu_torch.align.fuse_kernel import (fuse_alignment_lanes,
+                                                   lane_graph)
+    from abpoa_tpu_torch.align.fused_lanes import stack_graphs
     from abpoa_tpu_torch.align.edge_sort_kernel import (edge_sort,
                                                         edge_sort_torch,
                                                         finish_fusion_)
     from abpoa_tpu_torch.align.fused_dp_kernel import (fused_dp,
+                                                       fused_dp_lanes,
                                                        fused_dp_torch,
                                                        launch_shape)
     from abpoa_tpu_torch.align.tables import (build_row_tables,
                                               initial_band_width, query_tables)
     from abpoa_tpu_torch.align.topo_kernel import launch_shape as launch_shape_k1
-    from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_torch
+    from abpoa_tpu_torch.align.topo_kernel import (topo_sort, topo_sort_lanes,
+                                                   topo_sort_torch)
     from abpoa_tpu_torch.graph import POAGraph
     from abpoa_tpu_torch.io.fastx import read_fastx
     from abpoa_tpu_torch.kernels import build
@@ -2732,9 +3138,11 @@ def run(plain) -> int:
     cpu = Params(device="cpu").finalize()
     max_err = {k: 0 for k in ("banded_dp", "banded_dp[windows]",
                               "banded_dp[lanes]", "banded_dp[unbanded]",
-                              "fused_dp",
-                              "fused_dp[local]", "backtrack",
-                              "backtrack[windows]", "edge_sort", "topo_sort")}
+                              "fused_dp", "fused_dp[local]", "fused_dp[lanes]",
+                              "backtrack", "backtrack[lanes]",
+                              "backtrack[windows]", "edge_sort",
+                              "edge_sort[lanes]", "topo_sort",
+                              "topo_sort[lanes]", "fuse_alignment")}
     sim2k = [r.seq for r in read_fastx(os.path.join(ROOT, "tests", "data", "sim2k.fa"))]
 
     lap("build")
@@ -3022,11 +3430,15 @@ def run(plain) -> int:
     kinds = {}
 
     def launches_of(fn):
+        """(B1 launches, single-set and over lanes; B2 and B2u launches)
+        of fn()."""
         fused_dp.launches = fused_dp.local_launches = 0
+        fused_dp_lanes.launches = fused_dp_lanes.local_launches = 0
         banded_dp.launches = unbanded_dp.launches = 0
         fn()
         kinds["b2"], kinds["b2u"] = banded_dp.launches, unbanded_dp.launches
-        return (fused_dp.launches + fused_dp.local_launches,
+        return (fused_dp.launches + fused_dp.local_launches
+                + fused_dp_lanes.launches + fused_dp_lanes.local_launches,
                 banded_dp.launches + unbanded_dp.launches)
 
     def whole_rows(tag, argv):
@@ -3064,8 +3476,14 @@ def run(plain) -> int:
                     b1, b2, route, args_b)
     cwd = os.getcwd()
     os.chdir(ROOT)  # list.txt names its files from the repository root
+    # --lockstep auto takes the implementation lockstep_impl picks on cuda:
+    # the split driver launches B2 and no B1, the device lockstep B1 over
+    # lanes and no B2
+    from abpoa_tpu_torch.parallel.scheduler import lockstep_impl
+    auto = ("B1" if lockstep_impl(Params(device="cuda").finalize()) == "device"
+            else "B2")
     try:
-        for mode, route in (("auto", "B2"), ("off", "B1")):
+        for mode, route in (("auto", auto), ("off", "B1")):
             out_l = os.path.join(OUT, f"list_mode_{mode}.fa")
             b1, b2 = launches_of(lambda: run_cli(
                 ["-l", os.path.join("tests", "data", "list.txt"),
@@ -3274,6 +3692,11 @@ def run(plain) -> int:
     if outs[0] != outs[1]:
         raise AssertionError("per-read and fused routes give different consensus")
     log(f"[C2] per-read (B2 launches {b2_launches}) == fused consensus, byte for byte")
+    f1c2 = forced_collisions(abpt, recs, outs[1])
+    log(f"[C2] fused route with a collision forced on every read ({m} reads): "
+        f"== the unforced run, byte for byte; wall {f1c2['wall']:.2f} s; F1 "
+        f"launches {f1c2['f1']}, K1 {f1c2['k1']}, S1 {f1c2['s1']}, collisions "
+        f"{f1c2['collisions']}, host syncs {f1c2['syncs']}; host graphs built 0")
 
     lap("C2")
     # ---- C3: the read-id outputs at full width: the headline set with -r 2
@@ -3456,6 +3879,8 @@ def run(plain) -> int:
     plain_d = [plain.add_digest(m[5], gap_mode=m[0].gap_mode) for m in inputs_d]
     c9 = phase_c9(args, rates, plain)
     max_err["backtrack[windows]"] = max(max_err["backtrack[windows]"], c9["err_w"])
+    max_err["backtrack[lanes]"] = c9["x1_lanes"][0]
+    max_err["edge_sort[lanes]"] = c9["s1_lanes"][0]
     lap("C9")
     c10 = phase_c10(args)
     torch.cuda.empty_cache()
@@ -3550,8 +3975,32 @@ def run(plain) -> int:
                 raise AssertionError(f"sequential and vectorised fusion differ on {k}")
         same = "== the vectorised fusion"
     log(f"[D] sequential (collision) fusion of that read at the final graph "
-        f"({int(st_c.g.node_n)} rows down and up, {int(n_fwd)} ops): "
-        f"{coll_ms:.1f} ms on the host clock, {same}")
+        f"by F1's plain version, the host walk ({int(st_c.g.node_n)} rows down "
+        f"and up, {int(n_fwd)} ops): {coll_ms:.1f} ms on the host clock, {same}")
+    # kernel F1 on the same graph and op stream (the collision path's
+    # sequential fusion; it runs whatever the collision flag says), against
+    # its plain version on CPU copies
+    Pcap_d = q_d.shape[0] + 2
+    f1_in = (fl._stacked(st_c.g), fwd_op[None], fwd_arg[None],
+             n_fwd.reshape(1), q_d[None], w_d[None],
+             torch.tensor([qlen_d], dtype=torch.int32, device=dev))
+    got_f = fuse_alignment_lanes(*f1_in, Pcap_d)
+    torch.cuda.synchronize()
+    f1_cpu = (DeviceGraph(**{k: v.cpu() for k, v in f1_in[0].tensors().items()}),
+              *(t.cpu() for t in f1_in[1:]))
+    f1_plain_ms, want_f = time_host(lambda: fuse_alignment_lanes(*f1_cpu, Pcap_d))
+    flat = lambda o: [*o[0].tensors().values(), o[1], o[2]]  # noqa: E731
+    max_err["fuse_alignment"] = compare("fuse_alignment D", flat(got_f),
+                                        flat(want_f))
+    f1_ms = time_cuda(lambda: fuse_alignment_lanes(*f1_in, Pcap_d), 5)
+    f1_bnd = f1_bound(rates, st_c.g, lane_graph(got_f[0], 0), int(n_fwd),
+                      qlen_d)
+    log(f"[D] F1 on that graph and op stream ({int(n_fwd)} ops, one thread "
+        f"a lane): kernel == plain (every graph array, ok, node_n, the path); "
+        f"{f1_ms:.3f} ms with the wrapper's copy of the graph "
+        f"({f1_ms * 1e3 / max(1, int(n_fwd)):.3f} us an op), plain "
+        f"{f1_plain_ms:.1f} ms, bound {f1_bnd[0]:.5f} ms ({f1_bnd[1]}); the "
+        f"host walk it replaces {coll_ms:.1f} ms")
     g = st_c.g
     ka = (g.in_ids, g.in_w, g.out_ids, g.out_w, g.in_cnt, g.out_cnt,
           g.aligned, g.aligned_cnt, g.node_n.reshape(1))
@@ -3617,6 +4066,24 @@ def run(plain) -> int:
             k1_walks["neither"], k1_pass2,
             k1_walks["pass 1"] - k1_walks["neither"],
             k1_walks["pass 3"] - k1_walks["neither"]))
+    # K1 over two lanes in one launch: the final graph, and the held-out
+    # read's sequentially fused graph after its S1 (what K1 gets on a
+    # collision read), one BFS block a lane
+    k1g = stack_graphs([g, g_seq])
+    ka_l = (k1g.in_ids, k1g.in_w, k1g.out_ids, k1g.out_w, k1g.in_cnt,
+            k1g.out_cnt, k1g.aligned, k1g.aligned_cnt, k1g.node_n)
+    got_k = topo_sort_lanes(*ka_l)
+    torch.cuda.synchronize()
+    k1l_plain_ms, want_k = time_host(
+        lambda: topo_sort_lanes(*[t.cpu() for t in ka_l]))
+    max_err["topo_sort[lanes]"] = compare("topo_sort[lanes] D", got_k, want_k)
+    k1l_ms = time_cuda(lambda: topo_sort_lanes(*ka_l), 3)
+    k1l_bnd = lanes_bound(rates, lambda r, l: topo_bound(r, lane_graph(k1g, l)),
+                          range(2))
+    log(f"[D] K1 over two lanes (node_n {[int(x) for x in k1g.node_n.tolist()]}"
+        f"): kernel == plain on both; {k1l_ms:.3f} ms (one lane alone: "
+        f"{k1_ms:.3f}), plain {k1l_plain_ms:.1f} ms, bound {k1l_bnd[0]:.5f} ms "
+        f"({k1l_bnd[1]})")
     got = topo_sort(*ka, variant="g32")
     torch.cuda.synchronize()
     max_err["topo_sort"] = max(max_err["topo_sort"], compare(
@@ -3711,6 +4178,11 @@ def run(plain) -> int:
     max_err["banded_dp[lanes]"] = err
     log(f"[D] C9's round-2 launch: B2 == plain on {rows9} computed rows, "
         f"begend, mplr, ok, ext; plain {c9_plain_ms:.1f} ms")
+    b1l_finish, b1l_ms, b1l_bnd = c9["b1_lanes"]
+    max_err["fused_dp[lanes]"], b1l_plain_ms = b1l_finish()
+    log(f"[D] C9's device-lockstep B1 lane launch: kernel == plain on every "
+        f"lane's computed rows (digests), beg, end, ok, ext; plain "
+        f"{b1l_plain_ms:.1f} ms")
     lap("D")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
@@ -3753,7 +4225,29 @@ def run(plain) -> int:
               s1_ms, s1_plain_ms, s1_need_d),
         entry("topo_sort", "abpoa_tpu_torch/csrc/topo_sort.cu",
               "abpoa_tpu/align/device_graph.py:210", launches["topo_sort"],
-              k1_ms, k1_plain_ms, k1_bound)]}), flush=True)
+              k1_ms, k1_plain_ms, k1_bound),
+        # the device lockstep's lane launches (C9's device run) and F1 (C9's
+        # run with collisions forced: the main path's reads collide at no
+        # size yet)
+        entry("fused_dp[lanes]", "abpoa_tpu_torch/csrc/fused_dp.cu",
+              "abpoa_tpu/align/pallas_fused.py:696", c9["device"]["b1_lanes"],
+              b1l_ms, b1l_plain_ms, b1l_bnd),
+        entry("backtrack[lanes]", "abpoa_tpu_torch/csrc/backtrack.cu",
+              "abpoa_tpu/align/fused_loop.py:601",
+              c9["device"]["lanes"]["backtrack_lanes"], c9["x1_lanes"][1],
+              c9["x1_lanes"][2], c9["x1_lanes"][3]),
+        entry("edge_sort[lanes]", "abpoa_tpu_torch/csrc/topo_sort.cu",
+              "abpoa_tpu/align/fused_loop.py:145",
+              c9["device"]["lanes"]["finish_fusion_lanes_"], c9["s1_lanes"][1],
+              c9["s1_lanes"][2], c9["s1_lanes"][3]),
+        entry("topo_sort[lanes]", "abpoa_tpu_torch/csrc/topo_sort.cu",
+              "abpoa_tpu/align/device_graph.py:210",
+              c9["device"]["lanes"]["topo_sort_lanes"], k1l_ms, k1l_plain_ms,
+              k1l_bnd),
+        entry("fuse_alignment", "abpoa_tpu_torch/csrc/fuse_alignment.cu",
+              "abpoa_tpu/align/device_graph.py:120",
+              c9["forced"]["lanes"]["fuse_alignment_lanes"], f1_ms,
+              f1_plain_ms, f1_bnd)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -140,8 +140,8 @@ def test_wrapper_rejects_badinputs(fault):
 def test_kernel_build_is_keyed_by_sources():
     srcs = build.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "backtrack.cu", "backtrack_windows.cu", "fused_dp.cu", "topo_sort.cu",
-        "unbanded_dp.cu"]
+        "backtrack.cu", "backtrack_windows.cu", "fuse_alignment.cu",
+        "fused_dp.cu", "topo_sort.cu", "unbanded_dp.cu"]
     path = build.library_path()
     assert path == build.library_path()
     assert os.path.dirname(path).endswith(os.path.join("build", "abpoa_tpu_torch"))

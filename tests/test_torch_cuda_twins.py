@@ -49,7 +49,8 @@ from conftest import DATA_DIR
 import chip_smoke
 from abpoa_tpu_torch import constants as C
 from abpoa_tpu_torch.align import fused_loop as tfl
-from abpoa_tpu_torch.align.backtrack_kernel import backtrack, backtrack_torch
+from abpoa_tpu_torch.align.backtrack_kernel import (backtrack, backtrack_lanes,
+                                                    backtrack_torch)
 from abpoa_tpu_torch.align.buckets import qp_rung
 from abpoa_tpu_torch.align.edge_sort_kernel import (finish_fusion_,
                                                     finish_fusion_torch_)
@@ -655,3 +656,271 @@ def test_map_on_card_equals_cpu(k_cap):
                                         strand) + "\n"
                              for r, q, (res, strand) in zip(recs, qs, out)))
     assert texts[0] == texts[1] and texts[0].count("\n") == 10
+
+
+# ---- the device lockstep's lane launches on the card ---------------------------
+# Three lanes of uneven graphs (the states after 6 reads of seq.fa, 3 of
+# test.fa and 5 of heter.fa, padded to common capacities) and each lane's
+# next read; each lane kernel on the card == its plain version on the CPU
+# (held lane by lane against the single-set functions, and those against
+# JAX, in test_torch_fused_batch_lanes.py), on every lane, on one lane (the
+# single-set launch, L = 1) and on a lane list.
+
+LANE_SETS = (("seq.fa", 6), ("test.fa", 3), ("heter.fa", 5))
+
+
+def lane_case(**kw):
+    """(abpt, the stacked lanes (g, order, n2i, remain), query, weight, qp,
+    qlens, W, inf, local) on the CPU."""
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    abpt = make_params(**kw)
+    sts, reads = [], []
+    for fa, n in LANE_SETS:
+        st, seqs = port_state(fa, n, abpt)
+        sts.append(st)
+        reads.append(seqs[n])
+    N = max(st.g.caps[0] for st in sts)
+    E = max(st.g.caps[1] for st in sts)
+    A = max(st.g.caps[2] for st in sts)
+    sts = [tfl._grow_state(st, N, E, A) for st in sts]
+    Qp = qp_rung(max(len(r) for r in reads))
+    mat = np.ascontiguousarray(abpt.mat.astype(np.int32))
+    sp, wp, lens, qp = tfl._pad_read_set(
+        reads, [np.ones(len(r), dtype=np.int64) for r in reads], Qp, mat,
+        abpt.m)
+    lanes = (fla.stack_graphs([st.g for st in sts]),
+             *(torch.stack([getattr(st, k) for st in sts])
+               for k in ("order", "n2i", "remain")))
+    local = abpt.align_mode == C.LOCAL_MODE
+    W = 1024 if local else 256
+    inf = dp_inf_min(abpt, INT32_MIN)
+    return (abpt, lanes, torch.from_numpy(sp), torch.from_numpy(wp),
+            torch.from_numpy(qp), lens.tolist(), W, inf, local)
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    from abpoa_tpu_torch.align.device_graph import DeviceGraph
+    if isinstance(x, DeviceGraph):
+        return DeviceGraph(**{k: v.to(dev) for k, v in x.tensors().items()})
+    return type(x)(_to(v, dev) for v in x)
+
+
+def _lane_dp(case, dev, lanes=None, pick=None):
+    """B1's lane inputs on `dev` (lanes `pick` of the case only, when
+    given) and its outputs."""
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp_lanes
+    abpt, (g, order, n2i, remain), q, w, qp, qlens, W, inf, local = case
+    if pick is not None:
+        ix = torch.tensor(pick)
+        g = type(g)(**{k: v[ix] for k, v in g.tensors().items()})
+        order, n2i, remain, q, w, qp = (t[ix] for t in
+                                        (order, n2i, remain, q, w, qp))
+        qlens = [qlens[i] for i in pick]
+    g, order, n2i, remain, q, w, qp = _to((g, order, n2i, remain, q, w, qp),
+                                          dev)
+    tables = fla._build_tables_l(g, order, n2i, remain)
+    args, ql = fla.dp_inputs_l(abpt, g, remain, tables, qp, qlens, W, inf,
+                               local)
+    out = fused_dp_lanes(*args, gap_mode=abpt.gap_mode, plane16=False,
+                         local=local, lanes=lanes)
+    return g, order, args, ql, q, w, out
+
+
+def _lanes_equal(got, want, lanes, args):
+    """Per lane: the planes on the rows B1 computed, beg/end, ok, ext."""
+    for l in lanes:
+        gn = int(args[0][l, 8])
+        rows = computed_rows(want[5][l], want[6][l], want[7][l:l + 1], gn,
+                             want[0].shape[2])
+        for q in range(5):
+            assert torch.equal(got[q][l, :rows].cpu(), want[q][l, :rows]), (l, q)
+        for q in range(5, 9):
+            assert torch.equal(got[q][l].cpu(), want[q][l]), (l, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("shape", ["L3", "L1", "list"])
+def test_lane_kernels_match_plain_on_card(mode, shape):
+    """B1 (B3 in local mode) and X1 over the lanes, in one launch each."""
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    case = lane_case(**({"align_mode": 1} if mode == "local" else {}))
+    pick = [1] if shape == "L1" else None
+    lanes = [0, 2] if shape == "list" else None
+    L = 1 if shape == "L1" else 3
+    todo = lanes or list(range(L))
+    gc, order_c, args_c, ql_c, q_c, w_c, want = _lane_dp(case, "cpu", lanes,
+                                                         pick)
+    gd, order_d, args_d, ql_d, q_d, w_d, got = _lane_dp(case, _card(), lanes,
+                                                        pick)
+    torch.cuda.synchronize()
+    _lanes_equal(got, want, todo, args_c)
+    abpt, local = case[0], case[8]
+    inf = case[7]
+    mat = torch.from_numpy(np.ascontiguousarray(abpt.mat.astype(np.int32)))
+    max_ops = gc.in_ids.shape[1] + q_c.shape[1] + 8
+    kw = dict(max_ops=max_ops, gap_mode=abpt.gap_mode, gap_on_right=False,
+              put_gap_at_end=False, local=local)
+    outs = []
+    for dev, g, args, ql, q, out in ((torch.device("cpu"), gc, args_c, ql_c,
+                                      q_c, want),
+                                     (_card(), gd, args_d, ql_d, q_d, want)):
+        # X1 on the plain version's planes, moved to each device
+        o = _to(out, dev)
+        bi, bj, _ = fla.best_cell_l(o[0], o[5], o[6], args[2], args[3],
+                                    g.node_n, o[8], ql, inf, local)
+        bt = torch.tensor([abpt.gap_ext1, abpt.gap_oe1, abpt.gap_ext2,
+                           abpt.gap_oe2, inf, max_ops], dtype=torch.int32,
+                          device=dev)
+        sc = torch.cat([bi[:, None].to(torch.int32), bj[:, None].to(torch.int32),
+                        bt.expand(len(bi), 6)], 1).contiguous()
+        outs.append(backtrack_lanes(*o[:7], args[2], args[3], args[1], q,
+                                    mat.to(dev), sc, lanes=lanes, **kw))
+    torch.cuda.synchronize()
+    for l in todo:
+        assert torch.equal(outs[1][0][l].cpu(), outs[0][0][l])
+        assert torch.equal(outs[1][1][l].cpu(), outs[0][1][l])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["L3", "list"])
+def test_lane_tail_kernels_match_plain_on_card(shape):
+    """S1 (in place, span on) and K1 over the lanes' fused graphs, and F1
+    (the sequential fusion) of each lane's read and of a collision stream."""
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    from abpoa_tpu_torch.align.edge_sort_kernel import finish_fusion_lanes_
+    from abpoa_tpu_torch.align.fuse_kernel import fuse_alignment_lanes
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort_lanes
+    case = lane_case()
+    abpt, (g, order, n2i, remain), q, w, qp, qlens, W, inf, local = case
+    lanes = [0, 2] if shape == "list" else None
+    todo = lanes or [0, 1, 2]
+    _, _, args, ql, _, _, out = _lane_dp(case, "cpu")
+    mat = torch.from_numpy(np.ascontiguousarray(abpt.mat.astype(np.int32)))
+    bi, bj, _ = fla.best_cell_l(out[0], out[5], out[6], args[2], args[3],
+                                g.node_n, out[8], ql, inf, local)
+    max_ops = g.in_ids.shape[1] + q.shape[1] + 8
+    bt = torch.tensor([abpt.gap_ext1, abpt.gap_oe1, abpt.gap_ext2,
+                       abpt.gap_oe2, inf, max_ops], dtype=torch.int32)
+    sc = torch.cat([bi[:, None], bj[:, None], bt.expand(3, 6)], 1).contiguous()
+    ops, res = backtrack_lanes(*out[:7], args[2], args[3], args[1], q, mat, sc,
+                               max_ops=max_ops, gap_mode=abpt.gap_mode,
+                               gap_on_right=False, put_gap_at_end=False,
+                               local=False)
+    fwd = fla.forward_ops_l(ops, res, order, bj, ql, max_ops)
+    # lane 1's stream becomes two mismatches onto one aligned group when the
+    # graph has one
+    cnt = g.aligned_cnt[1]
+    if int(cnt.max()) > 0:
+        a = int(torch.nonzero(cnt == cnt.max())[0, 0])
+        b = int(g.aligned[1, a, 0])
+        fwd[0][1, :2], fwd[1][1, :2] = 0, torch.tensor([a, b])
+        fwd[2][1] = 2
+    g2 = fla._fuse_vectorized_l(g, *fwd, q, ql, w)[0]
+    results = []
+    for dev in (torch.device("cpu"), _card()):
+        gd = _to(g2, dev)
+        s1 = {k: v.clone() for k, v in gd.tensors().items()}
+        finish_fusion_lanes_(s1["in_ids"], s1["in_w"], s1["out_ids"],
+                             s1["out_w"], s1["in_cnt"], s1["out_cnt"],
+                             s1["node_n"], s1["n_span"], lanes=lanes)
+        k1 = topo_sort_lanes(gd.in_ids, gd.in_w, gd.out_ids, gd.out_w,
+                             gd.in_cnt, gd.out_cnt, gd.aligned,
+                             gd.aligned_cnt, gd.node_n, lanes=lanes)
+        f1 = fuse_alignment_lanes(_to(g, dev), *_to(fwd, dev), _to(q, dev),
+                                  _to(w, dev), _to(ql, dev), q.shape[1] + 2,
+                                  lanes=lanes)
+        results.append((s1, k1, f1))
+    torch.cuda.synchronize()
+    (s1c, k1c, f1c), (s1d, k1d, f1d) = results
+    for l in todo:
+        for k in ("in_ids", "in_w", "out_ids", "out_w", "n_span"):
+            assert torch.equal(s1d[k][l].cpu(), s1c[k][l]), (l, k)
+        for a, b in zip(k1d, k1c):
+            assert torch.equal(a[l].cpu(), b[l])
+    for k, v in f1c[0].tensors().items():
+        assert torch.equal(getattr(f1d[0], k).cpu(), v), k
+    assert torch.equal(f1d[1].cpu(), f1c[1]) and torch.equal(f1d[2].cpu(), f1c[2])
+
+
+def _sets(abpt, names):
+    out = []
+    for fa in names:
+        s = [encode(abpt, r.seq) for r in read_fastx(os.path.join(DATA_DIR, fa))]
+        out.append((s, [np.ones(len(x), dtype=np.int64) for x in s]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [{}, {"out_msa": True, "amb_strand": True},
+                                   {"align_mode": 2, "zdrop": 100}],
+                         ids=["cons", "r2-s", "extend-z100"])
+def test_device_lockstep_on_card_matches_cpu(flags, monkeypatch):
+    """The device lockstep over five sets on the card == on the CPU, with
+    collisions forced in the lane of set 1 (kernel F1 and K1 on that lane
+    every round)."""
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    real, real_round = fla._fuse_vectorized_l, fla._read_round
+    live = {}
+
+    def round_(run, ls, N):
+        live["sets"] = ls.sets
+        return real_round(run, ls, N)
+
+    def colliding(*a, **k):
+        out = list(real(*a, **k))
+        if 1 in live["sets"]:
+            out[4] = out[4].clone()
+            out[4][live["sets"].index(1)] = True
+        return tuple(out)
+
+    monkeypatch.setattr(fla, "_read_round", round_)
+    monkeypatch.setattr(fla, "_fuse_vectorized_l", colliding)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        abpt = make_params(device=dev, **flags)
+        sets = _sets(abpt, ("seq.fa", "test.fa", "seq4.fa", "heter.fa",
+                            "rcmix.fa"))
+        got[dev] = fla.progressive_poa_fused_batch(
+            [s for s, _ in sets], [w for _, w in sets], abpt)
+    for (a, ra), (b, rb) in zip(got["cpu"], got["cuda"]):
+        x, y = convert_graph(a), convert_graph(b)
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+        assert ra == rb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [{}, {"align_mode": 1, "amb_strand": True}],
+                         ids=["cons", "local-s"])
+def test_device_lockstep_lane_groups_on_card(flags, monkeypatch):
+    """B1 and X1 over groups of two lanes (as where the lanes' planes do not
+    fit on the card) == the CPU's run in one pass."""
+    from abpoa_tpu_torch.align import fused_lanes as fla
+    from abpoa_tpu_torch.align import fused_loop as tfl
+    got = {}
+    for dev in ("cpu", "cuda"):
+        abpt = make_params(device=dev, **flags)
+        sets = _sets(abpt, ("seq.fa", "test.fa", "seq4.fa", "heter.fa",
+                            "rcmix.fa"))
+        if dev == "cuda":
+            real = fla.plane_groups
+            monkeypatch.setattr(fla, "plane_groups", lambda todo, lb, budget:
+                                real(todo, lb, 2 * lb))
+        tfl.reset_stats()
+        got[dev] = fla.progressive_poa_fused_batch(
+            [s for s, _ in sets], [w for _, w in sets], abpt)
+    assert tfl.stats["plane_splits"] > 0
+    for (a, ra), (b, rb) in zip(got["cpu"], got["cuda"]):
+        x, y = convert_graph(a), convert_graph(b)
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+        assert ra == rb
+
+
+def convert_graph(pg):
+    from abpoa_tpu_torch import convert
+    return convert.graph_to_numpy(pg)

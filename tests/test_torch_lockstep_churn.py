@@ -145,6 +145,26 @@ def test_plan_route_kinds():
     assert (m.kind, m.k_cap) == ("map", 8)
 
 
+@pytest.mark.parametrize("dev, kw, env, want", [
+    ("cpu", {}, "", "split"),
+    ("cuda", {}, "", "device"),
+    ("cuda", {"align_mode": 2, "zdrop": 100}, "", "device"),
+    ("cuda", {"align_mode": 1}, "", "split"),
+    ("cpu", {}, "device", "device"),
+    ("cuda", {}, "split", "split")],
+    ids=["cpu", "card", "card-extend", "card-local", "cpu-env", "card-env"])
+def test_lockstep_impl(dev, kw, env, want, monkeypatch):
+    """The implementation by device and mode (the card: the device
+    lockstep but in local mode), ABPOA_TPU_LOCKSTEP_IMPL over both; the
+    route's reason names it."""
+    monkeypatch.setenv("ABPOA_TPU_LOCKSTEP_IMPL", env)
+    abpt = port_params(lockstep="on", **kw)
+    abpt.torch_device = torch.device(dev)   # only the type is read
+    assert scheduler.lockstep_impl(abpt) == want
+    r = scheduler.plan_route(abpt, 4)
+    assert r.kind == "lockstep" and r.reason == f"{want} k=8"
+
+
 def test_lockstep_auto_is_on_for_the_card(monkeypatch):
     from abpoa_tpu_torch.parallel.runner import lockstep_enabled
     abpt = port_params()

@@ -6,8 +6,9 @@ points a user calls:
   consensus, `-r 1` (MSA), `-r 3` (GFA), `-m 1` (local, unbanded B2) and
   `-d 2`, with the lockstep groups launched;
 - K stays ABPOA_TPU_LOCKSTEP_K for every segment of a list longer than K;
-- `-m 2 -z 100` (Z-drop) stays set by set under `--lockstep on`, so its
-  output is `--lockstep off`'s;
+- `-m 2 -z 100` (Z-drop) stays set by set under `--lockstep on` with the
+  split driver, and joins the device lockstep (ABPOA_TPU_LOCKSTEP_IMPL=
+  device); its output is `--lockstep off`'s either way;
 - a malformed set in the list is quarantined as with `--lockstep off`;
 - `msa_batch` with lockstep on equals the JAX package's `msa_batch`, with
   and without qscores, and runs its sets in lockstep.
@@ -74,17 +75,25 @@ def test_list_lockstep_keeps_k_fixed(list_file, monkeypatch, k, groups):
     assert on[:2] == off[:2] and on[0] == 0 and on[1]
 
 
-def test_list_zdrop_stays_set_by_set(tmp_path):
+@pytest.mark.parametrize("impl", ["split", "device"])
+def test_list_zdrop_stays_set_by_set(tmp_path, monkeypatch, impl):
     """rcmix.fa's per-read and fused outputs differ under `-m 2 -z 100`
-    (ROADMAP.md §C), so lockstep leaves Z-drop to the set-by-set route."""
+    (ROADMAP.md §C): the split driver would give the per-read route's, so
+    with it lockstep leaves Z-drop to the set-by-set route; the device
+    lockstep gives the fused route's, so Z-drop joins it, as in JAX. The
+    output equals `--lockstep off` either way."""
+    from abpoa_tpu_torch.align import fused_loop as tfl
+    monkeypatch.setenv("ABPOA_TPU_LOCKSTEP_IMPL", impl)
     lst = tmp_path / "list.txt"
     lst.write_text("".join(os.path.join(DATA_DIR, f) + "\n"
                            for f in ("rcmix.fa", "seq.fa")))
     argv = [str(lst), "-l", "-m", "2", "-z", "100", "-r", "1",
             "--device", "cpu"]
     before = lockstep.stats["groups"]
+    tfl.reset_stats()
     on = _run(cli.main, argv + ["--lockstep", "on"])
     assert lockstep.stats["groups"] == before
+    assert (tfl.stats["rounds"] > 0) == (impl == "device")
     off = _run(cli.main, argv + ["--lockstep", "off"])
     assert on[:2] == off[:2] and on[0] == 0 and on[1]
 
