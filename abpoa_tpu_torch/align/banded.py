@@ -32,6 +32,14 @@ The windows may come from different graphs, one each: the K lanes of
 and one read, go through the same launches. A map graph's tables are built
 once (`dp_chunk.StaticGraphTables`) and their graph half stays on the
 device: each launch then uploads only the query half (`pack_queries`).
+
+With a mesh (`parallel/shard.py`) the windows split into one contiguous
+slice a slot. Every slot's inputs go up through page-locked memory without
+a wait and its B2 launch is queued before the first host sync; then, slot
+by slot, its `ok` is read, X1w queued and its overflowed windows relaunched.
+Every slot's X1w output is copied into its own part of one staging buffer
+sized for the whole round, and the CUDA-event times are read after that
+copy's wait (`_timed` with `events`).
 """
 from __future__ import annotations
 
@@ -74,7 +82,8 @@ def reset_stats() -> None:
 
 # page-locked host buffer X1w's results are copied into, grown as graphs
 # grow and reused by every read; the arrays handed back are views of it,
-# valid until the next read's copy
+# valid until the next read's copy (a sharded round's slots each copy into
+# their own part of it)
 _pinned = [torch.empty(0, dtype=torch.int32)]
 
 
@@ -141,47 +150,77 @@ def pack_windows(abpt: Params, tabs: list, queries: list, W: int) -> list:
     return _args(pack_queries(abpt, tabs, queries, W), pack_graph(tabs))
 
 
-def _timed(dev: torch.device, key: str, fn):
-    """fn(), with its CUDA-event time on `dev` added to stats[key]."""
+def _timed(dev: torch.device, key: str, fn, events: Optional[list] = None):
+    """fn(), with its CUDA-event time on `dev` added to stats[key]: read at
+    once (a wait) when `events` is None, else recorded there and read after
+    the round's copy to the host (`_read_events`), with no wait of its
+    own."""
     if dev.type != "cuda":
         return fn()
+    stream = torch.cuda.current_stream(dev)
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
+    ev0.record(stream)
     out = fn()
-    ev1.record()
-    ev1.synchronize()
-    stats[key] += ev0.elapsed_time(ev1) / 1e3
+    ev1.record(stream)
+    if events is None:
+        _read_events([(key, ev0, ev1)])
+    else:
+        events.append((key, ev0, ev1))
     return out
 
 
+def _read_events(events: list) -> None:
+    for key, ev0, ev1 in events:
+        ev1.synchronize()
+        stats[key] += ev0.elapsed_time(ev1) / 1e3
+    events.clear()
+
+
+def _upload(arrays: list, dev: torch.device, staged: bool) -> list:
+    """numpy arrays as tensors on `dev`; `staged` (a slot of a sharded
+    round) copies them through page-locked memory without a wait, so that
+    the uploads of one slot do not wait for the kernels queued on another
+    slot of the same card."""
+    if staged and dev.type == "cuda":
+        return [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                for a in arrays]
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
 def run_windows(abpt: Params, tabs: list, queries: list, W: int,
-                graph_half: Optional[list] = None):
+                graph_half: Optional[list] = None, dev=None,
+                events: Optional[list] = None):
     """One launch over the windows at band width W: (the kernel's inputs,
     its outputs), on the device: kernel B2, or B2u where the windows are
     whole rows (`abpt.wb < 0`, local mode included). `graph_half` (tensors
     on the device, as `pack_graph` lays them out) stands in for the
-    windows' graph half: only the query half is uploaded."""
-    dev = abpt.torch_device
+    windows' graph half: only the query half is uploaded. `dev` (a slot of
+    a sharded round; default the run's device) takes the launch, its
+    inputs uploaded without a wait; `events` as `_timed`'s."""
+    staged = dev is not None
+    dev = abpt.torch_device if dev is None else dev
     t0 = time.perf_counter()
-    up = lambda arrays: [torch.from_numpy(a).to(dev) for a in arrays]  # noqa: E731
     if graph_half is None:
-        args = up(pack_windows(abpt, tabs, queries, W))
+        args = _upload(pack_windows(abpt, tabs, queries, W), dev, staged)
     else:
-        args = _args(up(pack_queries(abpt, tabs, queries, W)), graph_half)
+        args = _args(_upload(pack_queries(abpt, tabs, queries, W), dev,
+                             staged), graph_half)
     stats["tables_s"] += time.perf_counter() - t0
     return args, _timed(dev, "kernel_s",
                         lambda: banded_dp(*args, gap_mode=abpt.gap_mode,
-                                          unbanded=abpt.wb < 0))
+                                          unbanded=abpt.wb < 0), events)
 
 
 def walk_inputs(abpt: Params, args: list, out, tabs: list, queries: list,
-                slots: list) -> tuple:
+                slots: list, staged: bool = False) -> tuple:
     """X1w's inputs for the windows `slots` of one launch (inputs `args`,
     outputs `out`; `tabs`/`queries` are the launch's): (the positional
     tensors, the keywords, and per walked window its (header, band, op)
     offsets in the packed output and max_ops). B2's scalars carry each
-    window's mode, its `ext` output the extend and local best cells."""
-    dev = abpt.torch_device
+    window's mode, its `ext` output the extend and local best cells. The
+    inputs go to the launch's device, through page-locked memory without a
+    wait where `staged`."""
+    dev = args[0].device
     R, W = out[0].shape
     planes = out[0].as_strided((5, R, W), (R * W, W, 1))
     if planes[4].data_ptr() != out[4].data_ptr():
@@ -199,10 +238,10 @@ def walk_inputs(abpt: Params, args: list, out, tabs: list, queries: list,
         q_at += qlen
         b_at += 2 * tabs[k].gn
         o_at += 2 * max_ops
-    up = np.concatenate([plan.ravel()] + [queries[k] for k in slots]
-                        ).astype(np.int32)
-    up = torch.from_numpy(up).to(dev)
-    mat = torch.from_numpy(abpt.mat.astype(np.int32)).to(dev)
+    up, mat = _upload([np.concatenate([plan.ravel()]
+                                      + [queries[k] for k in slots]
+                                      ).astype(np.int32),
+                       abpt.mat.astype(np.int32)], dev, staged)
     inputs = (planes, out[5], out[6], out[8], args[2], args[3], args[1],
               args[0], args[11], mat, up[6 * n:], up[: 6 * n].view(n, 6))
     kw = dict(size=o_at, gap_mode=abpt.gap_mode,
@@ -213,18 +252,21 @@ def walk_inputs(abpt: Params, args: list, out, tabs: list, queries: list,
 
 
 def walk_windows(abpt: Params, args: list, out, tabs: list, queries: list,
-                 slots: list) -> tuple:
-    """X1w over the windows `slots` of one launch (see `walk_inputs`): the
-    packed output on the device and its layout."""
-    inputs, kw, layout = walk_inputs(abpt, args, out, tabs, queries, slots)
+                 slots: list, staged: bool = False,
+                 events: Optional[list] = None) -> tuple:
+    """X1w over the windows `slots` of one launch (see `walk_inputs`), on
+    the launch's device: the packed output there and its layout."""
+    inputs, kw, layout = walk_inputs(abpt, args, out, tabs, queries, slots,
+                                     staged)
     stats["planes_bytes"] += out[0].numel() * 5 * 4
-    return _timed(abpt.torch_device, "backtrack_s",
-                  lambda: backtrack_windows(*inputs, **kw)), layout
+    return _timed(args[0].device, "backtrack_s",
+                  lambda: backtrack_windows(*inputs, **kw), events), layout
 
 
 def _to_host(bufs: list) -> list:
-    """The launches' packed X1w outputs as numpy, one copy each into the
-    page-locked buffer before one wait."""
+    """The launches' packed X1w outputs as numpy, one copy each into its
+    own part of the page-locked buffer, sized for the whole round (every
+    slot's launches of a sharded round), before one wait a device."""
     if not bufs[0].is_cuda:
         return [b.numpy() for b in bufs]
     host = _staging(sum(b.numel() for b in bufs))
@@ -234,14 +276,26 @@ def _to_host(bufs: list) -> list:
         dst.copy_(b, non_blocking=True)
         views.append(dst)
         at += b.numel()
-    torch.cuda.current_stream(bufs[0].device).synchronize()
+    for dev in dict.fromkeys(b.device for b in bufs):
+        torch.cuda.current_stream(dev).synchronize()
     stats["d2h_bytes"] += 4 * at
     return [v.numpy() for v in views]
 
 
+class _Slot:
+    """One mesh slot's part of `align_windows_banded`'s windows: its
+    device, the ids of the windows it still has to launch, its band width
+    and its last launch (inputs, outputs)."""
+    __slots__ = ("dev", "todo", "W", "args", "out")
+
+    def __init__(self, dev, todo: list, W: int) -> None:
+        self.dev, self.todo, self.W = dev, todo, W
+        self.args = self.out = None
+
+
 def align_windows_banded(g, abpt: Params, windows,
                          band_width: Optional[int] = None,
-                         static=None) -> list:
+                         static=None, mesh=None) -> list:
     """Align independent windows [(beg_id, end_id, query), ...] of the
     sorted graph `g`, or, with `g` a list of sorted graphs, window i on
     graph g[i] (the K-lane chunk of the lockstep and map routes, one whole
@@ -250,7 +304,15 @@ def align_windows_banded(g, abpt: Params, windows,
     windows it is too narrow for). `static` (`dp_chunk.StaticGraphTables`
     of the one graph `g`) gives every window that graph's tables, built
     once, and their graph half on the device, and leaves the graph's band
-    as it is (no write-back)."""
+    as it is (no write-back).
+
+    `mesh` (a tuple of devices, `parallel/shard.py`) splits the windows
+    into contiguous slices, one a slot: every slot's inputs are uploaded
+    and its B2 launch queued before the first host sync; then, slot by
+    slot, its `ok` is read, X1w queued over its ok windows and its
+    overflowed windows launched again at a doubled W, until every slot is
+    done. Each window's result is the unsharded one."""
+    from ..parallel.shard import mesh_parts, mesh_size
     global retries
     graphs = g if isinstance(g, list) else [g] * len(windows)
     t0 = time.perf_counter()
@@ -263,31 +325,47 @@ def align_windows_banded(g, abpt: Params, windows,
     stats["tables_s"] += time.perf_counter() - t0
 
     W = band_width or max(initial_band_width(abpt, len(q)) for q in queries)
-    todo = list(range(len(windows)))
+    slots_ = [_Slot(dev, ids, W) for dev, ids in
+              mesh_parts(len(windows), mesh, abpt.torch_device)]
     walks = []   # per launch: (its window ids, X1w's packed output, layout)
+    # a sharded round's CUDA-event times are read after its copy to the
+    # host; without a mesh each launch reads its own, as it always has
+    events: list = []
+    sharded = {"staged": True, "events": events} if mesh_size(mesh) > 1 \
+        else {}
     n_launch = 0
-    while True:
+
+    def launch(sl: _Slot) -> None:
+        nonlocal n_launch
         n_launch += 1
-        args, out = run_windows(abpt, [tabs[i] for i in todo],
-                                [queries[i] for i in todo], W,
-                                None if static is None
-                                else static.lanes(len(todo)))
-        ok = check_ok(out[7])
-        slots = [k for k in range(len(todo)) if ok[k]]
-        if slots:
-            packed, layout = walk_windows(abpt, args, out,
-                                          [tabs[i] for i in todo],
-                                          [queries[i] for i in todo], slots)
-            walks.append(([todo[k] for k in slots], packed, layout))
-        failed = [i for k, i in enumerate(todo) if not ok[k]]
-        if not failed:
-            break
-        qmax = max(len(queries[i]) for i in failed)
-        if W >= qmax + 1:
-            raise RuntimeError(f"banded DP overflowed at full width W={W}")
-        W = next_band_width(W, qmax)
-        retries += 1
-        todo = failed
+        sl.args, sl.out = run_windows(
+            abpt, [tabs[i] for i in sl.todo], [queries[i] for i in sl.todo],
+            sl.W, None if static is None else static.lanes(len(sl.todo),
+                                                           sl.dev),
+            **({"dev": sl.dev, "events": events} if sharded else {}))
+
+    for sl in slots_:
+        launch(sl)
+    while slots_:
+        for sl in slots_:
+            ok = check_ok(sl.out[7])
+            todo = sl.todo
+            done = [k for k in range(len(todo)) if ok[k]]
+            if done:
+                packed, layout = walk_windows(
+                    abpt, sl.args, sl.out, [tabs[i] for i in todo],
+                    [queries[i] for i in todo], done, **sharded)
+                walks.append(([todo[k] for k in done], packed, layout))
+            sl.todo = [i for k, i in enumerate(todo) if not ok[k]]
+            if sl.todo:
+                qmax = max(len(queries[i]) for i in sl.todo)
+                if sl.W >= qmax + 1:
+                    raise RuntimeError(
+                        f"banded DP overflowed at full width W={sl.W}")
+                sl.W = next_band_width(sl.W, qmax)
+                retries += 1
+                launch(sl)
+        slots_ = [sl for sl in slots_ if sl.todo]
     stats["reads"] += 1
     stats["windows"] += len(windows)
     stats["launches"] += n_launch
@@ -296,6 +374,7 @@ def align_windows_banded(g, abpt: Params, windows,
     t0 = time.perf_counter()
     host = _to_host([packed for _, packed, _ in walks])
     stats["d2h_s"] += time.perf_counter() - t0
+    _read_events(events)
 
     # every window's result is read out of the staging buffer here, before
     # the next call's copy reuses it

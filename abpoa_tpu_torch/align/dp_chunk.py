@@ -15,8 +15,11 @@ Counterpart of `abpoa_tpu/align/dp_chunk.py`:
   (:128, :206, :241) are the port's `tables.build_row_tables` (a native
   graph's through `native_row_tables`) and `tables.query_tables`.
 - `StaticGraphTables` (:255) builds one graph's row tables once, and keeps
-  on the device the graph half of a K-lane pack (`lanes`): a launch of
-  k <= K lanes of that graph uploads only the query half.
+  on each device of the run the graph half of a K-lane pack (`lanes`): a
+  launch of k <= K lanes of that graph uploads only the query half.
+- `mesh=` (a tuple of devices, `parallel/shard.py`) splits the lanes of a
+  chunk over the mesh's slots, JAX's `shard_dp_round` (shard.py:189); each
+  lane's result is the unsharded one.
 - `result_from_chunk` (:304) is `banded._result`, which rebuilds the cigar
   as JAX's `_result_from_packed` does; B2 keeps int32 planes, so
   `chunk_plane16` has no twin.
@@ -44,12 +47,13 @@ def reset_stats() -> None:
     stats.update(sort_s=0.0, static_builds=0, static_uploads=0)
 
 
-def run_dp_chunk(graphs: list, abpt: Params,
-                 queries: List[np.ndarray]) -> List[AlignResult]:
+def run_dp_chunk(graphs: list, abpt: Params, queries: List[np.ndarray],
+                 mesh=None) -> List[AlignResult]:
     """Align queries[i] to the whole of graphs[i], every lane in one B2
     launch (plus the relaunch of overflowed lanes) and one X1w launch a
     B2 launch: one AlignResult a lane, each that lane's per-read alignment
-    (`dispatch.align_sequence_to_graph`), band write-back included."""
+    (`dispatch.align_sequence_to_graph`), band write-back included. With
+    `mesh`, one B2 launch a slot over its slice of the lanes."""
     if not queries:
         return []
     t0 = time.perf_counter()
@@ -58,14 +62,15 @@ def run_dp_chunk(graphs: list, abpt: Params,
             g.topological_sort(abpt)
     stats["sort_s"] += time.perf_counter() - t0
     windows = [(C.SRC_NODE_ID, C.SINK_NODE_ID, q) for q in queries]
-    return align_windows_banded(list(graphs), abpt, windows)
+    return align_windows_banded(list(graphs), abpt, windows, mesh=mesh)
 
 
 class StaticGraphTables:
     """One graph's DP tables for the map route: its row tables built once,
     the index -> node id map the cigar rebuild reads, a node-id-indexed
-    base array for the GAF's match count, and on the device the graph half
-    of a pack of K lanes of that graph, uploaded once per K."""
+    base array for the GAF's match count, and on each device that runs its
+    lanes (every card of a mesh) the graph half of a pack of K lanes of
+    that graph, uploaded once per device and K."""
 
     def __init__(self, g, abpt: Params) -> None:
         if not g.is_topological_sorted:
@@ -79,37 +84,41 @@ class StaticGraphTables:
         base = np.zeros(int(self.idx2nid.max(initial=0)) + 1, np.int32)
         base[self.idx2nid] = self.tables.base[:self.n_rows]
         self.base_by_nid = base
-        self._pack: list = []
-        self._K = 0
+        self._packs: dict = {}   # device -> (K, the graph half)
         stats["static_builds"] += 1
 
-    def upload(self, K: int) -> None:
-        """Put the graph half of K lanes on the device (once per K)."""
-        if K == self._K:
+    def upload(self, K: int, dev=None) -> None:
+        """Put the graph half of K lanes on `dev` (default the run's
+        device), once per device and K."""
+        dev = self.abpt.torch_device if dev is None else dev
+        if self._packs.get(dev, (0,))[0] == K:
             return
-        self._pack = []
+        self._packs.pop(dev, None)
         half = pack_graph([self.tables] * K)
-        self._pack = [torch.from_numpy(a).to(self.abpt.torch_device)
-                      for a in half]
-        self._K = K
+        self._packs[dev] = (K, [torch.from_numpy(a).to(dev) for a in half])
         stats["static_uploads"] += 1
 
-    def align(self, queries: List[np.ndarray]) -> List[AlignResult]:
+    def align(self, queries: List[np.ndarray],
+              mesh=None) -> List[AlignResult]:
         """`run_dp_chunk` with every lane on this graph: its tables and the
         pack's graph half serve every launch, and the graph's band is not
-        written back, so no read's result depends on the reads before it."""
+        written back, so no read's result depends on the reads before it.
+        With `mesh`, the lanes split over its slots, each reading the pack
+        on its own device."""
         if not queries:
             return []
         windows = [(C.SRC_NODE_ID, C.SINK_NODE_ID, q) for q in queries]
         return align_windows_banded(self.graph, self.abpt, windows,
-                                    static=self)
+                                    static=self, mesh=mesh)
 
-    def lanes(self, k: int) -> list:
-        """The graph half of the pack's first k lanes (uploading a pack of k
-        lanes when the one on the device is smaller): contiguous prefixes
-        of its rows and roff."""
-        if k > self._K:
-            self.upload(k)
+    def lanes(self, k: int, dev=None) -> list:
+        """The graph half of the first k lanes of the pack on `dev` (default
+        the run's device; a pack of k lanes is uploaded when the one there
+        is smaller): contiguous prefixes of its rows and roff."""
+        dev = self.abpt.torch_device if dev is None else dev
+        if k > self._packs.get(dev, (0,))[0]:
+            self.upload(k, dev)
+        pack = self._packs[dev][1]
         rows = k * self.n_rows
-        half = [t[:rows] for t in self._pack[:8]] + [self._pack[8][:k + 1]]
-        return half + [t[:rows] for t in self._pack[9:]]
+        half = [t[:rows] for t in pack[:8]] + [pack[8][:k + 1]]
+        return half + [t[:rows] for t in pack[9:]]

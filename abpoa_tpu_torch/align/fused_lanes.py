@@ -41,10 +41,19 @@ single-set loop.
 
 Unlike JAX, the lanes are not padded to a power-of-two K rung and the reads
 to a reads rung: a kernel launches one block a live lane (ROADMAP.md §C).
+
+With a mesh (`parallel/shard.py`; JAX's `mesh=`, :1986-2036) the sets split
+into one contiguous group a slot (`shard.split_lanes`), each with its own
+lane stack, capacities and growth on its device (`_group_loop`). One host
+thread drives the groups round-robin (`_drive_groups`): `_read_round`
+yields just before each host sync, so a round of every group is queued
+before any group's sync, and the counters stay exact. The kernels launch
+once a group a round; the graphs are downloaded after every group is done.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
 from typing import List, Optional
 
@@ -595,6 +604,7 @@ class _BatchRun:
     extend: bool
     zdrop_on: bool
     int16_limit: int
+    share: int = 1      # the groups of a sharded run on this device
 
     @property
     def bt_consts(self) -> torch.Tensor:
@@ -613,17 +623,20 @@ def _lane_reads(run: _BatchRun, ls: _Lanes):
     return run.seqs[si, ri], run.wgts[si, ri], run.qp[si, ri], qlens
 
 
-def _plane_budget(dev: torch.device, need: int) -> Optional[int]:
+def _plane_budget(dev: torch.device, need: int,
+                  share: int = 1) -> Optional[int]:
     """The bytes B1's planes may take in one pass that needs `need`: None
     (no limit) off the card and where `need` fits in 90 % of the driver's
     free memory; else 90 % of it once the allocator's cached blocks have
     gone back to the driver. Those blocks are left out of the count: a
     small tensor carved from one pins it (seen in local mode at 10 kb on
-    an H100 80GB HBM3, PERF.md §6)."""
-    if dev.type != "cuda" or need <= 0.9 * torch.cuda.mem_get_info(dev)[0]:
+    an H100 80GB HBM3, PERF.md §6). The `share` groups of a sharded run
+    placed on `dev` divide its free memory."""
+    if dev.type != "cuda" or \
+            need * share <= 0.9 * torch.cuda.mem_get_info(dev)[0]:
         return None
     torch.cuda.empty_cache()
-    return int(0.9 * torch.cuda.mem_get_info(dev)[0])
+    return int(0.9 * torch.cuda.mem_get_info(dev)[0]) // share
 
 
 def plane_groups(todo: List[int], lane_bytes: int,
@@ -687,7 +700,8 @@ def _align_strand_l(run: _BatchRun, ls: _Lanes, tables, query, qp, qlens,
     dt = torch.int16 if run.plane16 else torch.int32
     lane_bytes = 5 * R * W * (2 if run.plane16 else 4)
     groups = plane_groups(todo, lane_bytes,
-                          _plane_budget(dev, len(todo) * lane_bytes))
+                          _plane_budget(dev, len(todo) * lane_bytes,
+                                        run.share))
     if len(groups) == 1:
         ops, res, best_j, best_sc, overflow = _dp_walk(
             run, args, query, ls.g.node_n, ql, lanes)
@@ -735,8 +749,12 @@ def _seed_round(run: _BatchRun, ls: _Lanes) -> _Lanes:
 
 
 def _read_round(run: _BatchRun, ls: _Lanes, N: int):
-    """`fused_loop._read_step` for every lane at once. Returns (the lanes'
-    error codes, the new lanes); a lane with an error keeps its state."""
+    """`fused_loop._read_step` for every lane at once, a generator that
+    yields just before each of its host syncs (the `-s` scores, the flags,
+    the Kahn repair's) with every launch before it queued, so that a
+    driver can queue the other groups' work first (`_drive_groups`).
+    Returns (the lanes' error codes, the new lanes); a lane with an error
+    keeps its state."""
     abpt, dev = run.abpt, run.seqs.device
     L = len(ls.sets)
     g = ls.g
@@ -748,6 +766,7 @@ def _read_round(run: _BatchRun, ls: _Lanes, N: int):
     use_rc = torch.zeros(L, dtype=torch.bool, device=dev)
     query_u, weight_u = query, weight
     if abpt.amb_strand:
+        yield
         scores = fl._sync_read(best_sc)
         rc = [i for i in range(L)
               if fl._need_rc(scores[i], qlens[i], ls.node_n[i], abpt.max_mat)]
@@ -788,6 +807,7 @@ def _read_round(run: _BatchRun, ls: _Lanes, N: int):
             _i32(collision), _i32(overflow), _i32(bt_err), _i32(ops_cap),
             _i32(edge_cap), _i32(grp_full), _i32(bad), _i32(g2s.ok),
             _i32(g2s.node_n), _i32(use_rc)], 1)
+    yield
     flags = fl._sync_read(flags)
 
     def err_of(f, n2, g_ok):  # f: a lane's row of `flags`
@@ -824,6 +844,7 @@ def _read_round(run: _BatchRun, ls: _Lanes, N: int):
                 g2s.in_ids, g2s.in_w, g2s.out_ids, g2s.out_w, g2s.in_cnt,
                 g2s.out_cnt, g2s.aligned, g2s.aligned_cnt, g2s.node_n,
                 lanes=None if len(kahn) == L else kahn)
+        yield
         rep = fl._sync_read(torch.stack([k1[7], g2s.node_n, _i32(g2s.ok)], 1))
         fl.stats["kahn_rounds"] += 1
         for i in kahn:
@@ -887,16 +908,120 @@ def _read_round(run: _BatchRun, ls: _Lanes, N: int):
 # the host loop: growth over the lanes, retirement, download                  #
 # --------------------------------------------------------------------------- #
 
+def _group_loop(abpt: Params, dev: torch.device, share: int, lo: int,
+                hi: int, host: dict, caps: tuple):
+    """The batch loop of sets lo..hi-1 on `dev`: their lane stack,
+    capacities and growth, started from `caps` = (N, E, A, W, plane16).
+    A generator that yields just before each host sync (`_read_round`);
+    it returns ({set: its lane, as a one-lane `_Lanes`}, the final caps).
+    `share` is the number of groups on `dev` (they divide its memory,
+    `_plane_budget`)."""
+    N, E, A, W, plane16 = caps
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    seqs_d, wgts_d = to(host["seqs"][lo:hi]), to(host["wgts"][lo:hi])
+    qp_d, mat_d = to(host["qp"][lo:hi]), to(host["mat"])
+    lens = host["lens"][lo:hi]
+    n_reads = host["n_reads"][lo:hi]
+    K, R, Qp = seqs_d.shape
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)  # noqa: E731
+    ids = abpt.use_read_ids
+    ls = _Lanes(
+        g=DeviceGraph(base=z(K, N), in_ids=z(K, N, E), in_w=z(K, N, E),
+                      in_cnt=z(K, N), out_ids=z(K, N, E), out_w=z(K, N, E),
+                      out_cnt=z(K, N), aligned=z(K, N, A),
+                      aligned_cnt=z(K, N), n_read=z(K, N), n_span=z(K, N),
+                      node_n=torch.full((K,), 2, dtype=torch.int32,
+                                        device=dev),
+                      ok=torch.ones(K, dtype=torch.bool, device=dev)),
+        order=z(K, N), n2i=z(K, N), remain=z(K, N),
+        # a read's path holds at most qlen nodes (Pcap = Qp + 2, as the
+        # single-set loop)
+        paths=z(K, R, Qp + 2) if ids else None,
+        path_lens=z(K, R) if ids else None,
+        sets=list(range(K)), read_idx=[0] * K, node_n=[2] * K,
+        rc_flags=[[] for _ in range(K)])
+    done: dict = {}
+    growths = 0
+    while ls.sets:
+        run = _BatchRun(abpt=abpt, seqs=seqs_d, wgts=wgts_d, lens=lens,
+                        qp=qp_d, mat=mat_d, W=W, max_ops=N + Qp + 8,
+                        plane16=plane16,
+                        inf=dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN),
+                        local=host["local"], extend=host["extend"],
+                        zdrop_on=host["extend"] and abpt.zdrop > 0,
+                        int16_limit=host["int16_limit"], share=share)
+        errs = [fl.host_error(run, run.lens[s][k], n, N)
+                for s, k, n in zip(ls.sets, ls.read_idx, ls.node_n)]
+        if any(errs):
+            fl.stats["host_errs"] += sum(e != fl.ERR_OK for e in errs)
+        elif ls.node_n[0] == 2:
+            ls = _seed_round(run, ls)
+        else:
+            fl.stats["rounds"] += 1
+            fl.stats["live_lanes"] += len(ls.sets)
+            fl.stats["reads"] += len(ls.sets)
+            errs, ls = yield from _read_round(run, ls, N)
+        bad = set(errs) - {fl.ERR_OK}
+        if bad - set(fl._RECOVERABLE_ERRS):
+            i = next(i for i, e in enumerate(errs) if e in bad)
+            what = ("backtrack found no path" if errs[i] == fl.ERR_BACKTRACK
+                    else f"unknown error {errs[i]}")
+            raise RuntimeError(f"device lockstep: {what} at read "
+                               f"{ls.read_idx[i]} of set {lo + ls.sets[i]}")
+        if bad:
+            growths += 1
+            if growths >= fl._MAX_PASSES:
+                raise RuntimeError("device lockstep: capacity growth did "
+                                   "not converge")
+            N, E, A, W, plane16, grew = fl._grown_caps(bad, N, E, A, W,
+                                                       plane16)
+            if grew:
+                ls = fl._grow_state(ls, N, E, A)
+        left = [i for i, s in enumerate(ls.sets)
+                if ls.read_idx[i] < n_reads[s]]
+        if len(left) < len(ls.sets):
+            for i, s in enumerate(ls.sets):
+                if ls.read_idx[i] >= n_reads[s]:
+                    done[lo + s] = ls.select([i])
+            ls = ls.select(left)
+    return done, dict(N=N, E=E, A=A, W=W, plane16=plane16)
+
+
+def _drive_groups(groups: list, devs: list) -> list:
+    """Run the groups' loops (`_group_loop` generators) round-robin from
+    this thread, each on its device: each runs to its next host sync, so
+    that a round of every group is queued before any group's sync, and the
+    process-wide counters (`fused_loop.stats`, the wrappers' `.launches`)
+    stay exact. Returns each loop's return value."""
+    outs = [None] * len(groups)
+    live = list(range(len(groups)))
+    while live:
+        for i in list(live):
+            with (torch.cuda.device(devs[i]) if devs[i].type == "cuda"
+                  else nullcontext()):
+                try:
+                    next(groups[i])
+                except StopIteration as stop:
+                    outs[i] = stop.value
+                    live.remove(i)
+    return outs
+
+
 def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
                                 weight_sets: List[List[np.ndarray]],
                                 abpt: Params,
-                                init_caps: Optional[tuple] = None) -> list:
+                                init_caps: Optional[tuple] = None,
+                                mesh=None) -> list:
     """Run the fused loop over K read sets in lockstep on abpt's torch
     device; see the module docstring. Returns one (host POAGraph, per-read
     is_rc flags) a set, each equal to `progressive_poa_fused` on that set.
     `init_caps` = (N, E, A, W) overrides the starting capacities (tests use
-    tiny ones to drive every growth path)."""
-    dev = abpt.torch_device
+    tiny ones to drive every growth path). `mesh` (a tuple of devices,
+    `parallel/shard.py`; JAX's `mesh=`, fused_loop.py:1986-2036) splits
+    the sets into one contiguous group a slot, each with its own lane
+    stack, capacities and growth on its device; the groups advance
+    round-robin from this thread (`_drive_groups`)."""
+    from ..parallel.shard import mesh_parts
     S = len(seq_sets)
     n_reads = [len(s) for s in seq_sets]
     if S == 0:
@@ -919,73 +1044,19 @@ def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
         n = len(ss)
         seqs_pad[s, :n], wgts_pad[s, :n], qp_all[s, :n] = sp, wp, qp
         lens.append(ln.tolist())
-    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     int16_limit = int16_score_limit(abpt)
     plane16 = max_score_bound(abpt, qmax, 2) <= int16_limit
-    extend = abpt.align_mode == C.EXTEND_MODE
-    seqs_d, wgts_d, qp_d, mat_d = to(seqs_pad), to(wgts_pad), to(qp_all), to(mat)
+    host = dict(seqs=seqs_pad, wgts=wgts_pad, qp=qp_all, mat=mat, lens=lens,
+                n_reads=n_reads, local=local_m,
+                extend=abpt.align_mode == C.EXTEND_MODE,
+                int16_limit=int16_limit)
     t0 = time.perf_counter()
-    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)  # noqa: E731
-    ids = abpt.use_read_ids
-    ls = _Lanes(
-        g=DeviceGraph(base=z(S, N), in_ids=z(S, N, E), in_w=z(S, N, E),
-                      in_cnt=z(S, N), out_ids=z(S, N, E), out_w=z(S, N, E),
-                      out_cnt=z(S, N), aligned=z(S, N, A),
-                      aligned_cnt=z(S, N), n_read=z(S, N), n_span=z(S, N),
-                      node_n=torch.full((S,), 2, dtype=torch.int32,
-                                        device=dev),
-                      ok=torch.ones(S, dtype=torch.bool, device=dev)),
-        order=z(S, N), n2i=z(S, N), remain=z(S, N),
-        # a read's path holds at most qlen nodes (Pcap = Qp + 2, as the
-        # single-set loop)
-        paths=z(S, R, Qp + 2) if ids else None,
-        path_lens=z(S, R) if ids else None,
-        sets=list(range(S)), read_idx=[0] * S, node_n=[2] * S,
-        rc_flags=[[] for _ in range(S)])
-    done: dict = {}
-    growths = 0
-    while ls.sets:
-        run = _BatchRun(abpt=abpt, seqs=seqs_d, wgts=wgts_d, lens=lens,
-                        qp=qp_d, mat=mat_d, W=W, max_ops=N + Qp + 8,
-                        plane16=plane16,
-                        inf=dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN),
-                        local=local_m, extend=extend,
-                        zdrop_on=extend and abpt.zdrop > 0,
-                        int16_limit=int16_limit)
-        errs = [fl.host_error(run, run.lens[s][k], n, N)
-                for s, k, n in zip(ls.sets, ls.read_idx, ls.node_n)]
-        if any(errs):
-            fl.stats["host_errs"] += sum(e != fl.ERR_OK for e in errs)
-        elif ls.node_n[0] == 2:
-            ls = _seed_round(run, ls)
-        else:
-            fl.stats["rounds"] += 1
-            fl.stats["live_lanes"] += len(ls.sets)
-            fl.stats["reads"] += len(ls.sets)
-            errs, ls = _read_round(run, ls, N)
-        bad = set(errs) - {fl.ERR_OK}
-        if bad - set(fl._RECOVERABLE_ERRS):
-            i = next(i for i, e in enumerate(errs) if e in bad)
-            what = ("backtrack found no path" if errs[i] == fl.ERR_BACKTRACK
-                    else f"unknown error {errs[i]}")
-            raise RuntimeError(f"device lockstep: {what} at read "
-                               f"{ls.read_idx[i]} of set {ls.sets[i]}")
-        if bad:
-            growths += 1
-            if growths >= fl._MAX_PASSES:
-                raise RuntimeError("device lockstep: capacity growth did "
-                                   "not converge")
-            N, E, A, W, plane16, grew = fl._grown_caps(bad, N, E, A, W,
-                                                       plane16)
-            if grew:
-                ls = fl._grow_state(ls, N, E, A)
-        left = [i for i, s in enumerate(ls.sets)
-                if ls.read_idx[i] < n_reads[s]]
-        if len(left) < len(ls.sets):
-            for i, s in enumerate(ls.sets):
-                if ls.read_idx[i] >= n_reads[s]:
-                    done[s] = ls.select([i])
-            ls = ls.select(left)
+    parts = mesh_parts(S, mesh, abpt.torch_device)
+    devs = [dev for dev, _ in parts]
+    outs = _drive_groups(
+        [_group_loop(abpt, dev, devs.count(dev), ids[0], ids[-1] + 1, host,
+                     (N, E, A, W, plane16)) for dev, ids in parts], devs)
+    done = {s: lane for d, _ in outs for s, lane in d.items()}
     t1 = time.perf_counter()
     out = []
     for s in range(S):
@@ -998,5 +1069,5 @@ def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
     fl.stats["download_s"] += time.perf_counter() - t1
     fl._drain_events()
     fl.stats["wall_s"] += time.perf_counter() - t0
-    fl.stats["caps"] = dict(N=N, E=E, A=A, W=W, plane16=plane16)
+    fl.stats["caps"] = {k: max(c[k] for _, c in outs) for k in outs[0][1]}
     return out

@@ -14,16 +14,18 @@ GAF record a read.
     python -m abpoa_tpu_torch reads.fa [--device cuda|cpu] [-o out.fa]
     python -m abpoa_tpu_torch new.fa -i old.gfa [-r 3]
     python -m abpoa_tpu_torch long_reads.fa -S [-p]
-    python -m abpoa_tpu_torch -l list.txt [--lockstep auto|on|off]
-    python -m abpoa_tpu_torch map -g graph.gfa reads.fa [-K 8] [-s]
+    python -m abpoa_tpu_torch -l list.txt [--lockstep auto|on|off] [--mesh N]
+    python -m abpoa_tpu_torch map -g graph.gfa reads.fa [-K 8] [-s] [--mesh N]
 
-With no card and no `--device cpu`, the run raises RuntimeError. A malformed read set ends a one-file run with one
+With no card and no `--device cpu`, the run raises RuntimeError; so does
+`--mesh N` with fewer than N cards (on the CPU, N x cpu). A malformed read set ends a one-file run with one
 error line and rc 1; in a `-l` run it is quarantined (one stderr line) and
 the run returns 1 only when every set was.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -85,7 +87,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "lockstep, or the split driver in local mode, on "
                         "the CPU or where ABPOA_TPU_LOCKSTEP_IMPL=split); "
                         "auto = on where the device is cuda [%(default)s]")
+    p.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="-l: split each lockstep round over N devices (the "
+                        "sharded route; K = N x the per-device K; N x cpu "
+                        "with --device cpu); 0 or 1 = off "
+                        "[ABPOA_TPU_MESH]")
     return p
+
+
+def _apply_mesh(mesh) -> None:
+    """--mesh: checked, then set as ABPOA_TPU_MESH, the one place every
+    route plan reads it (`parallel.shard.requested_mesh_size`)."""
+    if mesh is None:
+        return
+    if mesh < 0:
+        raise ValueError("--mesh must be >= 0 (0 = off)")
+    os.environ["ABPOA_TPU_MESH"] = str(mesh)
 
 
 def _apply_gap_args(abpt: Params, gap_open, gap_ext) -> None:
@@ -169,6 +186,7 @@ def main(argv=None) -> int:
         return 1
     try:
         abpt = args_to_params(args).finalize()
+        _apply_mesh(args.mesh)
     except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
@@ -233,6 +251,10 @@ def map_main(argv) -> int:
                          "group size, ABPOA_TPU_LOCKSTEP_K, default 8)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device: cuda or cpu [%(default)s]")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="split each round's reads over N devices (the "
+                         "sharded route; K = N x the per-device K) "
+                         "[ABPOA_TPU_MESH]")
     ap.add_argument("-V", "--verbose", type=int, default=0)
     args = ap.parse_args(argv)
     abpt = Params()
@@ -246,6 +268,7 @@ def map_main(argv) -> int:
     abpt.device = args.device
     try:
         abpt.finalize()
+        _apply_mesh(args.mesh)
     except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
@@ -259,7 +282,8 @@ def _map_run(args, abpt: Params) -> int:
     import numpy as np
     from .io.fastx import read_fastx
     from .io.gaf import gaf_record
-    from .parallel import load_static_graph, map_reads_split, plan_route
+    from .parallel import (discover_mesh, load_static_graph, map_reads_split,
+                           plan_route)
     t0 = time.time()
     rc = 0
     try:
@@ -279,8 +303,10 @@ def _map_run(args, abpt: Params) -> int:
     if abpt.verbose:
         print(f"[abpoa_tpu_torch::map] route {route.kind}: {route.reason}",
               file=sys.stderr)
+    mesh = (discover_mesh(route.workers, abpt.torch_device)
+            if route.kind == "sharded" else None)
     k_cap = args.k_cap if args.k_cap > 0 else route.k_cap
-    outcomes = map_reads_split(static, queries, abpt, k_cap=k_cap)
+    outcomes = map_reads_split(static, queries, abpt, k_cap=k_cap, mesh=mesh)
     out_fp = (open(args.output, "w")
               if args.output and args.output != "-" else sys.stdout)
     n_mapped = 0

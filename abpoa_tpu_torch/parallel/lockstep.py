@@ -3,7 +3,10 @@ launch of kernel B2 (and one of X1w) a round and each set's fusion on its
 own host graph.
 
 Counterpart of `abpoa_tpu/parallel/lockstep.py` (`ChurnHook` :43, `_Lane`
-:65, `progressive_poa_split_batch` :89). Per lane a round is exactly
+:65, `progressive_poa_split_batch` :89, its `mesh=` :107). With a mesh
+(`parallel/shard.py`), each round's live lanes go in one sharded dispatch:
+one B2 launch (and one X1w launch) a slot over its slice of the lanes.
+Per lane a round is exactly
 `pipeline.poa`'s step for one read: the alignment of the read to the lane's
 graph (`dp_chunk.run_dp_chunk`, all lanes in one launch), with `-s` the
 reverse complement of a read under the host float threshold
@@ -93,11 +96,13 @@ def _new_graph(abpt: Params):
 def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
                                 weight_sets: List[List[np.ndarray]],
                                 abpt: Params,
-                                churn: Optional[ChurnHook] = None) -> list:
+                                churn: Optional[ChurnHook] = None,
+                                mesh=None) -> list:
     """Run K independent read sets in split lockstep. Returns one
     `(host_graph, is_rc_flags)` per initial set (None for a set a churn
     hook evicted). With `churn`, every lane's result (joiners' too) also
-    goes to `churn.on_retire` the round the lane finishes."""
+    goes to `churn.on_retire` the round the lane finishes. `mesh` splits
+    each round's lanes over its slots (the host fusion is unchanged)."""
     from ..align.buckets import qp_rung
     from ..align.dp_chunk import run_dp_chunk
     from ..pipeline import _rc_encode
@@ -166,7 +171,7 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
 
         queries = [lane.seqs[lane.cursor] for lane in dp_lanes]
         results = run_dp_chunk([lane.graph for lane in dp_lanes], abpt,
-                               queries)
+                               queries, mesh=mesh)
         stats["dp_lanes"] += len(dp_lanes)
         flip = [False] * len(dp_lanes)
         if abpt.amb_strand:
@@ -177,7 +182,8 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
             if under:
                 rc_res = run_dp_chunk([dp_lanes[i].graph for i in under],
                                       abpt,
-                                      [_rc_encode(queries[i]) for i in under])
+                                      [_rc_encode(queries[i]) for i in under],
+                                      mesh=mesh)
                 stats["rc_lanes"] += len(under)
                 for i, res in zip(under, rc_res):
                     if res.best_score > results[i].best_score:

@@ -2,7 +2,10 @@
 reads in one K-lane launch of kernel B2 (and one of X1w) a round.
 
 Counterpart of `abpoa_tpu/parallel/map_driver.py` (`MapHook` :44,
-`load_static_graph` :65, `map_read_host` :82, `map_reads_split` :117). The
+`load_static_graph` :65, `map_read_host` :82, `map_reads_split` :117, its
+`mesh=` :130). With a mesh (`parallel/shard.py`) the graph's tables are
+replicated on every card of it (one upload a card) and each round's reads
+split over its slots. The
 graph is restored once (`io/restore.py`, the `-i` ingest), its tables are
 built once (`dp_chunk.StaticGraphTables`) and their graph half is uploaded
 once per lane count; the graph is never fused into and its band is never
@@ -81,19 +84,22 @@ def map_read_host(static, abpt: Params, q: np.ndarray):
 def map_reads_split(static, queries: Sequence[np.ndarray], abpt: Params,
                     k_cap: Optional[int] = None,
                     hook: Optional[MapHook] = None,
-                    Qp: Optional[int] = None) -> list:
+                    Qp: Optional[int] = None, mesh=None) -> list:
     """Map `queries` (and any joiners `hook` streams in) against the
     static graph, up to `k_cap` reads a round. Returns one
     ``(AlignResult, strand)`` per query, in order, or None for a read off
     the query rung `Qp` (by default that of the longest query); joiners are
-    answered through `hook.on_retire` only."""
+    answered through `hook.on_retire` only. `mesh` splits each round's
+    reads over its slots; `k_cap` then defaults to the mesh's size times
+    the lockstep group size."""
     from ..align.buckets import qp_rung
     from ..pipeline import _rc_encode
     if Qp is None:
         Qp = qp_rung(max((len(q) for q in queries), default=1))
     if k_cap is None:
         from .runner import lockstep_group_size
-        k_cap = lockstep_group_size()
+        from .shard import mesh_size
+        k_cap = mesh_size(mesh) * lockstep_group_size()
     k_cap = max(1, int(k_cap))
     thr_base = abpt.max_mat * 0.3333
     pending: List[Tuple[int, np.ndarray]] = list(enumerate(queries))[::-1]
@@ -125,14 +131,15 @@ def map_reads_split(static, queries: Sequence[np.ndarray], abpt: Params,
             break
         round_i += 1
         stats["rounds"] += 1
-        results = static.align([q for _, q in lanes])
+        results = static.align([q for _, q in lanes], mesh=mesh)
         strands = ["+"] * len(lanes)
         if abpt.amb_strand:
             under = [i for i, ((_, q), res) in enumerate(zip(lanes, results))
                      if res.best_score < min(len(q), static.n_rows - 2)
                      * thr_base]
             if under:
-                rc_res = static.align([_rc_encode(lanes[i][1]) for i in under])
+                rc_res = static.align([_rc_encode(lanes[i][1]) for i in under],
+                                      mesh=mesh)
                 stats["rc_reads"] += len(under)
                 for i, res in zip(under, rc_res):
                     if res.best_score > results[i].best_score:

@@ -2,7 +2,9 @@
 
 Counterpart of the parts of `abpoa_tpu/parallel/runner.py` the lockstep
 route needs: `lockstep_group_size` (:35), `lockstep_enabled` (:44),
-`_lockstep_ok` (:79), `flush_lockstep_group` (:89) and `run_batch` (:237).
+`_lockstep_ok` (:79), `flush_lockstep_group` (:89) and `run_batch` (:237),
+with the scheduler's `sharded` route (:281-300, :345-361): the mesh is
+found once before the first group, and each group holds mesh x K sets.
 Segments of K sets that the fused route would take run in lockstep, on the
 implementation `scheduler.lockstep_impl` picks (the device lockstep,
 `align/fused_lanes.py`, or the split driver, `parallel/lockstep.py`);
@@ -11,8 +13,7 @@ route (`pipeline.msa_from_file`). Output comes in file order, and a set
 that fails its input checks or cannot be read is quarantined (one stderr
 line) while the others go on. Left for later items: the memory admission
 and the guarded dispatch with its sequential fallback (item 11; a failed
-launch raises), the pool and hybrid routes (item 12) and the sharded
-route (item 9).
+launch raises) and the pool and hybrid routes (item 12).
 """
 from __future__ import annotations
 
@@ -61,11 +62,12 @@ def lockstep_covers(abpt: Params, n_reads: int) -> bool:
     return _lockstep_ok(abpt) and fused_eligible(abpt, n_reads)
 
 
-def flush_lockstep_group(group: List, abpt: Params) -> dict:
+def flush_lockstep_group(group: List, abpt: Params, mesh=None) -> dict:
     """Run one lockstep group of (idx, ab, seqs, weights) entries, in
     groups of one `qp_rung` each, on the implementation
     `scheduler.lockstep_impl` picks ("device": the device lockstep,
-    `fused_lanes.progressive_poa_fused_batch`; "split": the split driver);
+    `fused_lanes.progressive_poa_fused_batch`; "split": the split driver),
+    over `mesh` (a tuple of devices, `shard.discover_mesh`) where given;
     returns {idx: Abpoa with its set's graph and strand flags}. A failed
     group raises: neither implementation stands in for the other."""
     from ..align.buckets import partition_by_length_bucket
@@ -77,7 +79,8 @@ def flush_lockstep_group(group: List, abpt: Params) -> dict:
     results: dict = {}
     for sub in partition_by_length_bucket(
             [(e[0], e[2], e[3], e[1]) for e in group]):
-        outs = drive([e[1] for e in sub], [e[2] for e in sub], abpt)
+        outs = drive([e[1] for e in sub], [e[2] for e in sub], abpt,
+                     mesh=mesh)
         for (idx, _seqs, _w, ab), (graph, is_rc) in zip(sub, outs):
             ab.graph = graph
             if abpt.amb_strand:
@@ -86,20 +89,32 @@ def flush_lockstep_group(group: List, abpt: Params) -> dict:
     return results
 
 
-def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str]) -> dict:
+def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str],
+              mesh=None) -> dict:
     """The `-l` run over `files`: groups of K = `lockstep_group_size()`
     sets in lockstep where `plan_route` grants it, one set after another
     otherwise, each set's output in file order and byte-identical either
-    way. Returns {"sets", "quarantined"}."""
+    way. On the `sharded` route (a mesh asked for: `--mesh N`,
+    ABPOA_TPU_MESH) the mesh is found once before the first group
+    (`shard.discover_mesh`, which raises where fewer devices are attached)
+    and a group holds mesh x K sets. `mesh`, a tuple of devices, stands in
+    for the one asked for (the route is planned for its size). Returns
+    {"sets", "quarantined"}."""
     from ..io.fastx import read_fastx
     from ..pipeline import Abpoa, _ingest_records, msa_from_file, output
     from ..quarantine import (QUARANTINE_EXCEPTIONS, quarantine_set,
                               validate_records)
     from . import scheduler
+    from .shard import discover_mesh, mesh_size
     stats = {"sets": len(files), "quarantined": 0}
     if not (abpt.out_msa or abpt.out_cons or abpt.out_gfa):
         return stats  # as msa_from_file: nothing to compute or emit
-    route = scheduler.plan_route(abpt, len(files))
+    route = scheduler.plan_route(
+        abpt, len(files), mesh=None if mesh is None else mesh_size(mesh))
+    if route.kind == "sharded" and mesh is None:
+        mesh = discover_mesh(route.workers, abpt.torch_device)
+    elif route.kind != "sharded":
+        mesh = None
 
     def run_one(ab, i, fn):
         abpt.batch_index = i + 1
@@ -110,7 +125,7 @@ def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str]) -> dict:
             stats["quarantined"] += 1
 
     ab_seq = Abpoa()
-    if route.kind != "lockstep":
+    if route.kind not in ("lockstep", "sharded"):
         for i, fn in enumerate(files):
             run_one(ab_seq, i, fn)
         return stats
@@ -120,7 +135,7 @@ def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str]) -> dict:
     group: List = []  # [(file_idx, ab, seqs, weights)], its lockstep sets
 
     def emit_segment() -> None:
-        results = flush_lockstep_group(group, abpt)
+        results = flush_lockstep_group(group, abpt, mesh)
         for idx, fn in seg:
             if idx in results:
                 abpt.batch_index = idx + 1

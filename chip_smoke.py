@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
                           [--c5-reads I] [--c6-reads Q] [--c7-reads S]
-                          [--c9-reads T]
+                          [--c9-reads T] [--c11-sets U]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -176,6 +176,22 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          the GAF byte-identical across them, the tables built once and
          their graph half uploaded once a run, check_walks; restore and
          tables seconds, reads/s, rounds, B2's ms a launch
+  C11    the sharded route (phase_c11) over every card, or with one card
+         over (cuda:0, cuda:0) passed as the drivers' `mesh=` (the split's
+         overhead, not scaling): (a) C9's list (its first U sets,
+         --c11-sets, default all 8) through runner.run_batch with -r 2,
+         the device lockstep (one group of sets a slot) and the split
+         driver (each round's lanes split), each == C9's --lockstep off
+         output; B1 and X1 lane launches == the groups' rounds, at most
+         one host sync a group a round beyond -s and Kahn, no host graph
+         built; the split run check_walks and no B1; (b) C10's -K 8 map
+         over the mesh onto C10's restored graph: GAF == C10's, tables
+         built once and uploaded once a card, check_walks; (c) 20 of C7's
+         reads with -S, every read's windows split over the mesh: the
+         consensus == the unsplit run's; (d) `python -m abpoa_tpu_torch
+         -l LIST --mesh N+1` on N cards exits non-zero with the mesh's
+         RuntimeError, and --mesh 1 == no --mesh (output, launches,
+         syncs); each sharded wall beside the unsharded one
   D      at the graph phase C left and one more read: B1, X1, S1 (on the
          read's fused graph before its sort, as the main path hands it
          over; each timed launch on a fresh copy; rows moved
@@ -1825,14 +1841,14 @@ def record_windows():
     calls = []
     real_aw, real_rw = dispatch.align_windows, banded.run_windows
 
-    def aw(g, abpt, windows):
+    def aw(g, abpt, windows, mesh=None):
         calls.append({"windows": list(windows), "launches": []})
-        return real_aw(g, abpt, windows)
+        return real_aw(g, abpt, windows, mesh)
 
-    def rw(abpt, tabs, queries, W, graph_half=None):
+    def rw(abpt, tabs, queries, W, graph_half=None, **kw):
         if calls:
             calls[-1]["launches"].append((list(tabs), list(queries), W))
-        return real_rw(abpt, tabs, queries, W, graph_half)
+        return real_rw(abpt, tabs, queries, W, graph_half, **kw)
 
     dispatch.align_windows, banded.run_windows = aw, rw
 
@@ -2376,9 +2392,9 @@ def record_launches():
     launches = []
     real = banded.run_windows
 
-    def rw(abpt, tabs, queries, W, graph_half=None):
+    def rw(abpt, tabs, queries, W, graph_half=None, **kw):
         launches.append((list(tabs), list(queries), W))
-        return real(abpt, tabs, queries, W, graph_half)
+        return real(abpt, tabs, queries, W, graph_half, **kw)
 
     banded.run_windows = rw
     return launches, lambda: setattr(banded, "run_windows", real)
@@ -2827,7 +2843,9 @@ def phase_c9(args, rates, plain) -> dict:
             "x1_lanes": (x1_err, x1_ms, x1_plain_ms, x1_bnd),
             "s1_lanes": (s1_err, s1_ms, s1_plain_ms, s1_bnd),
             "reads_s": {k: n_reads / r["wall"] for k, r in runs.items()
-                        if k != "forced"}}
+                        if k != "forced"},
+            "walls": {k: r["wall"] for k, r in runs.items()},
+            "files": files, "off_out": off["out"], "n_reads": n_reads}
 
 
 def phase_c10(args) -> dict:
@@ -2852,6 +2870,13 @@ def phase_c10(args) -> dict:
         fp.write("".join(f">{r.name}\n{r.seq}\n" for r in recs[:20]))
     gafs = {}
     launched = {"b2": 0, "x1w": 0}
+    from abpoa_tpu_torch import parallel
+    real_load = parallel.load_static_graph
+    loaded = {}
+
+    def load(path, abpt):  # C11 (b) maps onto -K 8's restored graph again
+        ab, loaded[k] = real_load(path, abpt)
+        return ab, loaded[k]
     for k, fa, n in ((1, fa20, min(20, len(recs))),
                      (8, os.path.join(OUT, "new_reads.fa"), len(recs)),
                      (32, os.path.join(OUT, "new_reads.fa"), len(recs))):
@@ -2863,10 +2888,12 @@ def phase_c10(args) -> dict:
         split = {}
         undo = [timed(restore_mod, "restore_graph", split, "restore"),
                 timed(dp_chunk.StaticGraphTables, "__init__", split, "tables")]
+        parallel.load_static_graph = load
         t0 = time.perf_counter()
         try:
             run_cli(["map", "-g", msa5, fa, "-K", str(k), "-o", out])
         finally:
+            parallel.load_static_graph = real_load
             for u in undo:
                 u()
         wall = time.perf_counter() - t0
@@ -2906,7 +2933,248 @@ def phase_c10(args) -> dict:
         f"share; -K 8 == -K 32 on all {len(gafs[8])}: {gafs[8] == gafs[32]}")
     if gafs[8] != gafs[32]:
         raise AssertionError("C10: the GAF differs between -K 8 and 32")
+    launched.update(graph=loaded[8].graph, gaf8=gafs[8],
+                    reads=os.path.join(OUT, "new_reads.fa"))
     return launched
+
+
+def phase_c11(args, c9: dict, c10: dict, mesh=None) -> dict:
+    """Phase C11: the sharded route (`parallel/shard.py`) at full width.
+    The mesh is every card where two or more are attached, else
+    (cuda:0, cuda:0), passed as the drivers' `mesh=` argument: on one card
+    it measures the split's overhead, not scaling. Each run with the
+    counts set to 0 just before it and read just after.
+    (a) C9's list (or its first four sets with --c11-sets 4) through
+    `runner.run_batch` with -r 2 on the sharded route, with the device
+    lockstep and with the split driver: each output == C9's --lockstep off
+    output (reused, not rerun); the device run's B1 and X1 lane launches ==
+    the groups' rounds summed (plus `-s` rounds), at most one host sync a
+    group a round beyond `-s` and Kahn, no host graph built from the card's
+    (`device_graph._HostGraph`); the split run's X1w once a B2 launch
+    (check_walks) and no B1. (b) C10's -K 8 map onto C10's restored graph
+    over the mesh: the GAF == C10's -K 8 GAF, the tables built once and
+    their graph half uploaded once a card, check_walks. (c) the first 20
+    reads of C7's set with -S, every read's windows split over the mesh
+    (`dispatch.align_windows(..., mesh)`): the consensus == the unsplit
+    run's. (d) on one card, `python -m abpoa_tpu_torch -l LIST --mesh 2`
+    exits non-zero with discover_mesh's RuntimeError, and `--mesh 1`
+    gives the run without --mesh's output and launch counts. Printed:
+    each sharded wall beside the unsharded one, the card count, launches
+    a slot and syncs a round."""
+    import torch
+    from abpoa_tpu_torch import cli, parallel
+    from abpoa_tpu_torch.align import banded, dispatch, dp_chunk
+    from abpoa_tpu_torch.align import device_graph
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.backtrack_kernel import (backtrack_lanes,
+                                                        backtrack_windows)
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp, fused_dp_lanes
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.io.gaf import gaf_record
+    from abpoa_tpu_torch.parallel import lockstep, runner
+    from abpoa_tpu_torch.params import Params
+    cards = torch.cuda.device_count()
+    if mesh is None:
+        mesh = (tuple(torch.device("cuda", i) for i in range(cards))
+                if cards >= 2 else (torch.device("cuda", 0),) * 2)
+    S = len(mesh)
+    what = (f"{S} cards" if cards >= 2 else
+            "the one card listed twice (overhead of the split, not scaling)")
+    log(f"[C11] mesh {[str(d) for d in mesh]}: {what}; cards attached {cards}")
+    out = {"mesh": S}
+
+    def zero():
+        banded.reset_stats()
+        lockstep.reset_stats()
+        dp_chunk.reset_stats()
+        fl.reset_stats()
+        banded_dp.launches = backtrack_windows.launches = 0
+        fused_dp.launches = fused_dp.local_launches = 0
+        fused_dp_lanes.launches = fused_dp_lanes.local_launches = 0
+        backtrack_lanes.launches = 0
+
+    # (a) C9's list on the sharded route, each implementation
+    files = c9["files"][:args.c11_sets]
+    # the first sets' part of C9's -r 2 output: each set's rows end with
+    # its consensus row
+    lines = open(c9["off_out"]).read().split("\n")
+    ends = [i + 2 for i in range(0, len(lines) - 1, 2)
+            if lines[i].startswith(">Consensus_sequence")]
+    want = "\n".join(lines[:ends[len(files) - 1]]) + "\n"
+    built, real_host = [], device_graph._HostGraph.__init__
+
+    def host_graph(self, g):
+        built.append(g.base.device.type)
+        real_host(self, g)
+
+    p = cli.args_to_params(cli.build_parser().parse_args(
+        ["x", "-l", "-r", "2", "--lockstep", "on"])).finalize()
+    for impl in ("device", "split"):
+        os.environ["ABPOA_TPU_LOCKSTEP_IMPL"] = impl
+        path = os.path.join(OUT, f"c11_{impl}.fa")
+        zero()
+        built.clear()
+        device_graph._HostGraph.__init__ = host_graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with open(path, "w") as fp:
+                runner.run_batch(files, p, fp, mesh=mesh)
+        finally:
+            device_graph._HostGraph.__init__ = real_host
+            os.environ.pop("ABPOA_TPU_LOCKSTEP_IMPL", None)
+        wall = time.perf_counter() - t0
+        text = open(path).read()
+        if text != want:
+            raise AssertionError(f"C11 (a) {impl}: the sharded -l output "
+                                 "differs from C9's --lockstep off output")
+        s = dict(fl.stats)
+        b1 = fused_dp_lanes.launches + fused_dp_lanes.local_launches
+        x1 = backtrack_lanes.launches
+        b2, x1w = banded_dp.launches, backtrack_windows.launches
+        n_reads = sum(len(read_fastx(f)) for f in files)
+        if impl == "device":
+            if b2 or x1w or fused_dp.launches or not (
+                    b1 == x1 == s["rounds"] + s["rc_rounds"] > 0):
+                raise AssertionError(
+                    f"C11 (a) device: B1 lanes {b1}, X1 lanes {x1}, rounds "
+                    f"{s['rounds']} (+{s['rc_rounds']}), B2 {b2}, X1w {x1w}")
+            if s["syncs"] > s["rounds"] + s["rc_rounds"] + s["kahn_rounds"]:
+                raise AssertionError(f"C11 (a) device: {s['syncs']} host "
+                                     f"syncs in {s['rounds']} group rounds")
+            if built:
+                raise AssertionError(f"C11 (a) device: {len(built)} host "
+                                     "graphs built before the downloads")
+            log(f"[C11] (a) device lockstep over the mesh, {len(files)} sets "
+                f"({n_reads} reads), -r 2: == C9 --lockstep off; wall "
+                f"{wall:.2f} s against C9's unsharded {c9['walls']['device']:.2f}"
+                f" s; {s['rounds']} group rounds ({s['kahn_rounds']} with a "
+                f"Kahn repair), B1 lane launches {b1}, X1 {x1}, host syncs "
+                f"{s['syncs']} ({s['syncs'] / max(1, s['rounds']):.3f} a group "
+                f"round), no host graph built; caps {s['caps']}")
+            out["device"] = dict(wall=wall, b1=b1, rounds=s["rounds"],
+                                 syncs=s["syncs"])
+        else:
+            st = dict(banded.stats)
+            check_walks("C11 (a) split", st, b2, x1w)
+            ls = dict(lockstep.stats)
+            if b1 or fused_dp.launches or b2 < S or \
+                    st["launches"] < ls["rounds"]:
+                raise AssertionError(f"C11 (a) split: B2 {b2} in "
+                                     f"{ls['rounds']} rounds, B1 {b1}")
+            log(f"[C11] (a) split driver over the mesh: == C9 --lockstep "
+                f"off; wall {wall:.2f} s against C9's unsharded "
+                f"{c9['walls']['split']:.2f} s; {ls['rounds']} rounds, B2 "
+                f"launches {b2} ({b2 / max(1, ls['rounds']):.3f} a round), "
+                f"X1w {x1w}, relaunches counted {st['launches']}")
+            out["split"] = dict(wall=wall, b2=b2, x1w=x1w,
+                                rounds=ls["rounds"])
+
+    # (b) C10's -K 8 map over the mesh
+    zero()
+    p = Params(device="cuda").finalize()
+    recs = read_fastx(c10["reads"])
+    qs = [encode(p, r.seq) for r in recs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    static = dp_chunk.StaticGraphTables(c10["graph"], p)
+    res = parallel.map_reads_split(static, qs, p, k_cap=8, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gaf = [gaf_record(r.name, q, o[0], static.base_by_nid, o[1],
+                      comment=r.comment or None)
+           for r, q, o in zip(recs, qs, res)]
+    if gaf != c10["gaf8"]:
+        raise AssertionError("C11 (b): the sharded map's GAF differs from "
+                             "C10's -K 8 GAF")
+    cards_used = len(set(mesh))
+    if (dp_chunk.stats["static_builds"],
+            dp_chunk.stats["static_uploads"]) != (1, cards_used):
+        raise AssertionError(f"C11 (b): tables built "
+                             f"{dp_chunk.stats['static_builds']} times, "
+                             f"uploaded {dp_chunk.stats['static_uploads']} "
+                             f"for {cards_used} card(s)")
+    check_walks("C11 (b)", dict(banded.stats), banded_dp.launches,
+                backtrack_windows.launches)
+    log(f"[C11] (b) map -K 8 over the mesh, {len(qs)} reads: GAF == C10's; "
+        f"tables built once, uploaded {dp_chunk.stats['static_uploads']} "
+        f"time(s) for {cards_used} card(s); B2 launches {banded_dp.launches}, "
+        f"X1w {backtrack_windows.launches}; {len(qs) / wall:.3f} reads/s "
+        f"(tables and mapping, no GAF writing)")
+    out["map"] = dict(wall=wall, b2=banded_dp.launches)
+
+    # (c) a seeded read's windows split over the mesh
+    recs7 = read_fastx(os.path.join(OUT, "seeded.fa"))[:20]
+    fa = os.path.join(OUT, "c11_seeded.fa")
+    with open(fa, "w") as fp:
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in recs7))
+    real_aw = dispatch.align_windows
+    split = []
+
+    def split_windows(g, abpt, windows, mesh_=None):
+        split.append(len(windows))
+        return real_aw(g, abpt, windows, mesh)
+
+    cons = {}
+    for tag in ("unsplit", "split"):
+        zero()
+        path = os.path.join(OUT, f"c11_seeded_{tag}.fa")
+        if tag == "split":
+            dispatch.align_windows = split_windows
+        t0 = time.perf_counter()
+        try:
+            run_cli([fa, "-S", "-o", path])
+        finally:
+            dispatch.align_windows = real_aw
+        cons[tag] = (open(path).read(), time.perf_counter() - t0,
+                     banded_dp.launches, backtrack_windows.launches)
+        check_walks(f"C11 (c) {tag}", dict(banded.stats), banded_dp.launches,
+                    backtrack_windows.launches)
+    if cons["split"][0] != cons["unsplit"][0]:
+        raise AssertionError("C11 (c): the seeded consensus with split "
+                             "windows differs from the unsplit run's")
+    multi = sum(n >= S for n in split)
+    log(f"[C11] (c) -S on {len(recs7)} of C7's reads, every read's windows "
+        f"split over the mesh ({multi} reads with >= {S} windows): consensus "
+        f"== unsplit; wall {cons['split'][1]:.2f} s against "
+        f"{cons['unsplit'][1]:.2f} s; B2 launches {cons['split'][2]} against "
+        f"{cons['unsplit'][2]}, X1w {cons['split'][3]} against "
+        f"{cons['unsplit'][3]}")
+    out["seeded"] = dict(b2=cons["split"][2], unsplit=cons["unsplit"][2])
+
+    # (d) --mesh through the CLI
+    lst = os.path.join(OUT, "c11_list.txt")
+    with open(lst, "w") as fp:
+        fp.write("".join(os.path.join(ROOT, "tests", "data", f) + "\n"
+                         for f in ("seq.fa", "heter.fa")))
+    proc = subprocess.run([sys.executable, "-m", "abpoa_tpu_torch", "-l", lst,
+                           "--mesh", str(cards + 1)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    msg = f"mesh of {cards + 1} devices requested but {cards} CUDA device(s)"
+    if proc.returncode == 0 or msg not in proc.stderr or proc.stdout:
+        raise AssertionError(f"C11 (d): --mesh {cards + 1} on {cards} card(s):"
+                             f" rc {proc.returncode}, stderr "
+                             f"{proc.stderr[-300:]!r}")
+    runs = {}
+    for flags in ([], ["--mesh", "1"]):
+        zero()
+        path = os.path.join(OUT, f"c11_mesh{len(flags)}.fa")
+        try:
+            run_cli(["-l", lst, *flags, "-o", path])
+        finally:
+            os.environ.pop("ABPOA_TPU_MESH", None)
+        runs[len(flags)] = (open(path).read(), fused_dp_lanes.launches,
+                            backtrack_lanes.launches, banded_dp.launches,
+                            fl.stats["syncs"])
+    if runs[0] != runs[2]:
+        raise AssertionError(f"C11 (d): --mesh 1 gives {runs[2][1:]} "
+                             f"(launches B1 lanes, X1 lanes, B2; syncs), "
+                             f"without --mesh {runs[0][1:]}")
+    log(f"[C11] (d) --mesh {cards + 1} on {cards} card(s): rc "
+        f"{proc.returncode}, \"{msg}\"; --mesh 1 == no --mesh (output, "
+        f"launches and syncs {runs[0][1:]})")
+    return out
 
 
 def phase_c7(args, ref: str, reads: list, fused_cons: str):
@@ -3048,6 +3316,7 @@ def run(plain) -> int:
     ap.add_argument("--c7-reads", type=int, default=200)
     # 20 until C9's run with collisions forced made the script too long
     ap.add_argument("--c9-reads", type=int, default=10)
+    ap.add_argument("--c11-sets", type=int, default=8)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -3885,6 +4154,9 @@ def run(plain) -> int:
     c10 = phase_c10(args)
     torch.cuda.empty_cache()
     lap("C10")
+    phase_c11(args, c9, c10)
+    torch.cuda.empty_cache()
+    lap("C11")
     # ---- D: kernels vs plain at the main path's shape. The pool's plain
     # versions start first; the main process checks B2's modes against
     # theirs as each ends (with B2u at 4, 8 and 16 blocks a cluster in the

@@ -54,7 +54,8 @@ BATCHED = {"abpoa_tpu_torch.align.dp_chunk", "abpoa_tpu_torch.io.gaf",
            "abpoa_tpu_torch.parallel", "abpoa_tpu_torch.parallel.lockstep",
            "abpoa_tpu_torch.parallel.map_driver",
            "abpoa_tpu_torch.parallel.runner",
-           "abpoa_tpu_torch.parallel.scheduler"}
+           "abpoa_tpu_torch.parallel.scheduler",
+           "abpoa_tpu_torch.parallel.shard"}
 
 
 def test_port_imports_neither_jax_nor_abpoa_tpu():
@@ -188,6 +189,8 @@ def test_cli_rejects_flags_outside_the_slice(fa, flags, capsys):
 
 @pytest.mark.parametrize("args,head", [
     (["-l", os.path.join("tests", "data", "list.txt")], ">Consensus_sequence"),
+    (["-l", os.path.join("tests", "data", "list.txt"), "--lockstep", "on",
+      "--mesh", "2"], ">Consensus_sequence"),
     ([os.path.join("tests", "data", "seq4.fa"), "-i",
       os.path.join("tests", "data", "seq10.gfa")], ">Consensus_sequence"),
     ([os.path.join("tests", "data", "seq.fa"), "-S"], ">Consensus_sequence"),
@@ -197,6 +200,9 @@ def test_cli_rejects_flags_outside_the_slice(fa, flags, capsys):
 ])
 def test_cli_runs_the_lifted_flags(args, head, capsys, monkeypatch):
     monkeypatch.chdir(ROOT)  # list.txt names its files from the root
+    # --mesh writes ABPOA_TPU_MESH: setenv (not delenv, which records
+    # nothing for an unset variable) has it removed after the test
+    monkeypatch.setenv("ABPOA_TPU_MESH", "0")
     assert cli.main([*args, "--device", "cpu"]) == 0
     assert capsys.readouterr().out.startswith(head)
 
