@@ -344,28 +344,32 @@ def align_windows_banded(g, abpt: Params, windows,
                                                            sl.dev),
             **({"dev": sl.dev, "events": events} if sharded else {}))
 
-    for sl in slots_:
-        launch(sl)
-    while slots_:
+    from ..obs import device_capture
+    # the profiler's bracket of a window batch (--profile-dir; JAX's
+    # "window_batch", abpoa_tpu/align/jax_backend.py:617)
+    with device_capture("window_batch"):
         for sl in slots_:
-            ok = check_ok(sl.out[7])
-            todo = sl.todo
-            done = [k for k in range(len(todo)) if ok[k]]
-            if done:
-                packed, layout = walk_windows(
-                    abpt, sl.args, sl.out, [tabs[i] for i in todo],
-                    [queries[i] for i in todo], done, **sharded)
-                walks.append(([todo[k] for k in done], packed, layout))
-            sl.todo = [i for k, i in enumerate(todo) if not ok[k]]
-            if sl.todo:
-                qmax = max(len(queries[i]) for i in sl.todo)
-                if sl.W >= qmax + 1:
-                    raise RuntimeError(
-                        f"banded DP overflowed at full width W={sl.W}")
-                sl.W = next_band_width(sl.W, qmax)
-                retries += 1
-                launch(sl)
-        slots_ = [sl for sl in slots_ if sl.todo]
+            launch(sl)
+        while slots_:
+            for sl in slots_:
+                ok = check_ok(sl.out[7])
+                todo = sl.todo
+                done = [k for k in range(len(todo)) if ok[k]]
+                if done:
+                    packed, layout = walk_windows(
+                        abpt, sl.args, sl.out, [tabs[i] for i in todo],
+                        [queries[i] for i in todo], done, **sharded)
+                    walks.append(([todo[k] for k in done], packed, layout))
+                sl.todo = [i for k, i in enumerate(todo) if not ok[k]]
+                if sl.todo:
+                    qmax = max(len(queries[i]) for i in sl.todo)
+                    if sl.W >= qmax + 1:
+                        raise RuntimeError(
+                            f"banded DP overflowed at full width W={sl.W}")
+                    sl.W = next_band_width(sl.W, qmax)
+                    retries += 1
+                    launch(sl)
+            slots_ = [sl for sl in slots_ if sl.todo]
     stats["reads"] += 1
     stats["windows"] += len(windows)
     stats["launches"] += n_launch

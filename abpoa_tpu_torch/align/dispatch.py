@@ -44,7 +44,14 @@ def align_windows(g: POAGraph, abpt: Params, windows, mesh=None) -> list:
         g.topological_sort(abpt)
     if mesh is None:
         mesh = window_mesh(abpt, len(windows))
-    return align_windows_banded(g, abpt, windows, mesh=mesh)
+    # the span ends on the launches' host syncs (abpoa_tpu/align/dispatch.py
+    # :238, :299); one dispatch count a window
+    from ..obs import count, trace
+    name = abpt.torch_device.type
+    count("dispatch." + name, len(windows))
+    with trace.span("dp:" + name, "dp",
+                    args={"rows": g.node_n, "windows": len(windows)}):
+        return align_windows_banded(g, abpt, windows, mesh=mesh)
 
 
 def align_sequence_to_graph(g: POAGraph, abpt: Params, query: np.ndarray) -> AlignResult:

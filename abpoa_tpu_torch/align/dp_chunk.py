@@ -47,6 +47,27 @@ def reset_stats() -> None:
     stats.update(sort_s=0.0, static_builds=0, static_uploads=0)
 
 
+def _chunk(abpt: Params, graph, windows: list, mesh, static=None) -> list:
+    """One K-lane chunk (`align_windows_banded`), in the run report's
+    `dp_chunk` span, its wall noted for the rounds timeline
+    (abpoa_tpu/align/dp_chunk.py:430-448, parallel/shard.py:254-264). The
+    chunk ends on its host syncs, so the span measures the launches."""
+    from ..obs import rounds, trace
+    from ..parallel.shard import mesh_size, note_shards
+    k = len(windows)
+    shard_live = note_shards(k, mesh, abpt.torch_device)
+    t0 = time.perf_counter()
+    with trace.span("dp_chunk", "dp",
+                    args=dict(K=k, mesh=mesh_size(mesh),
+                              gap_mode=abpt.gap_mode,
+                              align_mode=abpt.align_mode,
+                              static=static is not None)):
+        out = align_windows_banded(graph, abpt, windows, static=static,
+                                   mesh=mesh)
+    rounds.note_dispatch(time.perf_counter() - t0, shard_live=shard_live)
+    return out
+
+
 def run_dp_chunk(graphs: list, abpt: Params, queries: List[np.ndarray],
                  mesh=None) -> List[AlignResult]:
     """Align queries[i] to the whole of graphs[i], every lane in one B2
@@ -62,7 +83,7 @@ def run_dp_chunk(graphs: list, abpt: Params, queries: List[np.ndarray],
             g.topological_sort(abpt)
     stats["sort_s"] += time.perf_counter() - t0
     windows = [(C.SRC_NODE_ID, C.SINK_NODE_ID, q) for q in queries]
-    return align_windows_banded(list(graphs), abpt, windows, mesh=mesh)
+    return _chunk(abpt, list(graphs), windows, mesh)
 
 
 class StaticGraphTables:
@@ -108,8 +129,7 @@ class StaticGraphTables:
         if not queries:
             return []
         windows = [(C.SRC_NODE_ID, C.SINK_NODE_ID, q) for q in queries]
-        return align_windows_banded(self.graph, self.abpt, windows,
-                                    static=self, mesh=mesh)
+        return _chunk(self.abpt, self.graph, windows, mesh, static=self)
 
     def lanes(self, k: int, dev=None) -> list:
         """The graph half of the first k lanes of the pack on `dev` (default

@@ -940,6 +940,7 @@ def _group_loop(abpt: Params, dev: torch.device, share: int, lo: int,
         path_lens=z(K, R) if ids else None,
         sets=list(range(K)), read_idx=[0] * K, node_n=[2] * K,
         rc_flags=[[] for _ in range(K)])
+    from ..obs import count, observe, rounds
     done: dict = {}
     growths = 0
     while ls.sets:
@@ -957,10 +958,21 @@ def _group_loop(abpt: Params, dev: torch.device, share: int, lo: int,
         elif ls.node_n[0] == 2:
             ls = _seed_round(run, ls)
         else:
+            t_round = time.perf_counter()
+            rounds.begin_round()
             fl.stats["rounds"] += 1
             fl.stats["live_lanes"] += len(ls.sets)
             fl.stats["reads"] += len(ls.sets)
+            count("lockstep.chunks")
+            live = len(ls.sets)
+            observe("lockstep.noop_set_fraction", 1.0 - live / K)
+            if live < K:
+                count("lockstep.drain_chunks")
             errs, ls = yield from _read_round(run, ls, N)
+            # after the round's last host sync
+            rounds.record_round("lockstep", live, K,
+                                time.perf_counter() - t_round,
+                                mesh=host["mesh"])
         bad = set(errs) - {fl.ERR_OK}
         if bad - set(fl._RECOVERABLE_ERRS):
             i = next(i for i, e in enumerate(errs) if e in bad)
@@ -1021,7 +1033,8 @@ def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
     the sets into one contiguous group a slot, each with its own lane
     stack, capacities and growth on its device; the groups advance
     round-robin from this thread (`_drive_groups`)."""
-    from ..parallel.shard import mesh_parts
+    from ..obs import device_capture, observe
+    from ..parallel.shard import mesh_parts, mesh_size
     S = len(seq_sets)
     n_reads = [len(s) for s in seq_sets]
     if S == 0:
@@ -1049,18 +1062,24 @@ def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
     host = dict(seqs=seqs_pad, wgts=wgts_pad, qp=qp_all, mat=mat, lens=lens,
                 n_reads=n_reads, local=local_m,
                 extend=abpt.align_mode == C.EXTEND_MODE,
-                int16_limit=int16_limit)
+                int16_limit=int16_limit, mesh=mesh_size(mesh))
+    observe("lockstep.k", S)
     t0 = time.perf_counter()
     parts = mesh_parts(S, mesh, abpt.torch_device)
     devs = [dev for dev, _ in parts]
-    outs = _drive_groups(
-        [_group_loop(abpt, dev, devs.count(dev), ids[0], ids[-1] + 1, host,
-                     (N, E, A, W, plane16)) for dev, ids in parts], devs)
+    with device_capture("fused_lockstep_batch"):
+        outs = _drive_groups(
+            [_group_loop(abpt, dev, devs.count(dev), ids[0], ids[-1] + 1,
+                         host, (N, E, A, W, plane16)) for dev, ids in parts],
+            devs)
     done = {s: lane for d, _ in outs for s, lane in d.items()}
+    final_w = {s: c["W"] for d, c in outs for s in d}
     t1 = time.perf_counter()
     out = []
     for s in range(S):
         lane = done[s]
+        fl.record_fused_dp(abpt, n_reads[s], qmax, lane.node_n[0],
+                           final_w[s], Qp)
         pg = fl.download_graph(lane_graph(lane.g, 0), abpt)
         if lane.paths is not None:
             fl.replay_read_ids(pg, lane.paths[0, :n_reads[s]].cpu().numpy(),

@@ -987,19 +987,25 @@ def _grown_caps(errs, N: int, E: int, A: int, W: int, plane16: bool):
     or a lockstep round's) ask for, each capacity grown once. Returns (N,
     E, A, W, plane16, grew) where `grew` means the state must be padded to
     the new N/E/A."""
+    from ..obs import count
     errs = set(errs) - {ERR_OK}
     grew = False
     if errs & {ERR_NODE_CAP, ERR_OPS_CAP, ERR_GRAPH_CAP}:
         N, grew = grow_node_cap(N), True
+        count("fused.grow.node")
     if errs & {ERR_EDGE_CAP, ERR_GRAPH_CAP}:
         E, grew = E * 2, True
+        count("fused.grow.edge")
     if errs & {ERR_ALIGN_CAP, ERR_GRAPH_CAP}:
         A, grew = A * 2, True
+        count("fused.grow.aligned")
     if ERR_BAND_CAP in errs:
         W *= 2
+        count("fused.grow.band")
     if ERR_PROMOTE in errs:
         plane16 = False
         stats["promotions"] += 1
+        count("fused.promote_int32")
     for err in errs:
         stats["grow"][err] = stats["grow"].get(err, 0) + 1
     return N, E, A, W, plane16, grew
@@ -1018,6 +1024,22 @@ def _pad_read_set(seqs, weights, Qp: int, mat: np.ndarray, m: int):
         lens[i] = len(s)
         qp[i, :, 1: len(s) + 1] = mat[:, s]
     return seqs_pad, wgts_pad, lens, qp
+
+
+def record_fused_dp(abpt: Params, n_reads: int, qmax: int, n_final: int,
+                    W: int, Qp: int) -> None:
+    """The run report's cell total of one finished fused run, by the JAX
+    package's model (fused_loop.py:1760 `_record_fused_dp`): reads 2..R
+    each sweep a graph whose row count ramps linearly from the first read's
+    chain (qmax + 2) to the final node count, W columns a row (clipped to
+    the padded query). Host arithmetic on ints the loop holds."""
+    if n_reads <= 1:
+        return
+    from ..obs import report
+    band = min(W, Qp)
+    avg_rows = (qmax + 2 + n_final) / 2.0
+    cells = int((n_reads - 1) * avg_rows * band)
+    report().record_dp_cells(cells, n_reads - 1, band, abpt.gap_mode)
 
 
 def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
@@ -1066,28 +1088,43 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
                               n_reads=n_reads if abpt.use_read_ids else 0,
                               Pcap=Qp + 2)
         node_n = 2
-    for _ in range(_MAX_PASSES):
-        run = _Run(abpt=abpt, seqs=seqs_d, wgts=wgts_d, lens=lens.tolist(),
-                   qp=qp_d, mat=mat_d, W=W, max_ops=N + Qp + 8,
-                   plane16=plane16,
-                   inf=dp_inf_min(abpt, INT16_MIN if plane16 else INT32_MIN),
-                   local=local_m, extend=extend,
-                   zdrop_on=extend and abpt.zdrop > 0,
-                   int16_limit=int16_limit)
-        err, st, node_n = run_fused_chunk(run, st, node_n)
-        if err == ERR_OK and st.read_idx >= n_reads:
-            break
-        if err == ERR_BACKTRACK:
-            raise RuntimeError(
-                f"fused loop: backtrack found no path at read {st.read_idx}")
-        if err not in _RECOVERABLE_ERRS:
-            raise RuntimeError(
-                f"fused loop: unknown error {err} at read {st.read_idx}")
-        N, E, A, W, plane16, grew = _grown_caps({err}, N, E, A, W, plane16)
-        if grew:
-            st = _grow_state(st, N, E, A)
-    else:
-        raise RuntimeError("fused loop: capacity growth did not converge")
+    from ..obs import count, device_capture, trace
+    with device_capture("fused_loop"):
+        for chunk_i in range(_MAX_PASSES):
+            run = _Run(abpt=abpt, seqs=seqs_d, wgts=wgts_d,
+                       lens=lens.tolist(), qp=qp_d, mat=mat_d, W=W,
+                       max_ops=N + Qp + 8, plane16=plane16,
+                       inf=dp_inf_min(abpt,
+                                      INT16_MIN if plane16 else INT32_MIN),
+                       local=local_m, extend=extend,
+                       zdrop_on=extend and abpt.zdrop > 0,
+                       int16_limit=int16_limit)
+            count("fused.chunks")
+            # the chunk returns after a read's host sync: the span ends on
+            # a sync the loop makes anyway
+            with trace.span("fused_chunk", "fused",
+                            args=dict(N=N, E=E, A=A, W=W, Qp=Qp,
+                                      reads=n_reads, K=1, plane16=plane16,
+                                      gap_mode=abpt.gap_mode,
+                                      chunk=chunk_i)):
+                err, st, node_n = run_fused_chunk(run, st, node_n)
+            if err == ERR_OK and st.read_idx >= n_reads:
+                break
+            if err == ERR_BACKTRACK:
+                raise RuntimeError("fused loop: backtrack found no path at "
+                                   f"read {st.read_idx}")
+            if err not in _RECOVERABLE_ERRS:
+                raise RuntimeError(
+                    f"fused loop: unknown error {err} at read {st.read_idx}")
+            N, E, A, W, plane16, grew = _grown_caps({err}, N, E, A, W,
+                                                    plane16)
+            if grew:
+                st = _grow_state(st, N, E, A)
+        else:
+            raise RuntimeError("fused loop: capacity growth did not converge")
+    count("fused.kahn_resorts", st.kahn_runs)
+    count("fused.collisions", st.collisions)
+    record_fused_dp(abpt, n_reads, qmax, node_n, W, Qp)
     t1 = time.perf_counter()
     pg = download_graph(st.g, abpt)
     t2 = time.perf_counter()

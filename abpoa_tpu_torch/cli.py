@@ -16,6 +16,20 @@ GAF record a read.
     python -m abpoa_tpu_torch long_reads.fa -S [-p]
     python -m abpoa_tpu_torch -l list.txt [--lockstep auto|on|off] [--mesh N]
     python -m abpoa_tpu_torch map -g graph.gfa reads.fa [-K 8] [-s] [--mesh N]
+    python -m abpoa_tpu_torch reads.fa --report r.json --trace t.json \
+        --metrics m.prom [--metrics-port N] [--profile-dir DIR]
+    python -m abpoa_tpu_torch report r.json | report --diff a.json b.json
+    python -m abpoa_tpu_torch warm [--ladder quick|full]
+    python -m abpoa_tpu_torch perf | slo | top
+
+The run-telemetry flags and subcommands are the JAX package's
+(abpoa_tpu/cli.py): `--report` writes the versioned JSON run report,
+`--trace` a Chrome trace of the run's host spans, `--metrics` a Prometheus
+textfile (and `--metrics-port` serves it), `--profile-dir` a
+`torch.profiler` trace of the device regions; `report` renders reports,
+`warm` builds the kernel library and launches each kernel once, `perf`
+renders the ledger, `slo` gates the report archive and `top` shows the
+exposition live.
 
 With no card and no `--device cpu`, the run raises RuntimeError; so does
 `--mesh N` with fewer than N cards (on the CPU, N x cpu). A malformed read set ends a one-file run with one
@@ -92,7 +106,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "sharded route; K = N x the per-device K; N x cpu "
                         "with --device cpu); 0 or 1 = off "
                         "[ABPOA_TPU_MESH]")
+    _telemetry_args(p, profile=True)
     return p
+
+
+def _telemetry_args(p: argparse.ArgumentParser, profile: bool) -> None:
+    """--report, --trace, --metrics, --metrics-port and (main parser
+    only, as in abpoa_tpu/cli.py) --profile-dir."""
+    p.add_argument("--report", type=str, default=None, metavar="FILE",
+                   help="write the JSON run report (versioned schema: "
+                        "phase walls, counters, DP cells, MFU) to FILE "
+                        "('-' for stdout; stderr when stdout carries the "
+                        "output)")
+    if profile:
+        p.add_argument("--profile-dir", type=str, default=None,
+                       metavar="DIR",
+                       help="capture a torch.profiler trace (CPU and CUDA "
+                            "activity, Chrome format) of the device "
+                            "regions into DIR")
+    p.add_argument("--trace", type=str, default=None, metavar="FILE",
+                   help="write a Chrome trace-event timeline of the run's "
+                        "host spans (phases, reads, chunks, rounds) to "
+                        "FILE ('-' for stdout; stderr when stdout carries "
+                        "the output)")
+    p.add_argument("--metrics", type=str, nargs="?", metavar="FILE",
+                   default=None, const="",
+                   help="keep a Prometheus text-exposition file (atomic "
+                        "renames, ~1 s refresh) while the run executes "
+                        "[FILE defaults to ~/.cache/abpoa_tpu_torch/"
+                        "metrics.prom]")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="N",
+                   help="also serve /metrics on 127.0.0.1:N for the run")
 
 
 def _apply_mesh(mesh) -> None:
@@ -180,6 +224,19 @@ def main(argv=None) -> int:
     raw = sys.argv[1:] if argv is None else list(argv)
     if raw[:1] == ["map"]:
         return map_main(raw[1:])
+    if raw[:1] == ["report"]:
+        return report_main(raw[1:])
+    if raw[:1] == ["warm"]:
+        return warm_main(raw[1:])
+    if raw[:1] == ["perf"]:
+        from .obs.perf import perf_main
+        return perf_main(raw[1:])
+    if raw[:1] == ["slo"]:
+        from .obs.slo import slo_main
+        return slo_main(raw[1:])
+    if raw[:1] == ["top"]:
+        from .obs.top import top_main
+        return top_main(raw[1:])
     args = build_parser().parse_args(raw)
     if args.input is None:
         build_parser().print_help(sys.stderr)
@@ -190,6 +247,63 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    return _with_exporters(args, lambda: _main_run(args, abpt))
+
+
+def _with_exporters(args, run) -> int:
+    """Start a fresh run report and the metrics exporters `args` asks for,
+    run `run()`, and stop the exporters whatever happens
+    (abpoa_tpu/cli.py:534-565): an exporter that cannot start is one error
+    line and rc 1."""
+    from . import obs
+    obs.start_run()
+    metrics_path = http_srv = None
+    try:
+        try:
+            if args.metrics is not None:
+                metrics_path = (args.metrics
+                                or obs.metrics.default_textfile_path())
+                os.makedirs(os.path.dirname(metrics_path) or ".",
+                            exist_ok=True)
+                obs.metrics.start_textfile_exporter(metrics_path)
+            if args.metrics_port is not None:
+                http_srv = obs.metrics.start_http_exporter(
+                    args.metrics_port)
+        except OSError as e:
+            print(f"Error: metrics exporter: {e}", file=sys.stderr)
+            return 1
+        return run()
+    finally:
+        if metrics_path is not None:
+            obs.metrics.stop_textfile_exporter()
+        if http_srv is not None:
+            http_srv.shutdown()
+            http_srv.server_close()
+
+
+def _finish_telemetry(args, rep: dict, to_stdout: bool, meta: dict) -> None:
+    """Write --report and --trace ('-' goes to stderr where stdout carries
+    the run's output) and disarm the tracer after its export."""
+    from . import obs
+    if args.report:
+        if args.report == "-" and to_stdout:
+            obs.write_report("-", rep=rep, fp=sys.stderr)
+        else:
+            obs.write_report(args.report, rep=rep)
+    if args.trace:
+        if args.trace == "-" and to_stdout:
+            obs.export_chrome_trace("-", fp=sys.stderr, extra_meta=meta)
+        else:
+            obs.export_chrome_trace(args.trace, extra_meta=meta)
+        obs.trace_disable()
+
+
+def _main_run(args, abpt: Params) -> int:
+    """The alignment run proper, inside the exporters' lifetime."""
+    from . import obs
+    if args.trace:
+        obs.trace_enable()
+    obs.set_profile_dir(args.profile_dir)
     t0 = time.time()
     rc = 0
     out_fp = open(args.output, "w") if args.output and args.output != "-" else sys.stdout
@@ -215,10 +329,113 @@ def main(argv=None) -> int:
     finally:
         if out_fp is not sys.stdout:
             out_fp.close()
+        obs.set_profile_dir(None)
     if abpt.verbose >= C.VERBOSE_INFO:
         print(f"[abpoa_tpu_torch::main] device {abpt.torch_device}, "
               f"{time.time() - t0:.3f} s", file=sys.stderr)
+    rep = obs.finalize_report()
+    # one record a run in the report archive (`slo` reads it; disabled by
+    # ABPOA_TPU_ARCHIVE=0, and a failed append never fails the run)
+    obs.archive.append_report(rep, label=args.input or "",
+                              device=abpt.device)
+    _finish_telemetry(args, rep, out_fp is sys.stdout,
+                      {"input": args.input, "device": abpt.device})
     return rc
+
+
+def report_main(argv) -> int:
+    """`report FILE ...` renders `--report` JSON as a table; `report
+    --diff A B` compares two reports field by field
+    (abpoa_tpu/cli.py:235)."""
+    import json
+    from .obs.report import render_report, render_report_diff
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m abpoa_tpu_torch report FILE [FILE ...]\n"
+              "       python -m abpoa_tpu_torch report --diff A B\n\n"
+              "render --report JSON run reports as tables ('-' reads "
+              "stdin); --diff compares two reports (phase walls, reads/s, "
+              "CUPS, compiles, faults) field by field", file=sys.stderr)
+        return 0 if argv else 1
+
+    def load(path):
+        with (sys.stdin if path == "-" else open(path)) as fp:
+            return json.load(fp)
+
+    if argv[0] == "--diff":
+        if len(argv) != 3:
+            print("Error: --diff needs exactly two report files.",
+                  file=sys.stderr)
+            return 2
+        sys.stdout.write(render_report_diff(load(argv[1]), load(argv[2]),
+                                            label_a=argv[1],
+                                            label_b=argv[2]))
+        return 0
+    for i, path in enumerate(argv):
+        rep = load(path)
+        if len(argv) > 1:
+            print(("" if i == 0 else "\n") + f"== {path} ==")
+        sys.stdout.write(render_report(rep))
+    return 0
+
+
+def warm_main(argv) -> int:
+    """`warm [--ladder quick|full]`: build (or load) the kernel library and
+    launch each of its entry points at the tier's shapes on the card
+    (`kernels/warm.py`), then append a `warm` record to the ledger. Without
+    a card: one error line and rc 1, nothing built or launched."""
+    import json
+    ap = argparse.ArgumentParser(
+        prog="python -m abpoa_tpu_torch warm",
+        description="build or load the CUDA kernel library and launch each "
+                    "kernel once at the ladder tier's shapes")
+    ap.add_argument("--ladder", choices=["quick", "full"], default="quick",
+                    help="tier: quick = 2 kb reads; full = + the 10 kb "
+                         "headline's W 512, the lane and window forms "
+                         "[%(default)s]")
+    ap.add_argument("--device", default="cuda",
+                    help="the card to warm [%(default)s]")
+    ap.add_argument("--report", default=None, metavar="FILE",
+                    help="write the warm summary JSON to FILE ('-' for "
+                         "stdout)")
+    ap.add_argument("-q", "--quiet", action="store_true",
+                    help="no line a kernel")
+    args = ap.parse_args(argv)
+    import torch
+    if not args.device.startswith("cuda") or not torch.cuda.is_available():
+        print(f"Error: warm needs a CUDA card (device {args.device!r}, "
+              f"{torch.cuda.device_count()} cards); nothing to warm.",
+              file=sys.stderr)
+        return 1
+    from . import obs
+    from .kernels.warm import warm_ladder
+    obs.start_run()
+    abpt = Params()
+    abpt.device = args.device
+    abpt.finalize()
+    summary = warm_ladder(tier=args.ladder, abpt=abpt,
+                          verbose=not args.quiet)
+    print(f"[abpoa_tpu_torch warm] {summary['signatures']} entry points "
+          f"({summary['launches']} launches; library "
+          f"{'built' if summary['compiled'] else 'on disk'}, "
+          f"{summary['nvcc_build_s']} s in nvcc) in {summary['wall_s']} s; "
+          f"cache: {summary['cache_dir']}", file=sys.stderr)
+    obs.ledger.append_record(obs.ledger.make_record(
+        "warm", workload=f"ladder:{args.ladder}",
+        device=obs.ledger.device_label(abpt.torch_device),
+        compile_misses=summary["compiled"],
+        extra={"signatures": summary["signatures"],
+               "launches": summary["launches"],
+               "nvcc_build_s": summary["nvcc_build_s"],
+               "wall_s": summary["wall_s"]}))
+    if args.report:
+        fp = sys.stdout if args.report == "-" else open(args.report, "w")
+        try:
+            json.dump(summary, fp, indent=2)
+            fp.write("\n")
+        finally:
+            if fp is not sys.stdout:
+                fp.close()
+    return 0
 
 
 def map_main(argv) -> int:
@@ -256,6 +473,7 @@ def map_main(argv) -> int:
                          "sharded route; K = N x the per-device K) "
                          "[ABPOA_TPU_MESH]")
     ap.add_argument("-V", "--verbose", type=int, default=0)
+    _telemetry_args(ap, profile=False)
     args = ap.parse_args(argv)
     abpt = Params()
     abpt.match = args.match
@@ -272,7 +490,7 @@ def map_main(argv) -> int:
     except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
-    return _map_run(args, abpt)
+    return _with_exporters(args, lambda: _map_run(args, abpt))
 
 
 def _map_run(args, abpt: Params) -> int:
@@ -280,14 +498,19 @@ def _map_run(args, abpt: Params) -> int:
     cannot be read, or a read is off the planned query rung (skipped with
     one stderr line)."""
     import numpy as np
+    from . import obs
     from .io.fastx import read_fastx
     from .io.gaf import gaf_record
     from .parallel import (discover_mesh, load_static_graph, map_reads_split,
                            plan_route)
+    if args.trace:
+        obs.trace_enable()
+    obs.note_device(abpt.torch_device)
     t0 = time.time()
     rc = 0
     try:
-        _ab, static = load_static_graph(args.graph, abpt)
+        with obs.phase("graph_restore"):
+            _ab, static = load_static_graph(args.graph, abpt)
         records = read_fastx(args.reads)
     except QUARANTINE_EXCEPTIONS as e:
         print(f"Error: {type(e).__name__}: {e}", file=sys.stderr)
@@ -329,4 +552,12 @@ def _map_run(args, abpt: Params) -> int:
           f"against a {static.n_rows - 2}-node graph on "
           f"{abpt.torch_device}: restore {t_restore:.3f} s, "
           f"{time.time() - t0:.3f} s in all", file=sys.stderr)
+    rep = obs.finalize_report()
+    rec = obs.archive.summarize_report(rep, label=f"map:{args.reads}",
+                                       device=abpt.device)
+    rec["workload"] = "map"  # the SLO objectives scoped to map judge it
+    obs.archive.append_record(rec)
+    _finish_telemetry(args, rep, out_fp is sys.stdout,
+                      {"input": args.reads, "graph": args.graph,
+                       "device": abpt.device})
     return rc

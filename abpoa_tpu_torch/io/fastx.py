@@ -56,5 +56,8 @@ def iter_fastx_handle(fp) -> Iterator[SeqRecord]:
 
 
 def read_fastx(path: str) -> List[SeqRecord]:
-    with _open(path) as fp:
+    """The records of `path`, timed as the run report's `fastx_parse`
+    phase (abpoa_tpu/io/fastx.py:75)."""
+    from ..obs import phase
+    with phase("fastx_parse"), _open(path) as fp:
         return list(iter_fastx_handle(fp))

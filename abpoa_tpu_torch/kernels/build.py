@@ -5,7 +5,9 @@ Every `abpoa_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` for sm_90a
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in `build/abpoa_tpu_torch/` beside the package, named by a
 hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. A failed build raises.
+unchanged one is reused. A failed build raises. Each load is a record of
+the run report's build and load log (`obs/compile_log.py`): a miss when
+nvcc built the library, a hit when it was on disk.
 """
 from __future__ import annotations
 
@@ -101,7 +103,10 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
+    t0 = time.perf_counter()
+    built = not os.path.isfile(library_path())
+    path = build()
+    lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.abpoa_banded_dp.argtypes = [vp] * 21 + [ci] * 9 + [vp]
     lib.abpoa_banded_dp.restype = ci
@@ -125,6 +130,8 @@ def load() -> ctypes.CDLL:
     lib.abpoa_fuse_alignment.restype = ci
     lib.abpoa_cuda_error_string.argtypes = [ci]
     lib.abpoa_cuda_error_string.restype = ctypes.c_char_p
+    from ..obs import compile_log
+    compile_log.record_load("kernels", path, built, last_build_seconds, t0)
     _lib = lib
     return lib
 

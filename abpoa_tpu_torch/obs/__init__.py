@@ -1,0 +1,40 @@
+"""Run telemetry of the port: phase timers, counters, the versioned JSON
+run report, the MFU model, per-read latency records, the span tracer
+(Chrome trace-event export), the kernel library's build and load log,
+`torch.profiler` capture (`--profile-dir`), the per-round timeline, the
+Prometheus metric registry and exporters, the cross-run report archive,
+the perf ledger and the `perf`/`slo`/`top` readers.
+
+Counterpart of `abpoa_tpu/obs/` (same names, schema and families), with
+`compile_log` (the kernel library's build and load log) in place of
+`compile_watch`: the port has no jit entry point to watch. Without the
+server and the pool it leaves out what only they use: the flight
+recorder, `why`, the request sampling and the per-request trace export.
+Every hook is host-side bookkeeping at points the routes already pass: no
+host sync and no kernel launch is added for it.
+"""
+from . import archive, compile_log, ledger, metrics, rounds, trace
+from .capture import device_capture, profile_dir, set_profile_dir
+from .report import (SCHEMA, SCHEMA_KEYS, SCHEMA_VERSION, RunReport, count,
+                     finalize_report, note_device, observe, phase, record_dp,
+                     record_fault, record_read, render_report,
+                     render_report_diff, report, start_run,
+                     summary, write_report)
+from .trace import (export_chrome_trace, instant, new_request_id,
+                    request_ctx, span, span_totals, tracer)
+from .trace import disable as trace_disable
+from .trace import enable as trace_enable
+from .trace import enabled as trace_enabled
+
+__all__ = [
+    "SCHEMA", "SCHEMA_KEYS", "SCHEMA_VERSION", "RunReport",
+    "count", "observe", "phase", "record_dp", "record_fault", "record_read",
+    "report", "note_device",
+    "start_run", "finalize_report", "write_report", "summary",
+    "render_report", "render_report_diff",
+    "device_capture", "profile_dir", "set_profile_dir",
+    "trace", "trace_enable", "trace_disable", "trace_enabled",
+    "span", "instant", "span_totals", "export_chrome_trace", "tracer",
+    "new_request_id", "request_ctx",
+    "compile_log", "archive", "ledger", "metrics", "rounds",
+]

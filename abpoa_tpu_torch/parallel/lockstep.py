@@ -103,14 +103,19 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
     hook evicted). With `churn`, every lane's result (joiners' too) also
     goes to `churn.on_retire` the round the lane finishes. `mesh` splits
     each round's lanes over its slots (the host fusion is unchanged)."""
+    from .. import obs
     from ..align.buckets import qp_rung
     from ..align.dp_chunk import run_dp_chunk
-    from ..pipeline import _rc_encode
+    from ..pipeline import _band_cols, _rc_encode
+    from .shard import mesh_size
 
+    S = mesh_size(mesh)
+    occ_route = "sharded" if S > 1 else "lockstep"
     K = len(seq_sets)
     qmax = max((len(s) for ss in seq_sets for s in ss), default=1)
     Qp = qp_rung(qmax)
     stats["groups"] += 1
+    obs.observe("lockstep.k", K)
 
     # the lane table, in boarding order (the launch's lane order)
     lanes: dict = {}
@@ -120,12 +125,16 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
         lanes[sid] = _Lane(sid, seq_sets[sid], weight_sets[sid],
                            _new_graph(abpt))
         seen_sids.add(sid)
+    # the high-water mark of live lanes: occupancy = live / capacity
+    capacity = max(len(lanes), 1)
 
     def retire(lane: _Lane, result, round_i: int) -> None:
         lanes.pop(lane.sid, None)
         if isinstance(lane.sid, int) and 0 <= lane.sid < K:
             final[lane.sid] = result
         if churn is not None:
+            if lanes:
+                obs.count("lockstep.early_retires")
             churn.on_retire(lane.sid, result, round_i)
 
     def fuse(lane: _Lane, cigar: list, q: np.ndarray, w: np.ndarray) -> None:
@@ -139,7 +148,8 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
         if churn is not None:
             evict, joiners = churn.on_round(round_i + 1, list(lanes))
             for sid in evict or ():
-                lanes.pop(sid, None)
+                if lanes.pop(sid, None) is not None:
+                    obs.count("lockstep.evictions")
             for sid, j_seqs, j_wgts in joiners or ():
                 if sid in seen_sids:
                     raise ValueError(
@@ -150,52 +160,96 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
                     churn.on_retire(sid, None, round_i + 1)
                     continue
                 lanes[sid] = _Lane(sid, j_seqs, j_wgts, _new_graph(abpt))
+                obs.count("lockstep.joins")
+            capacity = max(capacity, len(lanes))
         if not lanes:
             break
+        t_round = time.perf_counter()
+        obs.rounds.begin_round()
         round_i += 1
         active = list(lanes.values())
         stats["rounds"] += 1
         stats["live_lanes"] += len(active)
+        obs.count("lockstep.chunks")
+        occ = len(active) / capacity
+        obs.observe("lockstep.noop_set_fraction", 1.0 - occ)
+        if occ < 1.0:
+            obs.count("lockstep.drain_chunks")
 
         # a lane's first read becomes its graph: fusion only, no DP
         dp_lanes: List[_Lane] = []
+        done = []   # the lengths of the reads fused this round
         for lane in active:
             if lane.graph.node_n > 2:
                 dp_lanes.append(lane)
                 continue
-            fuse(lane, [], lane.seqs[lane.cursor], lane.weights[lane.cursor])
+            with obs.phase("fusion"):
+                done.append(len(lane.seqs[lane.cursor]))
+                fuse(lane, [], lane.seqs[lane.cursor],
+                     lane.weights[lane.cursor])
             if lane.cursor >= lane.n_reads:
                 retire(lane, (lane.graph, lane.is_rc), round_i)
         if not dp_lanes:
+            _record_round(abpt, done, t_round, occ_route, len(active),
+                          capacity, S)
             continue
 
         queries = [lane.seqs[lane.cursor] for lane in dp_lanes]
-        results = run_dp_chunk([lane.graph for lane in dp_lanes], abpt,
-                               queries, mesh=mesh)
-        stats["dp_lanes"] += len(dp_lanes)
-        flip = [False] * len(dp_lanes)
-        if abpt.amb_strand:
-            under = [i for i, (lane, q, res) in
-                     enumerate(zip(dp_lanes, queries, results))
-                     if res.best_score < min(len(q), lane.graph.node_n - 2)
-                     * abpt.max_mat * 0.3333]
-            if under:
-                rc_res = run_dp_chunk([dp_lanes[i].graph for i in under],
-                                      abpt,
-                                      [_rc_encode(queries[i]) for i in under],
-                                      mesh=mesh)
-                stats["rc_lanes"] += len(under)
-                for i, res in zip(under, rc_res):
-                    if res.best_score > results[i].best_score:
-                        results[i], flip[i] = res, True
+        with obs.phase("align"):
+            for lane, q in zip(dp_lanes, queries):
+                obs.record_dp(lane.graph.node_n, _band_cols(abpt, len(q)),
+                              abpt.gap_mode)
+            results = run_dp_chunk([lane.graph for lane in dp_lanes], abpt,
+                                   queries, mesh=mesh)
+            stats["dp_lanes"] += len(dp_lanes)
+            flip = [False] * len(dp_lanes)
+            if abpt.amb_strand:
+                under = [i for i, (lane, q, res) in
+                         enumerate(zip(dp_lanes, queries, results))
+                         if res.best_score
+                         < min(len(q), lane.graph.node_n - 2)
+                         * abpt.max_mat * 0.3333]
+                if under:
+                    for i in under:
+                        obs.record_dp(dp_lanes[i].graph.node_n,
+                                      _band_cols(abpt, len(queries[i])),
+                                      abpt.gap_mode)
+                    rc_res = run_dp_chunk(
+                        [dp_lanes[i].graph for i in under], abpt,
+                        [_rc_encode(queries[i]) for i in under], mesh=mesh)
+                    stats["rc_lanes"] += len(under)
+                    for i, res in zip(under, rc_res):
+                        if res.best_score > results[i].best_score:
+                            results[i], flip[i] = res, True
 
-        for lane, q, res, rc in zip(dp_lanes, queries, results, flip):
-            w = lane.weights[lane.cursor]
-            if rc:
-                lane.is_rc[lane.cursor] = True
-                q, w = _rc_encode(q), w[::-1].copy()
-            fuse(lane, res.cigar, q, w)
-            if lane.cursor >= lane.n_reads:
-                retire(lane, (lane.graph, lane.is_rc), round_i)
+        with obs.phase("fusion"):
+            for lane, q, res, rc in zip(dp_lanes, queries, results, flip):
+                w = lane.weights[lane.cursor]
+                if rc:
+                    lane.is_rc[lane.cursor] = True
+                    q, w = _rc_encode(q), w[::-1].copy()
+                done.append(len(q))
+                fuse(lane, res.cigar, q, w)
+                if lane.cursor >= lane.n_reads:
+                    retire(lane, (lane.graph, lane.is_rc), round_i)
+        _record_round(abpt, done, t_round, occ_route, len(active), capacity,
+                      S)
 
     return [final.get(sid) for sid in range(K)]
+
+
+def _record_round(abpt: Params, done: list, t_round: float, route: str,
+                  lanes: int, k_cap: int, mesh: int) -> None:
+    """The round's sample in the rounds timeline and one amortized latency
+    record a read fused in it (a share of the round's wall;
+    abpoa_tpu/parallel/lockstep.py:339)."""
+    from .. import obs
+    from ..pipeline import _band_cols
+    wall = time.perf_counter() - t_round
+    obs.rounds.record_round(route, lanes, k_cap, wall, mesh=mesh)
+    if not done:
+        return
+    share = wall / len(done)
+    for qlen in done:
+        obs.record_read(share, qlen, _band_cols(abpt, qlen), abpt.device,
+                        amortized=True)

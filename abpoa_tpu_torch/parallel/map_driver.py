@@ -19,6 +19,7 @@ complements in a second K-lane launch, and the better score wins (strand
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,8 +93,10 @@ def map_reads_split(static, queries: Sequence[np.ndarray], abpt: Params,
     answered through `hook.on_retire` only. `mesh` splits each round's
     reads over its slots; `k_cap` then defaults to the mesh's size times
     the lockstep group size."""
+    from .. import obs
     from ..align.buckets import qp_rung
-    from ..pipeline import _rc_encode
+    from ..pipeline import _band_cols, _rc_encode
+    from .shard import mesh_size
     if Qp is None:
         Qp = qp_rung(max((len(q) for q in queries), default=1))
     if k_cap is None:
@@ -127,24 +130,48 @@ def map_reads_split(static, queries: Sequence[np.ndarray], abpt: Params,
                     retire(rid, None, round_i + 1)
                     continue
                 lanes.append((rid, q))
+                obs.count("map.joins")
         if not lanes:
             break
+        t_round = time.perf_counter()
+        obs.rounds.begin_round()
         round_i += 1
         stats["rounds"] += 1
-        results = static.align([q for _, q in lanes], mesh=mesh)
-        strands = ["+"] * len(lanes)
-        if abpt.amb_strand:
-            under = [i for i, ((_, q), res) in enumerate(zip(lanes, results))
-                     if res.best_score < min(len(q), static.n_rows - 2)
-                     * thr_base]
-            if under:
-                rc_res = static.align([_rc_encode(lanes[i][1]) for i in under],
-                                      mesh=mesh)
-                stats["rc_reads"] += len(under)
-                for i, res in zip(under, rc_res):
-                    if res.best_score > results[i].best_score:
-                        results[i], strands[i] = res, "-"
+        obs.count("map.rounds")
+        obs.metrics.publish_map_round(len(lanes), len(lanes) / k_cap)
+        with obs.phase("align"):
+            for _, q in lanes:
+                obs.record_dp(static.n_rows, _band_cols(abpt, len(q)),
+                              abpt.gap_mode)
+            results = static.align([q for _, q in lanes], mesh=mesh)
+            strands = ["+"] * len(lanes)
+            if abpt.amb_strand:
+                under = [i for i, ((_, q), res) in
+                         enumerate(zip(lanes, results))
+                         if res.best_score < min(len(q), static.n_rows - 2)
+                         * thr_base]
+                if under:
+                    for i in under:
+                        obs.record_dp(static.n_rows,
+                                      _band_cols(abpt, len(lanes[i][1])),
+                                      abpt.gap_mode)
+                    rc_res = static.align(
+                        [_rc_encode(lanes[i][1]) for i in under], mesh=mesh)
+                    stats["rc_reads"] += len(under)
+                    for i, res in zip(under, rc_res):
+                        if res.best_score > results[i].best_score:
+                            results[i], strands[i] = res, "-"
         for (rid, _), res, strand in zip(lanes, results, strands):
             retire(rid, (res, strand), round_i)
         stats["reads"] += len(lanes)
+        obs.count("map.reads", len(lanes))
+        # the round's sample and a share of its wall a read
+        # (abpoa_tpu/parallel/map_driver.py:278-285)
+        wall = time.perf_counter() - t_round
+        obs.rounds.record_round("sharded" if mesh_size(mesh) > 1 else "map",
+                                len(lanes), k_cap, wall, mesh=mesh_size(mesh))
+        share = wall / len(lanes)
+        for _, q in lanes:
+            obs.record_read(share, len(q), _band_cols(abpt, len(q)),
+                            abpt.device, amortized=True)
     return [final.get(rid) for rid in range(len(queries))]

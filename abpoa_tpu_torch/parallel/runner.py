@@ -70,22 +70,58 @@ def flush_lockstep_group(group: List, abpt: Params, mesh=None) -> dict:
     over `mesh` (a tuple of devices, `shard.discover_mesh`) where given;
     returns {idx: Abpoa with its set's graph and strand flags}. A failed
     group raises: neither implementation stands in for the other."""
+    import time
+
     from ..align.buckets import partition_by_length_bucket
     from ..align.fused_lanes import progressive_poa_fused_batch
+    from ..obs import count, device_capture, observe, phase, record_read
+    from ..obs import trace
+    from ..pipeline import _band_cols
     from .lockstep import progressive_poa_split_batch
     from .scheduler import lockstep_impl
-    drive = (progressive_poa_fused_batch if lockstep_impl(abpt) == "device"
-             else progressive_poa_split_batch)
+    if not group:
+        return {}
+    impl = lockstep_impl(abpt)
+    count("lockstep.groups")
+    observe("lockstep.group_size", len(group))
     results: dict = {}
-    for sub in partition_by_length_bucket(
-            [(e[0], e[2], e[3], e[1]) for e in group]):
-        outs = drive([e[1] for e in sub], [e[2] for e in sub], abpt,
-                     mesh=mesh)
-        for (idx, _seqs, _w, ab), (graph, is_rc) in zip(sub, outs):
-            ab.graph = graph
-            if abpt.amb_strand:
-                ab.is_rc[:len(is_rc)] = is_rc
-            results[idx] = ab
+    with trace.span("lockstep_group", "fused",
+                    args={"k": len(group), "impl": impl}), \
+            device_capture("lockstep_group"):
+        for sub in partition_by_length_bucket(
+                [(e[0], e[2], e[3], e[1]) for e in group]):
+            t0 = time.perf_counter()
+            if impl == "split":
+                # the split driver times its own align and fusion phases
+                # and records its reads
+                outs = progressive_poa_split_batch(
+                    [e[1] for e in sub], [e[2] for e in sub], abpt,
+                    mesh=mesh)
+            else:
+                with phase("align_fused"):
+                    outs = progressive_poa_fused_batch(
+                        [e[1] for e in sub], [e[2] for e in sub], abpt,
+                        mesh=mesh)
+                # one amortized latency record a read (the sub-batch's
+                # wall over its reads, abpoa_tpu/parallel/runner.py:177)
+                n_sub = sum(len(e[1]) for e in sub)
+                share = (time.perf_counter() - t0) / max(1, n_sub)
+                for e in sub:
+                    for b in e[1]:
+                        record_read(share, len(b), _band_cols(abpt, len(b)),
+                                    abpt.device, amortized=True)
+            results.update(_attach(sub, outs, abpt))
+    return results
+
+
+def _attach(sub: List, outs: list, abpt: Params) -> dict:
+    """{idx: its Abpoa with the lockstep's graph and strand flags}."""
+    results: dict = {}
+    for (idx, _seqs, _w, ab), (graph, is_rc) in zip(sub, outs):
+        ab.graph = graph
+        if abpt.amb_strand:
+            ab.is_rc[:len(is_rc)] = is_rc
+        results[idx] = ab
     return results
 
 
@@ -105,10 +141,12 @@ def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str],
     from ..quarantine import (QUARANTINE_EXCEPTIONS, quarantine_set,
                               validate_records)
     from . import scheduler
+    from ..obs import note_device, trace
     from .shard import discover_mesh, mesh_size
     stats = {"sets": len(files), "quarantined": 0}
     if not (abpt.out_msa or abpt.out_cons or abpt.out_gfa):
         return stats  # as msa_from_file: nothing to compute or emit
+    note_device(abpt.torch_device)
     route = scheduler.plan_route(
         abpt, len(files), mesh=None if mesh is None else mesh_size(mesh))
     if route.kind == "sharded" and mesh is None:
@@ -119,7 +157,8 @@ def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str],
     def run_one(ab, i, fn):
         abpt.batch_index = i + 1
         try:
-            msa_from_file(ab, abpt, fn, out_fp)
+            with trace.span(f"set:{i}", "set", args={"file": fn}):
+                msa_from_file(ab, abpt, fn, out_fp)
         except QUARANTINE_EXCEPTIONS as e:
             quarantine_set(i, fn, e)
             stats["quarantined"] += 1

@@ -62,6 +62,17 @@ def plan_route(abpt, n_sets: int, workload: str = "consensus",
     workload="map", of `n_sets` reads against one graph). `mesh`, the
     number of devices (default `shard.requested_mesh_size()`), turns a
     lockstep or map plan into `sharded` when it is 2 or more."""
+    route = _plan(abpt, n_sets, workload, mesh)
+    # the decision on the report, the metrics and the trace
+    # (abpoa_tpu/parallel/scheduler.py:238-243)
+    from ..obs import count, metrics, trace
+    count(f"scheduler.{route.kind}.{route.code}")
+    metrics.publish_route(route)
+    trace.instant("route", "sched", args=route._asdict())
+    return route
+
+
+def _plan(abpt, n_sets: int, workload: str, mesh) -> Route:
     from .runner import _lockstep_ok, lockstep_group_size
     from .shard import requested_mesh_size
     if n_sets <= 0:

@@ -97,6 +97,24 @@ def mesh_parts(k: int, mesh, default: torch.device) -> list:
             if hi > lo]
 
 
+def note_shards(k: int, mesh, default: torch.device) -> Optional[list]:
+    """The live lanes of each slot of a sharded chunk of `k` lanes, also
+    published as the mesh and per-shard occupancy gauges
+    (abpoa_tpu/parallel/shard.py:246-251); None without a mesh."""
+    if mesh_size(mesh) <= 1:
+        return None
+    from ..obs import metrics
+    S = mesh_size(mesh)
+    k_per = -(-k // S)
+    metrics.publish_mesh(S, torch.device(mesh[0]).type)
+    live = [0] * S
+    for i, (_, ids) in enumerate(mesh_parts(k, mesh, default)):
+        live[i] = len(ids)
+    for i, n in enumerate(live):
+        metrics.publish_shard_occupancy(i, n / k_per)
+    return live
+
+
 def shard_dp_round(g, abpt: Params, queries: Sequence[np.ndarray], mesh,
                    static=None) -> list:
     """The sharded twin of the K-lane chunk (`dp_chunk.run_dp_chunk`,

@@ -36,15 +36,23 @@ fused route keeps a Python graph.
 A failure on the card or in the native build raises; nothing falls back to
 another route or graph. The outputs are read out of the host graph at the
 end.
+
+Run telemetry (`obs/`) is taken at the JAX package's call sites and under
+its names: the phases `backend_init`, `align_fused`, `align`, `fusion`,
+`consensus`, `output` and `graph_export`, the DP cell model (`record_dp`),
+one latency record a read (amortised over the fused route's wall there)
+and a `read:i` span a read on the per-read route.
 """
 from __future__ import annotations
 
 import sys
+import time
 from dataclasses import dataclass, field
 from typing import IO, List, Optional
 
 import numpy as np
 
+from . import obs
 from .align.dispatch import align_sequence_to_graph
 from .align.eligibility import fused_eligible
 from .align.result import AlignResult
@@ -95,6 +103,16 @@ def _rc_encode(seq: np.ndarray) -> np.ndarray:
     return rc
 
 
+def _band_cols(abpt: Params, qlen: int) -> int:
+    """The telemetry's band extent of one read's DP (abpoa_tpu/pipeline.py
+    :65): the adaptive band's planned 2w+1 columns, clipped to the query
+    when banding is off or wider than the row."""
+    if abpt.wb < 0:
+        return qlen + 1
+    w = abpt.wb + int(abpt.wf * qlen)
+    return min(qlen + 1, 2 * w + 1)
+
+
 def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarray],
         exist_n_seq: int) -> None:
     """Plain progressive POA, input order (src/abpoa_align.c:313-353), with
@@ -103,18 +121,29 @@ def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
     for i, (qseq, weight) in enumerate(zip(seqs, weights)):
         qlen = len(qseq)
         read_id = exist_n_seq + i
+        t_read = time.perf_counter()
         res = AlignResult()
         if g.node_n > 2:
-            res = align_sequence_to_graph(g, abpt, qseq)
-            if (abpt.amb_strand and res.best_score
-                    < min(qlen, g.node_n - 2) * abpt.max_mat * 0.3333):
-                rc_qseq = _rc_encode(qseq)
-                rc_res = align_sequence_to_graph(g, abpt, rc_qseq)
-                if rc_res.best_score > res.best_score:
-                    res = rc_res
-                    qseq, weight = rc_qseq, weight[::-1].copy()
-                    ab.is_rc[read_id] = True
-        g.add_alignment(abpt, qseq, weight, res.cigar, True, read_id)
+            obs.record_dp(g.node_n, _band_cols(abpt, qlen), abpt.gap_mode)
+            with obs.phase("align"):
+                res = align_sequence_to_graph(g, abpt, qseq)
+                if (abpt.amb_strand and res.best_score
+                        < min(qlen, g.node_n - 2) * abpt.max_mat * 0.3333):
+                    rc_qseq = _rc_encode(qseq)
+                    # the rc retry is a second DP of the read
+                    obs.record_dp(g.node_n, _band_cols(abpt, qlen),
+                                  abpt.gap_mode)
+                    rc_res = align_sequence_to_graph(g, abpt, rc_qseq)
+                    if rc_res.best_score > res.best_score:
+                        res = rc_res
+                        qseq, weight = rc_qseq, weight[::-1].copy()
+                        ab.is_rc[read_id] = True
+        with obs.phase("fusion"):
+            g.add_alignment(abpt, qseq, weight, res.cigar, True, read_id)
+        dt = time.perf_counter() - t_read
+        obs.record_read(dt, qlen, _band_cols(abpt, qlen), abpt.device)
+        obs.trace.add_span(f"read:{read_id}", "read", t_read, dt,
+                           args={"qlen": qlen})
 
 
 def want_native(abpt: Params, fused: bool = False) -> bool:
@@ -146,8 +175,16 @@ def _run_fused_device(ab: Abpoa, abpt: Params, seqs: List[np.ndarray],
     reads' strand flags come back to `ab`."""
     from .align.fused_loop import progressive_poa_fused
     init_graph = ab.graph if exist_n_seq and ab.graph.node_n > 2 else None
-    pg, _, is_rc = progressive_poa_fused(seqs, weights, abpt,
-                                         init_graph=init_graph)
+    t0 = time.perf_counter()
+    with obs.phase("align_fused"):
+        pg, _, is_rc = progressive_poa_fused(seqs, weights, abpt,
+                                             init_graph=init_graph)
+    # one latency record a read: the fused wall split evenly over the reads
+    # (marked amortized: a share, not a measurement of its own)
+    per_read = (time.perf_counter() - t0) / max(1, len(seqs))
+    for s in seqs:
+        obs.record_read(per_read, len(s), _band_cols(abpt, len(s)),
+                        abpt.device, amortized=True)
     ab.graph = pg
     if abpt.amb_strand:
         ab.is_rc[exist_n_seq: exist_n_seq + len(is_rc)] = is_rc
@@ -188,10 +225,12 @@ def _native_cons_fast_path(ab: Abpoa, abpt: Params, out_fp: IO[str]) -> bool:
     from .cons.consensus import native_consensus_hb, native_hb_eligible
     if not native_hb_eligible(ab.graph, abpt) or abpt.out_gfa or abpt.out_pog:
         return False
-    ab.cons = native_consensus_hb(ab.graph, ab.n_seq)
+    with obs.phase("consensus"):
+        ab.cons = native_consensus_hb(ab.graph, ab.n_seq)
     if ab.cons.n_cons == 0:
         print("Warning: no consensus sequence generated.", file=sys.stderr)
-    output_fx_consensus(ab.cons, abpt, out_fp)
+    with obs.phase("output"):
+        output_fx_consensus(ab.cons, abpt, out_fp)
     return True
 
 
@@ -203,20 +242,28 @@ def output(ab: Abpoa, abpt: Params, out_fp: IO[str]) -> None:
         return
     g = ab.graph
     if getattr(g, "is_native", False):
-        g = g.to_python()
+        with obs.phase("graph_export"):
+            g = g.to_python()
     if abpt.out_gfa:
         def consensus() -> ConsensusResult:
             ab.cons = generate_consensus(g, abpt, ab.n_seq)
             return ab.cons
-        generate_gfa(g, abpt, ab.names, ab.is_rc, consensus, out_fp)
-    elif abpt.out_msa:
-        ab.cons = generate_rc_msa(g, abpt, ab.n_seq)
-        output_rc_msa(ab.cons, abpt, ab.names, ab.is_rc, out_fp)
-    elif abpt.out_cons:
-        ab.cons = generate_consensus(g, abpt, ab.n_seq)
-        if not g.is_called_cons:
-            print("Warning: no consensus sequence generated.", file=sys.stderr)
-        output_fx_consensus(ab.cons, abpt, out_fp)
+        with obs.phase("output"):
+            generate_gfa(g, abpt, ab.names, ab.is_rc, consensus, out_fp)
+    else:
+        with obs.phase("consensus"):
+            if abpt.out_msa:
+                ab.cons = generate_rc_msa(g, abpt, ab.n_seq)
+            elif abpt.out_cons:
+                ab.cons = generate_consensus(g, abpt, ab.n_seq)
+                if not g.is_called_cons:
+                    print("Warning: no consensus sequence generated.",
+                          file=sys.stderr)
+        with obs.phase("output"):
+            if abpt.out_msa:
+                output_rc_msa(ab.cons, abpt, ab.names, ab.is_rc, out_fp)
+            elif abpt.out_cons:
+                output_fx_consensus(ab.cons, abpt, out_fp)
     if abpt.out_pog:
         from .io.plot import dump_pog
         dump_pog(ab, abpt)
@@ -228,10 +275,12 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
     if not abpt._finalized:
         raise ValueError("call Params.finalize() first")
     validate_records(records)
+    obs.note_device(abpt.torch_device)
     seeded = not plain_route(abpt)
     fused = not seeded and fused_eligible(abpt, len(records))
-    _select_graph(ab, want_native(abpt, fused))
-    ab.reset()
+    with obs.phase("backend_init"):
+        _select_graph(ab, want_native(abpt, fused))
+        ab.reset()
     if abpt.incr_fn:
         from .io.restore import restore_graph
         restore_graph(ab, abpt)

@@ -20,22 +20,25 @@ on its own native graph); the others run one `msa()` after another. The
 results equal `msa()`'s set by set either way, but for Z-drop (`-m 2
 -z`), which the device lockstep takes with the fused route's output, as
 the JAX package's does (ROADMAP.md §C). `device` defaults to "cuda" (the
-port's rule: the card unless the caller asks for the CPU). The JAX
-package's `last_report` telemetry is ROADMAP.md queue A, item 10.
+port's rule: the card unless the caller asks for the CPU). `last_report`
+is the run report (`obs/report.py`) of the last `msa()`, `msa_batch()`
+or `msa_output()`, as in the JAX package.
 """
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
 
 from . import constants as C
+from . import obs
 from .align.dispatch import align_sequence_to_graph
 from .cons.consensus import (ConsensusResult, generate_consensus,
                              native_consensus_hb, native_hb_eligible)
 from .cons.msa import generate_rc_msa
 from .params import Params
-from .pipeline import Abpoa, _select_graph, want_native
+from .pipeline import Abpoa, _band_cols, _select_graph, want_native
 from .quarantine import QUARANTINE_EXCEPTIONS, PoisonedSetError, quarantine_set
 
 
@@ -102,6 +105,14 @@ class msa_aligner:
         abpt.lockstep = lockstep
         self.abpt = abpt
         self.ab = Abpoa()
+        self._last_report = None
+        self._in_batch = False
+
+    @property
+    def last_report(self):
+        """The run report (obs schema, versioned) of the most recent
+        msa()/msa_batch()/msa_output() call; None before the first."""
+        return self._last_report
 
     # ------------------------------------------------------------- internals
     def _encode(self, seqs: List[str], qscores):
@@ -133,25 +144,38 @@ class msa_aligner:
         g = self.ab.graph
         bseqs, weights = self._encode(seqs, qscores)
         for read_i, (seq, bseq, w) in enumerate(zip(seqs, bseqs, weights)):
-            res = align_sequence_to_graph(g, abpt, bseq)
-            g.add_alignment(abpt, bseq, w, res.cigar, True, exist_n + read_i)
+            if g.node_n > 2:
+                obs.record_dp(g.node_n, _band_cols(abpt, len(bseq)),
+                              abpt.gap_mode)
+            t_read = time.perf_counter()
+            with obs.phase("align"):
+                res = align_sequence_to_graph(g, abpt, bseq)
+            with obs.phase("fusion"):
+                g.add_alignment(abpt, bseq, w, res.cigar, True,
+                                exist_n + read_i)
+            dt = time.perf_counter() - t_read
+            obs.record_read(dt, len(bseq), _band_cols(abpt, len(bseq)),
+                            abpt.device)
+            obs.trace.add_span(f"read:{exist_n + read_i}", "read", t_read,
+                               dt, args={"qlen": len(bseq)})
             self.ab.append_read(seq=seq)
 
     def _collect(self, n_seq: int, ab: Abpoa = None) -> msa_result:
         abpt = self.abpt
         ab = ab or self.ab
         g = ab.graph
-        if native_hb_eligible(g, abpt):
-            abc = native_consensus_hb(g, n_seq)
-        else:
-            if getattr(g, "is_native", False):
-                g = g.to_python()
-            if abpt.out_msa:
-                abc = generate_rc_msa(g, abpt, n_seq)
-            elif abpt.out_cons:
-                abc = generate_consensus(g, abpt, n_seq)
+        with obs.phase("consensus"):
+            if native_hb_eligible(g, abpt):
+                abc = native_consensus_hb(g, n_seq)
             else:
-                abc = ConsensusResult(n_seq=n_seq)
+                if getattr(g, "is_native", False):
+                    g = g.to_python()
+                if abpt.out_msa:
+                    abc = generate_rc_msa(g, abpt, n_seq)
+                elif abpt.out_cons:
+                    abc = generate_consensus(g, abpt, n_seq)
+                else:
+                    abc = ConsensusResult(n_seq=n_seq)
         decode = abpt.code_to_char
         cons_seq = ["".join(chr(decode[b]) for b in row) for row in abc.cons_base]
         cons_qv = ["".join(chr(q) for q in row) for row in abc.cons_phred]
@@ -179,6 +203,7 @@ class msa_aligner:
         abpt.use_qv = qscores is not None
         abpt.incr_fn = _text(incr_fn) if incr_fn else None
         abpt.finalize()
+        obs.note_device(abpt.torch_device)
         _select_graph(self.ab, want_native(abpt))
         self.ab.reset()
         if abpt.incr_fn:
@@ -189,6 +214,10 @@ class msa_aligner:
     # ------------------------------------------------------------ public API
     def msa(self, seqs, out_cons, out_msa, max_n_cons=1, min_freq=0.25,
             out_pog="", incr_fn="", qscores=None) -> msa_result:
+        # a set msa_batch runs one by one keeps the batch's report
+        nested = self._in_batch
+        if not nested:
+            obs.start_run()
         abpt = self.abpt
         abpt.out_pog = _text(out_pog) or None
         exist_n = self._prepare(out_cons, out_msa, max_n_cons, min_freq,
@@ -198,6 +227,8 @@ class msa_aligner:
         if abpt.out_pog:
             from .io.plot import dump_pog
             dump_pog(self.ab, abpt)
+        if not nested:
+            self._last_report = obs.finalize_report()
         return result
 
     def msa_batch(self, seq_sets, out_cons, out_msa, max_n_cons=1,
@@ -208,9 +239,21 @@ class msa_aligner:
         others one `msa()` after another. Each result equals `msa()`'s on
         its set. A set that fails its input checks is quarantined: None in
         its slot, one stderr line, and the rest complete."""
-        from .parallel import flush_lockstep_group, lockstep_covers
         if qscores_sets is not None and len(qscores_sets) != len(seq_sets):
             raise ValueError("qscores_sets must contain one entry per set.")
+        obs.start_run()
+        obs.metrics.publish_batch_progress(0, total=len(seq_sets))
+        self._in_batch = True
+        try:
+            return self._msa_batch(seq_sets, out_cons, out_msa, max_n_cons,
+                                   min_freq, qscores_sets)
+        finally:
+            self._in_batch = False
+            self._last_report = obs.finalize_report()
+
+    def _msa_batch(self, seq_sets, out_cons, out_msa, max_n_cons, min_freq,
+                   qscores_sets) -> List[msa_result]:
+        from .parallel import flush_lockstep_group, lockstep_covers
         self._prepare(out_cons, out_msa, max_n_cons, min_freq, "",
                       qscores_sets)
         group = []   # (set index, Abpoa, encoded reads, weights)
@@ -227,6 +270,7 @@ class msa_aligner:
         for k, seqs in enumerate(seq_sets):
             if k in done:
                 results[k] = self._collect(len(seqs), ab=done[k])
+                obs.metrics.bump_batch_set_done()
                 continue
             qs = qscores_sets[k] if qscores_sets is not None else None
             try:
@@ -234,10 +278,12 @@ class msa_aligner:
                                       min_freq, qscores=qs)
             except QUARANTINE_EXCEPTIONS as e:
                 quarantine_set(k, f"set {k}", e)
+            obs.metrics.bump_batch_set_done()
         return results
 
     def msa_align(self, seqs, out_cons, out_msa, max_n_cons=1, min_freq=0.25,
                   incr_fn="", qscores=None) -> "msa_aligner":
+        obs.start_run()
         exist_n = self._prepare(out_cons, out_msa, max_n_cons, min_freq,
                                 incr_fn, qscores)
         self._add_sequences(seqs, qscores, exist_n)
@@ -258,4 +304,6 @@ class msa_aligner:
         return self
 
     def msa_output(self) -> msa_result:
-        return self._collect(self.ab.n_seq)
+        result = self._collect(self.ab.n_seq)
+        self._last_report = obs.finalize_report()
+        return result

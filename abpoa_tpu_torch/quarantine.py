@@ -2,8 +2,8 @@
 in a `-l` run it is quarantined while the other sets complete.
 
 Counterpart of `abpoa_tpu/resilience/quarantine.py:19-70` (the checks of
-`validate_records` and the stderr line of `quarantine_set`); the JAX
-package's fault-ledger records stay with ROADMAP.md queue A, item 10.
+`validate_records` and `quarantine_set`, with its fault record in the
+run report).
 """
 from __future__ import annotations
 
@@ -50,6 +50,13 @@ def validate_records(records) -> None:
 
 
 def quarantine_set(index: int, label: str, exc: Exception) -> None:
-    """One quarantined set: a single line on stderr."""
-    print(f"[abpoa-tpu] set {index} ({label}) quarantined: "
-          f"{type(exc).__name__}: {exc}", file=sys.stderr)
+    """One quarantined set: the run report's `poisoned_set` fault record
+    keyed by set index, the `quarantine.sets` count, and a single line on
+    stderr (abpoa_tpu/resilience/quarantine.py:63)."""
+    from .obs import count, report
+    count("quarantine.sets")
+    reason = f"{type(exc).__name__}: {exc}"
+    report().record_fault("poisoned_set", set_index=index,
+                          detail=reason[:300], action="quarantined")
+    print(f"[abpoa-tpu] set {index} ({label}) quarantined: {reason}",
+          file=sys.stderr)

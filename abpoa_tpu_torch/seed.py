@@ -19,6 +19,7 @@ package's order, as they seed and write back the graph's mpl/mpr.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -419,29 +420,34 @@ def _chain_of_local_chains(local_chains, anchors, score, pre_id, par_anchors,
 
 def build_guide_tree_partition(seqs: List[np.ndarray], abpt: Params
                                ) -> Tuple[List[int], List[int], List[int]]:
-    """(abpoa_seed.c:717-756). Returns (read_id_map, par_anchors, par_c)."""
+    """(abpoa_seed.c:717-756). Returns (read_id_map, par_anchors, par_c).
+    Timed as the run report's `seeding` and `guide_tree` phases."""
+    from .obs import phase
     n_seq = len(seqs)
     read_id_map = list(range(n_seq))
-    mm, mm_c = collect_mm(seqs, abpt)
+    with phase("seeding"):
+        mm, mm_c = collect_mm(seqs, abpt)
     if abpt.progressive_poa and n_seq > 2:
-        read_id_map = build_guide_tree(abpt, n_seq, mm)
+        with phase("guide_tree"):
+            read_id_map = build_guide_tree(abpt, n_seq, mm)
     par_anchors: List[int] = []
     par_c = [0] * n_seq
     if abpt.disable_seeding or n_seq < 2:
         return read_id_map, par_anchors, par_c
-    q_cache: dict = {}
-    t_sorted = sorted(mm[mm_c[read_id_map[0]]: mm_c[read_id_map[0] + 1]],
-                      key=lambda t: t[0])
-    for i in range(1, n_seq):
-        tid, qid = read_id_map[i - 1], read_id_map[i]
-        if i > 1:
-            t_sorted = q_cache.get(tid) or sorted(
-                mm[mm_c[tid]: mm_c[tid + 1]], key=lambda t: t[0])
-        anchors = collect_anchors(mm, mm_c, tid, qid, len(seqs[qid]),
-                                  abpt.k, t_sorted, q_cache)
-        dp_chaining(anchors, abpt, len(seqs[tid]), len(seqs[qid]),
-                    par_anchors)
-        par_c[i] = len(par_anchors)
+    with phase("seeding"):
+        q_cache: dict = {}
+        t_sorted = sorted(mm[mm_c[read_id_map[0]]: mm_c[read_id_map[0] + 1]],
+                          key=lambda t: t[0])
+        for i in range(1, n_seq):
+            tid, qid = read_id_map[i - 1], read_id_map[i]
+            if i > 1:
+                t_sorted = q_cache.get(tid) or sorted(
+                    mm[mm_c[tid]: mm_c[tid + 1]], key=lambda t: t[0])
+            anchors = collect_anchors(mm, mm_c, tid, qid, len(seqs[qid]),
+                                      abpt.k, t_sorted, q_cache)
+            dp_chaining(anchors, abpt, len(seqs[tid]), len(seqs[qid]),
+                        par_anchors)
+            par_c[i] = len(par_anchors)
     return read_id_map, par_anchors, par_c
 
 
@@ -476,7 +482,8 @@ def anchor_poa(ab, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
     """Anchored windowed POA (src/abpoa_align.c:209-310): the reads in
     `read_id_map` order, each read's windows aligned in one batch against
     the graph the reads before it built, then the read fused whole."""
-    from .pipeline import _rc_encode
+    from . import obs
+    from .pipeline import _band_cols, _rc_encode
     g = ab.graph
     n_seq = len(seqs)
     k = abpt.k
@@ -488,6 +495,7 @@ def anchor_poa(ab, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
         i = read_id_map[_i]
         read_id = exist_n_seq + i
         qlen = len(seqs[i])
+        t_read = time.perf_counter()
         whole_cigar: List[int] = []
         ai = 0 if _i == 0 else par_c[_i - 1]
         if ai < par_c[_i]:
@@ -516,16 +524,27 @@ def anchor_poa(ab, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
         # against the graph as it stands: one batch
         specs, kmer_runs = window_specs(g, par_anchors, ai, par_c[_i], k,
                                         tpos_to_node_id, qlen)
-        results = dispatch.align_windows(
-            g, abpt, [(b, e, qseq[lo:hi]) for b, e, lo, hi in specs])
+        for _b, _e, lo, hi in specs:
+            # a window's row count is not known on the host: the model is
+            # its query span, as in abpoa_tpu/seed.py:570
+            obs.record_dp((hi - lo) + 2, _band_cols(abpt, hi - lo),
+                          abpt.gap_mode)
+        with obs.phase("align"):
+            results = dispatch.align_windows(
+                g, abpt, [(b, e, qseq[lo:hi]) for b, e, lo, hi in specs])
         for wi, res in enumerate(results):
             whole_cigar.extend(res.cigar)
             if wi < len(kmer_runs):
                 for j, nid in enumerate(kmer_runs[wi]):
                     push_cigar(whole_cigar, C.CMATCH, 1, nid, j)
-        g.add_subgraph_alignment(abpt, C.SRC_NODE_ID, C.SINK_NODE_ID, qseq,
-                                 weight, whole_cigar, True, read_id,
-                                 qpos_to_node_id)
+        with obs.phase("fusion"):
+            g.add_subgraph_alignment(abpt, C.SRC_NODE_ID, C.SINK_NODE_ID,
+                                     qseq, weight, whole_cigar, True,
+                                     read_id, qpos_to_node_id)
+        dt = time.perf_counter() - t_read
+        obs.record_read(dt, qlen, _band_cols(abpt, qlen), abpt.device)
+        obs.trace.add_span(f"read:{read_id}", "read", t_read, dt,
+                           args={"qlen": qlen, "windows": len(specs)})
         tpos_to_node_id, qpos_to_node_id = qpos_to_node_id, tpos_to_node_id
         last_read_id = read_id
 

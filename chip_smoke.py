@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
                           [--c5-reads I] [--c6-reads Q] [--c7-reads S]
-                          [--c9-reads T] [--c11-sets U]
+                          [--c9-reads T] [--c11-sets U] [--c12-reads V]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -108,12 +108,12 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          the downloads, the replay, the MSA ranks and rows, the consensus and
          the writing
   C4     a diploid set: two haplotypes of --ref-len bp, 1 % apart (SNVs and
-         1-3 bp indels, made from --seed), K reads (100) of 10 % error,
+         1-3 bp indels, made from --seed), K reads (60) of 10 % error,
          alternating between them, with -d 2 -r 4: one or two consensus
          sequences whose read lists partition the reads, and a GFA whose P
          lines spell the reads; each consensus's identity to both
-         haplotypes and its reads by haplotype are printed (C4 is 100 reads,
-         not 500, to keep the script within its time)
+         haplotypes and its reads by haplotype are printed (C4 is 60 reads,
+         not 500, to keep the script within its time: 100 until C12)
   C5     incremental at full width: phase C3's MSA without its consensus
          row (the reads' rows) restored and I new reads (100) of the same
          reference, from another seed: (a) -i through the CLI, the fused
@@ -192,6 +192,20 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          -l LIST --mesh N+1` on N cards exits non-zero with the mesh's
          RuntimeError, and --mesh 1 == no --mesh (output, launches,
          syncs); each sharded wall beside the unsharded one
+  C12    run telemetry (phase_c12): (a) the first --c12-reads (50) headline
+         reads through the CLI with -r 2, without and with --report,
+         --trace and --metrics in turns A B B A: output byte-identical,
+         B1/X1/S1/K1 launches and host syncs equal between the arms, the
+         report's schema keys, reads, device (the card) and MFU against
+         the 16.727e12 int32 op/s peak, the trace's phase spans and
+         fused_chunk, the exposition's read count; both arms' walls and
+         their ratio; (b) 5 reads with --profile-dir: the torch.profiler
+         trace lists B1's, X1's and S1's kernels (K1's where a repair ran)
+         by symbol; (c) C9's first 4 sets on the device lockstep and the
+         split driver and map -K 8 onto (a)'s MSA, with and without
+         --report: outputs equal, round samples == the round counters;
+         (d) `warm --ladder quick` in a fresh process: a build hit, one
+         launch of each entry point, one ledger record naming the card
   D      at the graph phase C left and one more read: B1, X1, S1 (on the
          read's fused graph before its sort, as the main path hands it
          over; each timed launch on a fresh copy; rows moved
@@ -3177,6 +3191,254 @@ def phase_c11(args, c9: dict, c10: dict, mesh=None) -> dict:
     return out
 
 
+def phase_c12(args, fa: str) -> dict:
+    """Phase C12: run telemetry on the card (`abpoa_tpu_torch/obs/`).
+    (a) The first --c12-reads (50) headline reads through the CLI with -r 2
+    on the fused route: one untimed turn with the flags, then without and
+    with `--report R --trace T --metrics M` in alternating turns (A B B
+    A), which time the flags alone: the output byte-identical in every
+    turn; B1, X1, S1 and K1 launches and the loop's host syncs equal
+    between the arms; the report's keys == SCHEMA_KEYS, reads.count == the
+    reads, its device the card, its MFU peak 16.727e12 int32 op/s with 0 <
+    MFU <= 1; the trace holds the phase spans and `fused_chunk`; the
+    exposition parses with `top`'s reader and counts the reads. Printed:
+    the arms' walls and their ratio. (b) 5 of those reads with
+    `--profile-dir D`: the exported torch.profiler trace lists the kernel
+    symbols of B1, X1 and S1 (and K1's where a repair ran) as CUDA kernel
+    events. (c) C9's first 4 sets on the device lockstep and on the split
+    driver, and `map -K 8` of the (a) reads onto the MSA (a) wrote, each
+    with and without `--report`: outputs equal, the rounds timeline's
+    samples == the route's round counter. (d) `warm --ladder quick` in a
+    fresh process with the ledger in a scratch directory: rc 0, the
+    library a build hit, one launch of each entry point, one ledger record
+    naming the card, which `perf` renders. Returns the walls."""
+    import shutil
+    import torch
+    from abpoa_tpu_torch import obs
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack
+    from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.obs import metrics as pm
+    from abpoa_tpu_torch.obs import rounds as prounds
+    from abpoa_tpu_torch.obs import top
+    from abpoa_tpu_torch.parallel import lockstep, map_driver
+    card = torch.cuda.get_device_name(0)
+    n = args.c12_reads
+    recs = read_fastx(fa)[:n]
+    fa12 = os.path.join(OUT, "c12_reads.fa")
+    with open(fa12, "w") as fp:
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in recs))
+    d12 = os.path.join(OUT, "c12")
+    shutil.rmtree(d12, ignore_errors=True)
+    os.makedirs(d12)
+
+    # (a) one untimed turn with the flags, then A B B A: the turns compare
+    # the flags alone; the always-on hooks run in both arms (tools/
+    # c12_trees.py holds them against the parent)
+    warm_out = os.path.join(d12, "warm.fa")
+    run_cli([fa12, "-r", "2", "-o", warm_out, "--report",
+             os.path.join(d12, "warm.json"), "--trace",
+             os.path.join(d12, "warm.trace.json"), "--metrics",
+             os.path.join(d12, "warm.prom")])
+    turns = []
+    for i, arm in enumerate("ABBA"):
+        out = os.path.join(d12, f"a{i}.fa")
+        tele = []
+        if arm == "B":
+            pm.reset_registry()
+            tele = ["--report", os.path.join(d12, f"a{i}.json"),
+                    "--trace", os.path.join(d12, f"a{i}.trace.json"),
+                    "--metrics", os.path.join(d12, f"a{i}.prom")]
+        fl.reset_stats()
+        fused_dp.launches = backtrack.launches = 0
+        edge_sort.launches = topo_sort.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli([fa12, "-r", "2", "-o", out] + tele)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        turns.append(dict(arm=arm, wall=wall, out=open(out).read(),
+                          counts=(fused_dp.launches, backtrack.launches,
+                                  edge_sort.launches, topo_sort.launches,
+                                  fl.stats["syncs"]), i=i))
+    if len({t["out"] for t in turns} | {open(warm_out).read()}) != 1:
+        raise AssertionError("C12 (a): telemetry changed the output")
+    if len({t["counts"] for t in turns}) != 1:
+        raise AssertionError("C12 (a): launches or host syncs differ: "
+                             + str([(t["arm"], t["counts"]) for t in turns]))
+    for t in turns[1:3]:
+        with open(os.path.join(d12, f"a{t['i']}.json")) as fp:
+            rep = json.load(fp)
+        if tuple(rep) != obs.SCHEMA_KEYS or rep["reads"]["count"] != n:
+            raise AssertionError(f"C12 (a): report keys {list(rep)}, reads "
+                                 f"{rep['reads']['count']}")
+        dv, mfu = rep["device"], rep["mfu"]
+        if dv != {"backend": "torch", "platform": "gpu", "kind": card}:
+            raise AssertionError(f"C12 (a): report device {dv}")
+        if abs(mfu["peak_ops_per_sec"] - 16.727e12) > 1e9 \
+                or not 0 < mfu["mfu"] <= 1:
+            raise AssertionError(f"C12 (a): mfu block {mfu}")
+        with open(os.path.join(d12, f"a{t['i']}.trace.json")) as fp:
+            names = {e.get("name") for e in json.load(fp)["traceEvents"]}
+        want = set(rep["phases"]) | {"fused_chunk"}
+        if not want <= names:
+            raise AssertionError(f"C12 (a): trace lacks {want - names}")
+        with open(os.path.join(d12, f"a{t['i']}.prom")) as fp:
+            samples, _ = top.M.parse_exposition(fp.read())
+        got = top.M.sample_value(samples, "abpoa_reads_total",
+                                 backend="cuda")
+        if got != n:
+            raise AssertionError(f"C12 (a): abpoa_reads_total {got} != {n}")
+    wa = [t["wall"] for t in turns if t["arm"] == "A"]
+    wb = [t["wall"] for t in turns if t["arm"] == "B"]
+    c = turns[0]["counts"]
+    log(f"[C12] (a) {n} headline reads, -r 2, fused route, A B B A: walls "
+        + ", ".join(f"{t['arm']} {t['wall']:.3f}" for t in turns)
+        + f" s after an untimed turn; the flags on / off (the always-on "
+        f"hooks run in both arms) {sum(wb) / sum(wa):.4f}; output "
+        f"byte-identical; B1 {c[0]}, X1 {c[1]}, S1 {c[2]}, K1 {c[3]}, host "
+        f"syncs {c[4]} in every turn")
+    log(f"[C12] (a) report: {list(rep['phases'])} phases, reads "
+        f"{rep['reads']['count']}, dp.cells {rep['counters']['dp.cells']}, "
+        f"align_fused {rep['phases']['align_fused']['wall_s']:.3f} s, "
+        f"{mfu['cell_updates_per_sec']:.4g} cell updates/s, MFU {mfu['mfu']} "
+        f"of {mfu['peak_ops_per_sec']:.6g} int32 op/s on {card} "
+        f"({smi('name,power.limit')}); compiles {rep['compiles']}")
+    log("[C12] (a) report rendered:\n" + obs.render_report(rep))
+
+    # (b) torch.profiler: the kernels by symbol
+    fa5 = os.path.join(d12, "b5.fa")
+    with open(fa5, "w") as fp:
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in recs[:5]))
+    prof = os.path.join(d12, "prof")
+    fl.reset_stats()
+    t0 = time.perf_counter()
+    run_cli([fa5, "-o", os.path.join(d12, "b5_cons.fa"), "--profile-dir",
+             prof])
+    wall_b = time.perf_counter() - t0
+    files = sorted(os.listdir(prof))
+    kern = {}
+    for f in files:
+        with open(os.path.join(prof, f)) as fp:
+            for e in json.load(fp)["traceEvents"]:
+                if e.get("cat") == "kernel":
+                    kern[e["name"]] = kern.get(e["name"], 0) + 1
+    want = ["fused_dp_kernel", "backtrack_kernel", "finish_fusion_kernel"]
+    if fl.stats["kahn"]:
+        want.append("topo_bfs_kernel")
+    missing = [w for w in want if not any(w in k for k in kern)]
+    if missing:
+        raise AssertionError(f"C12 (b): the profiler trace lacks {missing}; "
+                             f"its kernels: {sorted(kern)[:20]}")
+    ours = {k: v for k, v in kern.items()
+            if any(s in k for s in ("fused_dp_kernel", "backtrack_kernel",
+                                    "finish_fusion_kernel", "topo_bfs_kernel",
+                                    "records_kernel"))}
+    log(f"[C12] (b) --profile-dir, 5 reads: {files} in {wall_b:.2f} s; "
+        f"{len(kern)} kernel symbols, {sum(kern.values())} kernel events; "
+        f"the port's: " + "; ".join(f"{k[:60]} x{v}" for k, v in
+                                    sorted(ours.items())))
+
+    # (c) the rounds timeline on the lockstep routes and map
+    lst = os.path.join(d12, "c9_first4.txt")
+    with open(os.path.join(OUT, "c9_list.txt")) as fp:
+        first4 = fp.read().splitlines()[:4]
+    with open(lst, "w") as fp:
+        fp.write("".join(f + "\n" for f in first4))
+    walls_c = {}
+    for impl in ("device", "split"):
+        outs = []
+        for tele in ([], ["--report", os.path.join(d12, f"c_{impl}.json")]):
+            os.environ["ABPOA_TPU_LOCKSTEP_IMPL"] = impl
+            fl.reset_stats()
+            lockstep.reset_stats()
+            prounds.reset()
+            out = os.path.join(d12, f"c_{impl}{len(tele)}.fa")
+            t0 = time.perf_counter()
+            try:
+                run_cli(["-l", lst, "-r", "2", "--lockstep", "on", "-o",
+                         out] + tele)
+            finally:
+                os.environ.pop("ABPOA_TPU_LOCKSTEP_IMPL", None)
+            walls_c[(impl, bool(tele))] = time.perf_counter() - t0
+            rounds = (fl.stats["rounds"] if impl == "device"
+                      else lockstep.stats["rounds"])
+            samples = len(prounds.snapshot())
+            if samples != rounds or rounds < 1:
+                raise AssertionError(f"C12 (c) {impl}: {samples} round "
+                                     f"samples for {rounds} rounds")
+            outs.append(open(out).read())
+        if outs[0] != outs[1]:
+            raise AssertionError(f"C12 (c) {impl}: --report changed the "
+                                 "output")
+        with open(os.path.join(d12, f"c_{impl}.json")) as fp:
+            rep_c = json.load(fp)
+        log(f"[C12] (c) {impl} lockstep, C9's first 4 sets: == without "
+            f"--report; {rounds} rounds == {samples} round samples; "
+            f"lockstep.chunks {rep_c['counters'].get('lockstep.chunks')}; "
+            f"walls {walls_c[(impl, False)]:.2f} / "
+            f"{walls_c[(impl, True)]:.2f} s")
+    msa = os.path.join(d12, "a3.fa")
+    gafs = []
+    for tele in ([], ["--report", os.path.join(d12, "c_map.json")]):
+        map_driver.reset_stats()
+        prounds.reset()
+        out = os.path.join(d12, f"c_map{len(tele)}.gaf")
+        run_cli(["map", "-g", msa, fa12, "-K", "8", "-o", out] + tele)
+        rounds, samples = map_driver.stats["rounds"], len(prounds.snapshot())
+        if samples != rounds or rounds < 1:
+            raise AssertionError(f"C12 (c) map: {samples} round samples for "
+                                 f"{rounds} rounds")
+        gafs.append(open(out).read())
+    if gafs[0] != gafs[1]:
+        raise AssertionError("C12 (c) map: --report changed the GAF")
+    log(f"[C12] (c) map -K 8 of {n} reads onto (a)'s MSA: == without "
+        f"--report; {rounds} rounds == {samples} round samples")
+
+    # (d) warm in a fresh process
+    ledger_dir = os.path.join(d12, "ledger")
+    env = dict(os.environ, ABPOA_TPU_LEDGER_DIR=ledger_dir)
+    summ = os.path.join(d12, "warm.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "abpoa_tpu_torch", "warm",
+                           "--ladder", "quick", "--report", summ], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall_d = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"C12 (d): warm rc {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(summ) as fp:
+        ws = json.load(fp)
+    if ws["compiled"] != 0 or ws["cache_hits"] != 1 \
+            or set(ws["by_entry"].values()) != {1}:
+        raise AssertionError(f"C12 (d): warm summary {ws}")
+    from abpoa_tpu_torch.obs import ledger, perf
+    recs_l = ledger.read_window(0, os.path.join(ledger_dir,
+                                                ledger.LEDGER_FILE))
+    if len(recs_l) != 1 or card not in recs_l[0]["device"] \
+            or ledger.lint_record(recs_l[0]):
+        raise AssertionError(f"C12 (d): ledger records {recs_l}")
+    buf = io.StringIO()
+    real_stdout, sys.stdout = sys.stdout, buf
+    try:
+        rc = perf.perf_main(["--ledger", os.path.join(ledger_dir,
+                                                      ledger.LEDGER_FILE)])
+    finally:
+        sys.stdout = real_stdout
+    if rc != 0 or "warm" not in buf.getvalue():
+        raise AssertionError(f"C12 (d): perf rc {rc}: {buf.getvalue()}")
+    log(f"[C12] (d) warm --ladder quick: rc 0 in {wall_d:.2f} s (process "
+        f"included; warm's own {ws['wall_s']} s), library a hit, launches "
+        f"{ws['by_entry']}; ledger device {recs_l[0]['device']!r}; perf:\n"
+        + buf.getvalue().rstrip())
+    return dict(walls_a=[(t["arm"], t["wall"]) for t in turns],
+                ratio=sum(wb) / sum(wa), mfu=mfu, walls_c=walls_c)
+
+
 def phase_c7(args, ref: str, reads: list, fused_cons: str):
     """Phase C7: the seeded user at full width. (a) the first --c7-reads of
     phase C's set with -S at abPOA's k, w and n; (b) half of them with
@@ -3310,13 +3572,15 @@ def run(plain) -> int:
     ap.add_argument("--reads", type=int, default=500)
     ap.add_argument("--ref-len", type=int, default=10000)
     ap.add_argument("--c2-reads", type=int, default=50)
-    ap.add_argument("--c4-reads", type=int, default=100)
+    # 100 until phase C12 made the script too long
+    ap.add_argument("--c4-reads", type=int, default=60)
     ap.add_argument("--c5-reads", type=int, default=100)
     ap.add_argument("--c6-reads", type=int, default=50)
     ap.add_argument("--c7-reads", type=int, default=200)
     # 20 until C9's run with collisions forced made the script too long
     ap.add_argument("--c9-reads", type=int, default=10)
     ap.add_argument("--c11-sets", type=int, default=8)
+    ap.add_argument("--c12-reads", type=int, default=50)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -3372,6 +3636,10 @@ def run(plain) -> int:
         f"{rates.clock_hz / 1e6:.0f} MHz max SM clock = "
         f"{rates.int_ops / 1e12:.3f} T int32 op/s; HBM {rates.bytes / 1e12:.2f} TB/s")
     os.makedirs(OUT, exist_ok=True)
+    # the CLI runs' report archive and any ledger stay in the checkout
+    os.environ.setdefault("ABPOA_TPU_ARCHIVE_DIR", os.path.join(OUT, "archive"))
+    os.environ.setdefault("ABPOA_TPU_LEDGER_DIR", os.path.join(OUT, "ledger"))
+    os.environ.setdefault("XDG_CACHE_HOME", os.path.join(OUT, "cache"))
     t_start = time.perf_counter()
 
     def lap(phase):
@@ -4157,6 +4425,8 @@ def run(plain) -> int:
     phase_c11(args, c9, c10)
     torch.cuda.empty_cache()
     lap("C11")
+    phase_c12(args, fa)
+    lap("C12")
     # ---- D: kernels vs plain at the main path's shape. The pool's plain
     # versions start first; the main process checks B2's modes against
     # theirs as each ends (with B2u at 4, 8 and 16 blocks a cluster in the

@@ -24,6 +24,13 @@ from test_torch_banded_shapes import (OUT_NAMES, graph_and_query, inputs,
                                       params, reseeded, tensors)
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def _pallas(args, W):
     (scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain, mpl0, mpr0,
      qp_pad, row0) = args

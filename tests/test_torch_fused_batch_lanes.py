@@ -43,6 +43,13 @@ from test_torch_fused_batch import (assert_same_graph, check_sets, file_set,
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 @pytest.mark.parametrize("kw", [dict(out_msa=True), dict(out_gfa=True)],
                          ids=["r2", "r3"])
 def test_read_ids_match_jax(kw):

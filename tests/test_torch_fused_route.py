@@ -42,6 +42,13 @@ from test_torch_fused_loop import _reads
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def _port_cli(args):
     buf = io.StringIO()
     ns = cli.build_parser().parse_args(args)

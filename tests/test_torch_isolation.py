@@ -2,8 +2,9 @@
 
 (d) importing every `abpoa_tpu_torch` module, the native host graph's
     included, pulls in neither `jax` nor any `abpoa_tpu` module (checked in
-    a fresh interpreter); the kernels' and the native graph's sources ship
-    as package data.
+    a fresh interpreter), nor do the run telemetry (`obs`) and `warm`
+    alone; the kernels' and the native graph's sources ship as package
+    data.
 (e) with no CUDA device, the default `Params()` and the CLI raise instead of
     running on the CPU, and `device="cpu"` runs.
 Every single-set configuration of the JAX package finalizes: `-b < 0`,
@@ -58,6 +59,13 @@ BATCHED = {"abpoa_tpu_torch.align.dp_chunk", "abpoa_tpu_torch.io.gaf",
            "abpoa_tpu_torch.parallel.shard"}
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def test_port_imports_neither_jax_nor_abpoa_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -67,6 +75,27 @@ def test_port_imports_neither_jax_nor_abpoa_tpu():
     names = set(names.split(","))
     assert len(names) >= 36 and FUSED_ROUTE | NATIVE_GRAPH | BATCHED <= names
     assert bad == ""
+
+
+_IMPORT_OBS = """
+import sys
+import abpoa_tpu_torch.obs, abpoa_tpu_torch.kernels.warm
+import abpoa_tpu_torch.obs.perf, abpoa_tpu_torch.obs.slo, abpoa_tpu_torch.obs.top
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "abpoa_tpu" or m.startswith("abpoa_tpu."))
+print(",".join(bad))
+"""
+
+
+def test_telemetry_imports_neither_jax_nor_abpoa_tpu():
+    """The run-telemetry layer and `warm` on their own, in a fresh
+    interpreter: no jax and no abpoa_tpu module comes with them."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_OBS], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == ""
 
 
 def _no_card():

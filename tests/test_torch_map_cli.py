@@ -28,6 +28,13 @@ from test_torch_map import (encode, port_gaf, port_params, revcomp,  # noqa: F40
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def _run(main, argv):
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):

@@ -27,6 +27,13 @@ from abpoa_tpu_torch.io.fastx import read_fastx
 from abpoa_tpu_torch.params import Params
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def _jax_graph(fa, n_graph):
     """abpoa_tpu's graph of the first n_graph reads (numpy oracle) and the
     encoded reads."""

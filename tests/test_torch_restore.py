@@ -35,6 +35,13 @@ from test_torch_pipeline import _jax_cli
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def _restored(fn, read_ids):
     """(port Abpoa, JAX Abpoa, port Params, JAX Params) after restoring fn."""
     from abpoa_tpu.params import Params as JaxParams

@@ -22,6 +22,13 @@ EXTRA = [[], ["-O", "0"], ["-O", "4"], ["-s"], ["-r", "1"], ["-r", "3"],
          ["-d", "2"]]
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def seeded_equals_jax(tmp_path, flags, n_reads=4):
     """The port CLI's output of sim2k's first reads with `flags` equals the
     JAX CLI's; returns (B2 calls, windows, fused-loop reads) of the port's

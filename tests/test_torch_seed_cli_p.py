@@ -22,6 +22,13 @@ from test_torch_seed_cli import EXTRA, seeded_equals_jax
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 @pytest.mark.parametrize("extra", EXTRA, ids=lambda e: " ".join(e) or "plain")
 def test_guide_tree_cli_equals_jax(tmp_path, extra):
     calls, windows, fused = seeded_equals_jax(

@@ -26,6 +26,13 @@ from test_torch_pipeline import _jax_cli
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def _path(fn):
     return os.path.join(DATA_DIR, fn)
 

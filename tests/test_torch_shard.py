@@ -53,6 +53,13 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def mesh(n):
     return (CPU,) * n
 

@@ -31,6 +31,13 @@ CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
+@pytest.fixture(autouse=True)
 def _no_mesh(monkeypatch):
     """Both CLIs write --mesh into ABPOA_TPU_MESH: undone after each test
     (setenv, since delenv records nothing for an unset variable)."""

@@ -43,6 +43,13 @@ WIDTHS = [128, 200, 1000, 1024, 1537, 2048, 4000, 8192, 10112, 16384, 17624,
 GAPS = {"convex": 2, "affine": 1, "linear": 0}
 
 
+@pytest.fixture(autouse=True)
+def _no_run_archive(monkeypatch):
+    """The CLI appends no record to the user's run archive, whatever
+    another test in this process did to the environment."""
+    monkeypatch.setenv("ABPOA_TPU_ARCHIVE", "0")
+
+
 def check_shape(ls: dict, W: int, P: int, gap: int, ps: bool) -> None:
     cs, S, lanes, warps = ls["cs"], ls["slice"], ls["lanes"], ls["warps"]
     assert cs in (1, 2, 4, 8, 16)
