@@ -1,4 +1,6 @@
-"""`python -m abpoa_tpu_torch reads.fa [--device cuda|cpu]`."""
+"""`python -m abpoa_tpu_torch reads.fa [--device cuda|cpu|native]`: a
+RuntimeError (no card, a kernel library that cannot be built or loaded)
+is one error line and exit code 1."""
 import sys
 
 from .cli import main

@@ -61,7 +61,9 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import resilience as rz
 from ..params import Params
+from ..resilience import memory
 from . import fused_loop as fl
 from .backtrack_kernel import backtrack_lanes
 from .buckets import chunk_node_cap, plan_chunk_buckets
@@ -623,22 +625,6 @@ def _lane_reads(run: _BatchRun, ls: _Lanes):
     return run.seqs[si, ri], run.wgts[si, ri], run.qp[si, ri], qlens
 
 
-def _plane_budget(dev: torch.device, need: int,
-                  share: int = 1) -> Optional[int]:
-    """The bytes B1's planes may take in one pass that needs `need`: None
-    (no limit) off the card and where `need` fits in 90 % of the driver's
-    free memory; else 90 % of it once the allocator's cached blocks have
-    gone back to the driver. Those blocks are left out of the count: a
-    small tensor carved from one pins it (seen in local mode at 10 kb on
-    an H100 80GB HBM3, PERF.md §6). The `share` groups of a sharded run
-    placed on `dev` divide its free memory."""
-    if dev.type != "cuda" or \
-            need * share <= 0.9 * torch.cuda.mem_get_info(dev)[0]:
-        return None
-    torch.cuda.empty_cache()
-    return int(0.9 * torch.cuda.mem_get_info(dev)[0]) // share
-
-
 def plane_groups(todo: List[int], lane_bytes: int,
                  budget: Optional[int]) -> List[List[int]]:
     """The lanes `todo` of one B1 + X1 pass, in groups whose planes
@@ -698,10 +684,10 @@ def _align_strand_l(run: _BatchRun, ls: _Lanes, tables, query, qp, qlens,
     L, R = args[1].shape
     todo = list(range(L)) if lanes is None else [int(x) for x in lanes]
     dt = torch.int16 if run.plane16 else torch.int32
-    lane_bytes = 5 * R * W * (2 if run.plane16 else 4)
+    lane_bytes = memory.plane_bytes(R, W, run.plane16)
     groups = plane_groups(todo, lane_bytes,
-                          _plane_budget(dev, len(todo) * lane_bytes,
-                                        run.share))
+                          memory.plane_budget(dev, len(todo) * lane_bytes,
+                                              run.share))
     if len(groups) == 1:
         ops, res, best_j, best_sc, overflow = _dp_walk(
             run, args, query, ls.g.node_n, ql, lanes)
@@ -915,7 +901,7 @@ def _group_loop(abpt: Params, dev: torch.device, share: int, lo: int,
     A generator that yields just before each host sync (`_read_round`);
     it returns ({set: its lane, as a one-lane `_Lanes`}, the final caps).
     `share` is the number of groups on `dev` (they divide its memory,
-    `_plane_budget`)."""
+    `memory.plane_budget`)."""
     N, E, A, W, plane16 = caps
     to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     seqs_d, wgts_d = to(host["seqs"][lo:hi]), to(host["wgts"][lo:hi])
@@ -1026,7 +1012,9 @@ def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
                                 mesh=None) -> list:
     """Run the fused loop over K read sets in lockstep on abpt's torch
     device; see the module docstring. Returns one (host POAGraph, per-read
-    is_rc flags) a set, each equal to `progressive_poa_fused` on that set.
+    is_rc flags) a set, each equal to `progressive_poa_fused` on that set,
+    or None for a set whose downloaded graph fails the output guard (the
+    caller reruns that set alone).
     `init_caps` = (N, E, A, W) overrides the starting capacities (tests use
     tiny ones to drive every growth path). `mesh` (a tuple of devices,
     `parallel/shard.py`; JAX's `mesh=`, fused_loop.py:1986-2036) splits
@@ -1080,7 +1068,19 @@ def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
         lane = done[s]
         fl.record_fused_dp(abpt, n_reads[s], qmax, lane.node_n[0],
                            final_w[s], Qp)
-        pg = fl.download_graph(lane_graph(lane.g, 0), abpt)
+        try:
+            pg = fl.download_graph(lane_graph(lane.g, 0), abpt)
+        except rz.GarbageOutput as e:
+            # one set's garbage output: a fault record and a breaker
+            # failure, and that set alone goes back to the caller's
+            # set-by-set path (fused_loop.py:2135-2160)
+            rz.note_absorbed("garbage_output", abpt.torch_device.type,
+                             "sequential_rerun", str(e),
+                             label="device lockstep", set_index=s)
+            rz.breaker().record_failure(abpt.torch_device.type,
+                                        "garbage_output")
+            out.append(None)
+            continue
         if lane.paths is not None:
             fl.replay_read_ids(pg, lane.paths[0, :n_reads[s]].cpu().numpy(),
                                lane.path_lens[0, :n_reads[s]].cpu().numpy())

@@ -1042,6 +1042,29 @@ def record_fused_dp(abpt: Params, n_reads: int, qmax: int, n_final: int,
     report().record_dp_cells(cells, n_reads - 1, band, abpt.gap_mode)
 
 
+def plan_dispatch_footprint(abpt: Params, seq_sets, n0: int = 0) -> dict:
+    """The shapes a fused or lockstep dispatch over `seq_sets` (lists of
+    encoded reads) starts from, from the planners the drivers call
+    (fused_loop.py:1652), for memory admission (`resilience/memory.py`).
+    `n0` is the node count of a restored graph (`-i`). The edge and
+    aligned-slot capacities are the loop's starting 8; the port pads no
+    set, so K is the number of sets. `W2` is the per-read route's first
+    band (`memory.per_read_bytes`)."""
+    from .tables import initial_band_width
+    qmax = max((len(s) for ss in seq_sets for s in ss), default=1)
+    Qp, W, local = plan_chunk_buckets(abpt, qmax)
+    # B2's first band on the per-read route (B2u's whole row in local mode)
+    W2 = (((qmax + 1 + 127) // 128) * 128 if local
+          else initial_band_width(abpt, qmax))
+    return dict(N=chunk_node_cap(qmax, n0), E=8, A=8, W=W, W2=W2, Qp=Qp,
+                reads=max((len(ss) for ss in seq_sets), default=1),
+                K=len(seq_sets),
+                plane16=max_score_bound(abpt, qmax, 2)
+                <= int16_score_limit(abpt),
+                gap_mode=abpt.gap_mode, m=abpt.m,
+                paths=bool(abpt.use_read_ids))
+
+
 def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
                           abpt: Params, init_caps: Optional[tuple] = None,
                           init_graph: Optional[POAGraph] = None):
@@ -1141,10 +1164,21 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
 
 def download_graph(g: DeviceGraph, abpt: Params) -> POAGraph:
     """fused_loop.py:2292: one device-to-host copy of the graph, rebuilt as
-    a host POAGraph in the reference's BFS order for the output walks."""
+    a host POAGraph in the reference's BFS order for the output walks.
+    Raises GarbageOutput where a base is outside the alphabet."""
     n = int(g.node_n)
-    host = {k: v[:n].cpu().tolist() for k, v in g.tensors().items()
+    host = {k: v[:n].cpu().numpy() for k, v in g.tensors().items()
             if v.dim() > 0}
+    # the output guard on the array already downloaded (no extra sync,
+    # fused_loop.py:2306-2309): a corrupted kernel output fails here, not
+    # as a wrong consensus; the garbage injector corrupts this array
+    from .. import resilience as rz
+    if rz.enabled():
+        if rz.inject.armed("garbage"):
+            host["base"] = host["base"].copy()
+        rz.inject.corrupt_graph_base(host["base"])
+        rz.guards.check_graph_bases(host["base"][2:], abpt.m)  # not src/sink
+    host = {k: v.tolist() for k, v in host.items()}
     pg = POAGraph()
     pg.nodes = []
     for i in range(n):

@@ -47,7 +47,8 @@ from . import __version__
 from . import constants as C
 from .params import Params
 from .pipeline import Abpoa, msa_from_file
-from .quarantine import QUARANTINE_EXCEPTIONS
+from .resilience import CardFailure
+from .resilience.quarantine import QUARANTINE_EXCEPTIONS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,9 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--version", action="version", version=__version__)
     p.add_argument("-V", "--verbose", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the run: cuda (the CUDA "
-                        "kernels, needs an sm_90 card) or cpu (their plain "
-                        "PyTorch versions) [%(default)s]")
+                   help="where the run aligns: cuda (the CUDA kernels, "
+                        "needs an sm_90 card), cpu (their plain PyTorch "
+                        "versions) or native (the C++ host DP) "
+                        "[%(default)s]")
     p.add_argument("--lockstep", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="-l: K read sets in lockstep (the device "
@@ -219,7 +221,8 @@ def args_to_params(args: argparse.Namespace) -> Params:
 
 
 def main(argv=None) -> int:
-    """Run the CLI. Configuration errors and malformed input print one line
+    """Run the CLI. Configuration errors, malformed input and a card that
+    failed past its own recovery (`resilience.CardFailure`) print one line
     and return 1; a missing CUDA device raises RuntimeError."""
     raw = sys.argv[1:] if argv is None else list(argv)
     if raw[:1] == ["map"]:
@@ -298,6 +301,31 @@ def _finish_telemetry(args, rep: dict, to_stdout: bool, meta: dict) -> None:
         obs.trace_disable()
 
 
+def _align_run(args, abpt: Params, out_fp) -> int:
+    """The `-l` list or the one read set; malformed input is quarantined
+    or printed as one error line (rc 1)."""
+    rc = 0
+    if args.in_list:
+        from .parallel.runner import run_batch
+        with open(args.input) as lf:
+            files = [ln.strip() for ln in lf if ln.strip()]
+        stats = run_batch(files, abpt, out_fp)
+        if stats["quarantined"]:
+            print(f"[abpoa_tpu_torch::main] {stats['quarantined']} of "
+                  f"{stats['sets']} read sets quarantined",
+                  file=sys.stderr)
+            if stats["quarantined"] >= stats["sets"]:
+                rc = 1  # nothing succeeded
+    else:
+        try:
+            msa_from_file(Abpoa(), abpt, args.input, out_fp)
+        except QUARANTINE_EXCEPTIONS as e:
+            print(f"Error: {args.input}: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            rc = 1
+    return rc
+
+
 def _main_run(args, abpt: Params) -> int:
     """The alignment run proper, inside the exporters' lifetime."""
     from . import obs
@@ -305,27 +333,13 @@ def _main_run(args, abpt: Params) -> int:
         obs.trace_enable()
     obs.set_profile_dir(args.profile_dir)
     t0 = time.time()
-    rc = 0
     out_fp = open(args.output, "w") if args.output and args.output != "-" else sys.stdout
     try:
-        if args.in_list:
-            from .parallel.runner import run_batch
-            with open(args.input) as lf:
-                files = [ln.strip() for ln in lf if ln.strip()]
-            stats = run_batch(files, abpt, out_fp)
-            if stats["quarantined"]:
-                print(f"[abpoa_tpu_torch::main] {stats['quarantined']} of "
-                      f"{stats['sets']} read sets quarantined",
-                      file=sys.stderr)
-                if stats["quarantined"] >= stats["sets"]:
-                    rc = 1  # nothing succeeded
-        else:
-            try:
-                msa_from_file(Abpoa(), abpt, args.input, out_fp)
-            except QUARANTINE_EXCEPTIONS as e:
-                print(f"Error: {args.input}: {type(e).__name__}: {e}",
-                      file=sys.stderr)
-                rc = 1
+        rc = _align_run(args, abpt, out_fp)
+    except CardFailure as e:
+        # the card failed past its own recovery: an error, never the host
+        print(f"Error: {e}", file=sys.stderr)
+        rc = 1
     finally:
         if out_fp is not sys.stdout:
             out_fp.close()

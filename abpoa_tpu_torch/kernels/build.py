@@ -5,7 +5,10 @@ Every `abpoa_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` for sm_90a
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in `build/abpoa_tpu_torch/` beside the package, named by a
 hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. A failed build raises. Each load is a record of
+unchanged one is reused. A failed build or load raises `KernelBuildError`,
+which the resilience envelope never absorbs (`resilience.classify` returns
+None for it): a run whose kernels cannot be built exits non-zero instead of
+falling back to the host. Each load is a record of
 the run report's build and load log (`obs/compile_log.py`): a miss when
 nvcc built the library, a hit when it was on disk.
 """
@@ -28,6 +31,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """The kernel library (nvcc) or the native host core (g++) could not be
+    built or loaded."""
+
 # seconds the last build in this process took (0.0 when the library was
 # already built on disk)
 last_build_seconds = 0.0
@@ -46,8 +55,8 @@ def find_nvcc() -> str:
         return found
     if os.path.isfile("/usr/local/cuda/bin/nvcc"):
         return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels cannot be built")
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
 
 
 def library_path() -> str:
@@ -61,13 +70,16 @@ def library_path() -> str:
 def _run_all(cmds: list, verbose: bool) -> None:
     """Run the commands in parallel; raise with the output of the first that
     fails."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+    except OSError as e:
+        raise KernelBuildError(f"cannot run {cmds[0][0]}: {e}") from e
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+            raise KernelBuildError(f"nvcc failed ({p.returncode}):\n"
                                f"{' '.join(cmd)}\n{out}")
         if verbose and out:
             print(out, flush=True)
@@ -106,7 +118,11 @@ def load() -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = not os.path.isfile(library_path())
     path = build()
-    lib = ctypes.CDLL(path)
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelBuildError(f"the kernel library {path} cannot be "
+                               f"loaded: {e}") from e
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.abpoa_banded_dp.argtypes = [vp] * 21 + [ci] * 9 + [vp]
     lib.abpoa_banded_dp.restype = ci

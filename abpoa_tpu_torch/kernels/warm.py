@@ -210,32 +210,11 @@ _STEPS = {
 }
 
 
-def warm_ladder(tier: str = "quick", abpt=None, verbose: bool = False) -> dict:
-    """Warm the tier on abpt's card (default: a cuda Params). Returns JAX's
-    summary keys (abpoa_tpu/compile/warm.py:85) with the port's meanings:
-    {tier, signatures (entry points launched), compiled (library builds),
-    cache_hits and persistent_cache_hits (loads of a library already on
-    disk), nvcc_build_s (in place of xla_compile_s), wall_s, cache_dir (the
-    build directory), records (one a step)}, plus `launches` and
-    `by_entry`, the launches by entry point. Raises where the card or a
-    launch fails."""
+def _run_steps(tier: str, abpt, records: list, verbose: bool) -> None:
+    """Each anchor's steps of `tier`, one record a step."""
     import sys
 
     import torch
-
-    from ..obs import compile_log
-    from . import build
-    if abpt is None:
-        from ..params import Params
-        abpt = Params().finalize()
-    if abpt.torch_device.type != "cuda":
-        raise RuntimeError("warm: the kernels launch on a CUDA card only "
-                           f"(device {abpt.torch_device})")
-    t0 = time.perf_counter()
-    n_rec = len(compile_log.run_records())
-    build.load()
-    before = launch_counts()
-    records = []
     for anchor in TIERS[tier]:
         reads = synthetic_reads(anchor.qmax, 4)
         for step in anchor.steps:
@@ -252,6 +231,38 @@ def warm_ladder(tier: str = "quick", abpt=None, verbose: bool = False) -> dict:
             if verbose:
                 print(f"[warm] {anchor.name} {step}: {got} "
                       f"{rec['wall_s']:.3f} s", file=sys.stderr)
+
+
+def warm_ladder(tier: str = "quick", abpt=None, verbose: bool = False) -> dict:
+    """Warm the tier on abpt's card (default: a cuda Params). Returns JAX's
+    summary keys (abpoa_tpu/compile/warm.py:85) with the port's meanings:
+    {tier, signatures (entry points launched), compiled (library builds),
+    cache_hits and persistent_cache_hits (loads of a library already on
+    disk), nvcc_build_s (in place of xla_compile_s), wall_s, cache_dir (the
+    build directory), records (one a step)}, plus `launches` and
+    `by_entry`, the launches by entry point. Raises where the card or a
+    launch fails: the steps run with the resilience envelope off, so that
+    a kernel that fails is an error here, never a retry or a fallback."""
+    from .. import resilience as rz
+    from ..obs import compile_log
+    from . import build
+    if abpt is None:
+        from ..params import Params
+        abpt = Params().finalize()
+    if abpt.torch_device.type != "cuda":
+        raise RuntimeError("warm: the kernels launch on a CUDA card only "
+                           f"(device {abpt.torch_device})")
+    t0 = time.perf_counter()
+    n_rec = len(compile_log.run_records())
+    build.load()
+    before = launch_counts()
+    records = []
+    was = rz.enabled()
+    rz.set_enabled(False)
+    try:
+        _run_steps(tier, abpt, records, verbose)
+    finally:
+        rz.set_enabled(was)
     loads = compile_log.run_records()[n_rec:]
     by_entry = {e: n - before[e] for e, n in launch_counts().items()}
     built = sum(1 for r in loads if not r["cache_hit"])

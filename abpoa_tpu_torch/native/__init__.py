@@ -5,8 +5,8 @@ Counterpart of `abpoa_tpu/native/__init__.py`. The library is compiled by
 by a hash of the source, the flags and the host CPU (a `-march=native`
 build must not be reused on another instruction set), so an edited source
 or another machine rebuilds and an unchanged one is reused. The same build
-serves the CPU and the card machine. A failed build raises; nothing falls
-back to the Python graph.
+serves the CPU and the card machine. A failed build or load raises
+`KernelBuildError`; nothing falls back to the Python graph.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 from typing import Optional
 
-from ..kernels.build import BUILD_DIR
+from ..kernels.build import BUILD_DIR, KernelBuildError
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "host_core.cpp")
 CXX = "g++"
@@ -58,9 +58,10 @@ def build() -> str:
             proc = subprocess.run([CXX, *CXX_FLAGS, SRC, "-o", tmp],
                                   capture_output=True, text=True)
         except OSError as e:
-            raise RuntimeError(f"the native host graph cannot be built: {e}") from e
+            raise KernelBuildError(
+                f"the native host graph cannot be built: {e}") from e
         if proc.returncode != 0:
-            raise RuntimeError(f"{CXX} failed ({proc.returncode}) on {SRC}:\n"
+            raise KernelBuildError(f"{CXX} failed ({proc.returncode}) on {SRC}:\n"
                                f"{proc.stderr[-4000:]}")
         os.replace(tmp, path)
     return path
@@ -71,7 +72,12 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
+    path = build()
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelBuildError(f"the native host graph cannot be loaded: "
+                               f"{e}") from e
     c = ctypes
     vp, ci = c.c_void_p, c.c_int
     i32p, i64p = c.POINTER(c.c_int32), c.POINTER(c.c_int64)
@@ -100,6 +106,7 @@ def load() -> ctypes.CDLL:
                        + [i32p] * 5 + [ci], ci),
         "apg_subgraph_nodes": ([vp, ci, ci, i32p], ci),
         "apg_cons_hb": ([vp, i32p, i32p, i32p, ci], ci),
+        "apg_align": ([vp, ci, ci, u8p, ci, i32p, i32p, u64p, ci, i64p], ci),
     }
     for name, (args, res) in sigs.items():
         fn = getattr(lib, name)

@@ -4,8 +4,8 @@ Counterpart of `abpoa_tpu/obs/metrics.py`, copied with its family names
 (`abpoa_reads_total`, ...), help texts and exposition format, so a
 scraper and `top` read one feed from either package. The default
 textfile path is the port's own, under `~/.cache/abpoa_tpu_torch/`. The
-JAX module's server, pool and breaker families come with the port of
-those modules.
+JAX module's server and pool families come with the port of those
+modules.
 
 Everything the RunReport (report.py) knows dies with the run; this module
 holds process-cumulative counters, gauges and streaming-quantile
@@ -386,8 +386,12 @@ def reset_registry() -> MetricsRegistry:
 _PREFIX_FAMILIES = {
     "dispatch": ("abpoa_dispatches_total",
                  "DP kernel dispatches by backend", "backend"),
+    "fallback": ("abpoa_fallbacks_total",
+                 "Degraded-path falls by reason", "reason"),
     "faults": ("abpoa_faults_total",
                "Absorbed dispatch/input faults by kind", "kind"),
+    "inject": ("abpoa_injected_faults_total",
+               "Fault-injector firings by kind", "kind"),
 }
 
 # scheduler decisions carry TWO labels — the route kind plus the
@@ -406,6 +410,15 @@ _EXACT_FAMILIES = {
                        "cache load)"),
     "quarantine.sets": ("abpoa_quarantined_sets_total",
                         "Read sets quarantined at the -l/batch boundary"),
+    "watchdog.timeouts": ("abpoa_watchdog_fires_total",
+                          "Dispatch watchdog deadline expiries"),
+    "admission.demote": ("abpoa_admission_demotions_total",
+                         "Memory-admission demotions to the host kernel"),
+    "admission.chunk": ("abpoa_admission_chunks_total",
+                        "Memory-admission lockstep group splits"),
+    "breaker.short_circuit": ("abpoa_breaker_short_circuits_total",
+                              "Dispatches short-circuited by an open "
+                              "circuit breaker"),
     "lockstep.groups": ("abpoa_lockstep_groups_total",
                         "Lockstep multi-set device dispatch groups"),
     "lockstep.chunks": ("abpoa_lockstep_chunks_total",
@@ -440,6 +453,23 @@ _EXACT_FAMILIES = {
 }
 
 
+_BREAKER_PREFIXES = {
+    "breaker.failures": ("abpoa_breaker_failures_total",
+                         "Classified dispatch failures by backend"),
+    "breaker.open": ("abpoa_breaker_opens_total",
+                     "Circuit-breaker open events by backend"),
+    "breaker.half_open": ("abpoa_breaker_half_open_probes_total",
+                          "Cooldown-expiry half-open probe dispatches by "
+                          "backend"),
+    "breaker.reclose": ("abpoa_breaker_recloses_total",
+                        "Circuit-breaker reclose events (successful "
+                        "half-open probes) by backend"),
+    "breaker.probe_fail": ("abpoa_breaker_probe_failures_total",
+                           "Half-open probes that failed and reopened "
+                           "the breaker, by backend"),
+}
+
+
 def publish_counter(name: str, n: int) -> None:
     """Mirror one RunReport counter increment into the registry."""
     exact = _EXACT_FAMILIES.get(name)
@@ -455,6 +485,12 @@ def publish_counter(name: str, n: int) -> None:
     fam = _PREFIX_FAMILIES.get(head)
     if fam is not None:
         _REGISTRY.counter(fam[0], fam[1]).inc(n, **{fam[2]: rest})
+        return
+    for pref, (fname, fhelp) in _BREAKER_PREFIXES.items():
+        if name.startswith(pref + "."):
+            _REGISTRY.counter(fname, fhelp).inc(
+                n, backend=name[len(pref) + 1:])
+            return
 
 
 def publish_phase(name: str, wall_s: float) -> None:
@@ -485,6 +521,13 @@ def publish_read(wall_s: float, backend: str,
 
 def publish_run_start() -> None:
     _REGISTRY.counter("abpoa_runs_total", "Runs started").inc(1)
+
+
+def set_breaker_state(backend: str, open_: bool) -> None:
+    _REGISTRY.gauge(
+        "abpoa_breaker_open",
+        "Circuit-breaker state by backend (1 = open/demoted)").set(
+        1 if open_ else 0, backend=backend)
 
 
 _ROUTE_KINDS = ("serial", "pool", "lockstep", "hybrid", "map", "sharded")

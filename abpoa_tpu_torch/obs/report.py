@@ -5,7 +5,8 @@ top-level keys, hooks and renderers. Where the JAX package reads jax, this
 module reads torch: `device` names the card of the run's torch device
 (`note_device`), and the `compiles` block is the kernel library's build
 and load log (compile_log.py), whose nvcc seconds stand where JAX puts
-`xla_compile_s`. `degraded` stays null: the port has no circuit breaker.
+`xla_compile_s`. `degraded` lists the circuit breakers open at the end
+of the run (`resilience/breaker.py`).
 
 The stderr verbosity ladder (utils/logging.py) answers "what happened";
 this module answers "where did the time go" in machine-readable form —
@@ -237,6 +238,21 @@ class RunReport:
             else:
                 self.faults.append(rec)
 
+    def mark_degraded(self, backend: str, to: str, reason: str,
+                      failures: int) -> None:
+        """A circuit-breaker open: `backend` serves as `to` until the
+        breaker recloses (resilience/breaker.py is the single caller)."""
+        with _metrics._MUT:
+            self.degraded[backend] = {"to": to, "reason": reason,
+                                      "failures": failures}
+
+    def mark_reclosed(self, backend: str) -> None:
+        """A half-open probe succeeded: the backend leaves the `degraded`
+        block, which reports the breakers open now (the history is in the
+        breaker.* counters)."""
+        with _metrics._MUT:
+            self.degraded.pop(backend, None)
+
     # ----------------------------------------------------------- rendering
     def _faults_block(self) -> Optional[dict]:
         if not self.faults and not self.faults_dropped:
@@ -411,6 +427,12 @@ def start_run() -> None:
     _metrics.publish_run_start()
     # run-scoped gauges must not outlive their run in the exposition
     _metrics.clear_batch_progress()
+    # the resolved-backend label and the breaker's demotions are run-scoped
+    # too (abpoa_tpu/obs/report.py:450-464)
+    from ..align.dispatch import reset_resolved
+    from ..resilience.breaker import breaker
+    reset_resolved()
+    breaker().reset()
 
 
 def phase(name: str):

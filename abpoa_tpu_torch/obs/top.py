@@ -1,8 +1,8 @@
 """`abpoa-tpu top` — a live terminal dashboard over the metrics exporter.
 
 Counterpart of `abpoa_tpu/obs/top.py`; it reads the same families, less
-the server's, the pool's and the breaker's panels, which come with the
-port of those modules.
+the server's and the pool's panels, which come with the port of those
+modules.
 
 Reads the Prometheus textfile a concurrent run maintains (`--metrics
 FILE`, atomic renames, so a frame is never torn) and renders the
@@ -199,13 +199,31 @@ def render_frame(samples, types, path: str, age_s: float) -> str:
         lines.append(f"compiles {misses:.0f} compiled / {hits:.0f} cache "
                      "hits")
 
+    # resilience block
+    breakers = _labeled(samples, "abpoa_breaker_open", "backend")
+    if breakers:
+        states = "  ".join(
+            f"{b}={'OPEN' if v else 'closed'}"
+            for b, v in sorted(breakers.items()))
+        lines.append(f"breakers {states}")
     faults = _labeled(samples, "abpoa_faults_total", "kind")
     if faults:
         lines.append("faults   " + "  ".join(
             f"{k}={v:.0f}" for k, v in sorted(faults.items())))
-    quarantined = _total(samples, "abpoa_quarantined_sets_total")
-    if quarantined:
-        lines.append(f"events   quarantined sets {quarantined:.0f}")
+    fbs = _labeled(samples, "abpoa_fallbacks_total", "reason")
+    if fbs:
+        lines.append("fallback " + "  ".join(
+            f"{k}={v:.0f}" for k, v in sorted(fbs.items())))
+    extras = []
+    for fam, lbl in (("abpoa_quarantined_sets_total", "quarantined sets"),
+                     ("abpoa_watchdog_fires_total", "watchdog fires"),
+                     ("abpoa_admission_demotions_total",
+                      "admission demotions")):
+        v = _total(samples, fam)
+        if v:
+            extras.append(f"{lbl} {v:.0f}")
+    if extras:
+        lines.append("events   " + "  ".join(extras))
     return "\n".join(lines) + "\n"
 
 

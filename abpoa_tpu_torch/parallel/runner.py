@@ -11,9 +11,13 @@ implementation `scheduler.lockstep_impl` picks (the device lockstep,
 every other set takes its single-set
 route (`pipeline.msa_from_file`). Output comes in file order, and a set
 that fails its input checks or cannot be read is quarantined (one stderr
-line) while the others go on. Left for later items: the memory admission
-and the guarded dispatch with its sequential fallback (item 11; a failed
-launch raises) and the pool and hybrid routes (item 12).
+line) while the others go on. Each group is cut into the pieces memory
+admission allows (`resilience.memory.admission_plan`), each piece runs
+under the resilience envelope, and a piece that fails goes set by set
+(its single-set route, under the envelope again, on the same device), as
+in JAX (`abpoa_tpu/parallel/runner.py:130-170`). A card lost in a piece
+(`resilience.CardFailure`) stops the run. Left for item 12: the pool and
+hybrid routes.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ def _lockstep_ok(abpt: Params) -> bool:
     from ..align.eligibility import fused_config_eligible
     from ..params import plain_route
     from .scheduler import lockstep_impl
-    return (not abpt.incr_fn
+    return (abpt.device != "native" and not abpt.incr_fn
             and (abpt.zdrop <= 0 or lockstep_impl(abpt) == "device")
             and lockstep_enabled(abpt)
             and plain_route(abpt)
@@ -62,16 +66,23 @@ def lockstep_covers(abpt: Params, n_reads: int) -> bool:
     return _lockstep_ok(abpt) and fused_eligible(abpt, n_reads)
 
 
-def flush_lockstep_group(group: List, abpt: Params, mesh=None) -> dict:
+def flush_lockstep_group(group: List, abpt: Params, mesh=None,
+                         label: str = "lockstep_batch") -> dict:
     """Run one lockstep group of (idx, ab, seqs, weights) entries, in
     groups of one `qp_rung` each, on the implementation
     `scheduler.lockstep_impl` picks ("device": the device lockstep,
     `fused_lanes.progressive_poa_fused_batch`; "split": the split driver),
     over `mesh` (a tuple of devices, `shard.discover_mesh`) where given;
-    returns {idx: Abpoa with its set's graph and strand flags}. A failed
-    group raises: neither implementation stands in for the other."""
+    returns {idx: Abpoa with its set's graph and strand flags}. Each
+    sub-batch is cut into the pieces memory admission allows, and each
+    piece runs under `guarded_device_call(label, ...)`. A set missing from
+    the result (its piece failed or was demoted, or its graph failed the
+    output guard) is for the caller to run on its own."""
+    import sys
     import time
+    from contextlib import nullcontext
 
+    from .. import resilience as rz
     from ..align.buckets import partition_by_length_bucket
     from ..align.fused_lanes import progressive_poa_fused_batch
     from ..obs import count, device_capture, observe, phase, record_read
@@ -82,6 +93,9 @@ def flush_lockstep_group(group: List, abpt: Params, mesh=None) -> dict:
     if not group:
         return {}
     impl = lockstep_impl(abpt)
+    drive = (progressive_poa_split_batch if impl == "split"
+             else progressive_poa_fused_batch)
+    backend = abpt.torch_device.type
     count("lockstep.groups")
     observe("lockstep.group_size", len(group))
     results: dict = {}
@@ -90,34 +104,58 @@ def flush_lockstep_group(group: List, abpt: Params, mesh=None) -> dict:
             device_capture("lockstep_group"):
         for sub in partition_by_length_bucket(
                 [(e[0], e[2], e[3], e[1]) for e in group]):
-            t0 = time.perf_counter()
-            if impl == "split":
-                # the split driver times its own align and fusion phases
-                # and records its reads
-                outs = progressive_poa_split_batch(
-                    [e[1] for e in sub], [e[2] for e in sub], abpt,
-                    mesh=mesh)
-            else:
-                with phase("align_fused"):
-                    outs = progressive_poa_fused_batch(
-                        [e[1] for e in sub], [e[2] for e in sub], abpt,
-                        mesh=mesh)
-                # one amortized latency record a read (the sub-batch's
-                # wall over its reads, abpoa_tpu/parallel/runner.py:177)
-                n_sub = sum(len(e[1]) for e in sub)
-                share = (time.perf_counter() - t0) / max(1, n_sub)
-                for e in sub:
-                    for b in e[1]:
-                        record_read(share, len(b), _band_cols(abpt, len(b)),
-                                    abpt.device, amortized=True)
-            results.update(_attach(sub, outs, abpt))
+            # no admission while the breaker is open (the guarded call
+            # short-circuits to the set-by-set path anyway); a lost card
+            # raises before it is asked for its free memory
+            if rz.enabled():
+                rz.check_card(backend)
+            pieces = (rz.memory.admission_plan(abpt, sub, lambda e: e[1])
+                      if rz.enabled() and not rz.breaker().is_open(backend)
+                      else [(list(sub), "dispatch")])
+            for piece, action in pieces:
+                if action == "demote":
+                    # each set's own admission records and prints its fault
+                    count("fallback.admission_sequential", len(piece))
+                    continue
+                t0 = time.perf_counter()
+                try:
+                    # the split driver times its own align and fusion
+                    # phases and records its reads
+                    with (nullcontext() if impl == "split"
+                          else phase("align_fused")):
+                        outs = rz.guarded_device_call(
+                            label, backend,
+                            lambda p=piece: drive([e[1] for e in p],
+                                                  [e[2] for e in p], abpt,
+                                                  mesh=mesh))
+                except rz.DispatchFailed as e:
+                    print(f"Warning: fused lockstep batch failed ({e}); "
+                          "falling back to sequential processing.",
+                          file=sys.stderr)
+                    count("fallback.lockstep_to_sequential")
+                    continue
+                if impl != "split":
+                    # one amortized latency record a read (the piece's
+                    # wall over its reads, abpoa_tpu/parallel/runner.py:177)
+                    n_sub = sum(len(e[1]) for e in piece)
+                    share = (time.perf_counter() - t0) / max(1, n_sub)
+                    for e in piece:
+                        for b in e[1]:
+                            record_read(share, len(b),
+                                        _band_cols(abpt, len(b)),
+                                        abpt.device, amortized=True)
+                results.update(_attach(piece, outs, abpt))
     return results
 
 
 def _attach(sub: List, outs: list, abpt: Params) -> dict:
-    """{idx: its Abpoa with the lockstep's graph and strand flags}."""
+    """{idx: its Abpoa with the lockstep's graph and strand flags}; a set
+    whose result is None is left out."""
     results: dict = {}
-    for (idx, _seqs, _w, ab), (graph, is_rc) in zip(sub, outs):
+    for (idx, _seqs, _w, ab), out in zip(sub, outs):
+        if out is None:
+            continue
+        graph, is_rc = out
         ab.graph = graph
         if abpt.amb_strand:
             ab.is_rc[:len(is_rc)] = is_rc
@@ -138,7 +176,7 @@ def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str],
     {"sets", "quarantined"}."""
     from ..io.fastx import read_fastx
     from ..pipeline import Abpoa, _ingest_records, msa_from_file, output
-    from ..quarantine import (QUARANTINE_EXCEPTIONS, quarantine_set,
+    from ..resilience.quarantine import (QUARANTINE_EXCEPTIONS, quarantine_set,
                               validate_records)
     from . import scheduler
     from ..obs import note_device, trace
@@ -187,7 +225,7 @@ def run_batch(files: Sequence[str], abpt: Params, out_fp: IO[str],
     for i, fn in enumerate(files):
         try:
             records = read_fastx(fn)
-            validate_records(records)
+            validate_records(records, abpt, fn)
             ab = Abpoa()
             seqs, weights = _ingest_records(ab, abpt, records)
         except QUARANTINE_EXCEPTIONS as e:

@@ -135,8 +135,9 @@ class Params:
     # the card), "on" or "off" (parallel.runner.lockstep_enabled)
     lockstep: str = "auto"
 
-    # torch device the DP kernel runs on: "cuda" (the kernel) or "cpu"
-    # (its plain PyTorch version); resolved by finalize()
+    # where the DP runs: "cuda" (the kernels), "cpu" (their plain PyTorch
+    # versions) or "native" (the C++ host DP of native/host_core.cpp, on a
+    # CPU torch device); resolved by finalize()
     device: str = "cuda"
 
     # derived (set by finalize)
@@ -184,7 +185,8 @@ class Params:
             self.mat = parse_mat_file(self.mat_fn, self.m)
             self.max_mat = int(self.mat.max())
             self.min_mis = int((-self.mat).max())
-        self.torch_device = resolve_device(self.device)
+        self.torch_device = resolve_device(
+            "cpu" if self.device == "native" else self.device)
         self._finalized = True
         return self
 

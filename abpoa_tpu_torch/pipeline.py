@@ -33,9 +33,22 @@ routes (`want_native`); the restore of `-i` loads into it. Their backtrack runs 
 the device too (X1w), so only the walks' results come back to the host. The
 fused route keeps a Python graph.
 
-A failure on the card or in the native build raises; nothing falls back to
-another route or graph. The outputs are read out of the host graph at the
-end.
+`--device native` runs the per-read and seeded routes on the C++ host DP
+(`align/native_backend.py`); the fused route is not eligible there, as in
+the JAX package.
+
+Every route runs under the resilience envelope (`resilience/`), which
+absorbs, reports and routes around device faults, under four rules: a
+missing or wrong card raises (no `auto` device); a kernel library that
+cannot be built or loaded raises (`KernelBuildError`, loaded in the
+`backend_init` phase, outside the envelope); every absorbed fault is loud
+(a stderr line, a `faults` record, the `degraded` block while a breaker
+is open, the `fallback.*`/`breaker.*` counters); and `chip_smoke.py`
+fails on any fault it did not inject. The fused route falls back to the
+per-read route on the same device (`_run_fused_device`); on the card,
+what the card's own recovery cannot absorb raises
+`resilience.CardFailure` (rc 1) and never moves to the host.
+The outputs are read out of the host graph at the end.
 
 Run telemetry (`obs/`) is taken at the JAX package's call sites and under
 its names: the phases `backend_init`, `align_fused`, `align`, `fusion`,
@@ -53,7 +66,7 @@ from typing import IO, List, Optional
 import numpy as np
 
 from . import obs
-from .align.dispatch import align_sequence_to_graph
+from .align.dispatch import align_sequence_to_graph, telemetry_backend
 from .align.eligibility import fused_eligible
 from .align.result import AlignResult
 from .cons.consensus import ConsensusResult, generate_consensus
@@ -62,7 +75,8 @@ from .graph import POAGraph
 from .io.fastx import read_fastx
 from .io.output import generate_gfa, output_fx_consensus, output_rc_msa
 from .params import Params, plain_route
-from .quarantine import validate_records
+from .resilience.quarantine import validate_records
+from . import resilience as rz
 
 
 @dataclass
@@ -114,9 +128,10 @@ def _band_cols(abpt: Params, qlen: int) -> int:
 
 
 def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarray],
-        exist_n_seq: int) -> None:
+        exist_n_seq: int, fallback: Optional[str] = None) -> None:
     """Plain progressive POA, input order (src/abpoa_align.c:313-353), with
-    the `-s` reverse-complement retry for weakly aligned reads."""
+    the `-s` reverse-complement retry for weakly aligned reads. `fallback`
+    marks every read's record (the fused route's fallback)."""
     g = ab.graph
     for i, (qseq, weight) in enumerate(zip(seqs, weights)):
         qlen = len(qseq)
@@ -141,7 +156,9 @@ def poa(ab: Abpoa, abpt: Params, seqs: List[np.ndarray], weights: List[np.ndarra
         with obs.phase("fusion"):
             g.add_alignment(abpt, qseq, weight, res.cigar, True, read_id)
         dt = time.perf_counter() - t_read
-        obs.record_read(dt, qlen, _band_cols(abpt, qlen), abpt.device)
+        backend, fb = telemetry_backend(abpt)
+        obs.record_read(dt, qlen, _band_cols(abpt, qlen), backend,
+                        fallback=fallback or fb)
         obs.trace.add_span(f"read:{read_id}", "read", t_read, dt,
                            args={"qlen": qlen})
 
@@ -153,7 +170,11 @@ def want_native(abpt: Params, fused: bool = False) -> bool:
     except with Z-drop and `-G` (whose path scores are read from the
     Python graph's nodes), which keep the Python graph as the JAX package
     keeps it for them. The fused route
-    keeps its Python graph (it comes back from the card as one)."""
+    keeps its Python graph (it comes back from the card as one). With
+    `--device native` every route's graph is native, as in JAX: the C++ DP
+    reads `-G`'s path scores and runs Z-drop itself."""
+    if abpt.device == "native":
+        return True
     return not fused and not abpt.inc_path_score and abpt.zdrop <= 0
 
 
@@ -168,17 +189,58 @@ def _select_graph(ab: Abpoa, native: bool) -> None:
 
 
 def _run_fused_device(ab: Abpoa, abpt: Params, seqs: List[np.ndarray],
-                      weights: List[np.ndarray], exist_n_seq: int = 0) -> None:
-    """The fused route (abpoa_tpu/pipeline.py:116-190 without the probe,
-    breaker, admission and fallback): progressive POA on the device, from
-    the graph `-i` restored when it has nodes, then the graph and the new
-    reads' strand flags come back to `ab`."""
-    from .align.fused_loop import progressive_poa_fused
+                      weights: List[np.ndarray], exist_n_seq: int = 0) -> str:
+    """The fused route (abpoa_tpu/pipeline.py:116-190): progressive POA on
+    the device, from the graph `-i` restored when it has nodes, then the
+    graph and the new reads' strand flags come back to `ab`; returns
+    "fused". Under the envelope it returns "per_read", the per-read route
+    on the same device, where the fused route cannot serve: an open
+    breaker (`cpu`), a dispatch that failed (`DispatchFailed`, with its
+    warning and the `fallback.fused_to_per_read` count), or a set over the
+    admission budget whose per-read planes fit it. On the card a set that
+    fits neither route, and a card lost earlier in the run, raise
+    `resilience.CardFailure` before any allocation; nothing goes to the
+    host."""
+    from .align.dispatch import requested_backend
+    from .align.fused_loop import plan_dispatch_footprint, progressive_poa_fused
+    backend = requested_backend(abpt)
     init_graph = ab.graph if exist_n_seq and ab.graph.node_n > 2 else None
+    if rz.enabled():
+        rz.check_card(backend)
+        if rz.breaker().is_open(backend):
+            # the breaker demoted `cpu` for the run: the per-read route on
+            # the rung it names, without failing the dispatch again
+            obs.count("fallback.fused_breaker_open")
+            return "per_read"
+        # a set whose footprint is over the budget takes the per-read route
+        # before any allocation instead of running out of memory mid-run
+        caps = plan_dispatch_footprint(
+            abpt, [seqs], n0=init_graph.node_n if init_graph is not None else 0)
+        decision, est, budget = rz.memory.admit(caps, abpt.torch_device)
+        if decision != "ok":
+            per_read = rz.memory.per_read_bytes(caps)
+            detail = (f"estimated {est} B fused, {per_read} B per read; "
+                      f"budget {budget} B")
+            if backend == "cuda" and per_read > budget:
+                rz.note_abort("admission", backend, detail)
+                raise rz.CardFailure("admission", "the set does not fit the "
+                                     f"card in either route ({detail})")
+            rz.note_absorbed("admission", backend, "per_read", detail,
+                             label="fused_loop")
+            obs.count("fallback.admission_per_read")
+            return "per_read"
     t0 = time.perf_counter()
-    with obs.phase("align_fused"):
-        pg, _, is_rc = progressive_poa_fused(seqs, weights, abpt,
-                                             init_graph=init_graph)
+    try:
+        with obs.phase("align_fused"):
+            pg, _, is_rc = rz.guarded_device_call(
+                "fused_loop", backend,
+                lambda: progressive_poa_fused(seqs, weights, abpt,
+                                              init_graph=init_graph))
+    except rz.DispatchFailed as e:
+        print(f"Warning: fused device loop failed ({e}); "
+              "falling back to the per-read loop.", file=sys.stderr)
+        obs.count("fallback.fused_to_per_read")
+        return "per_read"
     # one latency record a read: the fused wall split evenly over the reads
     # (marked amortized: a share, not a measurement of its own)
     per_read = (time.perf_counter() - t0) / max(1, len(seqs))
@@ -188,6 +250,19 @@ def _run_fused_device(ab: Abpoa, abpt: Params, seqs: List[np.ndarray],
     ab.graph = pg
     if abpt.amb_strand:
         ab.is_rc[exist_n_seq: exist_n_seq + len(is_rc)] = is_rc
+    return "fused"
+
+
+def _to_per_read_graph(ab: Abpoa, abpt: Params) -> None:
+    """After the fused route fell back: the graph the per-read route takes
+    (`want_native`), with the restored graph of `-i` carried over."""
+    if not want_native(abpt) or getattr(ab.graph, "is_native", False):
+        return
+    from .convert import graph_to_numpy, native_graph_from_numpy
+    if ab.graph.node_n > 2:
+        ab.graph = native_graph_from_numpy(graph_to_numpy(ab.graph))
+    else:
+        _select_graph(ab, True)
 
 
 def _ingest_records(ab: Abpoa, abpt: Params, records):
@@ -274,11 +349,17 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
     the outputs. A malformed set raises PoisonedSetError before any work."""
     if not abpt._finalized:
         raise ValueError("call Params.finalize() first")
-    validate_records(records)
+    validate_records(records, abpt)
     obs.note_device(abpt.torch_device)
     seeded = not plain_route(abpt)
-    fused = not seeded and fused_eligible(abpt, len(records))
+    fused = (not seeded and abpt.device != "native"
+             and fused_eligible(abpt, len(records)))
     with obs.phase("backend_init"):
+        if abpt.torch_device.type == "cuda":
+            # the kernel library is built and loaded here, outside the
+            # envelope: a build or load failure raises (KernelBuildError)
+            from .kernels import build
+            build.load()
         _select_graph(ab, want_native(abpt, fused))
         ab.reset()
     if abpt.incr_fn:
@@ -290,7 +371,9 @@ def msa(ab: Abpoa, abpt: Params, records, out_fp: IO[str]) -> None:
         from .seed import anchor_poa_pipeline
         anchor_poa_pipeline(ab, abpt, seqs, weights, exist_n_seq)
     elif fused:
-        _run_fused_device(ab, abpt, seqs, weights, exist_n_seq)
+        if _run_fused_device(ab, abpt, seqs, weights, exist_n_seq) != "fused":
+            _to_per_read_graph(ab, abpt)
+            poa(ab, abpt, seqs, weights, exist_n_seq, fallback="fused_bypass")
     else:
         poa(ab, abpt, seqs, weights, exist_n_seq)
     output(ab, abpt, out_fp)

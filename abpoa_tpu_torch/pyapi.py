@@ -39,7 +39,7 @@ from .cons.consensus import (ConsensusResult, generate_consensus,
 from .cons.msa import generate_rc_msa
 from .params import Params
 from .pipeline import Abpoa, _band_cols, _select_graph, want_native
-from .quarantine import QUARANTINE_EXCEPTIONS, PoisonedSetError, quarantine_set
+from .resilience.quarantine import QUARANTINE_EXCEPTIONS, PoisonedSetError, quarantine_set
 
 
 class msa_result:
@@ -265,7 +265,7 @@ class msa_aligner:
                 ab.append_read(seq=seq)
             qs = qscores_sets[k] if qscores_sets is not None else None
             group.append((k, ab, *self._encode(seqs, qs)))
-        done = flush_lockstep_group(group, self.abpt)
+        done = flush_lockstep_group(group, self.abpt, label="msa_batch")
         results: List[msa_result] = [None] * len(seq_sets)
         for k, seqs in enumerate(seq_sets):
             if k in done:

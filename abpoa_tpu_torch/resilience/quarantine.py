@@ -1,9 +1,10 @@
 """Per-set input checks: a malformed read set is refused with one line, and
-in a `-l` run it is quarantined while the other sets complete.
+in a `-l` run or `msa_batch` it is quarantined while the other sets
+complete.
 
-Counterpart of `abpoa_tpu/resilience/quarantine.py:19-70` (the checks of
-`validate_records` and `quarantine_set`, with its fault record in the
-run report).
+Counterpart of `abpoa_tpu/resilience/quarantine.py` (the checks of
+`validate_records` with its `poison_set` injection point, and
+`quarantine_set` with its fault record in the run report).
 """
 from __future__ import annotations
 
@@ -27,9 +28,13 @@ def max_reads_per_set() -> int:
     return int(os.environ.get("ABPOA_TPU_MAX_READS", "100000"))
 
 
-def validate_records(records) -> None:
+def validate_records(records, abpt=None, label: str = "") -> None:
     """Raise PoisonedSetError for a set with no records, more reads than
-    the cap, an empty sequence or a FASTQ quality of another length."""
+    the cap, an empty sequence or a FASTQ quality of another length, or
+    where the `poison_set` injector fires. `abpt` and `label` are the JAX
+    signature's; the checks read neither."""
+    from .inject import check_poison_set
+    check_poison_set()
     if not records:
         raise PoisonedSetError("no sequence records parsed "
                                "(empty or malformed file)")
@@ -53,7 +58,7 @@ def quarantine_set(index: int, label: str, exc: Exception) -> None:
     """One quarantined set: the run report's `poisoned_set` fault record
     keyed by set index, the `quarantine.sets` count, and a single line on
     stderr (abpoa_tpu/resilience/quarantine.py:63)."""
-    from .obs import count, report
+    from ..obs import count, report
     count("quarantine.sets")
     reason = f"{type(exc).__name__}: {exc}"
     report().record_fault("poisoned_set", set_index=index,

@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
                           [--c5-reads I] [--c6-reads Q] [--c7-reads S]
                           [--c9-reads T] [--c11-sets U] [--c12-reads V]
+                          [--c13-reads W]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -112,10 +113,11 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          alternating between them, with -d 2 -r 4: one or two consensus
          sequences whose read lists partition the reads, and a GFA whose P
          lines spell the reads; each consensus's identity to both
-         haplotypes and its reads by haplotype are printed (C4 is 60 reads,
-         not 500, to keep the script within its time: 100 until C12)
+         haplotypes and its reads by haplotype are printed (C4 is 40 reads,
+         not 500, to keep the script within its time: 100 until C12, 60
+         until C13)
   C5     incremental at full width: phase C3's MSA without its consensus
-         row (the reads' rows) restored and I new reads (100) of the same
+         row (the reads' rows) restored and I new reads (40; 100 before C13) of the same
          reference, from another seed: (a) -i through the CLI, the fused
          loop from the restored state (the restored graph's node count ==
          the uploaded node_n, consensus identity >= 99 %, the kernel counts
@@ -126,7 +128,7 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          new row without gaps is its read, each restored row without gaps
          is its restored row; the walls split into the restore's parse,
          the state upload, the loop and the download, and per read as C2
-  C6     qv-weighted diploid: phase C4's two haplotypes, Q reads (50, half
+  C6     qv-weighted diploid: phase C4's two haplotypes, Q reads (30, 50 before C13; half
          of each, cut as this route runs per read) written as
          FASTQ whose erroneous bases carry lower phred values, -d 2 -Q -r 4
          (the per-read route): the read lists partition the reads, every P
@@ -152,7 +154,7 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          -1) launch B2u and no B2, the others B2 and no B2u
   C9     `-l` at full width (phase_c9): 8 sets of 10 kb reads at 10 %
          error of 8 references (seeds 11-18), set i of T + 5 i reads
-         (T = 10), through the CLI with -r 2 and --lockstep off (set by
+         (T = 6; 10 before C13), through the CLI with -r 2 and --lockstep off (set by
          set, the fused route), on with the split driver (K = 8: one
          K-lane B2 launch and one X1w launch a round, host fusion) and on
          with the device lockstep (every graph on the card; B1, X1, S1
@@ -179,7 +181,7 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   C11    the sharded route (phase_c11) over every card, or with one card
          over (cuda:0, cuda:0) passed as the drivers' `mesh=` (the split's
          overhead, not scaling): (a) C9's list (its first U sets,
-         --c11-sets, default all 8) through runner.run_batch with -r 2,
+         --c11-sets, default 4; 8 before C13) through runner.run_batch with -r 2,
          the device lockstep (one group of sets a slot) and the split
          driver (each round's lanes split), each == C9's --lockstep off
          output; B1 and X1 lane launches == the groups' rounds, at most
@@ -192,7 +194,7 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          -l LIST --mesh N+1` on N cards exits non-zero with the mesh's
          RuntimeError, and --mesh 1 == no --mesh (output, launches,
          syncs); each sharded wall beside the unsharded one
-  C12    run telemetry (phase_c12): (a) the first --c12-reads (50) headline
+  C12    run telemetry (phase_c12): (a) the first --c12-reads (10; 50 before C13) headline
          reads through the CLI with -r 2, without and with --report,
          --trace and --metrics in turns A B B A: output byte-identical,
          B1/X1/S1/K1 launches and host syncs equal between the arms, the
@@ -206,6 +208,29 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          --report: outputs equal, round samples == the round counters;
          (d) `warm --ladder quick` in a fresh process: a build hit, one
          launch of each entry point, one ledger record naming the card
+  C13    the resilience envelope on the card (in this process,
+         `inject.configure` between cases): (a) phase_c13_envelope, before
+         the plain pool starts: the first --c13-reads (20) headline reads
+         on the fused route with the envelope on and off, A B B A after
+         an untimed turn: output, B1/X1/S1/K1 launches and host syncs
+         equal, the on / off wall ratio; phase_c13: (b) oom:1,
+         compile_fail:1, hang:1 (a 10 s watchdog, C13_WATCHDOG_S),
+         garbage:1 and an unlimited oom on the fused route (C's first 5
+         reads), the per-read route (-G -r 2 on the first 3) and the
+         device lockstep (C9's first 2 sets): the exit code and the
+         faults' kinds and actions (`c13_expected`: the recovery stays on
+         the card, and a hang, a garbage result on the per-read route or
+         an unlimited oom ends the run with rc 1), one stderr line an
+         absorbed fault, a completed run's output == the uninjected run's,
+         an ended run's empty with no launch after its fault, no breaker
+         open and no host dispatch; poison_set:1 on the list quarantines
+         its first set only; (c) most of the free memory held: with
+         ABPOA_TPU_MEM_BUDGET_MB=0 B1's planes, then B2's on the per-read
+         route, raise torch.cuda.OutOfMemoryError, classified oom, rc 1;
+         with the default budget admission stops the set before any
+         allocation; (d) a child on a copy of the package whose kernel
+         library cannot be loaded exits non-zero with no output and no
+         demotion
   D      at the graph phase C left and one more read: B1, X1, S1 (on the
          read's fused graph before its sort, as the main path hands it
          over; each timed launch on a fresh copy; rows moved
@@ -247,10 +272,19 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          on the card. Those of phase D's B1, B2, B2u and batched-B2 rows
          and of C9's round-2 launch and its device run's B1 lane launch
          (a job a lane) run side by side in seven worker
-         processes on the host (PlainPool) from the start of D; the mode
+         processes on the host (PlainPool), the largest inputs first, from
+         just after C12 (a) and C13 (a) (which runs there, in C12's lap),
+         beside C12 (b)-(d) and C13 (b)-(d); the mode
          cases' workers hand back digests of the planes (plane_digest), not
          the planes (2-4 GB a whole-row case), and the main process checks
          each as its worker ends
+Every phase but C13 injects nothing, and fails at its end if the
+resilience envelope absorbed anything in it (`Absorbed`: a `faults`
+record, a breaker open, a `fallback.*` or `breaker.*` count), or if a
+child process printed one of the envelope's stderr lines: a kernel that
+starts to fail on the card fails the smoke instead of being absorbed.
+C2 also runs its reads with --device native (the C++ host DP, the `cpu`
+ladder's host rung): the same consensus, its DP ms a read beside B2's.
 Quick form (~5 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
 --c5-reads 6 --c6-reads 10 --c7-reads 12 --c9-reads 3.
 The line before the last is the kernel table as JSON; the last line is
@@ -630,6 +664,19 @@ def _plain_digest_worker(arrays, kw):
             [o.numpy() for o in out[5:]], rows)
 
 
+def _array_bytes(obj) -> int:
+    """The bytes of the numpy arrays in `obj` (nested lists, tuples and
+    dicts): PlainPool's stand-in for a job's length."""
+    import numpy as np
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_array_bytes(o) for o in obj)
+    return 0
+
+
 class PlainPool:
     """Plain versions of the kernels on CPU copies of their inputs, in
     worker processes (spawn). `add` queues one and returns a function that
@@ -651,7 +698,8 @@ class PlainPool:
         import torch
         arrays = [a.cpu().numpy() if isinstance(a, torch.Tensor)
                   else np.ascontiguousarray(a) for a in args]
-        job = {"call": (_plain_worker, fn, arrays, kw)}
+        job = {"call": (_plain_worker, fn, arrays, kw),
+               "cost": _array_bytes(arrays)}
         self.queued.append(job)
 
         def wait():
@@ -679,7 +727,7 @@ class PlainPool:
     def add_call(self, worker, *call_args):
         """Queue worker(*call_args) (a module-level function; numpy in and
         out); wait() gives its result, after submitting every queued job."""
-        job = {"call": (worker, *call_args)}
+        job = {"call": (worker, *call_args), "cost": _array_bytes(call_args)}
         self.queued.append(job)
 
         def wait():
@@ -694,9 +742,12 @@ class PlainPool:
         wait(self.futures)
 
     def start(self) -> None:
-        """Submit every queued plain version; do not wait."""
+        """Submit every queued plain version, the largest inputs first (a
+        plain version's row loop grows with its rows and lanes, and the
+        longest jobs started first end the pool soonest); do not wait."""
         if not self.queued:
             return
+        self.queued.sort(key=lambda job: -job["cost"])
         if self.pool is None:
             import multiprocessing as mp
             from concurrent.futures import ProcessPoolExecutor
@@ -3166,6 +3217,7 @@ def phase_c11(args, c9: dict, c10: dict, mesh=None) -> dict:
                            "--mesh", str(cards + 1)], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     msg = f"mesh of {cards + 1} devices requested but {cards} CUDA device(s)"
+    no_envelope("C11 (d)", proc.stderr)
     if proc.returncode == 0 or msg not in proc.stderr or proc.stdout:
         raise AssertionError(f"C11 (d): --mesh {cards + 1} on {cards} card(s):"
                              f" rc {proc.returncode}, stderr "
@@ -3191,9 +3243,9 @@ def phase_c11(args, c9: dict, c10: dict, mesh=None) -> dict:
     return out
 
 
-def phase_c12(args, fa: str) -> dict:
+def phase_c12(args, fa: str, after_a=None) -> dict:
     """Phase C12: run telemetry on the card (`abpoa_tpu_torch/obs/`).
-    (a) The first --c12-reads (50) headline reads through the CLI with -r 2
+    (a) The first --c12-reads (10) headline reads through the CLI with -r 2
     on the fused route: one untimed turn with the flags, then without and
     with `--report R --trace T --metrics M` in alternating turns (A B B
     A), which time the flags alone: the output byte-identical in every
@@ -3308,6 +3360,10 @@ def phase_c12(args, fa: str) -> dict:
         f"of {mfu['peak_ops_per_sec']:.6g} int32 op/s on {card} "
         f"({smi('name,power.limit')}); compiles {rep['compiles']}")
     log("[C12] (a) report rendered:\n" + obs.render_report(rep))
+    if after_a is not None:
+        # what must still run on a quiet host (C13 (a)) and the plain
+        # pool's start, before (b)-(d), which time no ratio
+        after_a()
 
     # (b) torch.profiler: the kernels by symbol
     fa5 = os.path.join(d12, "b5.fa")
@@ -3408,6 +3464,7 @@ def phase_c12(args, fa: str) -> dict:
                           env=env, capture_output=True, text=True,
                           timeout=600)
     wall_d = time.perf_counter() - t0
+    no_envelope("C12 (d)", proc.stderr)
     if proc.returncode != 0:
         raise AssertionError(f"C12 (d): warm rc {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
@@ -3437,6 +3494,449 @@ def phase_c12(args, fa: str) -> dict:
         + buf.getvalue().rstrip())
     return dict(walls_a=[(t["arm"], t["wall"]) for t in turns],
                 ratio=sum(wb) / sum(wa), mfu=mfu, walls_c=walls_c)
+
+
+# the envelope's stderr lines (abpoa_tpu_torch/resilience, pipeline,
+# parallel/runner): a phase that injects nothing must print none of them
+ENVELOPE_MARKS = ("fused device loop failed", "fused lockstep batch failed",
+                  "circuit breaker", "watchdog threads", "quarantined",
+                  " absorbed (")
+
+
+def envelope_lines(stderr: str) -> list:
+    return [ln for ln in stderr.splitlines()
+            if any(m in ln for m in ENVELOPE_MARKS)]
+
+
+class Absorbed:
+    """Every fault the resilience envelope absorbs in this process: each
+    `faults` record, each breaker open (`degraded`) and each `fallback.*`
+    or `breaker.*` count, whatever run report it lands in (the CLI starts
+    a new report a run). `check` fails a phase that injected nothing and
+    saw one, so that a kernel failing on the card fails the smoke instead
+    of being absorbed. `on_abort` is called at a fault that ends the run
+    (C13 reads the launch counters there)."""
+
+    def __init__(self):
+        self.events = []
+        self.on_abort = None
+
+    def install(self) -> None:
+        from abpoa_tpu_torch.obs.report import RunReport
+        rf, md, ct = (RunReport.record_fault, RunReport.mark_degraded,
+                      RunReport.count)
+        mon = self
+
+        def record_fault(rep, kind, *a, **k):
+            mon.events.append(("fault", kind, k.get("action", "")))
+            if mon.on_abort is not None and k.get("action") == "abort":
+                mon.on_abort()
+            return rf(rep, kind, *a, **k)
+
+        def mark_degraded(rep, backend, to, reason, failures):
+            mon.events.append(("degraded", backend, to, reason))
+            return md(rep, backend, to, reason, failures)
+
+        def count(rep, name, n=1):
+            if name.startswith(("fallback.", "breaker.")):
+                mon.events.append(("count", name, n))
+            return ct(rep, name, n)
+        RunReport.record_fault = record_fault
+        RunReport.mark_degraded = mark_degraded
+        RunReport.count = count
+
+    def check(self, phase: str) -> None:
+        if self.events:
+            raise AssertionError(f"{phase}: the resilience envelope absorbed "
+                                 f"what nothing injected: {self.events[:8]}")
+
+
+def no_envelope(tag: str, stderr: str) -> None:
+    bad = envelope_lines(stderr)
+    if bad:
+        raise AssertionError(f"{tag}: the child's stderr has the envelope's "
+                             f"lines {bad[:4]}")
+
+
+def launch_total() -> int:
+    """Every kernel wrapper's launch count, summed."""
+    from abpoa_tpu_torch.align.backtrack_kernel import (
+        backtrack, backtrack_lanes, backtrack_windows)
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp, unbanded_dp
+    from abpoa_tpu_torch.align.edge_sort_kernel import (edge_sort,
+                                                        finish_fusion_lanes_)
+    from abpoa_tpu_torch.align.fuse_kernel import fuse_alignment_lanes
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp, fused_dp_lanes
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_lanes
+    return (fused_dp.launches + fused_dp.local_launches
+            + fused_dp_lanes.launches + fused_dp_lanes.local_launches
+            + sum(f.launches for f in (
+                backtrack, backtrack_lanes, backtrack_windows, banded_dp,
+                unbanded_dp, edge_sort, finish_fusion_lanes_,
+                fuse_alignment_lanes, topo_sort, topo_sort_lanes)))
+
+
+# C13 (b): the injected kinds, and the action of a garbage result on each
+# route (JAX: pipeline.py:178 fused, dispatch.py:224 per read,
+# fused_loop.py:2148 the device lockstep's per-set rerun)
+C13_KINDS = ("oom:1", "compile_fail:1", "hang:1", "garbage:1", "oom")
+# the hang cases' deadline: 5 times the longest honest dispatch they
+# supervise (the device lockstep's 2 sets, ~2 s on the card; D's plain
+# versions share the host's cores meanwhile), so that only the injected
+# hang trips it
+C13_WATCHDOG_S = 10.0
+C13_GARBAGE = {"fused": "fallback", "per_read": "host_rerun",
+               "lockstep": "sequential_rerun"}
+# the fallbacks an unlimited oom passes on the card before the per-read
+# route, the card's last rung: the fused loop; the lockstep piece and then
+# each set's fused loop
+C13_OOM_STEPS = {"fused": 1, "per_read": 0, "lockstep": 2}
+
+
+def c13_expected(route: str, spec: str, card: bool) -> tuple:
+    """(the faults' (kind, action) list, the CLI's exit code) of one
+    injected case, by the envelope's rules. oom:1 and compile_fail:1 are
+    retried once. On the card nothing goes to the host: a hang ends the
+    run at once (the card may be wedged), a garbage result on the per-read
+    route (the card's last rung) ends it, and an unlimited oom passes the
+    card's fallbacks, then fails the per-read route's retry and ends the
+    run; a run that ends exits 1. On the CPU (`card=False`) the ladder
+    runs down to the host: a hang falls back, and an unlimited oom fails
+    the retry and the fallback's first dispatch, the breaker's third
+    failure."""
+    kind = spec.split(":")[0]
+    if spec in ("oom:1", "compile_fail:1"):
+        return [(kind, "retry")], 0
+    if kind == "garbage":
+        if card and route == "per_read":
+            return [("garbage_output", "abort")], 1
+        return [("garbage_output", C13_GARBAGE[route])], 0
+    if kind == "hang":
+        return ([("hang", "abort")], 1) if card else ([("hang", "fallback")], 0)
+    if card:
+        return ([("oom", "retry"), ("oom", "fallback")] * C13_OOM_STEPS[route]
+                + [("oom", "retry"), ("oom", "abort")]), 1
+    return [("oom", "retry"), ("oom", "fallback"), ("oom", "fallback")], 0
+
+
+def hold_memory(keep: int) -> list:
+    """Tensors that hold the card's memory but `keep` bytes: the driver's
+    free memory in one tensor, then the caching allocator's free space
+    inside its segments (a long process keeps some, and a tensor carved
+    from it needs no driver memory) in blocks of 64 MiB down to 1 MiB, the
+    large pool's smallest. A block that had to come from the driver is
+    given back."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = [torch.empty(torch.cuda.mem_get_info()[0] - keep,
+                        dtype=torch.uint8, device="cuda")]
+    for size in (1 << 26, 1 << 24, 1 << 22, 1 << 20):
+        while (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+               >= size):
+            reserved = torch.cuda.memory_reserved()
+            try:  # the free space may be in pieces smaller than `size`
+                t = torch.empty(size, dtype=torch.uint8, device="cuda")
+            except torch.cuda.OutOfMemoryError:
+                break
+            if torch.cuda.memory_reserved() > reserved:
+                del t
+                torch.cuda.empty_cache()
+                break
+            held.append(t)
+    return held
+
+
+def c13_files(args, fa: str, c9: dict) -> dict:
+    """C13's inputs under OUT/c13: (a)'s first --c13-reads headline reads,
+    C's first 5 and first 3, and a list of C9's first 2 sets."""
+    import shutil
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    d13 = os.path.join(OUT, "c13")
+    shutil.rmtree(d13, ignore_errors=True)
+    os.makedirs(d13)
+    recs = read_fastx(fa)
+
+    def write(name, rs):
+        path = os.path.join(d13, name)
+        with open(path, "w") as fp:
+            fp.write("".join(f">{r.name}\n{r.seq}\n" for r in rs))
+        return path
+    lst = os.path.join(d13, "list.txt")
+    with open(lst, "w") as fp:
+        fp.write("".join(f + "\n" for f in c9["files"][:2]))
+    return dict(dir=d13, a=write("a.fa", recs[:args.c13_reads]),
+                b5=write("b.fa", recs[:5]), b3=write("b3.fa", recs[:3]),
+                list=lst)
+
+
+def phase_c13_envelope(args, files: dict, absorbed: Absorbed,
+                       card: bool = True) -> float:
+    """Phase C13 (a), before the plain pool loads the host: --c13-reads
+    (20) headline reads on the fused route with the envelope on (A) and
+    off (B, `set_enabled(False)`, what ABPOA_TPU_RESILIENCE=0 sets), A B B
+    A after an untimed turn: output bytes, B1/X1/S1/K1 launches and host
+    syncs equal in every turn. Returns the on / off wall ratio (printed
+    against its prediction, not gated)."""
+    import torch
+    from abpoa_tpu_torch import resilience as rz
+    from abpoa_tpu_torch.align import fused_loop as fl
+    from abpoa_tpu_torch.align.backtrack_kernel import backtrack
+    from abpoa_tpu_torch.align.edge_sort_kernel import edge_sort
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    turns = []
+    for i, arm in enumerate("AABBA"):
+        rz.set_enabled(arm == "A")
+        path = os.path.join(files["dir"], f"a{i}.fa")
+        fl.reset_stats()
+        fused_dp.launches = backtrack.launches = 0
+        edge_sort.launches = topo_sort.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        try:
+            run_cli([files["a"], "-o", path])
+            sync()
+        finally:
+            rz.set_enabled(True)
+        turns.append(dict(arm=arm, wall=time.perf_counter() - t0,
+                          out=open(path).read(),
+                          counts=(fused_dp.launches, backtrack.launches,
+                                  edge_sort.launches, topo_sort.launches,
+                                  fl.stats["syncs"])))
+    absorbed.check("C13 (a)")
+    if len({t["out"] for t in turns}) != 1 \
+            or len({t["counts"] for t in turns}) != 1:
+        raise AssertionError("C13 (a): the envelope changed the output, the "
+                             "launches or the syncs: "
+                             + str([(t["arm"], t["counts"]) for t in turns]))
+    turns = turns[1:]  # the first is the untimed turn
+    wa = [t["wall"] for t in turns if t["arm"] == "A"]
+    wb = [t["wall"] for t in turns if t["arm"] == "B"]
+    ratio = sum(wa) / sum(wb)
+    log(f"[C13] (a) {args.c13_reads} headline reads, fused route, envelope "
+        "on (A) / off (B), A B B A after an untimed turn, before the plain "
+        "pool starts: walls "
+        + ", ".join(f"{t['arm']} {t['wall']:.3f}" for t in turns)
+        + f" s; on / off {ratio:.4f} (predicted 0.97-1.03); output, "
+        f"launches (B1, X1, S1, K1) and host syncs {turns[0]['counts']} "
+        "equal in every turn")
+    return ratio
+
+
+def phase_c13(args, files: dict, absorbed: Absorbed,
+              card: bool = True) -> dict:
+    """Phase C13 (b)-(d): the resilience envelope on the card
+    (`abpoa_tpu_torch/resilience/`), in this process, through the CLI,
+    `inject.configure(spec)` between cases, each case's stderr captured.
+    (b) each of oom:1, compile_fail:1, hang:1 (ABPOA_TPU_WATCHDOG_S
+    C13_WATCHDOG_S, the hang 2 s longer), garbage:1 and an unlimited oom on
+    three routes: the fused route on C's first 5 reads, the per-read route
+    (`-G -r 2`) on the first 3, and the device lockstep on C9's first 2
+    sets (`-l -r 2`): the exit code and the faults' kinds and actions as
+    `c13_expected`; a run that completes writes the uninjected run's
+    bytes, a run that ends (rc 1: the card's recovery is used up, or the
+    card may be wedged) writes nothing and launches no kernel after the
+    fault that ended it; one stderr line an absorbed fault; no breaker
+    opens (the card is never demoted), and no dispatch goes to the host
+    (no `dispatch.native` or `dispatch.plain`); then poison_set:1 on the
+    list: its first set quarantined, the second's output unchanged. (c)
+    most of the free memory held (16 MiB left): with
+    ABPOA_TPU_MEM_BUDGET_MB=0 B1's planes raise torch.cuda.OutOfMemoryError,
+    classified oom, retried, and the per-read route on the card raises it
+    again (B2's int32 planes on their wider band need more than B1's):
+    rc 1, nothing written, nothing on the host; with the default budget
+    admission prices both routes over the budget and stops the run before
+    any allocation (rc 1, no OOM, no launch). (d) a child process on a
+    copy of the package whose kernel library cannot be loaded exits
+    non-zero, writes no output and records no demotion. Returns the walls.
+    `card=False` (a rehearsal on the CPU, `params.resolve_device` pointed
+    at it) runs (b) only, where the breaker's name is `cpu` and the
+    ladder goes down to the host."""
+    import contextlib
+    import shutil
+    import torch
+    from abpoa_tpu_torch import cli
+    from abpoa_tpu_torch import resilience as rz
+    from abpoa_tpu_torch.kernels import build
+    d13 = files["dir"]
+    out = {}
+
+    # (b) one case a kind on each route
+    def case(tag, argv, spec, env=None):
+        path = os.path.join(d13, f"{tag}_{spec.replace(':', '_') or 'none'}")
+        at_abort = []
+        absorbed.events.clear()
+        absorbed.on_abort = lambda: at_abort.append(launch_total())
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        rz.inject.configure(spec)
+        before = launch_total()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(argv + ["-o", path + ".txt", "--report",
+                                      path + ".json"])
+        finally:
+            rz.inject.reset()
+            absorbed.on_abort = None
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        wall = time.perf_counter() - t0
+        with open(path + ".json") as fp:
+            rep = json.load(fp)
+        absorbed.events.clear()
+        recs = (rep["faults"] or {}).get("records", [])
+        lines = err.getvalue().splitlines()
+        return dict(rc=rc, out=open(path + ".txt").read(), wall=wall,
+                    faults=[(f["kind"], f.get("action")) for f in recs],
+                    degraded=rep["degraded"], launches=launch_total() - before,
+                    after_abort=launch_total() - at_abort[0] if at_abort
+                    else None, detail=[f.get("detail", "") for f in recs],
+                    absorbed_lines=sum(" absorbed (" in ln for ln in lines),
+                    errors=[ln for ln in lines if ln.startswith("Error: ")],
+                    host=sum(v for k, v in rep["counters"].items()
+                             if k in ("dispatch.native", "dispatch.plain")
+                             or k.startswith("dispatch.rerun.")))
+
+    def held(tag, spec, got, want_faults, want_rc, base_out):
+        """The checks every injected case (and (c)) passes."""
+        bad = []
+        if got["rc"] != want_rc:
+            bad.append(f"rc {got['rc']}, expected {want_rc}")
+        if got["faults"] != want_faults:
+            bad.append(f"faults {got['faults']}, expected {want_faults}")
+        n_abs = sum(1 for _, a in got["faults"] if a != "abort")
+        if got["absorbed_lines"] != n_abs:
+            bad.append(f"{got['absorbed_lines']} 'absorbed' stderr lines for "
+                       f"{n_abs} absorbed faults")
+        if want_rc == 0 and got["out"] != base_out:
+            bad.append("output differs from the uninjected run's")
+        if want_rc != 0 and (got["out"] or not got["errors"]
+                             or got["after_abort"] != 0):
+            bad.append(f"a run that ended wrote {len(got['out'])} bytes, "
+                       f"errors {got['errors'][:1]}, "
+                       f"{got['after_abort']} launches after the fault")
+        if card and (got["degraded"] or got["host"]):
+            bad.append(f"degraded {got['degraded']}, {got['host']} host "
+                       "dispatches")
+        if bad:
+            raise AssertionError(f"C13 {tag} {spec}: " + "; ".join(bad))
+
+    hang_env = {"ABPOA_TPU_WATCHDOG_S": str(C13_WATCHDOG_S),
+                "ABPOA_TPU_INJECT_HANG_S": str(C13_WATCHDOG_S + 2)}
+    routes = {"fused": [files["b5"]],
+              "per_read": [files["b3"], "-G", "-r", "2"],
+              "lockstep": ["-l", files["list"], "-r", "2", "--lockstep", "on"]}
+    walls = {}
+    base = {}
+    for route, argv in routes.items():
+        got = case(route, argv, "")
+        if got["rc"] or got["faults"] or got["degraded"] or \
+                (card and not got["launches"]):
+            raise AssertionError(f"C13 (b) {route}: the uninjected run rc "
+                                 f"{got['rc']} {got['faults']} "
+                                 f"{got['degraded']}, {got['launches']} "
+                                 "launches")
+        base[route] = got["out"]
+        walls[route] = {"": got["wall"]}
+        for spec in C13_KINDS:
+            got = case(route, argv, spec,
+                       hang_env if spec.startswith("hang") else None)
+            held(f"(b) {route}", spec, got,
+                 *c13_expected(route, spec, card), base[route])
+            walls[route][spec] = (got["wall"], got["rc"])
+        log(f"[C13] (b) {route} ({' '.join(os.path.basename(a) for a in argv)}"
+            "): each kind's exit code, faults and stderr lines as expected; "
+            "the completed runs' output == the uninjected run's, the ended "
+            "runs wrote nothing and launched nothing after their fault; "
+            + ("no breaker opened and nothing ran on the host; " if card
+               else "")
+            + "walls (s, rc) "
+            + ", ".join(f"{k or 'none'} {v if k == '' else v[0]:.2f}"
+                        + ("" if k == "" else f" rc {v[1]}")
+                        for k, v in walls[route].items()))
+    poison = case("lockstep", routes["lockstep"], "poison_set:1")
+    if poison["faults"] != [("poisoned_set", "quarantined")] \
+            or not poison["out"] or not base["lockstep"].endswith(
+                poison["out"]) \
+            or len(poison["out"]) >= len(base["lockstep"]):
+        raise AssertionError(f"C13 (b) poison_set:1: faults "
+                             f"{poison['faults']}, output of "
+                             f"{len(poison['out'])} of "
+                             f"{len(base['lockstep'])} bytes")
+    log("[C13] (b) poison_set:1 on the list: set 0 quarantined, set 1's "
+        "output unchanged")
+    out["walls_b"] = walls
+    if not card:
+        return out
+
+    # (c) a real out-of-memory on the card
+    keep = 16 << 20
+    hog = hold_memory(keep)
+    free, n_held = sum(t.numel() for t in hog), len(hog)
+    try:
+        real = case("oom_real", routes["fused"], "",
+                    {"ABPOA_TPU_MEM_BUDGET_MB": "0"})
+        adm = case("admission", routes["fused"], "")
+    finally:
+        del hog
+        torch.cuda.empty_cache()
+    held("(c) budget 0", "", real, [("oom", "retry"), ("oom", "fallback"),
+                                    ("oom", "retry"), ("oom", "abort")],
+         1, None)
+    if not all("CUDA out of memory" in d for d in real["detail"]):
+        raise AssertionError(f"C13 (c) budget 0: {real['detail'][:2]}")
+    held("(c) default budget", "", adm, [("admission", "abort")], 1, None)
+    if adm["launches"]:
+        raise AssertionError(f"C13 (c) default budget: {adm['launches']} "
+                             "launches before the admission's stop")
+    log(f"[C13] (c) {free / 2**30:.2f} GiB held in {n_held} tensors, "
+        f"{keep >> 20} MiB left: budget 0: B1's planes raised "
+        f"torch.cuda.OutOfMemoryError ({real['detail'][0][:60]!r}), retried, "
+        f"then B2's on the per-read route: faults {real['faults']}, rc "
+        f"{real['rc']}, nothing written, nothing on the host "
+        f"({real['wall']:.2f} s; {real['errors'][0][:120]!r}); default "
+        f"budget: admission priced both routes over the budget and stopped "
+        f"the run before any allocation (faults {adm['faults']}, rc "
+        f"{adm['rc']}, no launch, no OOM; {adm['errors'][0][:160]!r}, "
+        f"{adm['wall']:.2f} s)")
+
+    # (d) a kernel library that cannot be loaded
+    broken = os.path.join(d13, "broken")
+    shutil.copytree(os.path.join(ROOT, "abpoa_tpu_torch"),
+                    os.path.join(broken, "abpoa_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    lib = os.path.join(broken, "build", "abpoa_tpu_torch",
+                       os.path.basename(build.library_path()))
+    os.makedirs(os.path.dirname(lib))
+    with open(lib, "wb") as fp:
+        fp.write(b"not a shared library")
+    rep_d = os.path.join(d13, "broken.json")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ABPOA_TPU_INJECT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "abpoa_tpu_torch",
+                           files["b5"], "--report", rep_d], cwd=broken,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall_d = time.perf_counter() - t0
+    no_envelope("C13 (d)", proc.stderr)
+    if proc.returncode == 0 or proc.stdout \
+            or "cannot be loaded" not in proc.stderr \
+            or os.path.exists(rep_d):
+        raise AssertionError(f"C13 (d): rc {proc.returncode}, stdout "
+                             f"{len(proc.stdout)} bytes, stderr "
+                             f"{proc.stderr[-600:]!r}")
+    log(f"[C13] (d) kernel library not loadable: rc {proc.returncode}, no "
+        f"output, no report, no envelope line ({wall_d:.1f} s): "
+        + proc.stderr.strip().splitlines()[-1][:160])
+    return out
 
 
 def phase_c7(args, ref: str, reads: list, fused_cons: str):
@@ -3572,15 +4072,17 @@ def run(plain) -> int:
     ap.add_argument("--reads", type=int, default=500)
     ap.add_argument("--ref-len", type=int, default=10000)
     ap.add_argument("--c2-reads", type=int, default=50)
-    # 100 until phase C12 made the script too long
-    ap.add_argument("--c4-reads", type=int, default=60)
-    ap.add_argument("--c5-reads", type=int, default=100)
-    ap.add_argument("--c6-reads", type=int, default=50)
+    # 100 until phase C12 and 60 until phase C13 made the script too long
+    ap.add_argument("--c4-reads", type=int, default=40)
+    # C5 100, C6 50, C9 10 (20 until C9's run with collisions forced), C11
+    # 8 sets and C12 50 reads until phase C13 made the script too long
+    ap.add_argument("--c5-reads", type=int, default=40)
+    ap.add_argument("--c6-reads", type=int, default=30)
     ap.add_argument("--c7-reads", type=int, default=200)
-    # 20 until C9's run with collisions forced made the script too long
-    ap.add_argument("--c9-reads", type=int, default=10)
-    ap.add_argument("--c11-sets", type=int, default=8)
-    ap.add_argument("--c12-reads", type=int, default=50)
+    ap.add_argument("--c9-reads", type=int, default=6)
+    ap.add_argument("--c11-sets", type=int, default=4)
+    ap.add_argument("--c12-reads", type=int, default=10)
+    ap.add_argument("--c13-reads", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -3627,6 +4129,10 @@ def run(plain) -> int:
                                           _select_graph, output, poa,
                                           want_native)
 
+    # every phase but C13 injects nothing: a fault the envelope absorbs
+    # there fails the phase at its lap
+    absorbed = Absorbed()
+    absorbed.install()
     card = smi("name,power.limit") or "nvidia-smi failed"
     log(f"card: {card}")
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -3643,6 +4149,7 @@ def run(plain) -> int:
     t_start = time.perf_counter()
 
     def lap(phase):
+        absorbed.check(phase)
         log(f"[wall] {phase} ended at {time.perf_counter() - t_start:.1f} s")
 
     # ---- build: the kernels (one nvcc a source) and the native host graph
@@ -4229,6 +4736,32 @@ def run(plain) -> int:
     if outs[0] != outs[1]:
         raise AssertionError("per-read and fused routes give different consensus")
     log(f"[C2] per-read (B2 launches {b2_launches}) == fused consensus, byte for byte")
+    # the native rung (--device native, the cpu ladder's host rung) on the
+    # same reads: the C++ DP a read on this machine's host CPU against B2
+    from abpoa_tpu_torch.align import native_backend
+    nat = Params(device="native").finalize()
+    ab = Abpoa()
+    seqs, weights = _ingest_records(ab, nat, recs)
+    _select_graph(ab, want_native(nat))
+    acc_n = {}
+    undo = timed(native_backend, "align_native", acc_n, "dp")
+    t0 = time.perf_counter()
+    try:
+        poa(ab, nat, seqs, weights, 0)
+    finally:
+        undo()
+    nat_wall = time.perf_counter() - t0
+    buf = io.StringIO()
+    output(ab, nat, buf)
+    if buf.getvalue() != outs[0]:
+        raise AssertionError("C2: --device native's consensus differs from "
+                             "the per-read route's on the card")
+    log(f"[C2] --device native (the C++ DP and backtrack on the host CPU, "
+        f"{os.cpu_count()} cores) == per-read consensus, byte for byte; a "
+        f"read: DP {acc_n.get('dp', 0.0) * 1e3 / n_pr:.1f} ms against B2 "
+        f"{pr_stats['kernel_s'] * 1e3 / n_pr:.1f} + X1w "
+        f"{pr_stats['backtrack_s'] * 1e3 / n_pr:.1f} ms (CUDA events); wall "
+        f"{nat_wall * 1e3 / n_pr:.1f} against {pr_wall * 1e3 / n_pr:.1f} ms")
     f1c2 = forced_collisions(abpt, recs, outs[1])
     log(f"[C2] fused route with a collision forced on every read ({m} reads): "
         f"== the unforced run, byte for byte; wall {f1c2['wall']:.2f} s; F1 "
@@ -4369,7 +4902,7 @@ def run(plain) -> int:
     # phase D's inputs of B1 (the headline's final graph and a held-out
     # read), B2 (C5's per-read graph) and batched B2 (C7 (a)'s last
     # launch): their plain versions and C9's run side by side in worker
-    # processes at the start of D
+    # processes from just after C12 (a) and C13 (a)
     qd = encode(cpu, held_out)
     W, plane16 = caps_c["W"], caps_c["plane16"]
     ad, inf = fused_case(abpt, st_c, qd, W, plane16, False)
@@ -4425,13 +4958,24 @@ def run(plain) -> int:
     phase_c11(args, c9, c10)
     torch.cuda.empty_cache()
     lap("C11")
-    phase_c12(args, fa)
+    # phase D's plain versions (queued by now) start in the pool after the
+    # last timed ratios, C12 (a) and C13 (a) (which runs in C12's lap), and
+    # run beside C12 (b)-(d) and C13 (b)-(d), which time nothing but their
+    # cases' walls, rather than at D's start
+    files13 = c13_files(args, fa, c9)
+
+    def quiet_then_pool():
+        phase_c13_envelope(args, files13, absorbed)
+        plain.start()
+    phase_c12(args, fa, after_a=quiet_then_pool)
     lap("C12")
+    phase_c13(args, files13, absorbed)
+    torch.cuda.empty_cache()
+    lap("C13")
     # ---- D: kernels vs plain at the main path's shape. The pool's plain
-    # versions start first; the main process checks B2's modes against
-    # theirs as each ends (with B2u at 4, 8 and 16 blocks a cluster in the
-    # whole-row cases, and X1w's walk from each)
-    plain.start()
+    # versions started after C12 (a); the main process checks B2's modes
+    # against theirs as each ends (with B2u at 4, 8 and 16 blocks a cluster
+    # in the whole-row cases, and X1w's walk from each)
     b2u_row = None
     for case, pooled, inputs in zip(cases_d, plain_d, inputs_d):
         whole = whole_row(case)

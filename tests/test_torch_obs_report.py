@@ -181,7 +181,7 @@ def test_quarantine_fault_record_equals_jax(exc, capsys):
     from abpoa_tpu.resilience.quarantine import quarantine_set as jq
     jr = jrep
 
-    from abpoa_tpu_torch.quarantine import quarantine_set as pq
+    from abpoa_tpu_torch.resilience.quarantine import quarantine_set as pq
     jr.start_run()
     prep.start_run()
     jq(4, "bad.fa", exc)
