@@ -41,6 +41,7 @@ import torch
 
 from .. import constants as C
 from ..kernels import build
+from ..obs.tally import count_launch
 
 _NAMES = ("H", "E1", "E2", "F1", "F2", "beg", "end", "pre_idx", "pre_cnt",
           "base", "query", "mat", "sc")
@@ -92,7 +93,7 @@ def backtrack(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base, query,
         raise ValueError(f"backtrack: unsupported device {dev}")
     ops, res = _launch((*args[:12], sc.reshape(1, 8)), 1, R, W, P, None, R,
                        **kw)
-    backtrack.launches += 1
+    count_launch(backtrack)
     return ops[0], res[0]
 
 
@@ -167,7 +168,7 @@ def backtrack_lanes(H, E1, E2, F1, F2, beg, end, pre_idx, pre_cnt, base,
     if not todo:
         raise ValueError("backtrack_lanes: no lane to launch")
     out = _launch(args, L, R, W, P, lanes, beg.stride(0), **kw)
-    backtrack_lanes.launches += 1
+    count_launch(backtrack_lanes)
     return out
 
 
@@ -438,7 +439,7 @@ def backtrack_windows(planes, begend, mplr, ext, pre_idx, pre_cnt, base,
             plan.shape[0], R, W, P, mat.shape[1], int(gap_mode), flags,
             ctypes.c_void_p(stream))
     build.check(err, "backtrack_windows launch")
-    backtrack_windows.launches += 1
+    count_launch(backtrack_windows)
     return packed
 
 

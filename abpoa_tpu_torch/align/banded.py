@@ -43,6 +43,7 @@ copy's wait (`_timed` with `events`).
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -51,6 +52,7 @@ import torch
 
 from .. import constants as C
 from ..graph import POAGraph
+from ..obs.tally import Tally
 from ..params import Params
 from .backtrack_kernel import HEADER, backtrack_windows
 from .banded_kernel import banded_dp, check_ok
@@ -65,33 +67,51 @@ retries = 0
 def _zero_stats() -> dict:
     return {"reads": 0, "windows": 0, "launches": 0, "rows": 0,
             "tables_s": 0.0, "kernel_s": 0.0, "backtrack_s": 0.0,
-            "d2h_s": 0.0, "d2h_bytes": 0, "planes_bytes": 0, "cigar_s": 0.0}
+            "d2h_s": 0.0, "d2h_bytes": 0, "planes_bytes": 0, "cigar_s": 0.0,
+            "staging_bytes": 0}
 
 
 # over the life of the process: calls (reads), windows, B2 launches, DP rows
 # launched, and seconds in the tables (build, pack, upload), in B2 and in
 # X1w (CUDA events, cuda only), in copying X1w's results to the host (and
 # their bytes, beside the bytes of the walked launches' planes, which stay
-# on the device) and in the band write-back and cigar rebuild
-stats = _zero_stats()
+# on the device) and in the band write-back and cigar rebuild; the
+# largest staging buffer's bytes
+stats = Tally(_zero_stats)
 
 
 def reset_stats() -> None:
-    stats.update(_zero_stats())
+    stats.reset()
 
 
-# page-locked host buffer X1w's results are copied into, grown as graphs
-# grow and reused by every read; the arrays handed back are views of it,
-# valid until the next read's copy (a sharded round's slots each copy into
-# their own part of it)
-_pinned = [torch.empty(0, dtype=torch.int32)]
+# page-locked host buffers X1w's results are copied into: a call of
+# `align_windows_banded` takes one for its copy and gives it back after
+# the cigar rebuild, so two server requests aligning at once never share
+# one, and a buffer is reused by the calls after it, whatever their
+# thread (a server runs each guarded dispatch on a thread of its own).
+# The free list holds at most as many buffers as calls ever ran at once;
+# one too small is dropped and a larger one made.
+_free_staging: list = []
+_staging_lock = threading.Lock()
 
 
-def _staging(n: int) -> torch.Tensor:
-    if _pinned[0].numel() < n:
-        _pinned[0] = torch.empty(0, dtype=torch.int32)
-        _pinned[0] = torch.empty(n + n // 4, dtype=torch.int32, pin_memory=True)
-    return _pinned[0][:n]
+def _take_staging(n: int) -> torch.Tensor:
+    with _staging_lock:
+        sizes = [b.numel() for b in _free_staging]
+        fits = [k for k, m in enumerate(sizes) if m >= n]
+        if fits:
+            return _free_staging.pop(min(fits, key=sizes.__getitem__))
+        if _free_staging:
+            _free_staging.pop(sizes.index(max(sizes)))
+    buf = torch.empty(n + n // 4, dtype=torch.int32, pin_memory=True)
+    stats.high("staging_bytes", 4 * buf.numel())
+    return buf
+
+
+def _give_staging(buf: Optional[torch.Tensor]) -> None:
+    if buf is not None:
+        with _staging_lock:
+            _free_staging.append(buf)
 
 
 def next_band_width(W: int, qlen: int) -> int:
@@ -172,7 +192,7 @@ def _timed(dev: torch.device, key: str, fn, events: Optional[list] = None):
 def _read_events(events: list) -> None:
     for key, ev0, ev1 in events:
         ev1.synchronize()
-        stats[key] += ev0.elapsed_time(ev1) / 1e3
+        stats.add(key, ev0.elapsed_time(ev1) / 1e3)
     events.clear()
 
 
@@ -205,7 +225,7 @@ def run_windows(abpt: Params, tabs: list, queries: list, W: int,
     else:
         args = _args(_upload(pack_queries(abpt, tabs, queries, W), dev,
                              staged), graph_half)
-    stats["tables_s"] += time.perf_counter() - t0
+    stats.add("tables_s", time.perf_counter() - t0)
     return args, _timed(dev, "kernel_s",
                         lambda: banded_dp(*args, gap_mode=abpt.gap_mode,
                                           unbanded=abpt.wb < 0), events)
@@ -258,28 +278,30 @@ def walk_windows(abpt: Params, args: list, out, tabs: list, queries: list,
     the launch's device: the packed output there and its layout."""
     inputs, kw, layout = walk_inputs(abpt, args, out, tabs, queries, slots,
                                      staged)
-    stats["planes_bytes"] += out[0].numel() * 5 * 4
+    stats.add("planes_bytes", out[0].numel() * 5 * 4)
     return _timed(args[0].device, "backtrack_s",
                   lambda: backtrack_windows(*inputs, **kw), events), layout
 
 
-def _to_host(bufs: list) -> list:
+def _to_host(bufs: list) -> tuple:
     """The launches' packed X1w outputs as numpy, one copy each into its
-    own part of the page-locked buffer, sized for the whole round (every
-    slot's launches of a sharded round), before one wait a device."""
+    own part of a page-locked buffer, sized for the whole round (every
+    slot's launches of a sharded round), before one wait a device: (the
+    arrays, the buffer they are views of, which the caller gives back
+    with `_give_staging` once it has read them; None on the CPU)."""
     if not bufs[0].is_cuda:
-        return [b.numpy() for b in bufs]
-    host = _staging(sum(b.numel() for b in bufs))
+        return [b.numpy() for b in bufs], None
+    buf = _take_staging(sum(b.numel() for b in bufs))
     views, at = [], 0
     for b in bufs:
-        dst = host[at: at + b.numel()]
+        dst = buf[at: at + b.numel()]
         dst.copy_(b, non_blocking=True)
         views.append(dst)
         at += b.numel()
     for dev in dict.fromkeys(b.device for b in bufs):
         torch.cuda.current_stream(dev).synchronize()
-    stats["d2h_bytes"] += 4 * at
-    return [v.numpy() for v in views]
+    stats.add("d2h_bytes", 4 * at)
+    return [v.numpy() for v in views], buf
 
 
 class _Slot:
@@ -322,7 +344,7 @@ def align_windows_banded(g, abpt: Params, windows,
     else:
         tabs = [static.tables] * len(windows)
     queries = [q for _, _, q in windows]
-    stats["tables_s"] += time.perf_counter() - t0
+    stats.add("tables_s", time.perf_counter() - t0)
 
     W = band_width or max(initial_band_width(abpt, len(q)) for q in queries)
     slots_ = [_Slot(dev, ids, W) for dev, ids in
@@ -370,35 +392,37 @@ def align_windows_banded(g, abpt: Params, windows,
                     retries += 1
                     launch(sl)
             slots_ = [sl for sl in slots_ if sl.todo]
-    stats["reads"] += 1
-    stats["windows"] += len(windows)
-    stats["launches"] += n_launch
-    stats["rows"] += sum(t.gn for t in tabs)
+    stats.add("reads", 1)
+    stats.add("windows", len(windows))
+    stats.add("launches", n_launch)
+    stats.add("rows", sum(t.gn for t in tabs))
 
     t0 = time.perf_counter()
-    host = _to_host([packed for _, packed, _ in walks])
-    stats["d2h_s"] += time.perf_counter() - t0
-    _read_events(events)
-
-    # every window's result is read out of the staging buffer here, before
-    # the next call's copy reuses it
-    t0 = time.perf_counter()
-    where = {i: (buf, *at) for (ids, _, layout), buf in zip(walks, host)
-             for i, at in zip(ids, layout)}
-    results = []
-    i2n = {}
-    write_back = abpt.wb >= 0 and static is None
-    for i, (gi, t, query) in enumerate(zip(graphs, tabs, queries)):
-        buf, h_at, b_at, o_at, max_ops = where[i]  # window order
-        if write_back:
-            gi.write_band(t.beg_index, t.gn, buf[b_at: b_at + t.gn],
-                          buf[b_at + t.gn: b_at + 2 * t.gn])
-        if id(gi) not in i2n:
-            i2n[id(gi)] = gi.index_to_node_id
-        results.append(_result(abpt, buf[h_at: h_at + HEADER],
-                               buf[o_at: o_at + 2 * max_ops], t.beg_index,
-                               len(query), i2n[id(gi)]))
-    stats["cigar_s"] += time.perf_counter() - t0
+    host, staging = _to_host([packed for _, packed, _ in walks])
+    stats.add("d2h_s", time.perf_counter() - t0)
+    try:
+        _read_events(events)
+        # every window's result is read out of the staging buffer here,
+        # before it goes back to the free list
+        t0 = time.perf_counter()
+        where = {i: (buf, *at) for (ids, _, layout), buf in zip(walks, host)
+                 for i, at in zip(ids, layout)}
+        results = []
+        i2n = {}
+        write_back = abpt.wb >= 0 and static is None
+        for i, (gi, t, query) in enumerate(zip(graphs, tabs, queries)):
+            buf, h_at, b_at, o_at, max_ops = where[i]  # window order
+            if write_back:
+                gi.write_band(t.beg_index, t.gn, buf[b_at: b_at + t.gn],
+                              buf[b_at + t.gn: b_at + 2 * t.gn])
+            if id(gi) not in i2n:
+                i2n[id(gi)] = gi.index_to_node_id
+            results.append(_result(abpt, buf[h_at: h_at + HEADER],
+                                   buf[o_at: o_at + 2 * max_ops],
+                                   t.beg_index, len(query), i2n[id(gi)]))
+    finally:
+        _give_staging(staging)
+    stats.add("cigar_s", time.perf_counter() - t0)
     return results
 
 

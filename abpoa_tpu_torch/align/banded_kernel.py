@@ -78,6 +78,7 @@ import torch
 
 from .. import constants as C
 from ..kernels import build
+from ..obs.tally import count_launch
 from .fused_dp_kernel import launch_shape, unbanded_launch_shape
 
 _NAMES = ("scalars", "base", "pre_idx", "pre_cnt", "out_idx", "out_cnt",
@@ -216,7 +217,7 @@ def banded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
             ls["block_warps"], ls["depth"], ls["smem"],
             ctypes.c_void_p(stream))
     build.check(err, "banded_dp launch")
-    banded_dp.launches += 1
+    count_launch(banded_dp)
     return outs
 
 
@@ -288,7 +289,7 @@ def unbanded_dp(scalars, base, pre_idx, pre_cnt, out_idx, out_cnt, remain,
             ls["warps"], ls["lanes"], ls["depth"], ls["smem"],
             ctypes.c_void_p(stream))
     build.check(err, "unbanded_dp launch")
-    unbanded_dp.launches += 1
+    count_launch(unbanded_dp)
     return outs
 
 

@@ -26,6 +26,7 @@ instead of moving the window to the host.
 from __future__ import annotations
 
 import copy
+import threading
 
 import numpy as np
 import torch
@@ -36,15 +37,23 @@ from ..params import Params
 from .banded import align_windows_banded
 from .result import AlignResult
 
-# the backend the last resolution or host rerun selected, and why it
-# differs from the requested one ("breaker_open", "host_rerun"); the
-# per-read records are labelled with it. Reset by obs.start_run.
-_LAST_RESOLVED = {"name": "", "reason": None}
+
+class _Resolved(threading.local):
+    """The backend this thread's last resolution or host rerun selected,
+    and why it differs from the requested one ("breaker_open",
+    "host_rerun"); the per-read records are labelled with it. One a thread:
+    a server's requests resolve on their own threads. Reset by
+    obs.start_run."""
+    name = ""
+    reason = None
+
+
+_LAST_RESOLVED = _Resolved()
 
 
 def reset_resolved() -> None:
-    _LAST_RESOLVED["name"] = ""
-    _LAST_RESOLVED["reason"] = None
+    _LAST_RESOLVED.name = ""
+    _LAST_RESOLVED.reason = None
 
 
 def requested_backend(abpt: Params) -> str:
@@ -56,10 +65,10 @@ def telemetry_backend(abpt: Params) -> tuple:
     """(backend, fallback reason) of a per-read record: the Params' device
     and None where the requested backend ran, else the backend that ran
     and why."""
-    got = _LAST_RESOLVED["name"]
+    got = _LAST_RESOLVED.name
     if not got or got == requested_backend(abpt):
         return abpt.device, None
-    return got, _LAST_RESOLVED["reason"] or "rerouted"
+    return got, _LAST_RESOLVED.reason or "rerouted"
 
 
 def _resolve(abpt: Params) -> str:
@@ -73,8 +82,8 @@ def _resolve(abpt: Params) -> str:
     if eff != name:
         count(f"breaker.demoted.{name}")
         name, reason = eff, "breaker_open"
-    _LAST_RESOLVED["name"] = name
-    _LAST_RESOLVED["reason"] = reason
+    _LAST_RESOLVED.name = name
+    _LAST_RESOLVED.reason = reason
     return name
 
 
@@ -103,7 +112,7 @@ def _host_rerun(g, abpt: Params, beg_node_id: int, end_node_id: int,
                                and not getattr(g, "is_native", False)):
             continue
         count(f"dispatch.rerun.{cand}")
-        _LAST_RESOLVED["name"], _LAST_RESOLVED["reason"] = cand, "host_rerun"
+        _LAST_RESOLVED.name, _LAST_RESOLVED.reason = cand, "host_rerun"
         if cand == "native":
             return align_native(g, abpt, beg_node_id, end_node_id, query)
         return _plain(g, abpt, [(beg_node_id, end_node_id, query)])[0]

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..obs.tally import Tally
 from ..params import Params
 from .banded import align_windows_banded, pack_graph
 from .result import AlignResult
@@ -40,11 +41,12 @@ from .tables import build_row_tables
 
 # over the life of the process: the graph sorts before a chunk (their
 # seconds), static tables built and graph halves uploaded
-stats = {"sort_s": 0.0, "static_builds": 0, "static_uploads": 0}
+stats = Tally(lambda: {"sort_s": 0.0, "static_builds": 0,
+                        "static_uploads": 0})
 
 
 def reset_stats() -> None:
-    stats.update(sort_s=0.0, static_builds=0, static_uploads=0)
+    stats.reset()
 
 
 def _chunk(abpt: Params, graph, windows: list, mesh, static=None) -> list:
@@ -81,7 +83,7 @@ def run_dp_chunk(graphs: list, abpt: Params, queries: List[np.ndarray],
     for g in graphs:
         if not g.is_topological_sorted:
             g.topological_sort(abpt)
-    stats["sort_s"] += time.perf_counter() - t0
+    stats.add("sort_s", time.perf_counter() - t0)
     windows = [(C.SRC_NODE_ID, C.SINK_NODE_ID, q) for q in queries]
     return _chunk(abpt, list(graphs), windows, mesh)
 
@@ -106,7 +108,7 @@ class StaticGraphTables:
         base[self.idx2nid] = self.tables.base[:self.n_rows]
         self.base_by_nid = base
         self._packs: dict = {}   # device -> (K, the graph half)
-        stats["static_builds"] += 1
+        stats.add("static_builds", 1)
 
     def upload(self, K: int, dev=None) -> None:
         """Put the graph half of K lanes on `dev` (default the run's
@@ -117,7 +119,7 @@ class StaticGraphTables:
         self._packs.pop(dev, None)
         half = pack_graph([self.tables] * K)
         self._packs[dev] = (K, [torch.from_numpy(a).to(dev) for a in half])
-        stats["static_uploads"] += 1
+        stats.add("static_uploads", 1)
 
     def align(self, queries: List[np.ndarray],
               mesh=None) -> List[AlignResult]:

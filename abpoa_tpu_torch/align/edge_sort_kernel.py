@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from ..kernels import build
+from ..obs.tally import count_launch
 
 _NAMES = ("in_ids", "in_w", "out_ids", "out_w", "in_cnt", "out_cnt")
 
@@ -95,7 +96,7 @@ def finish_fusion_(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, node_n,
                                       ptr(n_span), ptr(None), N, E, 1,
                                       ctypes.c_void_p(stream))
     build.check(err, "finish_fusion_ launch")
-    edge_sort.launches += 1
+    count_launch(edge_sort)
 
 
 def finish_fusion_lanes_(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt,
@@ -142,7 +143,7 @@ def finish_fusion_lanes_(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt,
                                       ptr(n_span), ptr(lanes_t), N, E,
                                       len(todo), ctypes.c_void_p(stream))
     build.check(err, "finish_fusion_lanes_ launch")
-    finish_fusion_lanes_.launches += 1
+    count_launch(finish_fusion_lanes_)
 
 
 finish_fusion_lanes_.launches = 0

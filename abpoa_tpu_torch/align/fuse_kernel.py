@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from ..kernels import build
+from ..obs.tally import count_launch
 from .device_graph import DeviceGraph, fuse_alignment
 
 _GRAPH = ("base", "in_ids", "in_w", "in_cnt", "out_ids", "out_w", "out_cnt",
@@ -113,7 +114,7 @@ def fuse_alignment_lanes(g: DeviceGraph, fwd_op, fwd_arg, n_fwd, query,
             ptr(path), ptr(path_len), ptr(lanes_t), len(todo), N, E, A, T, Q,
             Pcap, ctypes.c_void_p(stream))
     build.check(err, "fuse_alignment_lanes launch")
-    fuse_alignment_lanes.launches += 1
+    count_launch(fuse_alignment_lanes)
     return out, path, path_len
 
 

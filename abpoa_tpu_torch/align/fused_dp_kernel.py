@@ -48,6 +48,7 @@ import torch
 
 from .. import constants as C
 from ..kernels import build
+from ..obs.tally import count_launch
 
 _NAMES = ("scalars", "base_packed", "pre_idx", "pre_cnt", "out_idx",
           "out_cnt", "remain", "row0", "qp_pad")
@@ -293,9 +294,9 @@ def fused_dp(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
     planes, begend, ok, ext = _launch(args, 1, R, W, P, None, warps, None,
                                       **kw)
     if local:
-        fused_dp.local_launches += 1
+        count_launch(fused_dp, "local_launches")
     else:
-        fused_dp.launches += 1
+        count_launch(fused_dp)
     return (*planes[:, 0].unbind(0), begend[0, 0], begend[0, 1], ok, ext[0])
 
 
@@ -397,9 +398,9 @@ def fused_dp_lanes(scalars, base_packed, pre_idx, pre_cnt, out_idx, out_cnt,
     planes, begend, ok, ext = _launch(args, L, R, W, P, lanes, warps, planes,
                                       **kw)
     if local:
-        fused_dp_lanes.local_launches += 1
+        count_launch(fused_dp_lanes, "local_launches")
     else:
-        fused_dp_lanes.launches += 1
+        count_launch(fused_dp_lanes)
     return (*planes.unbind(0), begend[:, 0], begend[:, 1], ok, ext)
 
 

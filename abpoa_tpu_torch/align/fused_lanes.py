@@ -692,7 +692,7 @@ def _align_strand_l(run: _BatchRun, ls: _Lanes, tables, query, qp, qlens,
         ops, res, best_j, best_sc, overflow = _dp_walk(
             run, args, query, ls.g.node_n, ql, lanes)
     else:  # each group's lanes as a stack of their own
-        fl.stats["plane_splits"] += len(groups) - 1
+        fl.stats.add("plane_splits", len(groups) - 1)
         buf = torch.empty(5 * len(groups[0]) * R * W, dtype=dt, device=dev)
         outs = None
         for grp in groups:
@@ -772,8 +772,8 @@ def _read_round(run: _BatchRun, ls: _Lanes, N: int):
             n_fwd = torch.where(use_rc, r[2], n_fwd)
             query_u = _where_lanes(use_rc, rc_query, query)
             weight_u = _where_lanes(use_rc, rc_weight, weight)
-            fl.stats["rc_reads"] += len(rc)
-            fl.stats["rc_rounds"] += 1
+            fl.stats.add("rc_reads", len(rc))
+            fl.stats.add("rc_rounds", 1)
 
     with _step("fuse"):
         g2, path_nodes, path_len, path_new, collision, edge_cap, grp_full = \
@@ -832,7 +832,7 @@ def _read_round(run: _BatchRun, ls: _Lanes, N: int):
                 lanes=None if len(kahn) == L else kahn)
         yield
         rep = fl._sync_read(torch.stack([k1[7], g2s.node_n, _i32(g2s.ok)], 1))
-        fl.stats["kahn_rounds"] += 1
+        fl.stats.add("kahn_rounds", 1)
         for i in kahn:
             ok_k, n2, g_ok = rep[i]
             if flags[i][0]:
@@ -876,8 +876,8 @@ def _read_round(run: _BatchRun, ls: _Lanes, N: int):
         ls.paths[ci, ri] = pn.index_select(0, ci)
         ls.path_lens[ci, ri] = path_len.index_select(0, ci)
     for i in commit:
-        fl.stats["kahn"] += int(i in kahn)
-        fl.stats["collisions"] += int(bool(flags[i][0]))
+        fl.stats.add("kahn", int(i in kahn))
+        fl.stats.add("collisions", int(bool(flags[i][0])))
     new = replace(
         ls, g=g_out, order=_where_lanes(cmask, order3, ls.order),
         n2i=_where_lanes(cmask, n2i3, ls.n2i),
@@ -927,6 +927,7 @@ def _group_loop(abpt: Params, dev: torch.device, share: int, lo: int,
         sets=list(range(K)), read_idx=[0] * K, node_n=[2] * K,
         rc_flags=[[] for _ in range(K)])
     from ..obs import count, observe, rounds
+    from ..parallel import scheduler
     done: dict = {}
     growths = 0
     while ls.sets:
@@ -940,18 +941,23 @@ def _group_loop(abpt: Params, dev: torch.device, share: int, lo: int,
         errs = [fl.host_error(run, run.lens[s][k], n, N)
                 for s, k, n in zip(ls.sets, ls.read_idx, ls.node_n)]
         if any(errs):
-            fl.stats["host_errs"] += sum(e != fl.ERR_OK for e in errs)
+            fl.stats.add("host_errs", sum(e != fl.ERR_OK for e in errs))
         elif ls.node_n[0] == 2:
             ls = _seed_round(run, ls)
         else:
             t_round = time.perf_counter()
             rounds.begin_round()
-            fl.stats["rounds"] += 1
-            fl.stats["live_lanes"] += len(ls.sets)
-            fl.stats["reads"] += len(ls.sets)
+            fl.stats.add("rounds", 1)
+            fl.stats.add("live_lanes", len(ls.sets))
+            fl.stats.add("reads", len(ls.sets))
             count("lockstep.chunks")
             live = len(ls.sets)
             observe("lockstep.noop_set_fraction", 1.0 - live / K)
+            # the server's K cap reads the idle-lane share (JAX
+            # fused_loop.py:2075-2079)
+            scheduler.observe_noop_fraction(
+                1.0 - live / K,
+                route="sharded" if host["mesh"] > 1 else "lockstep")
             if live < K:
                 count("lockstep.drain_chunks")
             errs, ls = yield from _read_round(run, ls, N)
@@ -1085,8 +1091,8 @@ def progressive_poa_fused_batch(seq_sets: List[List[np.ndarray]],
             fl.replay_read_ids(pg, lane.paths[0, :n_reads[s]].cpu().numpy(),
                                lane.path_lens[0, :n_reads[s]].cpu().numpy())
         out.append((pg, [bool(x) for x in lane.rc_flags[0]]))
-    fl.stats["download_s"] += time.perf_counter() - t1
+    fl.stats.add("download_s", time.perf_counter() - t1)
     fl._drain_events()
-    fl.stats["wall_s"] += time.perf_counter() - t0
+    fl.stats.add("wall_s", time.perf_counter() - t0)
     fl.stats["caps"] = {k: max(c[k] for _, c in outs) for k in outs[0][1]}
     return out

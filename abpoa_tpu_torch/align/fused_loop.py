@@ -39,6 +39,7 @@ the tests hold each against its JAX twin on the same state.
 """
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
@@ -49,6 +50,7 @@ import torch
 
 from .. import constants as C
 from ..graph import Node, POAGraph
+from ..obs.tally import Tally
 from ..params import Params
 from .backtrack_kernel import backtrack
 from .buckets import (bucket_pow2, chunk_node_cap, grow_node_cap,
@@ -94,22 +96,37 @@ _MAX_PASSES = 24
 # the host waits in syncs.
 STEPS = ("tables", "fused_dp", "best_cell", "backtrack", "fwd_ops", "fuse",
          "edge_sort", "splice", "remain", "topo_sort")
-stats: dict = {}
+
+
+def _zero_stats() -> dict:
+    return dict(reads=0, syncs=0, kahn=0, collisions=0, rc_reads=0,
+                host_errs=0, grow={}, promotions=0, rounds=0, rc_rounds=0,
+                kahn_rounds=0, live_lanes=0, plane_splits=0, wall_s=0.0,
+                upload_s=0.0, download_s=0.0, replay_s=0.0,
+                device_s=dict.fromkeys(STEPS, 0.0),
+                host_s=dict.fromkeys(STEPS + ("sync",), 0.0))
+
+
+# a server's worker threads run loops at once: the counters take a lock
+# (`obs.tally`), and each thread drains only its own run's events
+stats = Tally(_zero_stats)
 timing = False
 
 
 def reset_stats() -> None:
-    stats.clear()
-    stats.update(reads=0, syncs=0, kahn=0, collisions=0, rc_reads=0,
-                 host_errs=0, grow={}, promotions=0, rounds=0, rc_rounds=0,
-                 kahn_rounds=0, live_lanes=0, plane_splits=0, wall_s=0.0,
-                 upload_s=0.0, download_s=0.0, replay_s=0.0,
-                 device_s=dict.fromkeys(STEPS, 0.0),
-                 host_s=dict.fromkeys(STEPS + ("sync",), 0.0))
+    stats.reset()
 
 
-reset_stats()
-_pending_events: list = []
+_events = threading.local()
+
+
+def _pending_events() -> list:
+    """The CUDA event pairs of this thread's `timing` run, not yet read."""
+    if not hasattr(_events, "pending"):
+        _events.pending = []
+    return _events.pending
+
+
 # the final FusedState of the last run (the tests compare it with the JAX
 # state; chip_smoke.py times the kernels at the headline set's final graph)
 last_state = None
@@ -129,25 +146,26 @@ def _step(name: str):
         e0.record()
     t0 = time.perf_counter()
     yield
-    stats["host_s"][name] += time.perf_counter() - t0
+    stats.add_in("host_s", name, time.perf_counter() - t0)
     if events:
         e1.record()
-        _pending_events.append((name, e0, e1))
+        _pending_events().append((name, e0, e1))
 
 
 def _drain_events() -> None:
-    for name, e0, e1 in _pending_events:
+    pending = _pending_events()
+    for name, e0, e1 in pending:
         e1.synchronize()
-        stats["device_s"][name] += e0.elapsed_time(e1) / 1e3
-    _pending_events.clear()
+        stats.add_in("device_s", name, e0.elapsed_time(e1) / 1e3)
+    pending.clear()
 
 
 def _sync_read(t: torch.Tensor) -> list:
     """One host sync: a small tensor's values as Python ints."""
-    stats["syncs"] += 1
+    stats.add("syncs", 1)
     t0 = time.perf_counter()
     out = t.tolist()
-    stats["host_s"]["sync"] += time.perf_counter() - t0
+    stats.add_in("host_s", "sync", time.perf_counter() - t0)
     return out
 
 
@@ -802,7 +820,7 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
     n = node_n
     err = host_error(run, qlen, n, N)
     if err != ERR_OK:
-        stats["host_errs"] += 1
+        stats.add("host_errs", 1)
         return err, st, node_n
 
     with _step("tables"):
@@ -824,7 +842,7 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
         query_u = torch.where(use, rc_query, query)
         weight_u = torch.where(use, rc_weight, weight)
         use_rc = use
-        stats["rc_reads"] += 1
+        stats.add("rc_reads", 1)
 
     with _step("fuse"):
         g2, path_nodes, path_len, path_new, collision, edge_cap, grp_full = \
@@ -885,8 +903,8 @@ def _read_step(run: _Run, st: FusedState, node_n: int):
         else:
             st.paths[k] = path_nodes[:st.paths.shape[1]]
             st.path_lens[k] = path_len
-    stats["kahn"] += int(need_kahn)
-    stats["collisions"] += int(bool(collision))
+    stats.add("kahn", int(need_kahn))
+    stats.add("collisions", int(bool(collision)))
     new = replace(st, g=g3, order=order3, n2i=n2i3, remain=remain3,
                   read_idx=k + 1, kahn_runs=st.kahn_runs + int(need_kahn),
                   collisions=st.collisions + int(bool(collision)),
@@ -940,14 +958,14 @@ def run_fused_chunk(run: _Run, st: FusedState, node_n: int):
         if node_n == 2:
             qlen = run.lens[k]
             if host_error(run, qlen, 2, st.g.caps[0]) != ERR_OK:
-                stats["host_errs"] += 1  # the seed chain does not fit
+                stats.add("host_errs", 1)  # the seed chain does not fit
                 return ERR_NODE_CAP, st, node_n
             st = _seed_state(st, run.seqs[k], qlen, run.wgts[k])
             st.rc_flags = st.rc_flags + [0]
             node_n = qlen + 2
             continue
         err, st, node_n = _read_step(run, st, node_n)
-        stats["reads"] += 1
+        stats.add("reads", 1)
         if err != ERR_OK:
             return err, st, node_n
     return ERR_OK, st, node_n
@@ -1004,10 +1022,10 @@ def _grown_caps(errs, N: int, E: int, A: int, W: int, plane16: bool):
         count("fused.grow.band")
     if ERR_PROMOTE in errs:
         plane16 = False
-        stats["promotions"] += 1
+        stats.add("promotions", 1)
         count("fused.promote_int32")
     for err in errs:
-        stats["grow"][err] = stats["grow"].get(err, 0) + 1
+        stats.add_in("grow", err)
     return N, E, A, W, plane16, grew
 
 
@@ -1103,7 +1121,7 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
     if init_graph is not None:
         st = state_from_host_graph(init_graph, N, E, A, dev)
         node_n = init_graph.node_n
-        stats["upload_s"] += time.perf_counter() - t0
+        stats.add("upload_s", time.perf_counter() - t0)
     else:
         # a read's path holds at most qlen nodes (Pcap = Qp + 2, as the JAX
         # loop)
@@ -1153,10 +1171,10 @@ def progressive_poa_fused(seqs: List[np.ndarray], weights: List[np.ndarray],
     t2 = time.perf_counter()
     if st.paths is not None:
         replay_read_ids(pg, st.paths.cpu().numpy(), st.path_lens.cpu().numpy())
-    stats["download_s"] += t2 - t1
-    stats["replay_s"] += time.perf_counter() - t2
+    stats.add("download_s", t2 - t1)
+    stats.add("replay_s", time.perf_counter() - t2)
     _drain_events()
-    stats["wall_s"] += time.perf_counter() - t0
+    stats.add("wall_s", time.perf_counter() - t0)
     stats["caps"] = dict(N=N, E=E, A=A, W=W, plane16=plane16)
     last_state = st
     return pg, st.kahn_runs, [bool(x) for x in st.rc_flags]

@@ -42,6 +42,7 @@ import torch
 
 from .. import constants as C
 from ..kernels import build
+from ..obs.tally import count_launch
 from .edge_sort_kernel import check_slots, edge_sort_torch
 
 _NAMES = ("in_ids", "in_w", "out_ids", "out_w", "in_cnt", "out_cnt",
@@ -125,7 +126,7 @@ def topo_sort(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, aligned,
         raise ValueError(f"topo_sort: unsupported device {dev}")
     out = _launch(tuple(t[None] for t in args[:8]) + (node_n,), 1, N, E, A,
                   None, walks, variant)
-    topo_sort.launches += 1
+    count_launch(topo_sort)
     return (*(t[0] for t in out[:7]), out[7])
 
 
@@ -196,7 +197,7 @@ def topo_sort_lanes(in_ids, in_w, out_ids, out_w, in_cnt, out_cnt, aligned,
     if not todo:
         raise ValueError("topo_sort_lanes: no lane to launch")
     out = _launch(args, L, N, E, A, lanes, 3, variant)
-    topo_sort_lanes.launches += 1
+    count_launch(topo_sort_lanes)
     return out
 
 

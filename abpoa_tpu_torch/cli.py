@@ -21,6 +21,8 @@ GAF record a read.
     python -m abpoa_tpu_torch report r.json | report --diff a.json b.json
     python -m abpoa_tpu_torch warm [--ladder quick|full]
     python -m abpoa_tpu_torch perf | slo | top
+    python -m abpoa_tpu_torch serve [--port N] [--workers N] [--map-graph G]
+    python -m abpoa_tpu_torch why <request-id | trace.json | dump.json>
 
 The run-telemetry flags and subcommands are the JAX package's
 (abpoa_tpu/cli.py): `--report` writes the versioned JSON run report,
@@ -29,7 +31,9 @@ textfile (and `--metrics-port` serves it), `--profile-dir` a
 `torch.profiler` trace of the device regions; `report` renders reports,
 `warm` builds the kernel library and launches each kernel once, `perf`
 renders the ledger, `slo` gates the report archive and `top` shows the
-exposition live.
+exposition live. `serve` answers `POST /align` and `POST /map` on the card
+(`serve/server.py`), and `why` explains one of its requests from the
+archive, its trace or a flight dump.
 
 With no card and no `--device cpu`, the run raises RuntimeError; so does
 `--mesh N` with fewer than N cards (on the CPU, N x cpu). A malformed read set ends a one-file run with one
@@ -240,6 +244,12 @@ def main(argv=None) -> int:
     if raw[:1] == ["top"]:
         from .obs.top import top_main
         return top_main(raw[1:])
+    if raw[:1] == ["serve"]:
+        from .serve import serve_main
+        return serve_main(raw[1:])
+    if raw[:1] == ["why"]:
+        from .obs.why import why_main
+        return why_main(raw[1:])
     args = build_parser().parse_args(raw)
     if args.input is None:
         build_parser().print_help(sys.stderr)

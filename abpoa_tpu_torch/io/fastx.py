@@ -61,3 +61,10 @@ def read_fastx(path: str) -> List[SeqRecord]:
     from ..obs import phase
     with phase("fastx_parse"), _open(path) as fp:
         return list(iter_fastx_handle(fp))
+
+
+def read_fastx_text(text: str) -> List[SeqRecord]:
+    """The records of in-memory FASTA/FASTQ text (a server request's
+    body): the same parser, no file."""
+    import io
+    return list(iter_fastx_handle(io.StringIO(text)))

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -111,10 +113,17 @@ def build(verbose: bool = False) -> str:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built at first use, with every entry point's
-    argument types declared."""
-    global _lib
+    argument types declared. Threads that ask at once wait for one build
+    and one load (a server loads it in its warm, before its workers
+    start)."""
     if _lib is not None:
         return _lib
+    with _LOAD_LOCK:
+        return _lib if _lib is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
     t0 = time.perf_counter()
     built = not os.path.isfile(library_path())
     path = build()

@@ -7,21 +7,24 @@ the perf ledger and the `perf`/`slo`/`top` readers.
 
 Counterpart of `abpoa_tpu/obs/` (same names, schema and families), with
 `compile_log` (the kernel library's build and load log) in place of
-`compile_watch`: the port has no jit entry point to watch. Without the
-server and the pool it leaves out what only they use: the flight
-recorder, `why`, the request sampling and the per-request trace export.
-Every hook is host-side bookkeeping at points the routes already pass: no
-host sync and no kernel launch is added for it.
+`compile_watch`: the port has no jit entry point to watch. The server's
+parts are here: the request sampling, the request index and the
+per-request trace export (`trace`), the flight recorder's schema, reader
+and recorder (`flight`, whose writers are the pool's) and `why`, the
+postmortem of one request. Every hook is host-side bookkeeping at points
+the routes already pass: no host sync and no kernel launch is added for
+it.
 """
-from . import archive, compile_log, ledger, metrics, rounds, trace
+from . import archive, compile_log, flight, ledger, metrics, rounds, trace
 from .capture import device_capture, profile_dir, set_profile_dir
 from .report import (SCHEMA, SCHEMA_KEYS, SCHEMA_VERSION, RunReport, count,
                      finalize_report, note_device, observe, phase, record_dp,
                      record_fault, record_read, render_report,
                      render_report_diff, report, start_run,
                      summary, write_report)
-from .trace import (export_chrome_trace, instant, new_request_id,
-                    request_ctx, span, span_totals, tracer)
+from .trace import (export_chrome_trace, export_request_trace, instant,
+                    new_request_id, request_ctx, sampled, span, span_totals,
+                    tracer)
 from .trace import disable as trace_disable
 from .trace import enable as trace_enable
 from .trace import enabled as trace_enabled
@@ -35,6 +38,6 @@ __all__ = [
     "device_capture", "profile_dir", "set_profile_dir",
     "trace", "trace_enable", "trace_disable", "trace_enabled",
     "span", "instant", "span_totals", "export_chrome_trace", "tracer",
-    "new_request_id", "request_ctx",
-    "compile_log", "archive", "ledger", "metrics", "rounds",
+    "new_request_id", "request_ctx", "sampled", "export_request_trace",
+    "compile_log", "archive", "flight", "ledger", "metrics", "rounds",
 ]

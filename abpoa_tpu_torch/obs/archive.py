@@ -7,8 +7,9 @@ never mix with the JAX package's.
 
 Each CLI run appends one compact JSONL record (the SLO-relevant slice of
 its RunReport: wall, read percentiles, fallback/compile/fault counts) to
-``reports.jsonl`` there, which turns per-run telemetry into questions
-over many runs: "what was our fallback rate across the last 500 runs",
+``reports.jsonl`` there, and the server appends one record a request
+through the same `append_record`; that turns per-run telemetry into
+questions over many runs: "what was our fallback rate across the last 500 runs",
 "has p99 drifted this week".
 
 Every record is written as ONE ``os.write`` on an ``O_APPEND``
@@ -150,3 +151,15 @@ def read_window(n: int, path: Optional[str] = None) -> List[dict]:
         if isinstance(rec, dict):
             out.append(rec)
     return out
+
+
+def find_request(rid: str, window: int = 0,
+                 path: Optional[str] = None) -> Optional[dict]:
+    """The newest archive record carrying request id `rid` (the server
+    writes one a terminal request; its `trace_file`/`dump_file` name the
+    request's Chrome trace and flight dump). `why` resolves ids here; a
+    `label` (`req-N`) matches too."""
+    for rec in reversed(read_window(window, path=path)):
+        if rec.get("request_id") == rid or rec.get("label") == rid:
+            return rec
+    return None

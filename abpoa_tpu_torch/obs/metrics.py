@@ -4,8 +4,7 @@ Counterpart of `abpoa_tpu/obs/metrics.py`, copied with its family names
 (`abpoa_reads_total`, ...), help texts and exposition format, so a
 scraper and `top` read one feed from either package. The default
 textfile path is the port's own, under `~/.cache/abpoa_tpu_torch/`. The
-JAX module's server and pool families come with the port of those
-modules.
+server's families are here; the pool's come with the pool.
 
 Everything the RunReport (report.py) knows dies with the run; this module
 holds process-cumulative counters, gauges and streaming-quantile
@@ -319,7 +318,10 @@ class MetricsRegistry:
         for base, help_ in (
                 ("abpoa_read_wall_seconds",
                  "Sketch-estimated per-read wall quantiles "
-                 "(textfile-exporter convenience for `top`)"),):
+                 "(textfile-exporter convenience for `top`)"),
+                ("abpoa_serve_request_seconds",
+                 "Sketch-estimated request-latency quantiles "
+                 "(textfile-exporter convenience for `top`)")):
             h = self._families.get(base)
             if h is None or h.sketch.count == 0:
                 continue
@@ -441,6 +443,9 @@ _EXACT_FAMILIES = {
     "dp.cells": ("abpoa_dp_cells_total", "DP cells computed"),
     "dp.cell_ops": ("abpoa_dp_cell_ops_total",
                     "Estimated integer ops over DP cells (MFU numerator)"),
+    # the server's per-request traces (serve --trace-dir)
+    "serve.traces": ("abpoa_serve_traces_total",
+                     "Per-request Chrome traces written to --trace-dir"),
     # fixed-graph map workload (parallel/map_driver.py)
     "map.reads": ("abpoa_map_reads_total",
                   "Reads mapped against a static graph (map workload)"),
@@ -604,6 +609,32 @@ def publish_shard_skew(ratio: float, straggler: int,
         g.set(round(w, 9), shard=str(i))
 
 
+def publish_noop_fraction(ewma: float) -> None:
+    """The lockstep idle-lane EWMA (the server's K-cap input)."""
+    _REGISTRY.gauge(
+        "abpoa_lockstep_noop_fraction",
+        "EWMA of the lockstep idle-lane fraction (divergence; feeds "
+        "the scheduler's sub-batch K cap)").set(ewma)
+
+
+def publish_lane_occupancy(ewma: float) -> None:
+    """The measured lane occupancy EWMA (live lanes over the group's
+    capacity, a sample a split-driver or map round)."""
+    _REGISTRY.gauge(
+        "abpoa_lockstep_lane_occupancy",
+        "EWMA of measured lockstep lane occupancy (live lanes over "
+        "group capacity, per round)").set(ewma)
+
+
+def publish_join_wait(wait_s: float) -> None:
+    """Arrival to boarding of one request that joined an in-flight group
+    at a round boundary."""
+    _REGISTRY.histogram(
+        "abpoa_lockstep_join_wait_seconds",
+        "Wait from request arrival to joining an in-flight lockstep "
+        "group (continuous batching)").observe(wait_s)
+
+
 def publish_route(route) -> None:
     """Scheduler decision gauges for `top`: the last planned route (one-hot
     over route kinds) and its lockstep K cap."""
@@ -641,6 +672,53 @@ def bump_batch_set_done() -> None:
         "Read sets completed in the current -l/batch run")
     with _MUT:  # read-modify-write spans two calls (RLock re-enters)
         g.set(g.value() + 1)
+
+
+def publish_read_aggregate(backends: Dict[str, int],
+                           fallbacks: Dict[str, int],
+                           sketch: LogSketch) -> None:
+    """Many reads' records at once (a worker's delta): the backend and
+    fallback counts and a merge of their latency sketch, the exposition
+    per-read publishes would give."""
+    for b, n in backends.items():
+        if n > 0:
+            _REGISTRY.counter(*_READS_FAMILY).inc(n, backend=b)
+    for r, n in fallbacks.items():
+        if n > 0:
+            _REGISTRY.counter(*_READ_FALLBACKS_FAMILY).inc(n, reason=r)
+    if sketch.count:
+        _REGISTRY.histogram(*_READ_WALL_FAMILY).sketch.merge(sketch)
+
+
+# ------------------------------------------------------------- serve hooks
+
+def publish_serve_request(status: str, wall_s: float) -> None:
+    """One request's terminal status (ok | rejected | poisoned | oversized
+    | timeout | draining | error) and its whole wall, queue included."""
+    _REGISTRY.counter(
+        "abpoa_serve_requests_total",
+        "Serve requests by terminal status").inc(1, status=status)
+    _REGISTRY.histogram(
+        "abpoa_serve_request_seconds",
+        "End-to-end request latency (log-bucket sketch, "
+        f"~{int(LogSketch.RELATIVE_ERROR * 100)}% quantile tolerance)"
+    ).observe(wall_s)
+
+
+def publish_serve_admitted() -> None:
+    _REGISTRY.counter("abpoa_serve_admitted_total",
+                      "Requests admitted into the serve queue").inc(1)
+
+
+def publish_serve_state(queue_depth: int, inflight: int) -> None:
+    """The queue-depth and in-flight gauges, at each admission and
+    completion."""
+    _REGISTRY.gauge("abpoa_serve_queue_depth",
+                    "Requests waiting in the serve admission queue").set(
+        queue_depth)
+    _REGISTRY.gauge("abpoa_serve_inflight",
+                    "Requests currently executing in serve workers").set(
+        inflight)
 
 
 def clear_batch_progress() -> None:

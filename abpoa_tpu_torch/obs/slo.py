@@ -104,7 +104,9 @@ def evaluate(objectives: dict, records: List[dict]) -> dict:
                 bad += 1
                 offenders.append(
                     (v, rec.get("request_id") or rec.get("label") or "?"))
-        # the runs that burned the budget, worst first, by their label
+        # the requests or runs that burned the budget, worst first: a
+        # server record's request id (`why <id>` renders it), else the
+        # run's label
         offenders.sort(key=lambda t: -t[0])
         bad_frac = bad / evaluated if evaluated else 0.0
         # zero budget means "no run may breach the ceiling": one bad run
@@ -146,7 +148,7 @@ def format_table(result: dict, archive_path: str = "") -> str:
             f"{100 * o['error_budget']:>6.1f}% {burn:>6} {left:>6}  "
             f"{verdict}")
         if o.get("offenders"):
-            # the runs that burned the budget
+            # the ids that burned the budget: `why <id>` renders each
             ids = "  ".join(f"{of['id']}({of['value']:g})"
                             for of in o["offenders"][:3])
             lines.append(f"      burned by: {ids}")

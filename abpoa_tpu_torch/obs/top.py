@@ -1,8 +1,8 @@
 """`abpoa-tpu top` — a live terminal dashboard over the metrics exporter.
 
-Counterpart of `abpoa_tpu/obs/top.py`; it reads the same families, less
-the server's and the pool's panels, which come with the port of those
-modules.
+Counterpart of `abpoa_tpu/obs/top.py`; it reads the same families, with
+the server's and the tracing panels, less the pool's, which comes with
+the pool.
 
 Reads the Prometheus textfile a concurrent run maintains (`--metrics
 FILE`, atomic renames, so a frame is never torn) and renders the
@@ -94,8 +94,27 @@ def render_frame(samples, types, path: str, age_s: float) -> str:
     lines.append(f"dp       {_fmt_si(cells):>9} cells  "
                  f"{_fmt_si(cups):>8}/s CUPS{mfu_s}")
 
-    # scheduler panel (present once a batch route was planned): the
-    # selected route, lockstep K cap and route-decision counts
+    # serve panel (present only when a server feeds the exporter): the
+    # admission state, the requests by terminal status and the request
+    # latency quantiles
+    statuses = _labeled(samples, "abpoa_serve_requests_total", "status")
+    qdepth = M.sample_value(samples, "abpoa_serve_queue_depth")
+    if statuses or qdepth is not None:
+        inflight = M.sample_value(samples, "abpoa_serve_inflight") or 0
+        disp = "  ".join(f"{k}={v:.0f}" for k, v in sorted(statuses.items()))
+        lines.append(f"serve    queue {qdepth or 0:.0f}  inflight "
+                     f"{inflight:.0f}  {disp}")
+        sq = _labeled(samples, "abpoa_serve_request_seconds_quantile",
+                      "quantile")
+        if sq:
+            lines.append("         req ms  p50 {:.2f}  p95 {:.2f}  "
+                         "p99 {:.2f}".format(
+                             1e3 * sq.get("0.5", 0), 1e3 * sq.get("0.95", 0),
+                             1e3 * sq.get("0.99", 0)))
+
+    # scheduler panel (present once a batch or serve route was planned):
+    # the selected route, lockstep K cap, route-decision counts and the
+    # idle-lane EWMA the server's K cap reads
     route_hot = _labeled(samples, "abpoa_scheduler_route", "route")
     # the route counter carries a `reason` label too (crossover vs
     # ineligible vs eligible...), so per-route display sums over reasons
@@ -109,8 +128,11 @@ def render_frame(samples, types, path: str, age_s: float) -> str:
         cur = next((k for k, v in route_hot.items() if v >= 1), "?")
         k_cap = M.sample_value(samples, "abpoa_scheduler_k_cap")
         parts = [f"route {cur}"]
+        noop = M.sample_value(samples, "abpoa_lockstep_noop_fraction")
         if k_cap is not None:
             parts.append(f"k_cap {k_cap:.0f}")
+        if noop is not None:
+            parts.append(f"noop {noop:.2f} [{_bar(noop, 8)}]")
         if routes:
             parts.append("  ".join(f"{k}={v:.0f}"
                                    for k, v in sorted(routes.items())))
@@ -154,8 +176,11 @@ def render_frame(samples, types, path: str, age_s: float) -> str:
         if chunks:
             lines.append(f"         lockstep rounds {chunks:.0f}  "
                          f"drain {drains:.0f}")
-        # churn counters (joins boarded mid-flight, lanes retired early,
-        # boundary evictions)
+        # lane occupancy, the churn counters (joins boarded mid-flight,
+        # lanes retired early, boundary evictions) and the join wait
+        occ = M.sample_value(samples, "abpoa_lockstep_lane_occupancy")
+        if occ is not None:
+            lines.append(f"         occupancy {occ:.2f} [{_bar(occ, 8)}]")
         joins = _total(samples, "abpoa_lockstep_joins_total")
         retires = _total(samples, "abpoa_lockstep_early_retires_total")
         evicts = _total(samples, "abpoa_lockstep_evictions_total")
@@ -163,6 +188,11 @@ def render_frame(samples, types, path: str, age_s: float) -> str:
             lines.append(f"         churn joins {joins:.0f}  "
                          f"early-retires {retires:.0f}  "
                          f"evictions {evicts:.0f}")
+        jq = _labeled(samples, "abpoa_lockstep_join_wait_seconds_quantile",
+                      "quantile")
+        if jq:
+            lines.append("         join wait p50 %.0f ms  p99 %.0f ms"
+                         % (1e3 * jq.get("0.5", 0), 1e3 * jq.get("0.99", 0)))
     # map panel (present only when `map` ran): reads against the static
     # graph, the lane occupancy and join counters
     map_reads = _total(samples, "abpoa_map_reads_total")
@@ -179,6 +209,18 @@ def render_frame(samples, types, path: str, age_s: float) -> str:
         mocc = M.sample_value(samples, "abpoa_map_lane_occupancy")
         if mocc is not None:
             lines.append(f"         occupancy {mocc:.2f} [{_bar(mocc, 8)}]")
+
+    # tracing panel: the per-request traces the server wrote (`why`
+    # reads them)
+    traces = _total(samples, "abpoa_serve_traces_total")
+    if traces:
+        lines.append(f"tracing  request traces {traces:.0f}")
+
+    # abandoned watchdog threads: a request's deadline abandons its
+    # thread, which may still be running
+    abandoned = M.sample_value(samples, "abpoa_watchdog_abandoned_threads")
+    if abandoned:
+        lines.append(f"watchdog abandoned-threads {abandoned:.0f}")
 
     # phase split
     phases = _labeled(samples, "abpoa_phase_wall_seconds_total", "phase")

@@ -22,9 +22,16 @@ numbers.
 
 Request context: every event optionally carries a request tag
 ``(rid, attempt)`` taken from a thread-local set by `request_ctx()`,
-rendered as `args.rid`/`args.attempt` in the export. The port's CLI
-routes run no requests; the context is the hook a server tags its
-requests with.
+rendered as `args.rid`/`args.attempt` in the export. The server
+(`serve/server.py`) mints the id at ingress and, with `--trace-dir`,
+registers it in the request index (`begin_request`) so that the
+request's events are also kept on a list of their own, which
+`export_request_trace` writes as one Chrome trace (`req-<rid>.trace.json`,
+at most ABPOA_TPU_TRACE_DIR_MAX files, default 512). Sampling
+(ABPOA_TPU_TRACE_SAMPLE, default 1.0) is a hash of the id, so every
+process that sees an id reaches the same verdict. The ring's store, the
+tid table and the index take one lock: the server's threads record at
+once.
 """
 from __future__ import annotations
 
@@ -54,6 +61,11 @@ def new_request_id() -> str:
     return os.urandom(6).hex()
 
 
+# the flight recorder (obs/flight.py) span() tells of entries and exits,
+# so that a dump names the span that was open; None when none is installed
+_FLIGHT = None
+
+
 def current_request() -> Optional[Tuple[str, int]]:
     return getattr(_CTX, "req", None)
 
@@ -73,17 +85,54 @@ def request_ctx(rid: Optional[str], attempt: int = 0) -> Iterator[None]:
         _CTX.req = prev
 
 
+def sample_rate() -> float:
+    try:
+        return float(os.environ.get("ABPOA_TPU_TRACE_SAMPLE", "1") or 1.0)
+    except ValueError:
+        return 1.0
+
+
+def sampled(rid: str) -> bool:
+    """Is request `rid` traced? A hash of the id against
+    ABPOA_TPU_TRACE_SAMPLE: the same verdict every time, in every
+    process."""
+    rate = sample_rate()
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0 or not rid:
+        return False
+    try:
+        return (int(rid, 16) % 10_000) < rate * 10_000
+    except ValueError:
+        return True
+
+
+def set_flight(rec) -> None:
+    """Install (or clear, with None) the flight recorder span() tells."""
+    global _FLIGHT
+    _FLIGHT = rec
+
+
+# a request's indexed events are cut here (the ring's own cap still holds
+# for the whole timeline); the cut is counted in the export's metadata
+REQUEST_INDEX_CAP = 4096
+
+
 class Tracer:
     """Bounded ring buffer of trace events on a monotonic clock."""
 
     __slots__ = ("enabled", "capacity", "t0", "_buf", "_n", "_tids",
-                 "_lock")
+                 "index_requests", "_req_idx", "_req_drop", "_lock")
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY) -> None:
         self.enabled = False
         self.capacity = capacity
-        # the exporter and a driver's threads may record at once: the
-        # ring's counter and overwrite must not race
+        # the request index (serve --trace-dir): a registered id's events
+        # also go to a list of its own, so its export does not scan the
+        # ring
+        self.index_requests = False
+        # the server's threads record at once: the ring's counter and
+        # overwrite and the index must not race
         self._lock = threading.Lock()
         self.reset()
 
@@ -92,6 +141,8 @@ class Tracer:
         self._buf: list = []
         self._n = 0          # total events ever added (>= len(_buf))
         self._tids: dict = {}  # thread ident -> dense tid
+        self._req_idx: dict = {}   # rid -> [events], registered ids only
+        self._req_drop: dict = {}  # rid -> events cut at REQUEST_INDEX_CAP
 
     # ------------------------------------------------------------- recording
     def _tid(self) -> int:
@@ -112,6 +163,31 @@ class Tracer:
             else:
                 self._buf[self._n % self.capacity] = ev  # overwrite oldest
             self._n += 1
+            if self.index_requests and ev[7] is not None:
+                lst = self._req_idx.get(ev[7][0])
+                if lst is not None:
+                    if len(lst) < REQUEST_INDEX_CAP:
+                        lst.append(ev)
+                    else:
+                        rid = ev[7][0]
+                        self._req_drop[rid] = self._req_drop.get(rid, 0) + 1
+
+    # ------------------------------------------------------------- index
+    def begin_request(self, rid: str) -> None:
+        """Register `rid` for indexed collection, before the request is
+        visible to a worker (else a fast request's slice could be taken
+        before it is registered, and the entry would never be taken)."""
+        if self.index_requests and rid:
+            with self._lock:
+                self._req_idx[rid] = []
+
+    def take_request(self, rid: str) -> Optional[Tuple[list, int]]:
+        """Remove and return a registered id's (events, events cut), or
+        None; every registered id is taken once, at its terminal status."""
+        with self._lock:
+            lst = self._req_idx.pop(rid, None)
+            dropped = self._req_drop.pop(rid, 0)
+            return None if lst is None else (lst, dropped)
 
     def add_span(self, name: str, cat: str, t_start: float, dur: float,
                  args: Optional[dict] = None,
@@ -148,6 +224,23 @@ class Tracer:
             k = self._n % self.capacity
             return self._buf[k:] + self._buf[:k]
 
+    def tail(self, k: int) -> list:
+        """The newest `k` events, oldest first, without unwrapping the
+        whole ring (the flight recorder reads it every heartbeat)."""
+        with self._lock:
+            if self._n <= self.capacity:
+                return self._buf[-k:]
+            i = self._n % self.capacity   # oldest slot, the wrap point
+            if k <= i:
+                return self._buf[i - k:i]
+            return self._buf[-(k - i):] + self._buf[:i]
+
+    def events_for(self, rid: str) -> list:
+        """Every ring event tagged with request id `rid`, oldest first."""
+        return [e for e in self.events() if e[7] is not None
+                and e[7][0] == rid]
+
+
 _TRACER = Tracer()
 
 
@@ -180,11 +273,17 @@ def span(name: str, cat: str = "run",
     if not _TRACER.enabled:
         yield
         return
+    fl = _FLIGHT
     t0 = time.perf_counter()
+    if fl is not None:
+        fl.push_open(name, cat, t0, args)
     try:
         yield
     finally:
-        _TRACER.add_span(name, cat, t0, time.perf_counter() - t0, args)
+        dt = time.perf_counter() - t0
+        _TRACER.add_span(name, cat, t0, dt, args)
+        if fl is not None:
+            fl.pop_open(name, cat, t0, dt, args)
 
 
 def instant(name: str, cat: str = "run", args: Optional[dict] = None) -> None:
@@ -253,6 +352,55 @@ def export_chrome_trace(path: str, fp=None,
     else:
         with open(path, "w") as out:
             out.write(text + "\n")
+
+
+# the directory listing is the bound's expensive part, so it runs every
+# 32 exports (the bound is then max_files + 32)
+_EXPORTS = {"n": 0}
+
+
+def export_request_trace(dirpath: str, rid: str,
+                         extra_meta: Optional[dict] = None,
+                         max_files: Optional[int] = None,
+                         events: Optional[list] = None) -> Optional[str]:
+    """Write one request's events as `req-<rid>.trace.json` under
+    `dirpath` (serve's --trace-dir), deleting the oldest trace files past
+    ABPOA_TPU_TRACE_DIR_MAX (512). `events` is the request's indexed slice
+    (default: a scan of the ring). Returns the path, or None where the
+    request recorded nothing or the directory cannot be written: tracing
+    never fails the request."""
+    evs = events if events is not None else _TRACER.events_for(rid)
+    if not evs:
+        return None
+    if max_files is None:
+        max_files = int(os.environ.get("ABPOA_TPU_TRACE_DIR_MAX", "512"))
+    path = os.path.join(dirpath, f"req-{rid}.trace.json")
+    try:
+        os.makedirs(dirpath, exist_ok=True)
+        meta = {"request_id": rid, "events": len(evs)}
+        if extra_meta:
+            meta.update(extra_meta)
+        export_chrome_trace(path, extra_meta=meta, events=evs)
+        _EXPORTS["n"] += 1
+        if _EXPORTS["n"] % 32 == 0 or max_files < 32:
+            _prune_trace_dir(dirpath, max_files)
+    except OSError:
+        return None
+    return path
+
+
+def _prune_trace_dir(dirpath: str, max_files: int) -> None:
+    try:
+        names = [n for n in os.listdir(dirpath)
+                 if n.startswith("req-") and n.endswith(".trace.json")]
+        if len(names) <= max_files:
+            return
+        full = sorted((os.path.getmtime(os.path.join(dirpath, n)), n)
+                      for n in names)
+        for _mt, n in full[:len(names) - max_files]:
+            os.unlink(os.path.join(dirpath, n))
+    except OSError:
+        pass
 
 
 def span_totals(cat: Optional[str] = None) -> dict:

@@ -32,6 +32,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..obs.tally import Tally
 from ..params import Params
 
 
@@ -43,11 +44,11 @@ def _zero_stats() -> dict:
 # over the life of the process: groups, rounds, live lanes summed over the
 # rounds, lanes aligned (forward and reverse complement) and the seconds of
 # the fusions (C++ or Python, the sort included)
-stats = _zero_stats()
+stats = Tally(_zero_stats)
 
 
 def reset_stats() -> None:
-    stats.update(_zero_stats())
+    stats.reset()
 
 
 class ChurnHook:
@@ -107,6 +108,7 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
     from ..align.buckets import qp_rung
     from ..align.dp_chunk import run_dp_chunk
     from ..pipeline import _band_cols, _rc_encode
+    from . import scheduler
     from .shard import mesh_size
 
     S = mesh_size(mesh)
@@ -114,7 +116,7 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
     K = len(seq_sets)
     qmax = max((len(s) for ss in seq_sets for s in ss), default=1)
     Qp = qp_rung(qmax)
-    stats["groups"] += 1
+    stats.add("groups", 1)
     obs.observe("lockstep.k", K)
 
     # the lane table, in boarding order (the launch's lane order)
@@ -140,7 +142,7 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
     def fuse(lane: _Lane, cigar: list, q: np.ndarray, w: np.ndarray) -> None:
         t0 = time.perf_counter()
         lane.graph.add_alignment(abpt, q, w, cigar, True, lane.cursor)
-        stats["fusion_s"] += time.perf_counter() - t0
+        stats.add("fusion_s", time.perf_counter() - t0)
         lane.cursor += 1
 
     round_i = 0
@@ -168,11 +170,12 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
         obs.rounds.begin_round()
         round_i += 1
         active = list(lanes.values())
-        stats["rounds"] += 1
-        stats["live_lanes"] += len(active)
+        stats.add("rounds", 1)
+        stats.add("live_lanes", len(active))
         obs.count("lockstep.chunks")
         occ = len(active) / capacity
         obs.observe("lockstep.noop_set_fraction", 1.0 - occ)
+        scheduler.observe_lane_occupancy(occ, route=occ_route)
         if occ < 1.0:
             obs.count("lockstep.drain_chunks")
 
@@ -201,7 +204,7 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
                               abpt.gap_mode)
             results = run_dp_chunk([lane.graph for lane in dp_lanes], abpt,
                                    queries, mesh=mesh)
-            stats["dp_lanes"] += len(dp_lanes)
+            stats.add("dp_lanes", len(dp_lanes))
             flip = [False] * len(dp_lanes)
             if abpt.amb_strand:
                 under = [i for i, (lane, q, res) in
@@ -217,7 +220,7 @@ def progressive_poa_split_batch(seq_sets: List[List[np.ndarray]],
                     rc_res = run_dp_chunk(
                         [dp_lanes[i].graph for i in under], abpt,
                         [_rc_encode(queries[i]) for i in under], mesh=mesh)
-                    stats["rc_lanes"] += len(under)
+                    stats.add("rc_lanes", len(under))
                     for i, res in zip(under, rc_res):
                         if res.best_score > results[i].best_score:
                             results[i], flip[i] = res, True

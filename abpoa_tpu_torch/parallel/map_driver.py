@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.tally import Tally
 from ..params import Params
 
 
@@ -33,11 +34,11 @@ def _zero_stats() -> dict:
 
 # over the life of the process: map rounds, reads mapped and reads aligned
 # again as reverse complements
-stats = _zero_stats()
+stats = Tally(_zero_stats)
 
 
 def reset_stats() -> None:
-    stats.update(_zero_stats())
+    stats.reset()
 
 
 class MapHook:
@@ -96,6 +97,7 @@ def map_reads_split(static, queries: Sequence[np.ndarray], abpt: Params,
     from .. import obs
     from ..align.buckets import qp_rung
     from ..pipeline import _band_cols, _rc_encode
+    from . import scheduler
     from .shard import mesh_size
     if Qp is None:
         Qp = qp_rung(max((len(q) for q in queries), default=1))
@@ -136,9 +138,12 @@ def map_reads_split(static, queries: Sequence[np.ndarray], abpt: Params,
         t_round = time.perf_counter()
         obs.rounds.begin_round()
         round_i += 1
-        stats["rounds"] += 1
+        stats.add("rounds", 1)
         obs.count("map.rounds")
-        obs.metrics.publish_map_round(len(lanes), len(lanes) / k_cap)
+        occ = len(lanes) / k_cap
+        scheduler.observe_lane_occupancy(
+            occ, route="sharded" if mesh_size(mesh) > 1 else "map")
+        obs.metrics.publish_map_round(len(lanes), occ)
         with obs.phase("align"):
             for _, q in lanes:
                 obs.record_dp(static.n_rows, _band_cols(abpt, len(q)),
@@ -157,13 +162,13 @@ def map_reads_split(static, queries: Sequence[np.ndarray], abpt: Params,
                                       abpt.gap_mode)
                     rc_res = static.align(
                         [_rc_encode(lanes[i][1]) for i in under], mesh=mesh)
-                    stats["rc_reads"] += len(under)
+                    stats.add("rc_reads", len(under))
                     for i, res in zip(under, rc_res):
                         if res.best_score > results[i].best_score:
                             results[i], strands[i] = res, "-"
         for (rid, _), res, strand in zip(lanes, results, strands):
             retire(rid, (res, strand), round_i)
-        stats["reads"] += len(lanes)
+        stats.add("reads", len(lanes))
         obs.count("map.reads", len(lanes))
         # the round's sample and a share of its wall a read
         # (abpoa_tpu/parallel/map_driver.py:278-285)

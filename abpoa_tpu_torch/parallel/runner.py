@@ -16,8 +16,9 @@ admission allows (`resilience.memory.admission_plan`), each piece runs
 under the resilience envelope, and a piece that fails goes set by set
 (its single-set route, under the envelope again, on the same device), as
 in JAX (`abpoa_tpu/parallel/runner.py:130-170`). A card lost in a piece
-(`resilience.CardFailure`) stops the run. Left for item 12: the pool and
-hybrid routes.
+(`resilience.CardFailure`) stops the run. `flush_lockstep_group_churn`
+(:201) is the server's churned group on the split driver. The pool and
+hybrid routes come with the pool.
 """
 from __future__ import annotations
 
@@ -146,6 +147,36 @@ def flush_lockstep_group(group: List, abpt: Params, mesh=None,
                                         abpt.device, amortized=True)
                 results.update(_attach(piece, outs, abpt))
     return results
+
+
+def flush_lockstep_group_churn(group: List, abpt: Params, churn,
+                               mesh=None,
+                               label: str = "lockstep_batch") -> None:
+    """The server's form of `flush_lockstep_group` (JAX runner.py:201): one
+    group of (idx, ab, seqs, weights) entries of one `qp_rung` through the
+    split driver with a round-boundary churn hook (`lockstep.ChurnHook`),
+    under `guarded_device_call(label, ...)`. Every lane's result, the
+    joiners' too, goes to `churn.on_retire` the round it finishes, so
+    nothing is returned. No length partition and no admission plan: the
+    server's coalescer packs one rung, and its byte gate priced the group
+    and prices each joiner against the live lanes. A failed dispatch
+    raises `DispatchFailed` for the caller's set-by-set sweep on the same
+    device; a lost card raises `CardFailure`."""
+    if not group:
+        return
+    from .. import resilience as rz
+    from ..obs import count, device_capture, observe, trace
+    from .lockstep import progressive_poa_split_batch
+    count("lockstep.groups")
+    observe("lockstep.group_size", len(group))
+    with trace.span("lockstep_group", "fused",
+                    args={"k": len(group), "impl": "split", "churn": True}), \
+            device_capture("lockstep_group"):
+        rz.guarded_device_call(
+            label, abpt.torch_device.type,
+            lambda: progressive_poa_split_batch(
+                [e[2] for e in group], [e[3] for e in group], abpt,
+                churn=churn, mesh=mesh))
 
 
 def _attach(sub: List, outs: list, abpt: Params) -> dict:

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--reads N] [--ref-len L] [--c2-reads M] [--c4-reads K]
                           [--c5-reads I] [--c6-reads Q] [--c7-reads S]
                           [--c9-reads T] [--c11-sets U] [--c12-reads V]
-                          [--c13-reads W]
+                          [--c13-reads W] [--c14-sets X]
 
 Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
   build  compile every kernel from abpoa_tpu_torch/csrc with nvcc (sm_90a),
@@ -154,7 +154,7 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          -1) launch B2u and no B2, the others B2 and no B2u
   C9     `-l` at full width (phase_c9): 8 sets of 10 kb reads at 10 %
          error of 8 references (seeds 11-18), set i of T + 5 i reads
-         (T = 6; 10 before C13), through the CLI with -r 2 and --lockstep off (set by
+         (T = 5; 6 before C14, 10 before C13), through the CLI with -r 2 and --lockstep off (set by
          set, the fused route), on with the split driver (K = 8: one
          K-lane B2 launch and one X1w launch a round, host fusion) and on
          with the device lockstep (every graph on the card; B1, X1, S1
@@ -203,18 +203,18 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          fused_chunk, the exposition's read count; both arms' walls and
          their ratio; (b) 5 reads with --profile-dir: the torch.profiler
          trace lists B1's, X1's and S1's kernels (K1's where a repair ran)
-         by symbol; (c) C9's first 4 sets on the device lockstep and the
+         by symbol; (c) C9's first 3 sets (4 before C14) on the device lockstep and the
          split driver and map -K 8 onto (a)'s MSA, with and without
          --report: outputs equal, round samples == the round counters;
          (d) `warm --ladder quick` in a fresh process: a build hit, one
          launch of each entry point, one ledger record naming the card
   C13    the resilience envelope on the card (in this process,
          `inject.configure` between cases): (a) phase_c13_envelope, before
-         the plain pool starts: the first --c13-reads (20) headline reads
+         the plain pool starts: the first --c13-reads (15; 20 before C14) headline reads
          on the fused route with the envelope on and off, A B B A after
          an untimed turn: output, B1/X1/S1/K1 launches and host syncs
          equal, the on / off wall ratio; phase_c13: (b) oom:1,
-         compile_fail:1, hang:1 (a 10 s watchdog, C13_WATCHDOG_S),
+         compile_fail:1, hang:1 (a 6 s watchdog, C13_WATCHDOG_S),
          garbage:1 and an unlimited oom on the fused route (C's first 5
          reads), the per-read route (-G -r 2 on the first 3) and the
          device lockstep (C9's first 2 sets): the exit code and the
@@ -231,6 +231,26 @@ Needs one CUDA card of capability 9.0 (H100). Phases, each a hard failure:
          allocation; (d) a child on a copy of the package whose kernel
          library cannot be loaded exits non-zero with no output and no
          demotion
+  C14    the server on the card (phase_c14; `abpoa_tpu_torch/serve/`), on
+         C9's first --c14-sets (4) sets with -r 2 and C12 (a)'s MSA as a
+         map graph; two server children start first and warm beside the
+         in-process parts: (a) an AlignServer on cuda, 2 workers, a quick
+         warm: the two largest sets keep both workers busy, the others
+         coalesce into one K >= 2 group on the device lockstep; each answer
+         == the set's CLI bytes, B1 and X1 lane launches, no B2; (b) the
+         split driver with churn: sets posted one by one until both
+         workers hold an open group, the rest board one at a round
+         boundary (a join round in the archive), two threads in
+         align_windows_banded at once; answers == (a)'s, B2 lanes and X1w,
+         no B1; (c) POST /map of headline reads 10-29 in 4 requests: the
+         GAF == `map -K 8`; (d) 400, 504 (a 0.25 s deadline; the card not
+         lost), 429 on --queue-depth 1, 413, each followed by a 200 with
+         the same bytes, /metrics' serve counts == the statuses seen; (e)
+         a child `serve --trace-dir`: SIGTERM with a request in flight,
+         200 and rc 0, then `why <rid>` names its trace; (f) a child with
+         hang:1 and a 5 s dispatch watchdog: 500, /readyz 503, a later
+         request 503, rc 1, no host dispatch, no launch after the fault.
+         Each part's launches by kernel are printed
   D      at the graph phase C left and one more read: B1, X1, S1 (on the
          read's fused graph before its sort, as the main path hands it
          over; each timed launch on a fresh copy; rows moved
@@ -283,6 +303,8 @@ resilience envelope absorbed anything in it (`Absorbed`: a `faults`
 record, a breaker open, a `fallback.*` or `breaker.*` count), or if a
 child process printed one of the envelope's stderr lines: a kernel that
 starts to fail on the card fails the smoke instead of being absorbed.
+C14 (d) sends a poisoned set and a deadline on purpose: their two fault
+kinds are the only ones it accepts.
 C2 also runs its reads with --device native (the C++ host DP, the `cpu`
 ladder's host rung): the same consensus, its DP ms a read beside B2's.
 Quick form (~5 min): --reads 12 --ref-len 2000 --c2-reads 6 --c4-reads 20
@@ -1811,7 +1833,7 @@ def phase_c5(args, ref: str, rows: list, msa_len: int):
         f"{wall5c - split5c['restore'] - split5c['poa']:.2f}; per read (ms): "
         f"{split5c['poa'] * 1e3 / n5c:.1f} = "
         f"{per_read_split(pr5c, split5c.get('fusion', 0.0), n5c)}; X1w launches "
-        f"{x1w_c5}; pinned buffer {banded._pinned[0].numel() * 4 / 2**20:.2f} MiB")
+        f"{x1w_c5}; largest pinned buffer {banded.stats['staging_bytes'] / 2**20:.2f} MiB")
     return b2_c5, x1w_c5, graph5
 
 
@@ -3257,7 +3279,7 @@ def phase_c12(args, fa: str, after_a=None) -> dict:
     the arms' walls and their ratio. (b) 5 of those reads with
     `--profile-dir D`: the exported torch.profiler trace lists the kernel
     symbols of B1, X1 and S1 (and K1's where a repair ran) as CUDA kernel
-    events. (c) C9's first 4 sets on the device lockstep and on the split
+    events. (c) C9's first 3 sets on the device lockstep and on the split
     driver, and `map -K 8` of the (a) reads onto the MSA (a) wrote, each
     with and without `--report`: outputs equal, the rounds timeline's
     samples == the route's round counter. (d) `warm --ladder quick` in a
@@ -3399,11 +3421,11 @@ def phase_c12(args, fa: str, after_a=None) -> dict:
                                     sorted(ours.items())))
 
     # (c) the rounds timeline on the lockstep routes and map
-    lst = os.path.join(d12, "c9_first4.txt")
+    lst = os.path.join(d12, "c9_first3.txt")
     with open(os.path.join(OUT, "c9_list.txt")) as fp:
-        first4 = fp.read().splitlines()[:4]
+        first3 = fp.read().splitlines()[:3]
     with open(lst, "w") as fp:
-        fp.write("".join(f + "\n" for f in first4))
+        fp.write("".join(f + "\n" for f in first3))
     walls_c = {}
     for impl in ("device", "split"):
         outs = []
@@ -3432,7 +3454,7 @@ def phase_c12(args, fa: str, after_a=None) -> dict:
                                  "output")
         with open(os.path.join(d12, f"c_{impl}.json")) as fp:
             rep_c = json.load(fp)
-        log(f"[C12] (c) {impl} lockstep, C9's first 4 sets: == without "
+        log(f"[C12] (c) {impl} lockstep, C9's first 3 sets: == without "
             f"--report; {rounds} rounds == {samples} round samples; "
             f"lockstep.chunks {rep_c['counters'].get('lockstep.chunks')}; "
             f"walls {walls_c[(impl, False)]:.2f} / "
@@ -3580,11 +3602,11 @@ def launch_total() -> int:
 # route (JAX: pipeline.py:178 fused, dispatch.py:224 per read,
 # fused_loop.py:2148 the device lockstep's per-set rerun)
 C13_KINDS = ("oom:1", "compile_fail:1", "hang:1", "garbage:1", "oom")
-# the hang cases' deadline: 5 times the longest honest dispatch they
+# the hang cases' deadline: 3 times the longest honest dispatch they
 # supervise (the device lockstep's 2 sets, ~2 s on the card; D's plain
 # versions share the host's cores meanwhile), so that only the injected
-# hang trips it
-C13_WATCHDOG_S = 10.0
+# hang trips it (10 s until C14 needed the time: each hang case waits it)
+C13_WATCHDOG_S = 6.0
 C13_GARBAGE = {"fused": "fallback", "per_read": "host_rerun",
                "lockstep": "sequential_rerun"}
 # the fallbacks an unlimited oom passes on the card before the per-read
@@ -3939,6 +3961,637 @@ def phase_c13(args, files: dict, absorbed: Absorbed,
     return out
 
 
+# ---- C14: the server on the card -------------------------------------- #
+
+# the lost-card child: `serve` with the launch counters read at the fault,
+# after the drain and at exit, and the host-dispatch counters after the
+# drain; its last stdout line is that JSON
+C14_LOST_CHILD = r"""
+import json, sys
+from abpoa_tpu_torch import obs
+from abpoa_tpu_torch.kernels.warm import launch_counts
+from abpoa_tpu_torch.serve import server as S
+snap = {}
+real_fail, real_drain = S.AlignServer._card_failed, S.AlignServer.drain
+
+def card_failed(self, job, e):
+    snap.setdefault("at_fault", launch_counts())
+    return real_fail(self, job, e)
+
+def drain(self, timeout=None):
+    ok = real_drain(self, timeout)
+    snap["after_drain"] = launch_counts()
+    snap["counters"] = {k: v for k, v in obs.report().counters.items()
+                        if k.startswith(("dispatch.", "fallback.",
+                                         "breaker."))}
+    return ok
+
+S.AlignServer._card_failed = card_failed
+S.AlignServer.drain = drain
+from abpoa_tpu_torch.cli import main
+rc = main(["serve"] + sys.argv[1:])
+snap["at_exit"] = launch_counts()
+print(json.dumps(snap), flush=True)
+sys.exit(rc)
+"""
+# the lost card's dispatch deadline: well above a set's honest fused run
+# (~0.6 s for C9's first set), well under the injected hang
+C14_WATCHDOG_S = 5.0
+C14_POISON = b"@truncated\nACGTACGT\n+\nIII\n"
+# the servers' flags (C9's), and what the children add to them (a CPU
+# rehearsal, tools/c14_quick.py --cpu, sets these)
+C14_FLAGS = ["-r", "2"]
+C14_CHILD_ARGS: list = []
+
+
+def c14_counters() -> dict:
+    """The launch counters C14 reads a part: name -> wrapper attribute."""
+    from abpoa_tpu_torch.align.backtrack_kernel import (
+        backtrack, backtrack_lanes, backtrack_windows)
+    from abpoa_tpu_torch.align.banded_kernel import banded_dp, unbanded_dp
+    from abpoa_tpu_torch.align.edge_sort_kernel import (edge_sort,
+                                                        finish_fusion_lanes_)
+    from abpoa_tpu_torch.align.fuse_kernel import fuse_alignment_lanes
+    from abpoa_tpu_torch.align.fused_dp_kernel import fused_dp, fused_dp_lanes
+    from abpoa_tpu_torch.align.topo_kernel import topo_sort, topo_sort_lanes
+    return {"fused_dp": (fused_dp, "launches"),
+            "fused_dp[local]": (fused_dp, "local_launches"),
+            "fused_dp[lanes]": (fused_dp_lanes, "launches"),
+            "backtrack": (backtrack, "launches"),
+            "backtrack[lanes]": (backtrack_lanes, "launches"),
+            "backtrack[windows]": (backtrack_windows, "launches"),
+            "banded_dp": (banded_dp, "launches"),
+            "banded_dp[unbanded]": (unbanded_dp, "launches"),
+            "edge_sort": (edge_sort, "launches"),
+            "edge_sort[lanes]": (finish_fusion_lanes_, "launches"),
+            "topo_sort": (topo_sort, "launches"),
+            "topo_sort[lanes]": (topo_sort_lanes, "launches"),
+            "fuse_alignment": (fuse_alignment_lanes, "launches")}
+
+
+def c14_zero() -> None:
+    for owner, attr in c14_counters().values():
+        setattr(owner, attr, 0)
+
+
+def c14_read() -> dict:
+    return {k: getattr(o, a) for k, (o, a) in c14_counters().items()}
+
+
+def c14_post(base, body, path="/align", headers=None, timeout=600):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(base + path, data=body, method="POST",
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            out = (r.status, r.read(), dict(r.headers))
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.read(), dict(e.headers))
+    return out + (time.perf_counter() - t0,)
+
+
+def c14_get(base, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def c14_concurrent(base, bodies, path="/align", stagger=0.0, headers=None):
+    import threading
+    res = [None] * len(bodies)
+
+    def send(i):
+        res[i] = c14_post(base, bodies[i], path, headers)
+    threads = []
+    for i in range(len(bodies)):
+        threads.append(threading.Thread(target=send, args=(i,)))
+        threads[-1].start()
+        if stagger:
+            time.sleep(stagger)
+    for t in threads:
+        t.join()
+    return res
+
+
+def c14_until(pred, timeout: float, what: str, step: float = 0.05):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        got = pred()
+        if got:
+            return got
+        time.sleep(step)
+    raise AssertionError(f"C14: {what} within {timeout} s")
+
+
+def c14_spawn(argv, env, stdout=None):
+    """A server child; returns (proc, base URL, stderr lines) once it
+    prints its listening line. Its stderr is read on a thread."""
+    import threading
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=stdout,
+                            stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    port: dict = {}
+    seen = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "listening on http://" in line and "port" not in port:
+                port["port"] = int(line.split("listening on http://")[1]
+                                   .split()[0].rsplit(":", 1)[1])
+                seen.set()
+        seen.set()
+    threading.Thread(target=read, daemon=True).start()
+    return proc, port, seen, lines
+
+
+def c14_ready(child, timeout=180.0) -> str:
+    proc, port, seen, lines = child
+    if not seen.wait(timeout) or "port" not in port:
+        raise AssertionError(f"C14: a server child printed no listening "
+                             f"line (rc {proc.poll()}): {''.join(lines)[-2000:]}")
+    base = f"http://127.0.0.1:{port['port']}"
+    c14_until(lambda: proc.poll() is not None
+              or c14_get(base, "/readyz")[0] == 200, timeout,
+              "a server child's /readyz 200")
+    if proc.poll() is not None:
+        raise AssertionError(f"C14: a server child exited rc "
+                             f"{proc.returncode}: {''.join(lines)[-2000:]}")
+    return base
+
+
+def phase_c14(args, fa: str, files: list, msa: str,
+              absorbed: "Absorbed", card: bool = True) -> dict:
+    """Phase C14: `serve` on the card (`abpoa_tpu_torch/serve/`), on
+    inputs earlier phases made: C9's first --c14-sets sets (10 kb reads
+    at 10 %) with C9's flags (-r 2), and C12 (a)'s MSA of 10 headline
+    reads as a map graph. Two server children (e), (f) start first and
+    warm beside (a)-(d).
+    (a) An in-process AlignServer on cuda, 2 workers, a quick warm: the
+    two largest sets posted first keep both workers busy (a request
+    alone: the fused route), then the others queue and coalesce into one
+    group (K >= 2) on the device lockstep; each answer == the set's CLI
+    bytes (`--lockstep off`); B1 and X1 lane launches > 0, no B2.
+    (b) The same with ABPOA_TPU_LOCKSTEP_IMPL=split and churn on, the
+    sets posted staggered: at least one request boards an open group (its
+    archive record's join round), two groups run at once (two threads in
+    `align_windows_banded` together); answers == (a)'s; B2 lane and X1w
+    launches > 0, no B1.
+    (c) POST /map of headline reads 10-29 in 4 requests against the MSA:
+    the GAF == `map -g MSA -K 8` on the same reads.
+    (d) On (a)'s server (and a --queue-depth 1 one): a poisoned FASTQ
+    400; X-Abpoa-Deadline-S 0.25 on the largest set 504, the card not
+    lost; a burst 429 with Retry-After; an oversized body 413; after each
+    the next request 200 with the same bytes; /metrics' serve counts ==
+    the statuses seen.
+    (e) A child `serve --trace-dir`: SIGTERM with one request in flight:
+    that request 200 == the CLI's bytes, rc 0; `why <rid>` renders its
+    verdict and names its trace file.
+    (f) A child with ABPOA_TPU_INJECT=hang:1 and a 5 s dispatch watchdog:
+    the request 500; /readyz 503 and a later request 503; rc 1; no host
+    dispatch and no launch after the fault.
+    Each part fails the run when it does not hold. Returns each part's
+    launches by kernel and the walls. With card=False (a CPU rehearsal)
+    (f) is left out: a hang loses only a card."""
+    import shutil
+    t_c14 = time.perf_counter()
+    d14 = os.path.join(OUT, "c14")
+    shutil.rmtree(d14, ignore_errors=True)
+    os.makedirs(d14)
+    sets = files[:args.c14_sets]
+    bodies = [open(f, "rb").read() for f in sets]
+    sizes = [b.count(b">") for b in bodies]
+
+    # (e) and (f): the children start now and warm beside (a)-(d)
+    env_e = dict(os.environ, ABPOA_TPU_ARCHIVE="1",
+                 ABPOA_TPU_ARCHIVE_DIR=os.path.join(d14, "archive_e"))
+    trace_dir = os.path.join(d14, "traces")
+    child_e = c14_spawn([sys.executable, "-m", "abpoa_tpu_torch", "serve",
+                         "--port", "0", "--workers", "2", *C14_FLAGS,
+                         *C14_CHILD_ARGS, "--trace-dir", trace_dir], env_e)
+    env_f = dict(os.environ, ABPOA_TPU_ARCHIVE="0",
+                 ABPOA_TPU_INJECT="hang:1",
+                 ABPOA_TPU_WATCHDOG_S=str(C14_WATCHDOG_S),
+                 ABPOA_TPU_INJECT_HANG_S=str(C14_WATCHDOG_S + 3),
+                 ABPOA_TPU_SERVE_DRAIN_S="6")
+    child_f = (c14_spawn([sys.executable, "-c", C14_LOST_CHILD, "--port",
+                          "0", "--workers", "1", *C14_FLAGS], env_f,
+                         stdout=subprocess.PIPE) if card else None)
+
+    try:
+        return _c14_parts(args, fa, sets, msa, absorbed, card, d14, bodies,
+                          sizes, env_e, trace_dir, child_e, child_f, t_c14)
+    finally:
+        # every child ends with C14, whatever failed
+        for child in (child_e, child_f):
+            if child is not None and child[0].poll() is None:
+                child[0].kill()
+                child[0].wait(timeout=60)
+
+
+def _c14_parts(args, fa, sets, msa, absorbed, card, d14, bodies, sizes,
+               env_e, trace_dir, child_e, child_f, t_c14) -> dict:
+    """Phase C14's parts (a)-(f), with its children running."""
+    import collections
+    import signal as _signal
+    import threading
+    import torch
+    from abpoa_tpu_torch import resilience as rz
+    from abpoa_tpu_torch.align import dp_chunk
+    from abpoa_tpu_torch.io.fastx import read_fastx
+    from abpoa_tpu_torch.obs import metrics as pm
+    from abpoa_tpu_torch.parallel import scheduler
+    from abpoa_tpu_torch.serve import AlignServer
+    from abpoa_tpu_torch.serve.server import _build_parser, _params_from_args
+    # the references: each set through the CLI with --lockstep off, and
+    # map -K 8 of the map reads onto the MSA
+    want = []
+    for i, f in enumerate(sets):
+        out = os.path.join(d14, f"cli{i}.fa")
+        run_cli([f, "-r", "2", "--lockstep", "off", "-o", out])
+        want.append(open(out, "rb").read())
+    recs = read_fastx(fa)[10:30]
+    map_fa = os.path.join(d14, "map_reads.fa")
+    with open(map_fa, "w") as fp:
+        fp.write("".join(f">{r.name}\n{r.seq}\n" for r in recs))
+    map_out = os.path.join(d14, "map_cli.gaf")
+    run_cli(["map", "-g", msa, map_fa, "-K", "8", "-o", map_out])
+    want_gaf = open(map_out, "rb").read()
+    map_bodies = ["".join(f">{r.name}\n{r.seq}\n" for r in recs[i:i + 5])
+                  .encode() for i in range(0, 20, 5)]
+    t_ref = time.perf_counter() - t_c14
+    small = min(range(len(sets)), key=lambda i: sizes[i])
+    big = max(range(len(sets)), key=lambda i: sizes[i])
+    launches = {}
+    walls = {}
+
+    # ---- (e) SIGTERM with a request in flight, then `why`
+    def part_e() -> str:
+        t0 = time.perf_counter()
+        base_e = c14_ready(child_e)
+        res_e = {}
+        th = threading.Thread(target=lambda: res_e.update(
+            r=c14_post(base_e, bodies[big])))
+        th.start()
+        c14_until(lambda: json.loads(c14_get(base_e, "/healthz")[1])
+                  ["inflight"] >= 1, 60, "the request in flight")
+        child_e[0].send_signal(_signal.SIGTERM)
+        th.join(300)
+        rc_e = child_e[0].wait(timeout=300)
+        err_e = "".join(child_e[3])
+        code, out, hdr, _w = res_e["r"]
+        if rc_e != 0 or code != 200 or out != want[big] \
+                or "drained clean" not in err_e:
+            raise AssertionError(f"C14 (e): rc {rc_e}, request {code}: "
+                                 f"{err_e[-2000:]}")
+        no_envelope("C14 (e)", err_e)
+        rid = hdr["X-Abpoa-Request-Id"]
+        why = subprocess.run([sys.executable, "-m", "abpoa_tpu_torch", "why",
+                              rid], cwd=ROOT, env=env_e, capture_output=True,
+                             text=True, timeout=300)
+        tf = os.path.join(trace_dir, f"req-{rid}.trace.json")
+        if why.returncode != 0 or "verdict: ok: served in" not in why.stdout \
+                or f"trace: {tf}" not in why.stdout:
+            raise AssertionError(f"C14 (e): why rc {why.returncode}: "
+                                 f"{why.stdout[-1500:]}{why.stderr[-1500:]}")
+        walls["e"] = time.perf_counter() - t0
+        return (f"[C14] (e) a child serve --trace-dir: SIGTERM with set "
+                f"{big} in flight: 200 == the CLI's bytes, rc 0; why {rid}:\n"
+                + why.stdout.rstrip())
+
+    # ---- (f) a lost card
+    def part_f() -> str:
+        t0 = time.perf_counter()
+        base_f = c14_ready(child_f)
+        code, out, _h, w500 = c14_post(base_f, bodies[small])
+        ready_f = c14_get(base_f, "/readyz")[0]
+        health_f = json.loads(c14_get(base_f, "/healthz")[1])
+        later = c14_post(base_f, bodies[small])
+        rc_f = child_f[0].wait(timeout=300)
+        snap = json.loads(child_f[0].stdout.read().strip().splitlines()[-1])
+        err_f = "".join(child_f[3])
+        # a dispatch or a rerun on the host, a fallback or a demotion (the
+        # breaker's `lost` count is the card's own)
+        host = {k: v for k, v in snap["counters"].items()
+                if k.startswith(("fallback.", "breaker.demoted", "dispatch."))
+                and k != "dispatch.cuda"}
+        if code != 500 or ready_f != 503 or later[0] != 503 or rc_f != 1 \
+                or health_f["status"] != "degraded" or host \
+                or snap["at_exit"] != snap["at_fault"]:
+            raise AssertionError(f"C14 (f): request {code} {out[:200]}, readyz "
+                                 f"{ready_f}, later {later[0]}, rc {rc_f}, "
+                                 f"health {health_f}, host dispatches {host}, "
+                                 f"launches at the fault {snap['at_fault']} / "
+                                 f"at exit {snap['at_exit']}: {err_f[-2000:]}")
+        walls["f"] = time.perf_counter() - t0
+        return (f"[C14] (f) a child with hang:1 and a {C14_WATCHDOG_S:.0f} s "
+                f"watchdog: 500 in {w500:.2f} s ({out[:120]!r}); /readyz "
+                f"503, /healthz {health_f['status']} {health_f['degraded']}; "
+                f"a later request 503; rc 1; no host dispatch; launches "
+                f"unchanged from the fault to exit "
+                f"({sum(snap['at_exit'].values())})")
+
+    # (e) and (f) run on their children beside (a)-(d), each on a thread
+    side_runs = []
+
+    def run_side(fn, box):
+        try:
+            box["text"] = fn()
+        except BaseException as e:  # noqa: BLE001 (raised after the join)
+            box["error"] = e
+    for fn in (part_e, part_f) if card else (part_e,):
+        box: dict = {}
+        side_runs.append((threading.Thread(target=run_side, args=(fn, box),
+                                           daemon=True), box))
+    for th, _box in side_runs:
+        th.start()
+    abpt = _params_from_args(_build_parser().parse_args(C14_FLAGS)
+                             ).finalize()
+
+    def server(warm="quick", **kw):
+        # each server starts from a fresh idle-lane EWMA (the earlier
+        # phases' drain tails in this process would cap its K)
+        scheduler.reset()
+        srv = AlignServer(abpt, port=0, **kw)
+        t0 = time.perf_counter()
+        srv.start(warm=warm)
+        return srv, f"http://127.0.0.1:{srv.port}", time.perf_counter() - t0
+
+    def record_groups(srv):
+        """Each group's K, on the server's routes."""
+        ks = []
+        for name in ("_run_lockstep", "_run_lockstep_churn"):
+            real = getattr(srv, name)
+
+            def wrap(jobs, p, real=real, name=name):
+                ks.append((name, len(jobs)))
+                return real(jobs, p)
+            setattr(srv, name, wrap)
+        real_single = srv._finish_single
+
+        def single(job, p):
+            ks.append(("single", 1))
+            return real_single(job, p)
+        srv._finish_single = single
+        return ks
+
+    # ---- (a) coalesced groups on the device lockstep
+    srv, base, warm_s = server(workers=2)
+    try:
+        if srv._lockstep_impl != "device" or srv._churn:
+            raise AssertionError(f"C14 (a): route {srv._lockstep_impl}, "
+                                 f"churn {srv._churn}")
+        ks = record_groups(srv)
+        c14_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        order = sorted(range(len(sets)), key=lambda i: -sizes[i])
+        first, rest = order[:2], order[2:]
+        res = {}
+
+        def send(i):
+            res[i] = c14_post(base, bodies[i])
+        ths = [threading.Thread(target=send, args=(i,)) for i in first]
+        for t in ths:
+            t.start()
+        c14_until(lambda: srv.admission.snapshot()[1] >= 2, 60,
+                  "both workers busy")
+        for i, r in zip(rest, c14_concurrent(base, [bodies[i]
+                                                    for i in rest])):
+            res[i] = r
+        for t in ths:
+            t.join()
+        wall_a = time.perf_counter() - t0
+        launches["a"] = c14_read()
+    finally:
+        srv.stop()
+    for i in range(len(sets)):
+        code, out, _h, _w = res[i]
+        if code != 200 or out != want[i]:
+            raise AssertionError(f"C14 (a): set {i} answered {code}, bytes "
+                                 f"{'equal' if out == want[i] else 'differ'}")
+    la = launches["a"]
+    if max(k for _n, k in ks) < 2 or card and (
+            la["fused_dp[lanes]"] < 1 or la["backtrack[lanes]"] < 1
+            or la["banded_dp"] or la["backtrack[windows]"]):
+        raise AssertionError(f"C14 (a): groups {ks}, launches {la}")
+    walls["a"] = wall_a
+    log(f"[C14] (a) {len(sets)} sets ({sizes} reads) on 2 workers, the "
+        f"device lockstep: warm {warm_s:.2f} s; groups {ks}; each answer "
+        f"== the CLI's bytes; request walls "
+        + ", ".join(f"set {i} {res[i][3]:.2f} s" for i in range(len(sets)))
+        + f"; {wall_a:.2f} s in all; launches "
+        + str({k: v for k, v in la.items() if v}))
+
+    # ---- (b) churn on the split driver
+    old_impl = os.environ.get("ABPOA_TPU_LOCKSTEP_IMPL")
+    os.environ["ABPOA_TPU_LOCKSTEP_IMPL"] = "split"
+    arch_b = os.path.join(d14, "archive_b")
+    old_arch = os.environ.get("ABPOA_TPU_ARCHIVE_DIR")
+    os.environ["ABPOA_TPU_ARCHIVE_DIR"] = arch_b
+    inside = {"now": 0, "max": 0}
+    lock = threading.Lock()
+    real_awb = dp_chunk.align_windows_banded
+
+    def awb(*a, **kw):
+        with lock:
+            inside["now"] += 1
+            inside["max"] = max(inside["max"], inside["now"])
+        try:
+            return real_awb(*a, **kw)
+        finally:
+            with lock:
+                inside["now"] -= 1
+    dp_chunk.align_windows_banded = awb
+    try:
+        srv, base, _ = server(warm="off", workers=2)
+        try:
+            if srv._lockstep_impl != "split" or not srv._churn:
+                raise AssertionError(f"C14 (b): route {srv._lockstep_impl},"
+                                     f" churn {srv._churn}")
+            ks_b = record_groups(srv)
+            c14_zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res_b = {}
+            ths = []
+
+            def start_b(i):
+                ths.append(threading.Thread(target=lambda: res_b.update(
+                    {i: c14_post(base, bodies[i])})))
+                ths[-1].start()
+            # the largest sets, one at a time, until each worker has a
+            # group open (a set an open group claims first opens none);
+            # the rest arrive while both are in flight and board one at a
+            # round boundary
+            pending = list(order)
+            start_b(pending.pop(0))
+            while pending and len(srv.open_groups_snapshot()) < 2:
+                start_b(pending.pop(0))
+                t1 = time.perf_counter()
+                while len(srv.open_groups_snapshot()) < 2 \
+                        and time.perf_counter() - t1 < 3:
+                    time.sleep(0.02)
+            time.sleep(0.5)
+            for i in pending:
+                start_b(i)
+            for t in ths:
+                t.join()
+            wall_b = time.perf_counter() - t0
+            launches["b"] = c14_read()
+        finally:
+            srv.stop()
+    finally:
+        dp_chunk.align_windows_banded = real_awb
+        if old_impl is None:
+            os.environ.pop("ABPOA_TPU_LOCKSTEP_IMPL", None)
+        else:
+            os.environ["ABPOA_TPU_LOCKSTEP_IMPL"] = old_impl
+        if old_arch is None:
+            os.environ.pop("ABPOA_TPU_ARCHIVE_DIR", None)
+        else:
+            os.environ["ABPOA_TPU_ARCHIVE_DIR"] = old_arch
+    with open(os.path.join(arch_b, "reports.jsonl")) as fp:
+        recs_b = [json.loads(ln) for ln in fp]
+    joined = [r for r in recs_b if r.get("join_round") is not None]
+    for i in range(len(sets)):
+        code, out, _h, _w = res_b[i]
+        if code != 200 or out != want[i]:
+            raise AssertionError(f"C14 (b): set {i} answered {code}, bytes "
+                                 f"{'equal' if out == want[i] else 'differ'}")
+    lb = launches["b"]
+    if not joined or inside["max"] < 2 or card and (
+            lb["banded_dp"] < 1 or lb["backtrack[windows]"] < 1
+            or lb["fused_dp"] or lb["fused_dp[lanes]"]):
+        raise AssertionError(f"C14 (b): joins {joined}, threads at once in "
+                             f"align_windows_banded {inside['max']}, "
+                             f"launches {lb}")
+    walls["b"] = wall_b
+    log(f"[C14] (b) split driver, churn: groups {ks_b}; joins "
+        + ", ".join(f"{r['label']} group {r['join_group']} round "
+                    f"{r['join_round']}" for r in joined)
+        + f"; at most {inside['max']} threads in align_windows_banded at "
+        f"once; answers == (a)'s; request walls "
+        + ", ".join(f"set {i} {res_b[i][3]:.2f} s" for i in range(len(sets)))
+        + f"; {wall_b:.2f} s in all; launches "
+        + str({k: v for k, v in lb.items() if v}))
+
+    # ---- (c) /map
+    srv = AlignServer(abpt, port=0, workers=2, map_graph=msa)
+    t0 = time.perf_counter()
+    srv.start(warm="off")
+    restore_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        c14_zero()
+        t0 = time.perf_counter()
+        res_c = c14_concurrent(base, map_bodies, path="/map")
+        wall_c = time.perf_counter() - t0
+        launches["c"] = c14_read()
+    finally:
+        srv.stop()
+    gaf = b"".join(r[1] for r in res_c)
+    if [r[0] for r in res_c] != [200] * 4 or gaf != want_gaf:
+        raise AssertionError(f"C14 (c): codes {[r[0] for r in res_c]}, GAF "
+                             f"{'equal' if gaf == want_gaf else 'differs'}")
+    lc = launches["c"]
+    if card and (lc["banded_dp"] < 1 or lc["backtrack[windows]"] < 1):
+        raise AssertionError(f"C14 (c): launches {lc}")
+    walls["c"] = wall_c
+    log(f"[C14] (c) /map: 20 reads in 4 requests onto C12 (a)'s MSA "
+        f"(restored in {restore_s:.2f} s): GAF == map -K 8; {wall_c:.2f} s; "
+        f"launches {({k: v for k, v in lc.items() if v})}")
+    absorbed.check("C14 (a)-(c)")
+
+    # ---- (d) the contract on the card
+    pm.reset_registry()
+    seen = collections.Counter()
+    status_of = {200: "ok", 400: "poisoned", 413: "oversized",
+                 429: "rejected", 503: "draining", 504: "timeout"}
+    srv, base, _ = server(warm="off", workers=2)
+    srv_q = AlignServer(abpt, port=0, workers=1, queue_depth=1)
+    srv_q.start(warm="off")
+    base_q = f"http://127.0.0.1:{srv_q.port}"
+
+    def then_ok(tag, where=base):
+        code, out, _h, _w = c14_post(where, bodies[small])
+        seen[status_of[code]] += 1
+        if code != 200 or out != want[small]:
+            raise AssertionError(f"C14 (d) after {tag}: {code}")
+
+    try:
+        t0 = time.perf_counter()
+        code, out, _h, _w = c14_post(base, C14_POISON)
+        seen[status_of.get(code, str(code))] += 1
+        if code != 400 or b"quality length" not in out:
+            raise AssertionError(f"C14 (d) poisoned: {code} {out[:200]}")
+        then_ok("400")
+        code, _o, _h, w504 = c14_post(base, bodies[big],
+                                      headers={"X-Abpoa-Deadline-S": "0.25"})
+        seen[status_of.get(code, str(code))] += 1
+        if code != 504 or w504 > 5 or rz.breaker().lost:
+            raise AssertionError(f"C14 (d) deadline: {code} in {w504:.2f} s,"
+                                 f" lost {rz.breaker().lost}")
+        then_ok("504")
+        burst = c14_concurrent(base_q, [bodies[small]] * 6)
+        codes = [r[0] for r in burst]
+        for r in burst:
+            seen[status_of.get(r[0], str(r[0]))] += 1
+        shed = [r for r in burst if r[0] == 429]
+        if not shed or any(int(r[2]["Retry-After"]) < 1 for r in shed) \
+                or any(r[1] != want[small] for r in burst if r[0] == 200):
+            raise AssertionError(f"C14 (d) burst on --queue-depth 1: {codes}")
+        then_ok("429", base_q)
+        os.environ["ABPOA_TPU_SERVE_MAX_BODY_MB"] = str(
+            len(bodies[small]) / 2e6)
+        try:
+            code, _o, _h, _w = c14_post(base, bodies[small])
+        finally:
+            os.environ.pop("ABPOA_TPU_SERVE_MAX_BODY_MB", None)
+        seen[status_of.get(code, str(code))] += 1
+        if code != 413:
+            raise AssertionError(f"C14 (d) oversized: {code}")
+        then_ok("413")
+        _c, expo = c14_get(base, "/metrics")
+        samples, _ = pm.parse_exposition(expo.decode())
+        got = {s: int(pm.sample_value(samples, "abpoa_serve_requests_total",
+                                      status=s) or 0) for s in seen}
+        if got != dict(seen):
+            raise AssertionError(f"C14 (d): /metrics {got} != sent {seen}")
+        wall_d = time.perf_counter() - t0
+    finally:
+        srv.stop()
+        srv_q.stop()
+    bad = [e for e in absorbed.events
+           if e[:2] not in (("fault", "poisoned_set"),
+                            ("fault", "request_timeout"))]
+    if bad:
+        raise AssertionError(f"C14 (d): the envelope absorbed {bad[:4]}")
+    absorbed.events.clear()
+    walls["d"] = wall_d
+    log(f"[C14] (d) 400, 504 (0.25 s deadline, answered in {w504:.2f} s, the "
+        f"card not lost), 429 on --queue-depth 1 ({codes}), 413, each "
+        f"followed by a 200 == the CLI's bytes; /metrics == sent {dict(seen)};"
+        f" {wall_d:.2f} s")
+
+    for th, box in side_runs:
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        log(box["text"])
+    walls["all"] = time.perf_counter() - t_c14
+    log(f"[C14] walls (s): references {t_ref:.2f}, "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f" on {smi('name,power.limit') if card else 'the CPU'}")
+    return dict(launches=launches, walls=walls)
+
+
 def phase_c7(args, ref: str, reads: list, fused_cons: str):
     """Phase C7: the seeded user at full width. (a) the first --c7-reads of
     phase C's set with -S at abPOA's k, w and n; (b) half of them with
@@ -4035,8 +4688,8 @@ def phase_c7(args, ref: str, reads: list, fused_cons: str):
         log(f"[C7] {tag} per aligned read (ms): "
             f"{per_read_split(st, split.get('fusion', 0.0), nr)}; the rest of "
             f"the run {per(wall - known)}; seeding {split.get('seeding', 0.0):.2f} "
-            f"s of which the guide tree {split.get('tree', 0.0):.2f} s; pinned "
-            f"buffer {banded._pinned[0].numel() * 4 / 2**20:.2f} MiB")
+            f"s of which the guide tree {split.get('tree', 0.0):.2f} s; largest pinned "
+            f"buffer {banded.stats['staging_bytes'] / 2**20:.2f} MiB")
         log(f"[C7] {tag} consensus length {len(cons[0].seq)}, identity to the "
             f"reference {ident:.5f}, to phase C's fused consensus {ident_c:.5f}")
         if ident < 0.99:
@@ -4075,14 +4728,16 @@ def run(plain) -> int:
     # 100 until phase C12 and 60 until phase C13 made the script too long
     ap.add_argument("--c4-reads", type=int, default=40)
     # C5 100, C6 50, C9 10 (20 until C9's run with collisions forced), C11
-    # 8 sets and C12 50 reads until phase C13 made the script too long
+    # 8 sets and C12 50 reads until phase C13 made the script too long; C9
+    # 6 and C13 20 reads (and C12 (c) 4 sets, C13's watchdog 10 s) until C14
     ap.add_argument("--c5-reads", type=int, default=40)
     ap.add_argument("--c6-reads", type=int, default=30)
     ap.add_argument("--c7-reads", type=int, default=200)
-    ap.add_argument("--c9-reads", type=int, default=6)
+    ap.add_argument("--c9-reads", type=int, default=5)
     ap.add_argument("--c11-sets", type=int, default=4)
     ap.add_argument("--c12-reads", type=int, default=10)
-    ap.add_argument("--c13-reads", type=int, default=20)
+    ap.add_argument("--c13-reads", type=int, default=15)
+    ap.add_argument("--c14-sets", type=int, default=4)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -4972,6 +5627,12 @@ def run(plain) -> int:
     phase_c13(args, files13, absorbed)
     torch.cuda.empty_cache()
     lap("C13")
+    # the server, beside D's plain versions (the pool started after C12
+    # (a) and C13 (a))
+    phase_c14(args, fa, c9["files"], os.path.join(OUT, "c12", "a3.fa"),
+              absorbed)
+    torch.cuda.empty_cache()
+    lap("C14")
     # ---- D: kernels vs plain at the main path's shape. The pool's plain
     # versions started after C12 (a); the main process checks B2's modes
     # against theirs as each ends (with B2u at 4, 8 and 16 blocks a cluster

@@ -50,6 +50,10 @@ FUSED_ROUTE = {"abpoa_tpu_torch.align." + m for m in (
 NATIVE_GRAPH = {"abpoa_tpu_torch.native", "abpoa_tpu_torch.native.graph",
                 "abpoa_tpu_torch.align.tables", "abpoa_tpu_torch.align.banded",
                 "abpoa_tpu_torch.seed", "abpoa_tpu_torch.convert"}
+# the server and the postmortem (`why`, the flight recorder)
+SERVE = {"abpoa_tpu_torch.serve", "abpoa_tpu_torch.serve.admission",
+         "abpoa_tpu_torch.serve.server", "abpoa_tpu_torch.obs.why",
+         "abpoa_tpu_torch.obs.flight", "abpoa_tpu_torch.obs.tally"}
 # the lockstep and map routes
 BATCHED = {"abpoa_tpu_torch.align.dp_chunk", "abpoa_tpu_torch.io.gaf",
            "abpoa_tpu_torch.parallel", "abpoa_tpu_torch.parallel.lockstep",
@@ -73,7 +77,8 @@ def test_port_imports_neither_jax_nor_abpoa_tpu():
     assert proc.returncode == 0, proc.stderr[-2000:]
     names, _, bad = proc.stdout.strip().partition(" ")
     names = set(names.split(","))
-    assert len(names) >= 36 and FUSED_ROUTE | NATIVE_GRAPH | BATCHED <= names
+    assert len(names) >= 36
+    assert FUSED_ROUTE | NATIVE_GRAPH | BATCHED | SERVE <= names
     assert bad == ""
 
 
@@ -96,6 +101,28 @@ def test_telemetry_imports_neither_jax_nor_abpoa_tpu():
                           capture_output=True, text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == ""
+
+
+_IMPORT_SERVE = """
+import sys
+import abpoa_tpu_torch.serve, abpoa_tpu_torch.obs.why
+import abpoa_tpu_torch.obs.flight
+from abpoa_tpu_torch.serve import server
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "abpoa_tpu" or m.startswith("abpoa_tpu."))
+print(",".join(bad), "torch" in sys.modules)
+"""
+
+
+def test_server_imports_neither_jax_nor_abpoa_tpu():
+    """The server, `why` and the flight recorder on their own, in a fresh
+    interpreter: torch and numpy, no jax and no abpoa_tpu module."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_SERVE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["True"]
 
 
 def _no_card():
